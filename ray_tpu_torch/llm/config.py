@@ -1,0 +1,78 @@
+"""LLM configs for the PyTorch engine.
+
+Port of ray_tpu/llm/config.py. Of the options this port does not serve
+yet (blocked KV, speculative decoding, tensor parallelism, checkpoint
+loading) only the field that switches each on is kept, so that asking for
+it reaches the engine, which raises ``NotImplementedError``; their tuning
+fields and the serve-deployment fields (placement groups, P/D transfer
+mode) come with the code that reads them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+from ray_tpu_torch.models.llama import LlamaConfig
+
+
+@dataclass
+class SamplingParams:
+    max_tokens: int = 64
+    temperature: float = 0.0  # 0 → greedy
+    top_p: float = 1.0
+    top_k: int = 0  # 0 → disabled
+    stop_token_ids: tuple[int, ...] = ()
+
+
+@dataclass
+class LLMConfig:
+    model: LlamaConfig | str = "tiny"  # a config or a named geometry
+    tokenizer: str = "byte"            # "byte" or a HF tokenizer path
+    max_num_seqs: int = 8              # continuous-batching slots
+    max_seq_len: int | None = None     # default: model.max_seq_len
+    dtype: str | None = None           # default: model.dtype
+    tensor_parallel_size: int = 1      # >1 not ported yet
+    checkpoint_path: str | None = None # not ported yet; None → seeded init
+    seed: int = 0
+    prefill_bucket_min: int = 16
+    # Chunked prefill: long prompts prefill in chunks of this many tokens so
+    # active decodes run between chunks.
+    prefill_chunk: int = 512
+    # Speculative decoding (not ported yet).
+    speculative_model: LlamaConfig | str | None = None
+    # Burst decoding: up to this many decode+sample steps per dispatch, the
+    # sampled token fed forward on the device; adapts down in powers of two
+    # near token budgets. A top-k request falls back to single steps.
+    decode_burst: int = 8
+    # Pipeline bursts: in steady decode, dispatch the NEXT burst before the
+    # current one's tokens are fetched (output is identical).
+    decode_pipeline: bool = True
+    # Prefill chunks dispatched per scheduler tick (first-token fetches are
+    # deferred past the tick's decode dispatch).
+    prefill_chunks_per_tick: int = 4
+    # Block-pooled KV cache (not ported yet): 0 = dense slot lines.
+    kv_block_size: int = 0
+    # Prefix-cache publication granularity (serve/prefix.py chain hashes);
+    # 0 disables publication.
+    prefix_block_tokens: int = 32
+
+    def model_config(self) -> LlamaConfig:
+        return _resolve_model(self.model, self.dtype)
+
+
+def _resolve_model(model: "LlamaConfig | str",
+                   dtype: str | None) -> LlamaConfig:
+    if isinstance(model, LlamaConfig):
+        cfg = model
+    elif model == "tiny":
+        # vocab 512 so the byte tokenizer (256 bytes + specials) fits
+        cfg = replace(LlamaConfig.tiny(), vocab_size=512)
+    elif model in ("llama3-8b", "llama3_8b"):
+        cfg = LlamaConfig.llama3_8b()
+    elif model in ("llama3-1b", "llama3_1b"):
+        cfg = LlamaConfig.llama3_1b()
+    else:
+        raise ValueError(f"unknown model {model!r}")
+    if dtype is not None and cfg.dtype != dtype:
+        cfg = replace(cfg, dtype=dtype)
+    return cfg
