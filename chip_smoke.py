@@ -7,21 +7,39 @@ Run from the root of a checkout. Phases, each printing its own lines; any
 failure raises and the script exits non-zero without a result line:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every CUDA kernel from ray_tpu_torch/csrc, with nvcc, for sm_90a;
+2. build: every CUDA kernel from ray_tpu_torch/csrc (rms_norm, flash_fwd,
+   flash_bwd), one nvcc each, all at once, for sm_90a; ptxas registers and
+   each flash kernel's dynamic shared memory;
 3. kernel vs plain: rms_norm's kernel against rms_norm_reference over a
-   grid of row counts, widths and dtypes, plus times at the engine's
-   shapes (kernel, plain version, torch.nn.functional.rms_norm, bound:
-   device time per call, and host time per eager call);
-4. the main path: the LLM engine at Llama-3.2-1B width (bf16, seeded
+   grid of row counts, widths and dtypes, plus times at the engine's and
+   the trainer's shapes (kernel, plain version, torch.nn.functional.
+   rms_norm, bound: device time per call, and host time per eager call);
+4. kernel vs plain: flash_fwd and flash_bwd against their plain twins over
+   causal/non-causal, GQA rep 1/4, head_dim 64/128, S 2048 and a ragged
+   length, then times at the training shape (B4 H32 Hkv8 S2048 D64 causal
+   bf16): kernel, twin, bound, and scaled_dot_product_attention (forward;
+   forward + backward, and its backward alone, for flash_bwd) as the
+   yardstick;
+5. the serving path: the LLM engine at Llama-3.2-1B width (bf16, seeded
    random weights) serving a warm-up wave and then WAVES timed waves of
    concurrent greedy requests (median and range reported), a two-chunk
    prefill, prefix-cache hits and chained decode bursts; kernel launch
    counts are reset right before it and read right after; then the host
    vs device split of one 16-step decode burst;
-5. cross-device: f32 engines at tiny width (d=64) and at 1B width with
+6. the training path: make_llama_train_step at the 1.1B bench geometry
+   (bench.py), b4 s2048, remat attn+, adamw_lowmem, seeded random weights
+   and tokens: 2 warm-up and 10 timed steps with counts reset right before
+   and read right after (they must equal what the remat policy predicts);
+   with the earlier phases' heap frozen out of the garbage collector:
+   tokens/s, step ms and MFU over the whole timed window, the per-step
+   spread, peak memory and its split, the loss trajectory (finite,
+   falling) and a profiler split of three steps;
+7. cross-device: f32 engines at tiny width (d=64) and at 1B width with
    two layers (d=2048), CUDA (kernel) vs CPU (plain) greedy token streams
-   must be equal;
-6. a JSON line of the kernels, then the JSON result line.
+   must be equal; a bf16 trainer at small width, 3 steps on the card
+   (kernels) vs 3 on the CPU (plain twins) from one param tree: losses
+   agree and the norm weights' gradients are non-zero and agree;
+8. a JSON line of the kernels, then the JSON result line.
 
 Exits non-zero when no CUDA device is visible or when run outside a
 checkout. Imports nothing of JAX or of the JAX package.
@@ -133,8 +151,14 @@ def phase_build():
           + ", ".join(os.path.relpath(p) for p in paths))
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "Used" in line or "error" in line.lower():
+            if "Used" in line or "spill" in line and " 0 bytes spill" not in \
+                    line or "error" in line.lower():
                 print(f"  [{name}] {line.strip()}")
+    from ray_tpu_torch.ops.attention import kernel_smem_bytes
+    for name in ("flash_fwd", "flash_bwd"):
+        print(f"  [{name}] dynamic shared memory per CTA: "
+              + ", ".join(f"D={d}: {kernel_smem_bytes(name, d)} B"
+                          for d in (64, 128)))
 
 
 def phase_kernel():
@@ -180,7 +204,7 @@ def phase_kernel():
         raise AssertionError("rms_norm accepted d=60")
 
     times = []
-    for rows in (8, 512):
+    for rows in (8, 512, 8192):  # decode step, prefill chunk, train batch
         d = 2048
         x = torch.randn((rows, d), generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -474,6 +498,447 @@ def phase_cross_device():
               f"({sum(map(len, streams['cuda']))} tokens)")
 
 
+def events_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time per call of ``fn`` in ms from CUDA events around an
+    eager loop of ``iters`` calls (for calls of a hundred microseconds and
+    more, whose host cost hides behind the device's)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+# Tolerances of the flash kernels against their plain twins (bf16): out,
+# dq, dk, dv within 1e-2 of the largest value (one bf16 ulp where sums in
+# another order round apart; dq's atomics add in no fixed order); lse
+# within 2e-3 (f32 sums of the same bf16 p in another order).
+FLASH_REL_TOL = 1e-2
+FLASH_LSE_TOL = 2e-3
+MAIN_ATTN = dict(b=4, h=32, hkv=8, s=2048, d=64)  # the trainer's shape
+
+
+def _flash_inputs(gen, b, h, hkv, s, d):
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    return rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), \
+        rnd(b, h, s, d)
+
+
+def _flash_check(q, k, v, do, causal, label, worst):
+    """Both kernels against their twins on one input; raises past the
+    tolerance, folds the max abs errors into ``worst``."""
+    import torch
+    from ray_tpu_torch.ops import attention as att
+
+    scale = q.shape[-1] ** -0.5
+    out, lse = att.flash_fwd_cuda(q, k, v, causal, scale)
+    p_out, p_lse = att.flash_fwd_plain(q, k, v, causal, scale)
+    grads = att.flash_bwd_cuda(q, k, v, p_out, p_lse, do, causal, scale)
+    plain = att.flash_bwd_plain(q, k, v, p_out, p_lse, do, causal, scale)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                               (p_out, *plain)):
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        if not rel < FLASH_REL_TOL:
+            raise AssertionError(f"flash {name} disagrees with its twin at "
+                                 f"{label}: max abs err {err:.3e} = {rel:.3e}"
+                                 f" of the largest value (> {FLASH_REL_TOL})")
+        errs[name] = err
+    errs["lse"] = (lse - p_lse).abs().max().item()
+    if not errs["lse"] < FLASH_LSE_TOL:
+        raise AssertionError(f"flash lse disagrees at {label}: "
+                             f"{errs['lse']:.3e} > {FLASH_LSE_TOL}")
+    worst["flash_fwd"] = max(worst["flash_fwd"], errs["out"], errs["lse"])
+    worst["flash_bwd"] = max(worst["flash_bwd"], errs["dq"], errs["dk"],
+                             errs["dv"])
+    return errs
+
+
+def flash_bounds(b, h, hkv, s, d):
+    """(fwd, bwd) least times in ms with what bounds each: causal FLOPs
+    over the bf16 peak vs bytes (each input read once, each output written
+    once) over HBM bandwidth. The backward does five products per tile
+    pair to the forward's two."""
+    from ray_tpu_torch.accelerators.flops import attention_flops, peak_flops
+
+    fl = attention_flops(b, h, s, d, causal=True)
+    qb, kvb, rows = b * h * s * d * 2, b * hkv * s * d * 2, b * h * s * 4
+    out = {}
+    for name, flops, nbytes in (
+            ("flash_fwd", fl, 2 * qb + 2 * kvb + rows),
+            # q, k, v, out, dO, lse in; dq, dk, dv out
+            ("flash_bwd", 2.5 * fl, 4 * qb + 4 * kvb + rows)):
+        t_ops = flops / peak_flops("h100", "bf16")
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes",
+                     flops, nbytes)
+    return out
+
+
+def phase_flash():
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import attention as att
+
+    _phase("kernel vs plain: flash_fwd / flash_bwd")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    worst = {"flash_fwd": 0.0, "flash_bwd": 0.0}
+    n = 0
+    for causal in (True, False):
+        for rep in (1, 4):
+            for d in (64, 128):
+                for s in (2048, 1000):  # 1000: a ragged tail of 40 rows
+                    q, k, v, do = _flash_inputs(gen, 1, 8, 8 // rep, s, d)
+                    _flash_check(q, k, v, do, causal,
+                                 f"causal={causal} rep={rep} d={d} s={s}",
+                                 worst)
+                    n += 1
+    m = MAIN_ATTN
+    q, k, v, do = _flash_inputs(gen, m["b"], m["h"], m["hkv"], m["s"],
+                                m["d"])
+    errs = _flash_check(q, k, v, do, True, "the training shape", worst)
+    print(f"flash kernels == plain twins over {n} cases + the training "
+          f"shape (bf16); max abs err: flash_fwd {worst['flash_fwd']:.3e}, "
+          f"flash_bwd {worst['flash_bwd']:.3e}; at the training shape "
+          + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
+          + f" (tolerance {FLASH_REL_TOL} of the largest value, lse "
+          f"{FLASH_LSE_TOL})")
+
+    scale = m["d"] ** -0.5
+    out, lse = att.flash_fwd_cuda(q, k, v, True, scale)
+    kr, vr = att._repeat_kv(k, m["h"]), att._repeat_kv(v, m["h"])
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, kr, vr))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+
+    # SDPA's backward alone: one forward, then its saved graph replayed.
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_bwd_ms = events_ms(lambda: torch.autograd.grad(
+        o_lib, (qg, kg, vg), do, retain_graph=True), 20)
+    del o_lib
+
+    times = {
+        "flash_fwd": (
+            events_ms(lambda: att.flash_fwd_cuda(q, k, v, True, scale), 20),
+            events_ms(lambda: att.flash_fwd_plain(q, k, v, True, scale), 3),
+            events_ms(lambda: F.scaled_dot_product_attention(
+                q, kr, vr, is_causal=True), 20)),
+        "flash_bwd": (
+            events_ms(lambda: att.flash_bwd_cuda(q, k, v, out, lse, do, True,
+                                                 scale), 20),
+            events_ms(lambda: att.flash_bwd_plain(q, k, v, out, lse, do,
+                                                  True, scale), 3),
+            events_ms(sdpa_fwd_bwd, 20)),
+    }
+    bounds = flash_bounds(**m)
+    rows = {}
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        bound, by, flops, nbytes = bounds[name]
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound, "bound_by": by,
+                      "max_abs_err": worst[name],
+                      "tflops": flops / (ms * 1e-3) / 1e12}
+        if name == "flash_bwd":
+            rows[name]["library_bwd_ms"] = lib_bwd_ms
+        print(f"{name} B4 H32 Hkv8 S2048 D64 causal bf16: kernel {ms:.4f} ms"
+              f" ({flops / 1e9:.1f} GFLOP, {rows[name]['tflops']:.1f} "
+              f"TFLOP/s = {100 * bound / ms:.1f}% of the bound), plain twin "
+              f"{plain_ms:.4f} ms, scaled_dot_product_attention"
+              f"{' fwd+bwd' if name == 'flash_bwd' else ''} {lib_ms:.4f} ms"
+              f" (k/v repeated to 32 heads beforehand), bound "
+              f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB)")
+    print(f"flash_bwd against scaled_dot_product_attention's backward alone "
+          f"{lib_bwd_ms:.4f} ms: {times['flash_bwd'][0] / lib_bwd_ms:.2f}x "
+          f"its time; flash_fwd against its forward: "
+          f"{times['flash_fwd'][0] / times['flash_fwd'][2]:.2f}x")
+    return rows
+
+
+TRAIN_WARMUP = 2   # steps before the clock starts
+TRAIN_STEPS = 10   # timed steps
+PROFILED_STEPS = 3  # steps under torch.profiler after the timed ones
+
+
+def predicted_launches(remat, num_layers: int) -> dict:
+    """Kernel launches per training step under a uniform remat policy.
+    Forward: two rms_norms a layer plus the final one, one flash_fwd a
+    layer. The backward recomputes the norms of the checkpointed segments
+    (attn: attention inputs + MLP; attn+: attention inputs, gate, rest of
+    the MLP; full: the layer, flash_fwd included) and runs one flash_bwd a
+    layer; rms_norm's backward is plain tensor ops (no launch)."""
+    recompute = 0 if remat in (False, "none") else 2
+    full = remat not in (False, "none", "attn", "attn+")
+    return {"rms_norm": 2 * num_layers + 1 + recompute * num_layers,
+            "flash_fwd": num_layers * (2 if full else 1),
+            "flash_bwd": num_layers}
+
+
+def kernel_category(name: str) -> str:
+    """Coarse class of a CUDA kernel name from the profiler."""
+    low = name.lower()
+    for cat, keys in (("flash", ("flash_",)), ("rms_norm", ("rms_norm",)),
+                      ("gemm", ("nvjet", "gemm", "cutlass", "cublas")),
+                      ("copy/cast", ("copy", "cat_", "catarray")),
+                      ("reduction", ("reduce", "softmax", "logsumexp")),
+                      ("elementwise", ("elementwise",)),
+                      ("index/scatter", ("index", "scatter", "gather",
+                                         "embedding"))):
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
+def _counters():
+    from ray_tpu_torch.ops import attention as att
+    from ray_tpu_torch.ops import norms
+
+    return {"rms_norm": norms.rms_norm, "flash_fwd": att.flash_fwd_cuda,
+            "flash_bwd": att.flash_bwd_cuda}
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_train():
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch.accelerators.flops import (
+        generation_of,
+        llama_train_flops,
+        peak_flops,
+    )
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train import adamw_lowmem, make_llama_train_step
+    from ray_tpu_torch._device import tree_leaves
+    from ray_tpu_torch.train.optim import optimizer_state_bytes
+
+    _phase("train: the 1.1B bench geometry, b4 s2048, remat attn+, "
+           "adamw_lowmem, seeded random weights and tokens")
+    cfg = LlamaConfig(vocab_size=32128, hidden_size=2048,
+                      intermediate_size=8192, num_layers=16, num_heads=32,
+                      num_kv_heads=8, head_dim=64, max_seq_len=2048,
+                      tie_embeddings=True, dtype="bfloat16")
+    batch, seq, remat = 4, 2048, "attn+"
+    opt = adamw_lowmem(3e-4, weight_decay=0.1)
+    torch.cuda.reset_peak_memory_stats()
+    step, init, shard = make_llama_train_step(
+        cfg, optimizer=opt, attn_impl="flash", remat=remat, seed=SEED,
+        device="cuda")
+    t0 = time.perf_counter()
+    state = init()
+    torch.cuda.synchronize()
+    print(f"state up in {time.perf_counter() - t0:.2f} s: "
+          f"{cfg.num_params() / 1e9:.3f}B params, hidden {cfg.hidden_size}, "
+          f"{cfg.num_layers} layers, heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads}, vocab {cfg.vocab_size}, tied")
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    tok, tgt = shard(tokens), shard(np.roll(tokens, -1, axis=1))
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0  # count the training path only
+    losses, norms_ = [], []
+    for _ in range(TRAIN_WARMUP):
+        state, m = step(state, tok, tgt)
+        losses.append(m["loss"])
+        norms_.append(m["grad_norm"])
+    # The phases before this one leave a large heap; a full garbage
+    # collection of it inside the timed window idles the device for
+    # hundreds of ms. Freeze it out of the collector until the phase ends.
+    gc.collect()
+    gc.freeze()
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(TRAIN_STEPS):
+        state, m = step(state, tok, tgt)
+        marks[i + 1].record()  # no sync: the host runs ahead as it can
+        losses.append(m["loss"])
+        norms_.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    launches = {k: c.launches for k, c in counters.items()}
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    want = predicted_launches(remat, cfg.num_layers)
+    per_step = {k: n / steps for k, n in launches.items()}
+    if per_step != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"launches per step {per_step} != the remat "
+                             f"policy's {want}")
+    loss_vals = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in loss_vals) or \
+            not loss_vals[-1] < loss_vals[0]:
+        raise AssertionError(f"loss trajectory not finite and falling: "
+                             f"{loss_vals}")
+    step_s = dt / TRAIN_STEPS  # the whole window: all tokens, all time
+    flops = llama_train_flops(cfg, batch, seq)
+    rate = peak_flops(generation_of(torch.cuda.get_device_name(0)) or "")
+    if not rate:
+        raise AssertionError("no peak rate for this card in "
+                             "ray_tpu_torch/accelerators/flops.py")
+    toks, mfu = batch * seq / step_s, flops / step_s / rate
+    print(f"{TRAIN_STEPS} timed steps after {TRAIN_WARMUP} warm-up, whole "
+          f"window on the host clock: {step_s * 1e3:.2f} ms a step, "
+          f"{toks:.1f} tokens/s, MFU {100 * mfu:.2f}% ({flops / 1e12:.2f} "
+          f"TFLOP per step counted as 6*N*tokens + attention, against "
+          f"{rate / 1e12:.0f} TFLOP/s); per step between CUDA events "
+          f"{_spread(step_ms)} ms")
+    print("loss " + " ".join(f"{x:.4f}" for x in loss_vals)
+          + "; grad_norm " + " ".join(f"{float(x):.4f}" for x in norms_))
+    print(f"launches per step: " + ", ".join(
+        f"{k} {v:g}" for k, v in per_step.items())
+          + f" (= the {remat} policy's prediction over {steps} steps)")
+    gib = 2.0 ** 30
+    peak = torch.cuda.max_memory_allocated() / gib
+    p_bytes = _nbytes(tree_leaves(state.params)) / gib
+    m_bytes = optimizer_state_bytes(opt, state.params) / gib
+    print(f"peak device memory {peak:.3f} GiB: params {p_bytes:.3f}, grads "
+          f"{p_bytes:.3f} (bf16, freed after each update), moments "
+          f"{m_bytes:.3f} (bf16), activations, the update's f32 transients "
+          f"and allocator slack {peak - 2 * p_bytes - m_bytes:.3f}")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            state, m = step(state, tok, tgt)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    gc.unfreeze()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in kern:  # per step
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3 / PROFILED_STEPS
+    busy_ms = sum(by_name.values())
+    share = {key: sum(ms for n, ms in by_name.items() if f"{key}_" in n)
+             for key in counters}
+    cats: dict[str, float] = {}
+    for name, ms in by_name.items():
+        cat = kernel_category(name)
+        cats[cat] = cats.get(cat, 0.0) + ms
+    if busy_ms > 0:
+        # The profiled wall carries the profiler's own host cost; the timed
+        # window's step carries none, so both denominators are printed.
+        print(f"{PROFILED_STEPS} profiled steps, per step: wall "
+              f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms = "
+              f"{100 * busy_ms / wall_ms:.1f}% of the profiled wall (idle "
+              f"{100 - 100 * busy_ms / wall_ms:.1f}%), "
+              f"{100 * busy_ms / (step_s * 1e3):.1f}% of the unprofiled "
+              f"window's {step_s * 1e3:.2f} ms step, "
+              f"{len(kern) // PROFILED_STEPS} kernels; "
+              + ", ".join(f"{k} {ms:.2f} ms ({100 * ms / busy_ms:.1f}%)"
+                          for k, ms in share.items()))
+        print("by category: " + ", ".join(
+            f"{c} {ms:.2f} ms ({100 * ms / busy_ms:.1f}%)"
+            for c, ms in sorted(cats.items(), key=lambda kv: -kv[1])))
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"  {ms:8.3f} ms  {name[:100]}")
+    else:
+        print("device busy: not measured (profiler saw no kernels)")
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "launches_per_step": per_step,
+            "step_ms": step_s * 1e3, "step_ms_events": step_ms,
+            "tokens_per_s": toks, "mfu": mfu,
+            "peak_gib": peak, "params_gib": p_bytes, "moments_gib": m_bytes,
+            "losses": loss_vals,
+            "profiled_wall_ms": wall_ms,
+            "busy_ms": busy_ms or None,
+            "kernel_ms_per_step": share if busy_ms else None,
+            "category_ms_per_step": cats if busy_ms else None}
+
+
+def phase_cross_device_train():
+    import math
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch._device import tree_map
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.ops import attention as att
+    from ray_tpu_torch.train import adamw_lowmem, make_llama_train_step
+
+    _phase("cross-device: bf16 trainer, CUDA kernels vs CPU plain twins")
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      max_seq_len=256, dtype="bfloat16")
+    params = init_params(cfg, generator=7, device="cpu")
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 256), dtype=np.int32)
+    targets = np.roll(tokens, -1, axis=1)
+    # Tolerances (bf16 end to end; matmul outputs round apart where the two
+    # devices sum in other orders): losses within 1e-2 relative; norm
+    # weight gradients within 5e-2 of their largest value.
+    losses, norm_grads = {}, {}
+    fwd0 = att.flash_fwd_cuda.launches
+    for dev in ("cuda", "cpu"):
+        leaves = tree_map(lambda t: t.to(dev).clone().requires_grad_(),
+                          params)
+        tok = torch.from_numpy(tokens).to(dev)
+        tgt = torch.from_numpy(targets).to(dev)
+        loss_fn(cfg, leaves, tok, tgt, remat="attn+").backward()
+        norm_grads[dev] = {
+            "attn_norm": leaves["layers"]["attn_norm"].grad,
+            "mlp_norm": leaves["layers"]["mlp_norm"].grad,
+            "final_norm": leaves["final_norm"].grad}
+        step, init, shard = make_llama_train_step(
+            cfg, optimizer=adamw_lowmem(1e-3, weight_decay=0.1),
+            remat="attn+", device=dev)
+        state = init(params)
+        losses[dev] = [float(step(state, tok, tgt)[1]["loss"])
+                       for _ in range(3)]
+    if att.flash_fwd_cuda.launches == fwd0:
+        raise AssertionError("the card's trainer launched no flash kernel")
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        if not (math.isfinite(a) and abs(a - b) <= 1e-2 * abs(b)):
+            raise AssertionError(f"loss trajectories differ: {losses}")
+    worst = 0.0
+    for name, want in norm_grads["cpu"].items():
+        got = norm_grads["cuda"][name]
+        if got is None or not got.float().abs().sum().item() > 0:
+            raise AssertionError(f"{name}: no gradient on the card")
+        err = ((got.cpu().float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        if not err < 5e-2:
+            raise AssertionError(f"{name} gradient: card vs CPU {err:.3e} "
+                                 f"of the largest value (> 5e-2)")
+        worst = max(worst, err)
+    print(f"losses cuda {['%.5f' % x for x in losses['cuda']]} vs cpu "
+          f"{['%.5f' % x for x in losses['cpu']]} (within 1e-2 relative); "
+          f"norm weight gradients non-zero on the card, worst "
+          f"{worst:.3e} of the largest value off the CPU's (< 5e-2)")
+
+
 def main() -> int:
     import torch
 
@@ -489,15 +954,21 @@ def main() -> int:
     kind, smi = phase_device()
     phase_build()
     max_err, times = phase_kernel()
+    flash = phase_flash()
     eng = phase_engine(times[0]["host_us"])
+    train = phase_train()
     phase_cross_device()
+    phase_cross_device_train()
     main_shape = times[0]  # rows 8: the decode step's shape
-    kernel = {
+    kernels = [{
         "name": "rms_norm", "route": "cuda",
         "source": "ray_tpu_torch/csrc/rms_norm.cu",
         "replaces": "ray_tpu/ops/norms.py:27",
         "tpu": "ray_tpu/ops/norms.py:_rms_kernel", "checked": True,
-        "launches": eng["launches"], "max_abs_err": max_err,
+        "launches": train["launches"]["rms_norm"],
+        "launches_by_path": {"engine": eng["launches"],
+                             "train": train["launches"]["rms_norm"]},
+        "max_abs_err": max_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
@@ -506,10 +977,28 @@ def main() -> int:
         "host_us": main_shape["host_us"],
         "library_host_us": main_shape["library_host_us"],
         "shapes": times,
-    }
+    }]
+    for name, replaces, tpu in (
+            ("flash_fwd", "ray_tpu/ops/attention.py:222",
+             "_flash_fwd_kernel"),
+            ("flash_bwd", "ray_tpu/ops/attention.py:476",
+             "_flash_bwd_fused_kernel")):
+        row = flash[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "tpu": f"ray_tpu/ops/attention.py:{tpu}",
+            "checked": True, "launches": train["launches"][name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({"library_bwd_ms": row["library_bwd_ms"]}
+               if "library_bwd_ms" in row else {}),
+            "shape": [4, 32, 8, 2048, 64], "dtype": "bfloat16",
+            "causal": True, "tflops": row["tflops"]})
     summary = {k: v for k, v in eng.items() if k != "launches"}
-    print(json.dumps({"card": smi, "engine": summary}))
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"card": smi, "engine": summary, "train": train}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,8 +23,19 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
     return dev
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict of tensors/arrays."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a nested dict of tensors/arrays; with
+    ``rest``, to the matching leaves of dicts of the same structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, tuples and lists, in order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]

@@ -1,2 +1,2 @@
 """Ops of the PyTorch port: hand-written CUDA kernels with their plain
-PyTorch versions (norms), and plain tensor code (rope)."""
+PyTorch versions (norms, attention), and plain tensor code (rope, loss)."""

@@ -5,6 +5,14 @@ CUDA tensors and runs ``rms_norm_reference`` only for tensors on the CPU.
 There is no fallback: a failed build, a refused launch or an unsupported
 shape raises. Unlike the Pallas wrapper, which falls back to the reference
 when ``rows % block_rows != 0``, the kernel takes every row count.
+
+Gradients: on a CUDA tensor that requires a gradient, the launch sits in
+a ``torch.autograd.Function`` (``_RmsNormFn``). Its forward is the kernel;
+its backward is the VJP of ``rms_norm_reference`` in plain tensor ops on
+the card, as the JAX package's ``_rms_bwd`` is ``jax.vjp`` of its
+reference computed by XLA rather than by a Pallas kernel. A backward
+kernel is later work. Without a gradient to track (serving, under
+``no_grad``/``inference_mode``) the kernel is launched directly.
 """
 
 from __future__ import annotations
@@ -46,10 +54,36 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     d = _check(x, weight)
     if x.device.type == "cpu" and weight.device.type == "cpu":
         return rms_norm_reference(x, weight, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RmsNormFn.apply(x, weight, eps)
     return _rms_norm_cuda(x, weight, eps, d)
 
 
 rms_norm.launches = 0  # kernel launches since the last reset
+
+
+class _RmsNormFn(torch.autograd.Function):
+    """Kernel forward; backward = VJP of the plain reference (JAX's
+    ``_rms_bwd``), recomputed from the saved input in plain tensor ops."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_norm_cuda(x, weight, eps, x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            wd = weight.detach().requires_grad_(ctx.needs_input_grad[1])
+            y = rms_norm_reference(xd, wd, ctx.eps)
+            wrt = [t for t in (xd, wd) if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, g))
+        dx = next(grads) if ctx.needs_input_grad[0] else None
+        dw = next(grads) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
 
 
 _LIB = None

@@ -10,12 +10,16 @@ the others check the wrappers' contracts on the CPU. Tolerances: bf16
 within one bf16 ulp of the plain version (rtol 8e-3, atol 1e-2), f32
 1e-5 (the kernel sums squares in another order); the f32 engines' greedy
 streams (tiny width and 1B width) must be equal on the card and on the
-CPU.
+CPU. Flash kernels against their plain twins (bf16): out, dq, dk, dv
+within 1e-2 of the largest value (one bf16 ulp where sums in another
+order round a value apart; dq's f32 atomics add in no fixed order), lse
+within 2e-3 (f32 sums of the same bf16 p in another order).
 """
 
 import pytest
 import torch
 
+from ray_tpu_torch.ops import attention as att
 from ray_tpu_torch.ops import norms
 
 BF16_TOL = dict(rtol=8e-3, atol=1e-2)
@@ -151,3 +155,132 @@ def test_wide_engine_streams_equal_on_card_and_cpu(cuda_device):
         finally:
             eng.shutdown()
     assert streams["cuda"] == streams["cpu"]
+
+
+FLASH_CASES = [(causal, rep, d, s) for causal in (True, False)
+               for rep in (1, 4) for d in (64, 128) for s in (256, 200)]
+
+
+def _flash_inputs(dev, rep, d, s, seed, b=2, h=8):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    return (rnd(b, h, s, d), rnd(b, h // rep, s, d), rnd(b, h // rep, s, d),
+            rnd(b, h, s, d))
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,rep,d,s", FLASH_CASES)
+def test_flash_kernels_match_plain_twins_on_card(cuda_device, causal, rep,
+                                                 d, s):
+    q, k, v, do = _flash_inputs(cuda_device, rep, d, s, seed=rep * d + s)
+    scale = d ** -0.5
+    out, lse = att.flash_fwd_cuda(q, k, v, causal, scale)
+    p_out, p_lse = att.flash_fwd_plain(q, k, v, causal, scale)
+    grads = att.flash_bwd_cuda(q, k, v, p_out, p_lse, do, causal, scale)
+    plain = att.flash_bwd_plain(q, k, v, p_out, p_lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert _rel(out, p_out) < 1e-2
+    assert (lse - p_lse).abs().max().item() < 2e-3
+    for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert _rel(got, want) < 1e-2, name
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_launches_both_kernels_on_card(cuda_device):
+    q, k, v, do = _flash_inputs(cuda_device, 4, 64, 384, seed=5)
+    q, k, v = [t.requires_grad_() for t in (q, k, v)]
+    before = (att.flash_fwd_cuda.launches, att.flash_bwd_cuda.launches)
+    out = att.flash_attention(q, k, v, True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (att.flash_fwd_cuda.launches, att.flash_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = att.attention_reference(*ref, True)
+    want.backward(do.float())
+    assert _rel(out, want) < 2e-2
+    for got, r in zip((q.grad, k.grad, v.grad), ref):
+        assert _rel(got, r.grad) < 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_do_not_take_on_card(cuda_device):
+    q = torch.zeros((1, 2, 64, 96), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        att.flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="bfloat16"):
+        att.flash_attention(q[..., :64].float(), q[..., :64].float(),
+                            q[..., :64].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_on_card_keeps_the_gradient(cuda_device, dtype):
+    """On a CUDA tensor that requires a gradient, rms_norm launches the
+    kernel and gives the reference's gradient (not a detached output)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((64, 2048), generator=g, device=cuda_device).to(dtype)
+    w = (1 + 0.1 * torch.randn((2048,), generator=g,
+                               device=cuda_device)).to(dtype)
+    dy = torch.randn((64, 2048), generator=g, device=cuda_device).to(dtype)
+    x1, w1 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = norms.rms_norm.launches
+    y = norms.rms_norm(x1, w1, 1e-5)
+    assert norms.rms_norm.launches == before + 1
+    assert y.requires_grad and y.grad_fn is not None
+    y.backward(dy)
+    x2, w2 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    norms.rms_norm_reference(x2, w2, 1e-5).backward(dy)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(x1.grad, x2.grad, **tol)
+    torch.testing.assert_close(w1.grad, w2.grad, rtol=0, atol=0)
+    with torch.no_grad():
+        assert not norms.rms_norm(x1, w1).requires_grad
+
+
+@pytest.mark.cuda
+def test_bf16_train_steps_on_card_follow_the_cpu(cuda_device):
+    """Three steps of a small bf16 trainer through K1-K3 on the card track
+    the same steps through the plain twins on the CPU (losses within 1e-2
+    relative: bf16 matmul outputs round apart where the devices sum in
+    other orders), and the step launches every kernel of its path."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.train import adamw_lowmem, make_llama_train_step
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      max_seq_len=128, dtype="bfloat16")
+    params = init_params(cfg, generator=11, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=g)
+    targets = torch.roll(tokens, -1, dims=1)
+    losses = {}
+    for dev in (cuda_device, "cpu"):
+        step, init, shard = make_llama_train_step(
+            cfg, optimizer=adamw_lowmem(1e-3, weight_decay=0.1),
+            remat="attn", device=dev)
+        state = init(params)
+        before = (norms.rms_norm.launches, att.flash_fwd_cuda.launches,
+                  att.flash_bwd_cuda.launches)
+        losses[str(dev)] = [step(state, shard(tokens), shard(targets))[1][
+            "loss"].item() for _ in range(3)]
+        after = (norms.rms_norm.launches, att.flash_fwd_cuda.launches,
+                 att.flash_bwd_cuda.launches)
+        if str(dev) == "cuda":
+            # per step: 2 norms a layer + final, 2 recomputed a layer; one
+            # flash forward and one backward a layer
+            assert [a - b for a, b in zip(after, before)] == [27, 6, 6]
+        else:
+            assert after == before
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-2 * abs(b), losses
+    assert losses["cuda"][-1] < losses["cuda"][0]
