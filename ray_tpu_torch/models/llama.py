@@ -27,6 +27,10 @@ layer, in place of JAX's name-based save policies (``_remat_wrap``):
 - ``full``/True: the whole layer is one segment (K2 re-runs).
 - ``none``/False: nothing is recomputed.
 - ``dots``/``dots+`` raise ``NotImplementedError``.
+
+Under ``attn``/``attn+`` ring attention (``sp_axis`` set) sits outside
+every segment too, so neither K6 nor the ring's shifts re-run in the
+backward; ``full`` recomputes the ring, shifts included.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from ray_tpu_torch._device import resolve_device, tree_map
 from ray_tpu_torch.ops.attention import blockwise_attention, flash_attention
 from ray_tpu_torch.ops.loss import fused_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.ring_attention import ring_attention_local
 from ray_tpu_torch.ops.rope import apply_rope_cs, rope_cos_sin, rope_frequencies
 
 
@@ -171,13 +176,12 @@ def params_to(params: dict, device: torch.device | str) -> dict:
 # Training forward
 # --------------------------------------------------------------------------
 
-def _attention(cfg: LlamaConfig, q, k, v, attn_impl: str,
-               sp_axis: str | None):
+def _attention(cfg: LlamaConfig, q, k, v, attn_impl: str, sp_axis):
     """q: [B, H, S, D], k/v: [B, Hkv, S, D] (already rope'd)."""
     if sp_axis is not None:
-        raise NotImplementedError(
-            "ring attention over a sequence axis (sp_axis) is not ported "
-            "yet: it needs torch.distributed")
+        # Context parallel: the sequence is sharded over the ranks of the
+        # process group sp_axis; the ring handles cross-shard causality.
+        return ring_attention_local(q, k, v, sp_axis, causal=True)
     if attn_impl == "flash":
         return flash_attention(q, k, v, True, None)
     return blockwise_attention(q, k, v, causal=True)
@@ -220,7 +224,7 @@ def _ckpt(fn, *args):
 
 
 def _layer(cfg: LlamaConfig, x, layer_params, cos, sin, attn_impl: str,
-           sp_axis: str | None, policy: str = "none"):
+           sp_axis, policy: str = "none"):
     """One transformer block, x: [B, S, H]. ``policy`` is "none" (plain
     autograd), "attn" or "attn+" (checkpointed segments, see the module
     docstring)."""
@@ -306,10 +310,16 @@ def _layer_params(params: dict) -> list[dict]:
 
 def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
                    positions: torch.Tensor | None = None,
-                   attn_impl: str = "flash", sp_axis: str | None = None,
+                   attn_impl: str = "flash", sp_axis=None,
                    remat: bool | str | tuple = True) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, H]. ``remat`` is a
-    single policy or a per-layer spec (see :func:`normalize_remat`)."""
+    single policy or a per-layer spec (see :func:`normalize_remat`).
+
+    Context parallel: with ``sp_axis`` a ``torch.distributed`` process
+    group, ``tokens`` is this rank's shard of the sequence (the ranks hold
+    consecutive shards in rank order) and the caller passes the shard's
+    global ``positions``; attention runs the ring over the group
+    (``ring_attention_local``) and ``attn_impl`` is not read."""
     s = tokens.shape[1]
     dev = tokens.device
     if positions is None:
@@ -339,8 +349,7 @@ def unembed_weights(cfg: LlamaConfig, params: dict) -> torch.Tensor:
 
 def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
             positions: torch.Tensor | None = None, attn_impl: str = "flash",
-            sp_axis: str | None = None,
-            remat: bool | str = True) -> torch.Tensor:
+            sp_axis=None, remat: bool | str = True) -> torch.Tensor:
     """tokens [B, S] -> f32 logits [B, S, V]: the head product of the
     widened inputs in f32 (JAX: bf16 inputs, f32 accumulation)."""
     x = forward_hidden(cfg, params, tokens, positions, attn_impl, sp_axis,

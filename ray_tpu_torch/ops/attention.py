@@ -1,5 +1,7 @@
 """Attention: plain references, and flash attention with hand-written CUDA
-forward (csrc/flash_fwd.cu) and fused backward (csrc/flash_bwd.cu) kernels.
+forward (csrc/flash_fwd.cu) and fused backward (csrc/flash_bwd.cu) kernels,
+and their chunk variants for ring attention (csrc/flash_chunk_fwd.cu,
+csrc/flash_chunk_bwd.cu).
 
 Port of ray_tpu/ops/attention.py, single device:
 
@@ -13,7 +15,13 @@ Port of ray_tpu/ops/attention.py, single device:
   tensors it runs the kernels' plain twins, ``flash_fwd_plain`` and
   ``flash_bwd_plain``, which repeat the kernels' arithmetic, roundings
   included. There is no fallback: on a CUDA tensor the kernels launch or
-  the call raises.
+  the call raises;
+- ``flash_attention_chunk(q, k, v, qpos, kpos, causal, sm_scale)``: local
+  q against one visiting K/V chunk with global int32 positions, returning
+  (out f32, lse f32), both differentiable. On CUDA tensors K6 (forward)
+  and K7 (backward, with the lse cotangent); on CPU tensors their twins
+  ``flash_chunk_fwd_plain`` and ``flash_chunk_bwd_plain``. K6/K7 make a
+  full pass over the chunk (no diagonal skip), as the TPU kernels do.
 
 Shapes: q [B, H, Sq, D], k/v [B, Hkv, Skv, D], GQA when Hkv < H; k/v are
 never repeated on the kernel path. The kernels take bf16 and D in {64, 128},
@@ -98,24 +106,27 @@ def blockwise_attention(q, k, v, causal: bool = True,
 
 
 # --------------------------------------------------------------------------
-# Plain twins of the two kernels (CPU path; chip_smoke.py's comparisons)
+# Plain twins of the kernels (CPU path; chip_smoke.py's comparisons)
 # --------------------------------------------------------------------------
 
-def _mask(s, q0, k0, sq_total, skv_total, causal):
-    """-1e30 where kpos > qpos (causal) or past either sequence's end."""
-    qpos = torch.arange(q0, q0 + s.shape[-2], device=s.device)[:, None]
-    kpos = torch.arange(k0, k0 + s.shape[-1], device=s.device)[None, :]
-    ok = (kpos < skv_total) & (qpos < sq_total)
-    if causal:
-        ok = ok & (kpos <= qpos)
+def _mask(s, qpos, kpos, causal):
+    """-1e30 where kpos > qpos (causal); qpos/kpos are the rows' and the
+    columns' positions. The twins slice only real rows and columns, so
+    they need no mask past a sequence's end."""
+    if not causal:
+        return s
+    ok = kpos[None, :] <= qpos[:, None]
     return torch.where(ok, s, torch.full_like(s, NEG_INF))
 
 
-def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float):
-    """The K2 kernel's arithmetic in plain PyTorch: (out in q's dtype,
-    lse f32 natural-log). qs = q*scale*log2e rounded to q's dtype once; s
-    in f32; base-2 online softmax over the kernel's 64-wide kv tiles; p
-    rounded to v's dtype for p.v and for the row sum l."""
+def flash_chunk_fwd_plain(q, k, v, qpos, kpos, causal: bool,
+                          sm_scale: float):
+    """The K6 kernel's arithmetic in plain PyTorch, which is K2's at given
+    positions: (out f32, lse f32 natural-log) of q against one K/V chunk,
+    masked by the global positions qpos [Sq] and kpos [Skv]. qs =
+    q*scale*log2e rounded to q's dtype once; s in f32; base-2 online
+    softmax over the kernels' 64-wide kv tiles; p rounded to v's dtype for
+    p.v and for the row sum l."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     k = _repeat_kv(k, h).float()
@@ -125,35 +136,33 @@ def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float):
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     for n0 in range(0, skv, BLOCK_N):
-        s = _mask(qs @ k[:, :, n0:n0 + BLOCK_N].transpose(-1, -2), 0, n0,
-                  sq, skv, causal)
+        cols = slice(n0, n0 + BLOCK_N)
+        s = _mask(qs @ k[:, :, cols].transpose(-1, -2), qpos, kpos[cols],
+                  causal)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp2(s - m_new[..., None]).to(v.dtype)
         alpha = torch.exp2(m - m_new)
         l = l * alpha + p.float().sum(dim=-1)
-        o = o * alpha[..., None] + p.float() @ v[:, :, n0:n0 + BLOCK_N].float()
+        o = o * alpha[..., None] + p.float() @ v[:, :, cols].float()
         m = m_new
     l = torch.clamp(l, min=1e-30)
-    out = (o / l[..., None]).to(q.dtype)
-    lse = (m + torch.log2(l)) * LN2
-    return out, lse
+    return o / l[..., None], (m + torch.log2(l)) * LN2
 
 
-def flash_bwd_plain(q, k, v, out, lse, g, causal: bool, sm_scale: float):
-    """The K3 kernel's arithmetic in plain PyTorch: (dq, dk, dv), dk/dv
-    folded to the kv heads in f32. s is recomputed from the forward's
-    rounded qs; p = exp2(s - lse*log2e); ds = p*(dp - delta) with delta =
-    rowsum(dO*O) in f32; p and ds rounded to the input dtype before their
-    products; the scale rides q_sc = q*scale (dk) and k_sc = k*scale (dq),
-    each rounded to the input dtype."""
+def _twin_bwd(q, k, v, qpos, kpos, do, lse, rowbias, causal: bool,
+              sm_scale: float):
+    """The backward kernels' arithmetic: (dq, dk, dv), dk/dv folded to the
+    kv heads in f32. s is recomputed from the forward's rounded qs; p =
+    exp2(s - lse*log2e); ds = p*(dp + rowbias), rowbias f32 per q row; p
+    and ds rounded to the input dtype before their products; the scale
+    rides q_sc = q*scale (dk) and k_sc = k*scale (dq), each rounded to the
+    input dtype. ``do`` is dO in the input dtype."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dt = q.dtype
     kr = _repeat_kv(k, h).float()
     vr = _repeat_kv(v, h).float()
     k_sc = (kr * sm_scale).to(dt).float()
-    g = g.to(dt)
-    delta = (g.float() * out.float()).sum(-1)
     lse2 = lse.float() * LOG2E
     dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.zeros((b, h, skv, d), dtype=torch.float32, device=q.device)
@@ -163,12 +172,12 @@ def flash_bwd_plain(q, k, v, out, lse, g, causal: bool, sm_scale: float):
         qf = q[:, :, rows].float()
         qs = (qf * (sm_scale * LOG2E)).to(dt).float()
         q_sc = (qf * sm_scale).to(dt).float()
-        do = g[:, :, rows].float()
-        s = _mask(qs @ kr.transpose(-1, -2), m0, 0, sq, skv, causal)
+        dof = do[:, :, rows].float()
+        s = _mask(qs @ kr.transpose(-1, -2), qpos[rows], kpos, causal)
         p = torch.exp2(s - lse2[:, :, rows, None])
-        dp = do @ vr.transpose(-1, -2)
-        ds = (p * (dp - delta[:, :, rows, None])).to(dt).float()
-        dv += p.to(dt).float().transpose(-1, -2) @ do
+        dp = dof @ vr.transpose(-1, -2)
+        ds = (p * (dp + rowbias[:, :, rows, None])).to(dt).float()
+        dv += p.to(dt).float().transpose(-1, -2) @ dof
         dk += ds.transpose(-1, -2) @ q_sc
         dq[:, :, rows] = ds @ k_sc
     if hkv != h:
@@ -177,11 +186,54 @@ def flash_bwd_plain(q, k, v, out, lse, g, causal: bool, sm_scale: float):
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _arange(n, device):
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float):
+    """The K2 kernel's arithmetic in plain PyTorch: (out in q's dtype,
+    lse f32 natural-log); see ``flash_chunk_fwd_plain``."""
+    o, lse = flash_chunk_fwd_plain(q, k, v, _arange(q.shape[2], q.device),
+                                   _arange(k.shape[2], q.device), causal,
+                                   sm_scale)
+    return o.to(q.dtype), lse
+
+
+def flash_bwd_plain(q, k, v, out, lse, g, causal: bool, sm_scale: float):
+    """The K3 kernel's arithmetic in plain PyTorch: (dq, dk, dv); see
+    ``_twin_bwd``, with rowbias = -delta and delta = rowsum(dO*O) in f32
+    from dO rounded to the input dtype."""
+    g = g.to(q.dtype)
+    delta = (g.float() * out.float()).sum(-1)
+    return _twin_bwd(q, k, v, _arange(q.shape[2], q.device),
+                     _arange(k.shape[2], q.device), g, lse, -delta, causal,
+                     sm_scale)
+
+
+def flash_chunk_bwd_plain(q, k, v, qpos, kpos, out, lse, g_out, g_lse,
+                          causal: bool, sm_scale: float):
+    """The K7 kernel's arithmetic in plain PyTorch: (dq, dk, dv) with the
+    lse cotangent, ds = p*(dp + (g_lse - delta)), delta = rowsum(g_out*out)
+    in f32 from the f32 g_out; see ``_twin_bwd``."""
+    delta = (g_out.float() * out.float()).sum(-1)
+    return _twin_bwd(q, k, v, qpos, kpos, g_out.to(q.dtype), lse,
+                     g_lse.float() - delta, causal, sm_scale)
+
+
 # --------------------------------------------------------------------------
 # CUDA launches
 # --------------------------------------------------------------------------
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of each library's launch function rtt_<name>: pointers, then
+# B, H, Hkv, Sq, Skv, D, then the scales, causal and the stream.
+_ARGTYPES = {
+    "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+    "flash_bwd": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
+    "flash_chunk_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    "flash_chunk_bwd": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P],
+}
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -190,26 +242,23 @@ def _library(name: str) -> ctypes.CDLL:
         from ray_tpu_torch._native.build import load_library
 
         lib = load_library(name)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "flash_fwd":
-            lib.rtt_flash_fwd.argtypes = [p] * 5 + [i] * 6 + [f, i, p]
-            lib.rtt_flash_fwd.restype = i
-        else:
-            lib.rtt_flash_bwd.argtypes = [p] * 9 + [i] * 6 + [f, f, i, p]
-            lib.rtt_flash_bwd.restype = i
+        launch = getattr(lib, f"rtt_{name}")
+        launch.argtypes = _ARGTYPES[name]
+        launch.restype = _I
         err_fn = getattr(lib, f"rtt_{name}_error_string")
-        err_fn.argtypes = [i]
+        err_fn.argtypes = [_I]
         err_fn.restype = ctypes.c_char_p
         smem_fn = getattr(lib, f"rtt_{name}_smem_bytes")
-        smem_fn.argtypes = [i]
-        smem_fn.restype = i
+        smem_fn.argtypes = [_I]
+        smem_fn.restype = _I
         _LIBS[name] = lib
     return lib
 
 
 def kernel_smem_bytes(name: str, head_dim: int) -> int:
-    """Dynamic shared memory a CTA of ``name`` ("flash_fwd"/"flash_bwd")
-    takes at ``head_dim`` (the build's own constant; loads the library)."""
+    """Dynamic shared memory a CTA of kernel ``name`` (a key of
+    ``_ARGTYPES``) takes at ``head_dim`` (the build's own constant; loads
+    the library)."""
     return getattr(_library(name), f"rtt_{name}_smem_bytes")(head_dim)
 
 
@@ -291,6 +340,70 @@ def flash_bwd_cuda(q, k, v, out, lse, g, causal: bool, sm_scale: float):
 flash_bwd_cuda.launches = 0  # K3 launches since the last reset
 
 
+def flash_chunk_fwd_cuda(q, k, v, qpos, kpos, causal: bool,
+                         sm_scale: float):
+    """Launch K6: (out f32 [B,H,Sq,D], lse f32 [B,H,Sq]) of q against one
+    visiting K/V chunk, masked by the int32 global positions qpos [Sq]
+    and kpos [Skv]."""
+    _check_cuda(q, k, v)
+    q, k, v = _dense(q), _dense(k), _dense(v)
+    qpos = _dense(qpos.to(device=q.device, dtype=torch.int32))
+    kpos = _dense(kpos.to(device=q.device, dtype=torch.int32))
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = _library("flash_chunk_fwd")
+    with torch.cuda.device(q.device):
+        err = lib.rtt_flash_chunk_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            kpos.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, hkv, sq,
+            skv, d, sm_scale * LOG2E, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "flash_chunk_fwd", err, q.shape)
+    flash_chunk_fwd_cuda.launches += 1
+    return out, lse
+
+
+flash_chunk_fwd_cuda.launches = 0  # K6 launches since the last reset
+
+
+def flash_chunk_bwd_cuda(q, k, v, qpos, kpos, out, lse, g_out, g_lse,
+                         causal: bool, sm_scale: float):
+    """Launch K7: (dq [B,H,Sq,D], dk, dv [B,Hkv,Skv,D]), all bf16, from the
+    f32 cotangents of out and lse. delta = rowsum(g_out*out) in f32 and
+    dO = g_out in q's dtype are computed here, as the JAX wrapper leaves
+    them to XLA; dq is summed in an f32 buffer by the kernel's atomics."""
+    _check_cuda(q, k, v)
+    delta = _dense((g_out.float() * out.float()).sum(-1))
+    do = _dense(g_out.to(q.dtype))
+    q, k, v = _dense(q), _dense(k), _dense(v)
+    qpos = _dense(qpos.to(device=q.device, dtype=torch.int32))
+    kpos = _dense(kpos.to(device=q.device, dtype=torch.int32))
+    lse = _dense(lse.float())
+    g_lse = _dense(g_lse.float())
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _library("flash_chunk_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.rtt_flash_chunk_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            kpos.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), g_lse.data_ptr(), dq_acc.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, d, sm_scale,
+            sm_scale * LOG2E, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "flash_chunk_bwd", err, q.shape)
+    flash_chunk_bwd_cuda.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+flash_chunk_bwd_cuda.launches = 0  # K7 launches since the last reset
+
+
 def _check_shapes(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention takes q [B,H,Sq,D] and k/v "
@@ -328,3 +441,39 @@ def flash_attention(q, k, v, causal: bool = True,
     k, v, out, lse), so the backward never re-runs the forward."""
     _check_shapes(q, k, v)
     return _FlashAttention.apply(q, k, v, causal, _scale(q, sm_scale))
+
+
+class _FlashChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, causal, sm_scale):
+        cpu = q.device.type == "cpu"
+        fwd = flash_chunk_fwd_plain if cpu else flash_chunk_fwd_cuda
+        out, lse = fwd(q, k, v, qpos, kpos, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, qpos, kpos, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, qpos, kpos, out, lse = ctx.saved_tensors
+        cpu = q.device.type == "cpu"
+        bwd = flash_chunk_bwd_plain if cpu else flash_chunk_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, qpos, kpos, out, lse, g_out, g_lse,
+                         ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_chunk(q, k, v, qpos, kpos, causal: bool = True,
+                          sm_scale: float | None = None):
+    """(out f32 [B,H,Sq,D], lse f32 natural-log [B,H,Sq]) for local q
+    against one visiting K/V chunk, GQA-native, with GLOBAL int positions
+    qpos [Sq] and kpos [Skv] shared by every batch row and head (ring
+    attention's step offsets). Both outputs are differentiable, so a
+    cross-chunk log-sum-exp combine backpropagates exactly: K6 forward and
+    K7 backward on CUDA tensors, their plain twins on CPU tensors."""
+    _check_shapes(q, k, v)
+    if qpos.shape != (q.shape[2],) or kpos.shape != (k.shape[2],):
+        raise ValueError(f"flash_attention_chunk: qpos {tuple(qpos.shape)} "
+                         f"and kpos {tuple(kpos.shape)} must be [Sq] = "
+                         f"[{q.shape[2]}] and [Skv] = [{k.shape[2]}]")
+    return _FlashChunk.apply(q, k, v, qpos, kpos, causal, _scale(q, sm_scale))

@@ -13,7 +13,11 @@ streams (tiny width and 1B width) must be equal on the card and on the
 CPU. Flash kernels against their plain twins (bf16): out, dq, dk, dv
 within 1e-2 of the largest value (one bf16 ulp where sums in another
 order round a value apart; dq's f32 atomics add in no fixed order), lse
-within 2e-3 (f32 sums of the same bf16 p in another order).
+within 2e-3 (f32 sums of the same bf16 p in another order); the chunk
+kernels K6/K7 alike (K6's out is f32). The ring's schedule on the card
+against K2/K3 on the whole sequence: 3e-2 of the largest value (the
+tolerance of tests/test_ops.py's ring checks: the ring rounds its f32
+output to bf16 once, the chunks' p roundings differ from one pass's).
 """
 
 import pytest
@@ -284,3 +288,120 @@ def test_bf16_train_steps_on_card_follow_the_cpu(cuda_device):
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-2 * abs(b), losses
     assert losses["cuda"][-1] < losses["cuda"][0]
+
+
+# K6/K7 cases: (Sq, Skv, qpos offset, kpos offset) of local q against one
+# visiting chunk at global positions: the diagonal chunk, a wholly visible
+# past chunk, a wholly masked future chunk, offsets that are no multiple of
+# 64, and ragged lengths (partly visible, and wholly masked: the tail past
+# Skv must add nothing to a row that sees no key).
+CHUNK_POS = {"diagonal": (256, 256, 256, 256), "past": (256, 256, 256, 0),
+             "future": (256, 256, 0, 256), "offset": (256, 256, 100, 37),
+             "ragged": (200, 136, 60, 0), "ragged_future": (200, 136, 0, 300)}
+CHUNK_CASES = [(causal, rep, d, where) for causal in (True, False)
+               for rep in (1, 4) for d in (64, 128) for where in CHUNK_POS]
+
+
+def _chunk_case(dev, rep, d, where, seed, h=8):
+    sq, skv, q0, k0 = CHUNK_POS[where]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    qpos = torch.arange(sq, dtype=torch.int32, device=dev) + q0
+    kpos = torch.arange(skv, dtype=torch.int32, device=dev) + k0
+    return (rnd(1, h, sq, d), rnd(1, h // rep, skv, d), rnd(1, h // rep, skv, d),
+            qpos, kpos, rnd(1, h, sq, d, dtype=torch.float32),
+            rnd(1, h, sq, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,rep,d,where", CHUNK_CASES)
+def test_flash_chunk_kernels_match_plain_twins_on_card(cuda_device, causal,
+                                                       rep, d, where):
+    """K6 (out f32, lse) and K7 (dq, dk, dv with a nonzero lse cotangent)
+    against their twins on the same inputs and residuals."""
+    q, k, v, qpos, kpos, g_out, g_lse = _chunk_case(
+        cuda_device, rep, d, where, seed=rep * d + len(where))
+    scale = d ** -0.5
+    before = (att.flash_chunk_fwd_cuda.launches,
+              att.flash_chunk_bwd_cuda.launches)
+    out, lse = att.flash_chunk_fwd_cuda(q, k, v, qpos, kpos, causal, scale)
+    p_out, p_lse = att.flash_chunk_fwd_plain(q, k, v, qpos, kpos, causal,
+                                             scale)
+    grads = att.flash_chunk_bwd_cuda(q, k, v, qpos, kpos, p_out, p_lse,
+                                     g_out, g_lse, causal, scale)
+    plain = att.flash_chunk_bwd_plain(q, k, v, qpos, kpos, p_out, p_lse,
+                                      g_out, g_lse, causal, scale)
+    torch.cuda.synchronize()
+    assert (att.flash_chunk_fwd_cuda.launches,
+            att.flash_chunk_bwd_cuda.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert out.dtype == lse.dtype == torch.float32
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert _rel(out, p_out) < 1e-2
+    assert (lse - p_lse).abs().max().item() < 2e-3
+    for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel(got, want) < 1e-2, name
+
+
+@pytest.mark.cuda
+def test_simulated_ring_on_card_matches_flash_attention(cuda_device):
+    """The flash ring's schedule over 4 virtual ranks (16 K6 and, through
+    autograd, 16 K7 launches) against K2/K3 on the whole sequence: output
+    and q/k/v gradients within 3e-2 of each tensor's largest value."""
+    from ray_tpu_torch.ops.ring_attention import simulate_ring
+
+    q, k, v, do = _flash_inputs(cuda_device, 4, 64, 1024, seed=7, b=1)
+    q, k, v = [t.requires_grad_() for t in (q, k, v)]
+    before = (att.flash_chunk_fwd_cuda.launches,
+              att.flash_chunk_bwd_cuda.launches)
+    out = simulate_ring(q, k, v, 4)
+    out.backward(do)
+    assert (att.flash_chunk_fwd_cuda.launches,
+            att.flash_chunk_bwd_cuda.launches) == (before[0] + 16,
+                                                   before[1] + 16)
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = att.flash_attention(*ref, True)
+    want.backward(do)
+    assert _rel(out, want) < 3e-2
+    for got, r in zip((q.grad, k.grad, v.grad), ref):
+        assert _rel(got, r.grad) < 3e-2
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_cp_loss_matches_no_sp_on_card(cuda_device):
+    """forward_hidden with sp_axis = a one-rank NCCL group runs the ring
+    (K6/K7, no point-to-point op) and gives sp_axis=None's loss (K2/K3):
+    the same arithmetic, within 1e-3 relative."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      max_seq_len=512, dtype="bfloat16")
+    params = init_params(cfg, generator=13, device=cuda_device)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=g).to(
+        cuda_device)
+    targets = torch.roll(tokens, -1, dims=1)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        before = (att.flash_chunk_fwd_cuda.launches,
+                  att.flash_fwd_cuda.launches)
+        with torch.no_grad():
+            cp = loss_fn(cfg, params, tokens, targets, remat="attn+",
+                         sp_axis=dist.group.WORLD,
+                         positions=torch.arange(512, device=cuda_device))
+        assert (att.flash_chunk_fwd_cuda.launches,
+                att.flash_fwd_cuda.launches) == (before[0] + 2, before[1])
+        with torch.no_grad():
+            plain = loss_fn(cfg, params, tokens, targets, remat="attn+")
+    finally:
+        dist.destroy_process_group()
+    assert abs(cp.item() - plain.item()) <= 1e-3 * abs(plain.item())

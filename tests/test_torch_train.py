@@ -96,14 +96,12 @@ def test_every_remat_policy_gives_the_grads_of_none(remat):
                                    err_msg=name)
 
 
-def test_unported_remat_and_ring_raise():
+def test_unported_remat_raises():
     params = llama.init_params(CFG, generator=1, device="cpu")
     tokens = torch.zeros((1, 8), dtype=torch.long)
     for remat in ("dots", "dots+"):
         with pytest.raises(NotImplementedError, match="not ported"):
             llama.forward_hidden(CFG, params, tokens, remat=remat)
-    with pytest.raises(NotImplementedError, match="sp_axis"):
-        llama.forward_hidden(CFG, params, tokens, sp_axis="sp")
     with pytest.raises(ValueError, match="entries"):
         llama.normalize_remat(("attn",), CFG.num_layers)
 
