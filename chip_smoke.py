@@ -8,9 +8,9 @@ failure raises and the script exits non-zero without a result line:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel from ray_tpu_torch/csrc (rms_norm, flash_fwd,
-   flash_bwd, flash_chunk_fwd, flash_chunk_bwd), one nvcc each, all at
-   once, for sm_90a; ptxas registers and each flash kernel's dynamic
-   shared memory;
+   flash_bwd, flash_bwd_dq, flash_bwd_dkv, flash_chunk_fwd,
+   flash_chunk_bwd), one nvcc each, all at once, for sm_90a; ptxas
+   registers and each flash kernel's dynamic shared memory;
 3. kernel vs plain: rms_norm's kernel against rms_norm_reference over a
    grid of row counts, widths and dtypes, plus times at the engine's and
    the trainer's shapes (kernel, plain version, torch.nn.functional.
@@ -21,6 +21,14 @@ failure raises and the script exits non-zero without a result line:
    bf16): kernel, twin, bound, and scaled_dot_product_attention (forward;
    forward + backward, and its backward alone, for flash_bwd) as the
    yardstick;
+4b. kernel vs plain: the split backward, flash_bwd_dq (K4) and
+   flash_bwd_dkv (K5, its per-q-head dk/dv folded) against
+   flash_bwd_split_plain over causal/non-causal, GQA rep 1/4, head_dim
+   64/128 and S 2048, 197 (ViT-B/16's tokens) and a ragged 1000; two
+   launches on the same inputs bit-identical; then K4, K5 and the fold
+   timed at the training shape, and the whole split backward through its
+   wrapper beside K3's (both compute delta), the twins, the bound and
+   scaled_dot_product_attention's backward alone;
 5. kernel vs plain: the ring's chunk kernels flash_chunk_fwd (K6) and
    flash_chunk_bwd (K7, nonzero lse cotangent) against their twins over
    causal/non-causal, GQA rep 1/4, head_dim 64/128 and six position cases
@@ -49,6 +57,11 @@ failure raises and the script exits non-zero without a result line:
    tokens/s, step ms and MFU over the whole timed window, the per-step
    spread, peak memory and its split, the loss trajectory (finite,
    falling) and a profiler split of three steps;
+8b. the same trainer with the split backward (K4 + K5): first the loss and
+   every parameter's gradient against the fused backward on the same
+   params and batch (each run twice beside it), then 2 warm-up and 5
+   timed steps, launches per step as predicted (K4/K5 for K3), the first
+   loss bit-equal to phase 8's;
 9. the context-parallel training path: first one forward + backward with
    sp_axis = a one-rank NCCL group (ring attention through K6/K7) against
    sp_axis=None (K2/K3) on the same params and batch (the loss, the final
@@ -58,6 +71,19 @@ failure raises and the script exits non-zero without a result line:
    launches per step against the prediction (16 K6, 16 K7, no K2/K3),
    step ms, tokens/s, peak memory, the losses, a profiler split of one
    step;
+9b. the ViT-B/16 training path: make_vit_train_step at ViT-B/16 (224 px,
+   patch 16, hidden 768, 12 layers, 12 heads, 86.4M params, bf16), b128,
+   remat none, adamw_lowmem, seeded images and labels, once with the
+   fused and once with the split backward: 2 warm-up and 10 timed steps
+   each, launches per step as predicted, images/s, step ms, MFU
+   (vit_train_flops), peak memory, a profiler split of one step, the
+   first losses bit-equal, and for each run the device time by PyTorch
+   op; then the loss and every parameter's gradient at b128, the split
+   backward against the fused one and each against plain f32 attention
+   (blockwise_attention); then K2, K3, K4, K5 against their twins at its
+   attention (B128 H12 S197 D64, non-causal), K4/K5 bit-identical on
+   repeat, and K2-K5 and both whole backwards timed there beside
+   non-causal SDPA;
 10. with two or more cards visible, the ring over ranks, one card each
    (NCCL; the largest power of two of them): ring attention at S16384
    against one card's flash_fwd/flash_bwd, and the phase-9 model's
@@ -67,7 +93,10 @@ failure raises and the script exits non-zero without a result line:
    two layers (d=2048), CUDA (kernel) vs CPU (plain) greedy token streams
    must be equal; a bf16 trainer at small width, 3 steps on the card
    (kernels) vs 3 on the CPU (plain twins) from one param tree: losses
-   agree and the norm weights' gradients are non-zero and agree;
+   agree and the norm weights' gradients are non-zero and agree; a bf16
+   ViT (head_dim 64, 65 tokens) under each backward choice: every
+   parameter's gradient of one forward + backward and the losses of 3
+   steps, on the card vs on the CPU, agree;
 12. a JSON line of the kernels, then the JSON result line.
 
 Exits non-zero when no CUDA device is visible or when run outside a
@@ -76,9 +105,11 @@ checkout. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -185,8 +216,8 @@ def phase_build():
                     line or "error" in line.lower():
                 print(f"  [{name}] {line.strip()}")
     from ray_tpu_torch.ops.attention import kernel_smem_bytes
-    for name in ("flash_fwd", "flash_bwd", "flash_chunk_fwd",
-                 "flash_chunk_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_chunk_fwd", "flash_chunk_bwd"):
         print(f"  [{name}] dynamic shared memory per CTA: "
               + ", ".join(f"D={d}: {kernel_smem_bytes(name, d)} B"
                           for d in (64, 128)))
@@ -600,14 +631,14 @@ def _flash_check(q, k, v, do, causal, label, worst):
     return errs
 
 
-def flash_bounds(b, h, hkv, s, d):
-    """(fwd, bwd) least times in ms with what bounds each: causal FLOPs
-    over the bf16 peak vs bytes (each input read once, each output written
-    once) over HBM bandwidth. The backward does five products per tile
-    pair to the forward's two."""
+def flash_bounds(b, h, hkv, s, d, causal: bool = True):
+    """(fwd, bwd) least times in ms with what bounds each: the FLOPs (half
+    of them when causal) over the bf16 peak vs bytes (each input read once,
+    each output written once) over HBM bandwidth. The backward does five
+    products per tile pair to the forward's two."""
     from ray_tpu_torch.accelerators.flops import attention_flops, peak_flops
 
-    fl = attention_flops(b, h, s, d, causal=True)
+    fl = attention_flops(b, h, s, d, causal=causal)
     qb, kvb, rows = b * h * s * d * 2, b * hkv * s * d * 2, b * h * s * 4
     out = {}
     for name, flops, nbytes in (
@@ -701,6 +732,171 @@ def phase_flash():
           f"{lib_bwd_ms:.4f} ms: {times['flash_bwd'][0] / lib_bwd_ms:.2f}x "
           f"its time; flash_fwd against its forward: "
           f"{times['flash_fwd'][0] / times['flash_fwd'][2]:.2f}x")
+    return rows
+
+
+def split_bounds(b, h, hkv, sq, skv, d, causal: bool):
+    """(K4, K5) least times in ms with what bounds each: the FLOPs of the
+    (q, k) pairs the mask keeps (K4 three products, 6 * D FLOPs a pair; K5
+    four, 8 * D) over the bf16 peak vs bytes (each input read once, each
+    output written once: K5's dk/dv per q head) over HBM bandwidth."""
+    from ray_tpu_torch.accelerators.flops import peak_flops
+
+    pairs = b * h * (sq * (sq + 1) // 2 if causal and sq == skv
+                     else sq * skv)
+    qb, kvb, rows = b * h * sq * d * 2, b * hkv * skv * d * 2, b * h * sq * 4
+    per_head = b * h * skv * d * 2
+    out = {}
+    for name, flops, nbytes in (
+            # q, k, v, dO, lse, delta in; dq out
+            ("flash_bwd_dq", 6.0 * d * pairs, 3 * qb + 2 * kvb + 2 * rows),
+            # q, k, v, dO, lse, delta in; dk, dv per q head out
+            ("flash_bwd_dkv", 8.0 * d * pairs,
+             2 * qb + 2 * kvb + 2 * rows + 2 * per_head)):
+        t_ops = flops / peak_flops("h100", "bf16")
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes",
+                     flops, nbytes)
+    return out
+
+
+def _split_check(q, k, v, do, causal, label, worst):
+    """K4 and K5, K5's per-head dk/dv folded, against flash_bwd_split_plain
+    on the twin's residuals; raises past the tolerance, folds the max abs
+    and relative errors into ``worst``."""
+    import torch
+    from ray_tpu_torch.ops import attention as att
+
+    scale = q.shape[-1] ** -0.5
+    out, lse = att.flash_fwd_plain(q, k, v, causal, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = att.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = (att.fold_heads(t, k.shape[1]) for t in att.flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, causal, scale))
+    plain = att.flash_bwd_split_plain(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"split {name} not finite at {label}")
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        if not rel < FLASH_REL_TOL:
+            raise AssertionError(f"split {name} disagrees with its twin at "
+                                 f"{label}: max abs err {err:.3e} = {rel:.3e}"
+                                 f" of the largest value (> {FLASH_REL_TOL})")
+        errs[name] = (err, rel)
+    for kname, keys in (("flash_bwd_dq", ("dq",)),
+                        ("flash_bwd_dkv", ("dk", "dv"))):
+        worst[kname] = max([worst[kname]] + [errs[n][0] for n in keys])
+        worst[kname + " rel"] = max([worst[kname + " rel"]]
+                                    + [errs[n][1] for n in keys])
+    return {n: e for n, (e, _) in errs.items()}
+
+
+def phase_split():
+    import torch
+    from ray_tpu_torch.ops import attention as att
+
+    _phase("kernel vs plain: flash_bwd_dq / flash_bwd_dkv (split backward)")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+             "flash_bwd_dq rel": 0.0, "flash_bwd_dkv rel": 0.0}
+    n = 0
+    for causal in (True, False):
+        for rep in (1, 4):
+            for d in (64, 128):
+                # 197: ViT-B/16's tokens; 1000: a ragged tail of 40 rows
+                for s in (2048, 197, 1000):
+                    q, k, v, do = _flash_inputs(gen, 1, 8, 8 // rep, s, d)
+                    _split_check(q, k, v, do, causal,
+                                 f"causal={causal} rep={rep} d={d} s={s}",
+                                 worst)
+                    n += 1
+    m = MAIN_ATTN
+    q, k, v, do = _flash_inputs(gen, m["b"], m["h"], m["hkv"], m["s"],
+                                m["d"])
+    errs = _split_check(q, k, v, do, True, "the training shape", worst)
+    print(f"split kernels (K5 folded) == flash_bwd_split_plain over {n} "
+          f"cases + the training shape (bf16); max abs err: flash_bwd_dq "
+          f"{worst['flash_bwd_dq']:.3e}, flash_bwd_dkv "
+          f"{worst['flash_bwd_dkv']:.3e} (= {worst['flash_bwd_dq rel']:.3e}"
+          f" and {worst['flash_bwd_dkv rel']:.3e} of the case's largest "
+          f"value); at the training shape "
+          + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
+          + f" (tolerance {FLASH_REL_TOL} of the largest value)")
+
+    scale = m["d"] ** -0.5
+    out, lse = att.flash_fwd_cuda(q, k, v, True, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    runs = [(att.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True, scale),
+             *att.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True, scale))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("K4/K5: two launches on the same inputs differ")
+    k3 = [att.flash_bwd_cuda(q, k, v, out, lse, do, True, scale)
+          for _ in range(2)]
+    k3_same = [torch.equal(a, b) for a, b in zip(*k3)]
+    dk_h, dv_h = runs[0][1:]
+    del runs, k3
+    print(f"two launches on the same inputs: K4 dq and K5 dk/dv bit-"
+          f"identical; K3 dq/dk/dv identical {k3_same} (dq by atomics)")
+
+    kr, vr = att._repeat_kv(k, m["h"]), att._repeat_kv(v, m["h"])
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, kr, vr))
+    o_lib = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True)
+    lib_bwd_ms = events_ms(lambda: torch.autograd.grad(
+        o_lib, (qg, kg, vg), do, retain_graph=True), 20)
+    del o_lib, qg, kg, vg
+    ms = {
+        "flash_bwd": events_ms(lambda: att.flash_bwd_cuda(
+            q, k, v, out, lse, do, True, scale), 20),
+        "flash_bwd_dq": events_ms(lambda: att.flash_bwd_dq_cuda(
+            q, k, v, do, lse, delta, True, scale), 20),
+        "flash_bwd_dkv": events_ms(lambda: att.flash_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, True, scale), 20),
+        "fold": events_ms(lambda: (att.fold_heads(dk_h, m["hkv"]),
+                                   att.fold_heads(dv_h, m["hkv"])), 20),
+        "split": events_ms(lambda: att.flash_bwd_split_cuda(
+            q, k, v, out, lse, do, True, scale), 20),
+        "flash_bwd_dq plain": events_ms(lambda: att.flash_bwd_dq_plain(
+            q, k, v, do, lse, delta, True, scale), 2),
+        "flash_bwd_dkv plain": events_ms(lambda: att.flash_bwd_dkv_plain(
+            q, k, v, do, lse, delta, True, scale), 2),
+    }
+    bounds = split_bounds(m["b"], m["h"], m["hkv"], m["s"], m["s"], m["d"],
+                          True)
+    rows = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        bound, by, flops, nbytes = bounds[name]
+        rows[name] = {
+            "ms": ms[name], "plain_ms": ms[name + " plain"],
+            "library_ms": lib_bwd_ms, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": worst[name], "max_rel_err": worst[name + " rel"],
+            "tflops": flops / (ms[name] * 1e-3) / 1e12,
+            "fold_ms": ms["fold"], "split_total_ms": ms["split"],
+            "k3_ms": ms["flash_bwd"], "bit_identical": True}
+        print(f"{name} B4 H32 Hkv8 S2048 D64 causal bf16: kernel "
+              f"{ms[name]:.4f} ms ({flops / 1e9:.1f} GFLOP the mask keeps, "
+              f"{rows[name]['tflops']:.1f} TFLOP/s = "
+              f"{100 * bound / ms[name]:.1f}% of the bound), plain twin "
+              f"{ms[name + ' plain']:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB)")
+    kernels = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"] + ms["fold"]
+    k3_ms = ms["flash_bwd"]
+    print(f"split backward: K4 {ms['flash_bwd_dq']:.4f} + K5 "
+          f"{ms['flash_bwd_dkv']:.4f} + fold {ms['fold']:.4f} = "
+          f"{kernels:.4f} ms with delta given; whole backwards, each "
+          f"through its wrapper with delta, buffers and casts: split "
+          f"{ms['split']:.4f} ms against K3 {k3_ms:.4f} ms in this call "
+          f"({ms['split'] / k3_ms:.2f}x) and scaled_dot_product_attention's "
+          f"backward alone {lib_bwd_ms:.4f} ms "
+          f"({ms['split'] / lib_bwd_ms:.2f}x; k/v repeated to 32 heads "
+          f"beforehand)")
     return rows
 
 
@@ -1034,20 +1230,27 @@ TRAIN_STEPS = 10   # timed steps
 PROFILED_STEPS = 3  # steps under torch.profiler after the timed ones
 
 
-def predicted_launches(remat, num_layers: int, ring: int = 0) -> dict:
-    """Kernel launches per training step under a uniform remat policy.
-    Forward: two rms_norms a layer plus the final one, one flash forward a
-    layer. The backward recomputes the norms of the checkpointed segments
-    (attn: attention inputs + MLP; attn+: attention inputs, gate, rest of
-    the MLP; full: the layer, the flash forward included) and runs one
-    flash backward a layer; rms_norm's backward is plain tensor ops (no
-    launch). The flash kernels are K2/K3, or with ``ring`` > 0 (context
-    parallel over that many ranks: as many ring steps a layer) K6/K7."""
+def predicted_launches(remat, num_layers: int, ring: int = 0,
+                       split: bool = False) -> dict:
+    """Kernel launches per training step under a uniform remat policy, for
+    Llama and ViT alike (both run two rms_norms a layer plus a final one).
+    Forward: the norms, one flash forward a layer. The backward recomputes
+    the norms of the checkpointed segments (attn: attention inputs + MLP;
+    attn+: attention inputs, gate, rest of the MLP; full: the layer, the
+    flash forward included) and runs one flash backward a layer; rms_norm's
+    backward is plain tensor ops (no launch). The flash kernels are K2/K3,
+    K2 and K4 + K5 with ``split`` (the split backward), or with ``ring`` >
+    0 (context parallel over that many ranks: as many ring steps a layer)
+    K6/K7."""
     recompute = 0 if remat in (False, "none") else 2
     full = remat not in (False, "none", "attn", "attn+")
     fwd, bwd = num_layers * (2 if full else 1), num_layers
+    flat = 0 if ring else 1
     return {"rms_norm": 2 * num_layers + 1 + recompute * num_layers,
-            "flash_fwd": 0 if ring else fwd, "flash_bwd": 0 if ring else bwd,
+            "flash_fwd": fwd * flat,
+            "flash_bwd": 0 if split else bwd * flat,
+            "flash_bwd_dq": bwd * flat if split else 0,
+            "flash_bwd_dkv": bwd * flat if split else 0,
             "flash_chunk_fwd": fwd * ring, "flash_chunk_bwd": bwd * ring}
 
 
@@ -1072,12 +1275,32 @@ def _counters():
 
     return {"rms_norm": norms.rms_norm, "flash_fwd": att.flash_fwd_cuda,
             "flash_bwd": att.flash_bwd_cuda,
+            "flash_bwd_dq": att.flash_bwd_dq_cuda,
+            "flash_bwd_dkv": att.flash_bwd_dkv_cuda,
             "flash_chunk_fwd": att.flash_chunk_fwd_cuda,
             "flash_chunk_bwd": att.flash_chunk_bwd_cuda}
 
 
+@contextlib.contextmanager
+def backward_choice(fused: bool):
+    """A context in which flash_attention's backward is K3 (``fused``) or
+    K4 + K5 + fold; the attention module's ``FUSED_BWD`` is restored on
+    exit."""
+    from ray_tpu_torch.ops import attention as att
+
+    old = att.FUSED_BWD
+    att.FUSED_BWD = fused
+    try:
+        yield
+    finally:
+        att.FUSED_BWD = old
+
+
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+TOP_OPS = 16  # PyTorch ops listed by the device time they launched
 
 
 def profile_steps(step, state, tok, tgt, steps: int, step_s: float,
@@ -1085,8 +1308,9 @@ def profile_steps(step, state, tok, tgt, steps: int, step_s: float,
     """``steps`` training steps under torch.profiler: prints the device
     busy share (of the profiled wall, which carries the profiler's own
     host cost, and of the unprofiled window's ``step_s``), each counted
-    kernel's and each category's device ms per step, and the largest
-    kernels. Returns (state, the numbers)."""
+    kernel's and each category's device ms per step, the largest kernels
+    and the PyTorch ops that launched the most device time themselves.
+    Returns (state, the numbers)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1105,7 +1329,8 @@ def profile_steps(step, state, tok, tgt, steps: int, step_s: float,
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3 / steps
     busy_ms = sum(by_name.values())
-    share = {key: sum(ms for n, ms in by_name.items() if f"{key}_" in n)
+    share = {key: sum(ms for n, ms in by_name.items()
+                      if re.search(rf"\b{key}(_cta|_warp)?_kernel\b", n))
              for key in counters}
     cats: dict[str, float] = {}
     for name, ms in by_name.items():
@@ -1128,9 +1353,22 @@ def profile_steps(step, state, tok, tgt, steps: int, step_s: float,
             print(f"  {ms:8.3f} ms  {name[:100]}")
     else:
         print("device busy: not measured (profiler saw no kernels)")
+    ops = {}  # host-side ops only: the kernels' own rows repeat them
+    for e in prof.key_averages() if busy_ms else ():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == DeviceType.CPU and us > 0:
+            ops[e.key] = us / 1e3 / steps
+    if ops:
+        print("by PyTorch op (device ms per step of the kernels each op "
+              "launched itself): " + ", ".join(
+                  f"{k[:40]} {ms:.2f}" for k, ms in sorted(
+                      ops.items(), key=lambda kv: -kv[1])[:TOP_OPS]))
     return state, {"profiled_wall_ms": wall_ms, "busy_ms": busy_ms or None,
                    "kernel_ms_per_step": share if busy_ms else None,
-                   "category_ms_per_step": cats if busy_ms else None}
+                   "category_ms_per_step": cats if busy_ms else None,
+                   **({"op_ms_per_step": ops} if ops else {})}
 
 
 def phase_train():
@@ -1247,6 +1485,168 @@ def phase_train():
             **prof}
 
 
+SPLIT_STEPS = 5  # timed steps of the split-backward trainer
+# Limit on each parameter's gradient under the split backward against the
+# fused one on the same params and batch: its error's norm over its norm.
+# On an H100 the readings were 8.9e-3 to 1.44e-2, and the fused backward
+# against itself 8.4e-3 to 1.40e-2 (K3's dq atomics); the split one
+# against itself 0. The limit is about 3.5x the worst reading, as CP's.
+SPLIT_GRAD_TOL = 5e-2
+
+
+def _loss_grads(loss_call, leaves):
+    """One forward + backward: (loss, the leaves' gradients); the leaves'
+    .grad is left None."""
+    loss = loss_call()
+    loss.backward()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _grad_errs(names, grads, ref_grads) -> dict:
+    return {name: ((g.float() - w.float()).norm() / w.float().norm()).item()
+            for name, g, w in zip(names, grads, ref_grads)}
+
+
+def split_against_fused(loss_call, params) -> dict:
+    """The loss and every parameter's gradient under the split backward
+    against the fused one, from the same params and batch; beside them each
+    backward run twice (the fused one's dq atomics add in no fixed order,
+    the split one has none)."""
+    from ray_tpu_torch._device import tree_leaves
+
+    leaves = tree_leaves(params)
+    names = list(_leaf_names(params))
+    runs = {}
+    for name, fused in (("fused", True), ("split", False)):
+        with backward_choice(fused):
+            runs[name] = [_loss_grads(loss_call, leaves) for _ in range(2)]
+    (ref_loss, ref), (ref_loss2, ref2) = runs["fused"]
+    (loss, got), (loss2, got2) = runs["split"]
+    return {"loss": loss, "ref_loss": ref_loss,
+            "losses_repeat_equal": loss == loss2 and ref_loss == ref_loss2,
+            "grad_errs": _grad_errs(names, got, ref),
+            "fused_repeat_errs": _grad_errs(names, ref2, ref),
+            "split_repeat_errs": _grad_errs(names, got2, got)}
+
+
+def check_split(res: dict, label: str) -> None:
+    """Prints ``split_against_fused``'s readings, then holds them: the
+    first loss bit-equal (the forward is K2 either way), each gradient
+    within SPLIT_GRAD_TOL of the fused one's."""
+    errs = res["grad_errs"]
+    print(f"{label}: split backward against fused on the same params and "
+          f"batch: loss {res['loss']!r} vs {res['ref_loss']!r}; each "
+          f"parameter's gradient error over its norm (limit "
+          f"{SPLIT_GRAD_TOL}; in brackets fused run twice, then split run "
+          f"twice): " + ", ".join(
+              f"{k} {e:.3e} [{res['fused_repeat_errs'][k]:.3e}, "
+              f"{res['split_repeat_errs'][k]:.3e}]" for k, e in errs.items()))
+    bad = {k: e for k, e in errs.items() if not e < SPLIT_GRAD_TOL}
+    if bad or res["loss"] != res["ref_loss"] or not math.isfinite(
+            res["loss"]):
+        raise AssertionError(f"{label}: split backward off the fused one: "
+                             f"{res}")
+
+
+def phase_train_split(fused: dict):
+    import gc
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch.accelerators.flops import (
+        generation_of,
+        llama_train_flops,
+        peak_flops,
+    )
+    from ray_tpu_torch.models.llama import LlamaConfig, loss_fn
+    from ray_tpu_torch.train import adamw_lowmem, make_llama_train_step
+
+    _phase("train, split backward (K4 + K5): the 1.1B bench geometry, b4 "
+           "s2048, remat attn+, adamw_lowmem, the phase before's weights "
+           "and tokens")
+    cfg = LlamaConfig(**BENCH_GEOMETRY, max_seq_len=2048)
+    batch, seq, remat = 4, 2048, "attn+"
+    opt = adamw_lowmem(3e-4, weight_decay=0.1)
+    torch.cuda.reset_peak_memory_stats()
+    step, init, shard = make_llama_train_step(
+        cfg, optimizer=opt, attn_impl="flash", remat=remat, seed=SEED,
+        device="cuda")
+    state = init()
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    tok, tgt = shard(tokens), shard(np.roll(tokens, -1, axis=1))
+    check = split_against_fused(
+        lambda: loss_fn(cfg, state.params, tok, tgt, remat=remat),
+        state.params)
+    check_split(check, "Llama 1.1B b4 s2048")
+
+    counters = _counters()
+    with backward_choice(False):
+        for c in counters.values():
+            c.launches = 0  # count the split trainer only
+        losses = []
+        for _ in range(TRAIN_WARMUP):
+            state, m = step(state, tok, tgt)
+            losses.append(m["loss"])
+        gc.collect()
+        gc.freeze()
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(SPLIT_STEPS + 1)]
+        t0 = time.perf_counter()
+        marks[0].record()
+        for i in range(SPLIT_STEPS):
+            state, m = step(state, tok, tgt)
+            marks[i + 1].record()
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / SPLIT_STEPS
+        launches = {k: c.launches for k, c in counters.items()}
+        step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        state, prof = profile_steps(step, state, tok, tgt, 1, step_s,
+                                    counters)
+        gc.unfreeze()
+    steps = TRAIN_WARMUP + SPLIT_STEPS
+    per_step = {k: n / steps for k, n in launches.items()}
+    want = predicted_launches(remat, cfg.num_layers, split=True)
+    if per_step != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"launches per step {per_step} != the split "
+                             f"prediction {want}")
+    loss_vals = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in loss_vals) or \
+            loss_vals[0] != fused["losses"][0] or \
+            loss_vals[0] != check["ref_loss"]:
+        raise AssertionError(f"split losses {loss_vals}: not finite, or the "
+                             f"first is not the fused trainer's "
+                             f"{fused['losses'][0]!r} bit for bit")
+    flops = llama_train_flops(cfg, batch, seq)
+    rate = peak_flops(generation_of(torch.cuda.get_device_name(0)) or "")
+    toks, mfu = batch * seq / step_s, flops / step_s / rate
+    peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
+    print(f"{SPLIT_STEPS} timed steps after {TRAIN_WARMUP} warm-up, whole "
+          f"window on the host clock: {step_s * 1e3:.2f} ms a step, "
+          f"{toks:.1f} tokens/s, MFU {100 * mfu:.2f}% (the fused trainer: "
+          f"{fused['step_ms']:.2f} ms, {fused['tokens_per_s']:.1f} tokens/s);"
+          f" per step between CUDA events {_spread(step_ms)} ms (the fused "
+          f"trainer: {_spread(fused['step_ms_events'])} ms); peak device "
+          f"memory {peak:.3f} GiB (the check's four gradient sets "
+          f"included)")
+    print("loss " + " ".join(f"{x:.4f}" for x in loss_vals)
+          + f"; the first bit-equal to the fused trainer's")
+    print(f"launches per step: " + ", ".join(
+        f"{k} {v:g}" for k, v in per_step.items())
+          + f" (= the split prediction over {steps} steps)")
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "launches_per_step": per_step,
+            "step_ms": step_s * 1e3, "step_ms_events": step_ms,
+            "tokens_per_s": toks, "mfu": mfu, "peak_gib": peak,
+            "losses": loss_vals, "check": check, **prof}
+
+
 CP_WARMUP = 2  # context-parallel steps before the clock starts
 CP_STEPS = 3   # timed context-parallel steps
 # Limits on a context-parallel forward + backward against sp_axis=None on
@@ -1308,29 +1708,21 @@ def cp_against_plain(cfg, params, tokens, group) -> dict:
                              sp_axis=group, remat="attn+")
         hidden = row_rel_err(got, want)
         del want, got
-    leaves = tree_leaves(params)
+    leaves, names = tree_leaves(params), list(_leaf_names(params))
 
     def plain():  # sp_axis=None's loss and gradients
-        ref = loss_fn(cfg, params, tokens, torch.roll(tokens, -1, dims=1),
-                      remat="attn+")
-        ref.backward()
-        grads = [p.grad for p in leaves]
-        for p in leaves:
-            p.grad = None
-        return float(ref.detach()), grads
-
-    def errs(grads, ref_grads):
-        return {name: ((g.float() - w.float()).norm()
-                       / w.float().norm()).item()
-                for name, g, w in zip(_leaf_names(params), grads, ref_grads)}
+        return _loss_grads(lambda: loss_fn(
+            cfg, params, tokens, torch.roll(tokens, -1, dims=1),
+            remat="attn+"), leaves)
 
     ref_loss, ref_grads = plain()
     # The plain path against itself: what K3's atomics (dq in no fixed
     # order) and the bf16 backward make of it, the floor of the CP reading.
-    floor = errs(plain()[1], ref_grads)
+    floor = _grad_errs(names, plain()[1], ref_grads)
     loss, grads = cp_loss_and_grads(cfg, params, tokens, group)
     return {"loss": loss, "ref_loss": ref_loss, "hidden_row_err": hidden,
-            "grad_errs": errs(grads, ref_grads), "plain_grad_errs": floor,
+            "grad_errs": _grad_errs(names, grads, ref_grads),
+            "plain_grad_errs": floor,
             "grad_norm": float(torch.stack(
                 [g.float().square().sum() for g in grads]).sum().sqrt()),
             "ref_grad_norm": float(torch.stack(
@@ -1467,6 +1859,321 @@ def phase_cp_train():
     return {"launches": launches, "launches_per_step": per_step,
             "step_ms": step_s * 1e3, "tokens_per_s": toks, "mfu": mfu,
             "peak_gib": peak, "losses": loss_vals, "check": check, **prof}
+
+
+VIT_BATCH = 128  # a card's share of DeiT-B's 1024 images over 8 GPUs
+VIT_STEPS = 10   # timed ViT steps, after TRAIN_WARMUP
+VIT_ATTN = dict(b=VIT_BATCH, h=12, hkv=12, s=197, d=64)  # ViT-B/16's
+
+
+def _vit_run(cfg, images, labels, fused: bool) -> dict:
+    """make_vit_train_step under one backward choice: TRAIN_WARMUP + VIT_STEPS
+    steps with the counts reset right before and read right after, then one
+    profiled step."""
+    import gc
+
+    import torch
+    from ray_tpu_torch.accelerators.flops import (
+        generation_of,
+        peak_flops,
+        vit_train_flops,
+    )
+    from ray_tpu_torch.train import adamw_lowmem, make_vit_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    step, init, shard = make_vit_train_step(
+        cfg, optimizer=adamw_lowmem(3e-4, weight_decay=0.1), seed=SEED,
+        device="cuda")
+    state = init()
+    img, lab = shard(images), shard(labels)
+    counters = _counters()
+    with backward_choice(fused):
+        for c in counters.values():
+            c.launches = 0  # count this run's steps only
+        losses = []
+        for _ in range(TRAIN_WARMUP):
+            state, m = step(state, img, lab)
+            losses.append(m["loss"])
+        gc.collect()
+        gc.freeze()
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(VIT_STEPS + 1)]
+        t0 = time.perf_counter()
+        marks[0].record()
+        for i in range(VIT_STEPS):
+            state, m = step(state, img, lab)
+            marks[i + 1].record()
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / VIT_STEPS
+        launches = {k: c.launches for k, c in counters.items()}
+        step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        peak = torch.cuda.max_memory_allocated() / 2.0 ** 30
+        state, prof = profile_steps(step, state, img, lab, 1, step_s,
+                                    counters)
+        gc.unfreeze()
+    steps = TRAIN_WARMUP + VIT_STEPS
+    per_step = {k: n / steps for k, n in launches.items()}
+    want = predicted_launches(False, cfg.num_layers, split=not fused)
+    if per_step != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"ViT launches per step {per_step} != the "
+                             f"prediction {want}")
+    loss_vals = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in loss_vals):
+        raise AssertionError(f"ViT losses not finite: {loss_vals}")
+    rate = peak_flops(generation_of(torch.cuda.get_device_name(0)) or "")
+    flops = vit_train_flops(cfg, VIT_BATCH)
+    res = {"launches": launches, "launches_per_step": per_step,
+           "step_ms": step_s * 1e3, "step_ms_events": step_ms,
+           "images_per_s": VIT_BATCH / step_s,
+           "mfu": flops / step_s / rate, "tflop_per_step": flops / 1e12,
+           "peak_gib": peak, "losses": loss_vals, **prof}
+    print(f"{'fused (K3)' if fused else 'split (K4 + K5)'} backward: "
+          f"{VIT_STEPS} timed steps after {TRAIN_WARMUP} warm-up, whole "
+          f"window on the host clock: {res['step_ms']:.2f} ms a step, "
+          f"{res['images_per_s']:.1f} images/s, MFU {100 * res['mfu']:.2f}% "
+          f"({flops / 1e12:.3f} TFLOP a step, vit_train_flops); per step "
+          f"between CUDA events {_spread(step_ms)} ms; peak device memory "
+          f"{peak:.3f} GiB; launches per step " + ", ".join(
+              f"{k} {v:g}" for k, v in per_step.items() if v)
+          + "; loss " + " ".join(f"{x:.4f}" for x in loss_vals))
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def _vit_attn_times() -> dict:
+    """K2, K3, K4, K5 at ViT-B/16's attention (B128 H12 S197 D64,
+    non-causal, bf16): first each against its plain twin and K4/K5 run
+    twice (bit-identical), then timed beside non-causal
+    scaled_dot_product_attention's forward and its backward alone, and
+    each kernel's bound."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import attention as att
+
+    m = VIT_ATTN
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    q, k, v, do = _flash_inputs(gen, m["b"], m["h"], m["hkv"], m["s"],
+                                m["d"])
+    label = "ViT-B/16's attention"
+    worst = dict.fromkeys(("flash_fwd", "flash_bwd", "flash_bwd_dq",
+                           "flash_bwd_dkv", "flash_bwd_dq rel",
+                           "flash_bwd_dkv rel"), 0.0)
+    errs = {**_flash_check(q, k, v, do, False, label, worst),
+            **{f"split {n}": e for n, e in _split_check(
+                q, k, v, do, False, label, worst).items()}}
+    scale = m["d"] ** -0.5
+    out, lse = att.flash_fwd_cuda(q, k, v, False, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    runs = [(att.flash_bwd_dq_cuda(q, k, v, do, lse, delta, False, scale),
+             *att.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, False, scale))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"K4/K5 at {label}: two launches on the same "
+                             f"inputs differ")
+    del runs
+    print(f"K2, K3, K4, K5 (K3 and K4/K5 on the twin's residuals) == their "
+          f"plain twins at {label} (B128 H12 S197 D64 non-causal bf16); max "
+          f"abs err " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (tolerance {FLASH_REL_TOL} of the largest value, lse "
+          f"{FLASH_LSE_TOL}); K4/K5 bit-identical on repeat")
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg)
+    lib_bwd = events_ms(lambda: torch.autograd.grad(
+        o_lib, (qg, kg, vg), do, retain_graph=True), 20)
+    del o_lib
+    ms = {"flash_fwd": (events_ms(lambda: att.flash_fwd_cuda(
+              q, k, v, False, scale), 20),
+              events_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)),
+          "flash_bwd": (events_ms(lambda: att.flash_bwd_cuda(
+              q, k, v, out, lse, do, False, scale), 20), lib_bwd),
+          "flash_bwd_dq": (events_ms(lambda: att.flash_bwd_dq_cuda(
+              q, k, v, do, lse, delta, False, scale), 20), lib_bwd),
+          "flash_bwd_dkv": (events_ms(lambda: att.flash_bwd_dkv_cuda(
+              q, k, v, do, lse, delta, False, scale), 20), lib_bwd)}
+    split_ms = events_ms(lambda: att.flash_bwd_split_cuda(
+        q, k, v, out, lse, do, False, scale), 20)
+    bounds = {**{k_: v_[:2] for k_, v_ in flash_bounds(
+        m["b"], m["h"], m["hkv"], m["s"], m["d"], causal=False).items()},
+        **{k_: v_[:2] for k_, v_ in split_bounds(
+            m["b"], m["h"], m["hkv"], m["s"], m["s"], m["d"],
+            False).items()}}
+    rows = {}
+    for name, (t, lib) in ms.items():
+        bound, by = bounds[name]
+        rows[name] = {"ms": t, "library_ms": lib, "bound_ms": bound,
+                      "bound_by": by, "max_abs_err": worst[name]}
+        if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            rows[name]["split_total_ms"] = split_ms
+        print(f"{name} at ViT-B/16's attention (B128 H12 S197 D64 non-causal "
+              f"bf16): kernel {t:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"non-causal scaled_dot_product_attention "
+              f"{'forward' if name == 'flash_fwd' else 'backward alone'} "
+              f"{lib:.4f} ms")
+    split = ms["flash_bwd_dq"][0] + ms["flash_bwd_dkv"][0]
+    k3 = ms["flash_bwd"][0]
+    print(f"at ViT-B/16's attention: K4 + K5 {split:.4f} ms with delta "
+          f"given (rep 1: no fold); whole backwards through their wrappers "
+          f"(delta, buffers, casts): split {split_ms:.4f} ms against K3 "
+          f"{k3:.4f} ms ({split_ms / k3:.2f}x) and SDPA's backward alone "
+          f"{lib_bwd:.4f} ms ({split_ms / lib_bwd:.2f}x)")
+    return rows
+
+
+# Limits on ViT-B/16's loss and each parameter's gradient through the
+# kernels against plain attention (blockwise_attention: f32 scores and
+# softmax, autograd) on the same params and batch: the loss relative, each
+# gradient its error's norm over its norm. On an H100 the loss read 6.2e-5
+# and the gradients 6.6e-3 to 1.7e-2, but wq and wk 4.6e-2 under either
+# backward (the flash contract rounds p and ds to bf16; the plain path
+# keeps them in f32). The limits are about 3x the worst readings.
+VIT_PLAIN_LOSS_TOL = 2e-4
+VIT_PLAIN_GRAD_TOL = 0.15
+
+
+def vit_grads_check(cfg, images, labels) -> dict:
+    """ViT-B/16's loss and every parameter's gradient at the trainer's
+    batch, from seeded params: the split backward against the fused one
+    (``split_against_fused``), then each against plain attention."""
+    import torch
+    from ray_tpu_torch._device import tree_leaves, tree_map
+    from ray_tpu_torch.models.vit import init_params, loss_fn
+
+    params = tree_map(lambda t: t.requires_grad_(),
+                      init_params(cfg, generator=SEED, device="cuda"))
+    img = torch.as_tensor(images, device="cuda")
+    lab = torch.as_tensor(labels, device="cuda")
+    leaves, names = tree_leaves(params), list(_leaf_names(params))
+    check = split_against_fused(lambda: loss_fn(cfg, params, img, lab),
+                                params)
+    check_split(check, f"ViT-B/16 b{VIT_BATCH}")
+    plain_loss, plain = _loss_grads(lambda: loss_fn(
+        cfg, params, img, lab, attn_impl="blockwise"), leaves)
+    errs = {}
+    for name, fused in (("fused", True), ("split", False)):
+        with backward_choice(fused):
+            errs[name] = _grad_errs(names, _loss_grads(
+                lambda: loss_fn(cfg, params, img, lab), leaves)[1], plain)
+    loss_rel = abs(check["ref_loss"] - plain_loss) / abs(plain_loss)
+    print(f"ViT-B/16 b{VIT_BATCH} through the kernels against plain "
+          f"attention (blockwise_attention, f32 scores, autograd) on the "
+          f"same params and batch: loss {check['ref_loss']!r} vs "
+          f"{plain_loss!r} ({loss_rel:.3e} relative, limit "
+          f"{VIT_PLAIN_LOSS_TOL}); each parameter's gradient error over its "
+          f"norm (limit {VIT_PLAIN_GRAD_TOL}; fused, split): " + ", ".join(
+              f"{n} {errs['fused'][n]:.3e}, {errs['split'][n]:.3e}"
+              for n in names))
+    bad = {(k, n): e for k, d in errs.items() for n, e in d.items()
+           if not e < VIT_PLAIN_GRAD_TOL}
+    if bad or not loss_rel <= VIT_PLAIN_LOSS_TOL:
+        raise AssertionError(f"ViT-B/16 gradients off plain attention's: "
+                             f"loss {loss_rel:.3e} relative, {bad}")
+    del params, plain
+    torch.cuda.empty_cache()
+    return {"split_vs_fused": check, "plain_loss": plain_loss,
+            "plain_grad_errs": errs}
+
+
+def phase_vit():
+    from dataclasses import replace
+
+    import numpy as np
+    from ray_tpu_torch.models.vit import ViTConfig
+
+    cfg = replace(ViTConfig.base16(), dtype="bfloat16")
+    _phase(f"ViT-B/16 train: {cfg.num_params() / 1e6:.1f}M params, 224 px, "
+           f"patch 16, b{VIT_BATCH}, remat none, adamw_lowmem, seeded "
+           f"random weights, images and labels; fused then split backward")
+    rng = np.random.default_rng(SEED + 5)
+    images = rng.uniform(0, 1, (VIT_BATCH, cfg.image_size, cfg.image_size,
+                                cfg.num_channels)).astype(np.float32)
+    labels = rng.integers(0, cfg.num_classes, VIT_BATCH)
+    runs = {"fused": _vit_run(cfg, images, labels, True),
+            "split": _vit_run(cfg, images, labels, False)}
+    first = [runs[k]["losses"][0] for k in ("fused", "split")]
+    if first[0] != first[1]:
+        raise AssertionError(f"ViT first losses differ: {first}")
+    print(f"first losses bit-equal: {first[0]!r}; split step "
+          f"{runs['split']['step_ms'] / runs['fused']['step_ms']:.3f}x the "
+          f"fused step")
+    runs["grads"] = vit_grads_check(cfg, images, labels)
+    runs["attention"] = _vit_attn_times()
+    return runs
+
+
+# Limit on each parameter's gradient of the small ViT, card (kernels)
+# against CPU (twins), its error's norm over its norm: on an H100 the
+# readings were 3.1e-3 to 1.16e-2 under either backward.
+VIT_XDEV_GRAD_TOL = 5e-2
+
+
+def phase_cross_device_vit():
+    import math
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch._device import tree_leaves, tree_map
+    from ray_tpu_torch.models.vit import ViTConfig, init_params, loss_fn
+    from ray_tpu_torch.ops import attention as att
+    from ray_tpu_torch.train import adamw_lowmem, make_vit_train_step
+
+    _phase("cross-device: bf16 ViT trainer, CUDA kernels vs CPU plain twins,"
+           " fused and split backward")
+    # head_dim 64, 65 tokens (64 patches + the class token).
+    cfg = ViTConfig(image_size=32, patch_size=4, hidden_size=128,
+                    intermediate_size=256, num_layers=2, num_heads=2,
+                    num_classes=10, dtype="bfloat16")
+    params = init_params(cfg, generator=9, device="cpu")
+    rng = np.random.default_rng(SEED + 8)
+    images = rng.uniform(0, 1, (8, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, cfg.num_classes, 8)
+    # Tolerances (bf16 end to end; matmul outputs round apart where the two
+    # devices sum in other orders): losses within 1e-2 relative; each
+    # parameter's gradient from one forward + backward, its error's norm
+    # over its norm, within VIT_XDEV_GRAD_TOL.
+    names = list(_leaf_names(params))
+    for fused in (True, False):
+        kern = att.flash_bwd_cuda if fused else att.flash_bwd_dq_cuda
+        before = kern.launches
+        losses, grads = {}, {}
+        with backward_choice(fused):
+            for dev in ("cuda", "cpu"):
+                leaves = tree_map(
+                    lambda t: t.to(dev).clone().requires_grad_(), params)
+                grads[dev] = [g.cpu() for g in _loss_grads(
+                    lambda: loss_fn(cfg, leaves,
+                                    torch.from_numpy(images).to(dev),
+                                    torch.from_numpy(labels).to(dev)),
+                    tree_leaves(leaves))[1]]
+                step, init, shard = make_vit_train_step(
+                    cfg, optimizer=adamw_lowmem(1e-3, weight_decay=0.1),
+                    device=dev)
+                state = init(params)
+                losses[dev] = [float(step(state, shard(images),
+                                          shard(labels))[1]["loss"])
+                               for _ in range(3)]
+        if kern.launches - before != 4 * cfg.num_layers:
+            raise AssertionError(f"the card's ViT loss and trainer launched "
+                                 f"{kern.launches - before} backward kernels,"
+                                 f" want {4 * cfg.num_layers}")
+        for a, b in zip(losses["cuda"], losses["cpu"]):
+            if not (math.isfinite(a) and abs(a - b) <= 1e-2 * abs(b)):
+                raise AssertionError(f"ViT loss trajectories differ: "
+                                     f"{losses}")
+        errs = _grad_errs(names, grads["cuda"], grads["cpu"])
+        print(f"{'fused' if fused else 'split'} backward: losses cuda "
+              f"{['%.5f' % x for x in losses['cuda']]} vs cpu "
+              f"{['%.5f' % x for x in losses['cpu']]} (within 1e-2 "
+              f"relative); each parameter's gradient, card vs CPU, error "
+              f"over its norm (limit {VIT_XDEV_GRAD_TOL}): " + ", ".join(
+                  f"{n} {e:.3e}" for n, e in errs.items()))
+        bad = {n: e for n, e in errs.items() if not e < VIT_XDEV_GRAD_TOL}
+        if bad:
+            raise AssertionError(f"ViT gradients, card vs CPU: {bad}")
 
 
 def phase_cross_device_train():
@@ -1701,11 +2408,14 @@ def main() -> int:
     phase_build()
     max_err, times = phase_kernel()
     flash = phase_flash()
+    split = phase_split()
     chunk = phase_chunk()
     ring = phase_ring_schedule()
     eng = phase_engine(times[0]["host_us"])
     train = phase_train()
+    train_split = phase_train_split(train)
     cp = phase_cp_train()
+    vit = phase_vit()
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -1717,6 +2427,7 @@ def main() -> int:
         ranks = None
     phase_cross_device()
     phase_cross_device_train()
+    phase_cross_device_vit()
     main_shape = times[0]  # rows 8: the decode step's shape
     kernels = [{
         "name": "rms_norm", "route": "cuda",
@@ -1726,7 +2437,13 @@ def main() -> int:
         "launches": train["launches"]["rms_norm"],
         "launches_by_path": {"engine": eng["launches"],
                              "train": train["launches"]["rms_norm"],
-                             "cp_train": cp["launches"]["rms_norm"]},
+                             "train_split":
+                                 train_split["launches"]["rms_norm"],
+                             "cp_train": cp["launches"]["rms_norm"],
+                             "vit_fused":
+                                 vit["fused"]["launches"]["rms_norm"],
+                             "vit_split":
+                                 vit["split"]["launches"]["rms_norm"]},
         "max_abs_err": max_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -1748,13 +2465,47 @@ def main() -> int:
             "source": f"ray_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "tpu": f"ray_tpu/ops/attention.py:{tpu}",
             "checked": True, "launches": train["launches"][name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "launches_by_path": {
+                "train": train["launches"][name],
+                "train_split": train_split["launches"][name],
+                "vit_fused": vit["fused"]["launches"][name],
+                "vit_split": vit["split"]["launches"][name]},
+            "max_abs_err": max(row["max_abs_err"],
+                               vit["attention"][name]["max_abs_err"]),
+            "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **({"library_bwd_ms": row["library_bwd_ms"]}
                if "library_bwd_ms" in row else {}),
             "shape": [4, 32, 8, 2048, 64], "dtype": "bfloat16",
-            "causal": True, "tflops": row["tflops"]})
+            "causal": True, "tflops": row["tflops"],
+            "vit_shape": vit["attention"][name]})
+    for name, replaces, tpu in (
+            ("flash_bwd_dq", "ray_tpu/ops/attention.py:387",
+             "_flash_bwd_dq_kernel"),
+            ("flash_bwd_dkv", "ray_tpu/ops/attention.py:431",
+             "_flash_bwd_dkv_kernel")):
+        row = split[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "tpu": f"ray_tpu/ops/attention.py:{tpu}",
+            "checked": True, "launches": train_split["launches"][name],
+            "launches_by_path": {"train_split": train_split["launches"][name],
+                                 "vit_split": vit["split"]["launches"][name]},
+            "max_abs_err": max(row["max_abs_err"],
+                               vit["attention"][name]["max_abs_err"]),
+            "max_rel_err": row["max_rel_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_compares": "scaled_dot_product_attention's backward "
+                                "alone against split_total_ms (K4, K5 "
+                                "and the fold through their wrapper)",
+            "fold_ms": row["fold_ms"], "split_total_ms": row["split_total_ms"],
+            "k3_ms": row["k3_ms"], "bit_identical": row["bit_identical"],
+            "shape": [4, 32, 8, 2048, 64], "dtype": "bfloat16",
+            "causal": True, "tflops": row["tflops"],
+            "vit_shape": vit["attention"][name]})
     for name, replaces, tpu in (
             ("flash_chunk_fwd", "ray_tpu/ops/attention.py:735",
              "_flash_chunk_fwd_kernel"),
@@ -1777,9 +2528,10 @@ def main() -> int:
             "positions": "0..S-1, causal (the CP step's)",
             "tflops": row["tflops"], "chunk_4096": row["chunk_4096"]})
     summary = {k: v for k, v in eng.items() if k != "launches"}
+    vit_summary = {k: v for k, v in vit.items() if k != "attention"}
     print(json.dumps({"card": smi, "engine": summary, "train": train,
-                      "ring_schedule": ring, "cp_train": cp,
-                      "ranks": ranks}))
+                      "train_split": train_split, "ring_schedule": ring,
+                      "cp_train": cp, "vit": vit_summary, "ranks": ranks}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

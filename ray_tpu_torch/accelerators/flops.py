@@ -3,7 +3,7 @@
 The JAX package's table (ray_tpu/accelerators/flops.py) lists TPU
 generations only. This one lists the NVIDIA card the port runs on, from
 its data sheet (H100 SXM, dense, at the full 700 W power limit), and
-counts a Llama training step's FLOPs from its shapes.
+counts a Llama and a ViT training step's FLOPs from their shapes.
 """
 
 from __future__ import annotations
@@ -42,4 +42,23 @@ def llama_train_flops(cfg, batch: int, seq: int) -> float:
     dense = 6.0 * cfg.num_params() * batch * seq
     attn = 3.0 * cfg.num_layers * attention_flops(
         batch, cfg.num_heads, seq, cfg.head_dim, causal=True)
+    return dense + attn
+
+
+def vit_train_flops(cfg, batch: int) -> float:
+    """FLOPs of one ViT training step over ``batch`` images: 6 * the
+    matrix-product parameters * the tokens each one sees (forward and
+    backward): the patch embedding over the patches, the layers' q/k/v/o
+    and MLP weights over the patches and the class token, the head over the
+    class token alone; plus 3x each layer's non-causal attention forward.
+    Norm weights, the position table and the class token are not products
+    and not counted, nor is remat's recomputation (MFU convention)."""
+    h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    n = cfg.num_patches
+    patch_in = cfg.patch_size**2 * cfg.num_channels
+    dense = 6.0 * batch * (patch_in * h * n
+                           + L * (4 * h * h + 2 * h * i) * (n + 1)
+                           + h * cfg.num_classes)
+    attn = 3.0 * L * attention_flops(batch, cfg.num_heads, n + 1,
+                                     cfg.head_dim, causal=False)
     return dense + attn

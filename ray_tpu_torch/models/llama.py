@@ -42,9 +42,9 @@ from functools import partial
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import resolve_device, tree_map
+from ray_tpu_torch.models._common import ckpt, layer_params
 from ray_tpu_torch.ops.attention import blockwise_attention, flash_attention
 from ray_tpu_torch.ops.loss import fused_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
@@ -219,10 +219,6 @@ def _mlp(cfg: LlamaConfig, x, lp):
     return _mlp_rest(x, xn, gate, lp)
 
 
-def _ckpt(fn, *args):
-    return checkpoint(fn, *args, use_reentrant=False)
-
-
 def _layer(cfg: LlamaConfig, x, layer_params, cos, sin, attn_impl: str,
            sp_axis, policy: str = "none"):
     """One transformer block, x: [B, S, H]. ``policy`` is "none" (plain
@@ -234,13 +230,13 @@ def _layer(cfg: LlamaConfig, x, layer_params, cos, sin, attn_impl: str,
         o = _attention(cfg, q, k, v, attn_impl, sp_axis)
         x = _attn_out(cfg, x, o, lp["wo"])
         return _mlp(cfg, x, lp)
-    q, k, v = _ckpt(partial(_attn_inputs, cfg), x, lp, cos, sin)
+    q, k, v = ckpt(partial(_attn_inputs, cfg), x, lp, cos, sin)
     o = _attention(cfg, q, k, v, attn_impl, sp_axis)
-    x = _ckpt(partial(_attn_out, cfg), x, o, lp["wo"])
+    x = ckpt(partial(_attn_out, cfg), x, o, lp["wo"])
     if policy == "attn":
-        return _ckpt(partial(_mlp, cfg), x, lp)
-    xn, gate = _ckpt(partial(_mlp_norm_gate, cfg), x, lp)
-    return _ckpt(_mlp_rest, x, xn, gate, lp)
+        return ckpt(partial(_mlp, cfg), x, lp)
+    xn, gate = ckpt(partial(_mlp_norm_gate, cfg), x, lp)
+    return ckpt(_mlp_rest, x, xn, gate, lp)
 
 
 def normalize_remat(remat, num_layers: int):
@@ -297,15 +293,7 @@ def _remat_wrap(layer_fn, remat):
             f"remat policy {remat!r} (save every matmul output) is not "
             f"ported yet; use 'attn', 'attn+', 'full' or 'none'")
     plain = partial(layer_fn, policy="none")
-    return lambda x, lp: _ckpt(plain, x, lp)
-
-
-def _layer_params(params: dict) -> list[dict]:
-    """Per-layer views of the stacked ``[L, ...]`` leaves. One ``unbind``
-    per leaf, so the backward stacks the layer gradients once."""
-    names = list(params["layers"])
-    per_leaf = [params["layers"][n].unbind(0) for n in names]
-    return [dict(zip(names, leaves)) for leaves in zip(*per_leaf)]
+    return lambda x, lp: ckpt(plain, x, lp)
 
 
 def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
@@ -333,7 +321,7 @@ def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     remat = normalize_remat(remat, cfg.num_layers)
     runs = (_remat_runs(remat) if isinstance(remat, tuple)
             else [(remat, 0, cfg.num_layers)])
-    layers = _layer_params(params)
+    layers = layer_params(params)
     for policy, start, end in runs:
         layer_fn = _remat_wrap(base_fn, policy)
         for lp in layers[start:end]:

@@ -1,0 +1,182 @@
+"""ViT: the vision-transformer classifier family for the PyTorch port.
+
+Port of ray_tpu/models/vit.py: ``ViTConfig`` (same fields and presets),
+``init_params``, ``params_from_jax`` (the same stacked layout, so a JAX
+tree converts leaf by leaf with no transposes), ``patchify`` and
+``forward``/``loss_fn``. Patchify is a reshape plus a permute, then one
+matmul (what a stride-p convolution is, minus the convolution). Each layer
+is pre-norm: rms_norm (K1 on the card), q/k/v projections, non-causal
+``flash_attention`` (K2 forward; K3, or K4 + K5 when the attention
+module's ``FUSED_BWD`` is false, backward), the output projection, then
+rms_norm, ``w_up``, gelu in its tanh form (``jax.nn.gelu``'s default;
+PyTorch's default is the exact erf form) and ``w_down``. The class token's
+final-norm row gives the f32 logits.
+
+Remat: False/"none" saves everything; True/"full" recomputes each layer
+in the backward (a ``torch.utils.checkpoint`` segment, K2 re-run
+included). The JAX package's name-based policies ("attn", "attn+",
+"dots", "dots+") save residuals that the ViT layer does not name apart
+from flash's; they raise ``NotImplementedError`` here.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import partial
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models._common import ckpt, layer_params
+from ray_tpu_torch.models.llama import params_from_jax
+from ray_tpu_torch.ops.attention import blockwise_attention, flash_attention
+from ray_tpu_torch.ops.norms import rms_norm
+
+__all__ = ["ViTConfig", "init_params", "params_from_jax", "patchify",
+           "forward", "loss_fn"]
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    image_size: int = 224
+    patch_size: int = 16
+    num_channels: int = 3
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    num_classes: int = 1000
+    norm_eps: float = 1e-6
+    dtype: str = "float32"
+
+    @staticmethod
+    def tiny() -> "ViTConfig":
+        return ViTConfig(image_size=16, patch_size=4, hidden_size=32,
+                         intermediate_size=64, num_layers=2, num_heads=2,
+                         num_classes=10)
+
+    @staticmethod
+    def base16() -> "ViTConfig":
+        return ViTConfig()  # ViT-B/16
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    def num_params(self) -> int:
+        h, i, L = self.hidden_size, self.intermediate_size, self.num_layers
+        patch_in = self.patch_size**2 * self.num_channels
+        per_layer = 4 * h * h + 2 * h * i + 2 * h
+        return (patch_in * h + (self.num_patches + 1) * h + h
+                + L * per_layer + h + h * self.num_classes)
+
+
+def init_params(cfg: ViTConfig,
+                generator: torch.Generator | int | None = None,
+                device: torch.device | str = "cuda") -> dict:
+    """Scaled-normal init with the layout and scales of the JAX
+    ``init_params``; layer params stacked on the leading axis.
+    ``generator`` is a ``torch.Generator`` on ``device`` or an int seed
+    (None = 0); parity tests convert a JAX tree instead."""
+    dev = resolve_device(device)
+    if not isinstance(generator, torch.Generator):
+        seed = 0 if generator is None else int(generator)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+    h, L = cfg.hidden_size, cfg.num_layers
+    i = cfg.intermediate_size
+    patch_in = cfg.patch_size**2 * cfg.num_channels
+    dt = cfg.torch_dtype
+
+    def normal(*shape, scale=None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+        t = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return t.mul_(scale).to(dt)
+
+    return {
+        "patch_embed": normal(patch_in, h),
+        "pos_embed": normal(cfg.num_patches + 1, h, scale=0.02),
+        "cls_token": torch.zeros((h,), dtype=dt, device=dev),
+        "final_norm": torch.ones((h,), dtype=dt, device=dev),
+        "head": normal(h, cfg.num_classes, scale=1.0 / math.sqrt(h)),
+        "layers": {
+            "wq": normal(L, h, h),
+            "wk": normal(L, h, h),
+            "wv": normal(L, h, h),
+            "wo": normal(L, h, h, scale=1.0 / math.sqrt(h * 2 * L)),
+            "w_up": normal(L, h, i),
+            "w_down": normal(L, i, h, scale=1.0 / math.sqrt(i * 2 * L)),
+            "attn_norm": torch.ones((L, h), dtype=dt, device=dev),
+            "mlp_norm": torch.ones((L, h), dtype=dt, device=dev),
+        },
+    }
+
+
+def patchify(cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, N, p*p*C] patch rows (reshape and permute)."""
+    b, hh, ww, c = images.shape
+    p = cfg.patch_size
+    x = images.reshape(b, hh // p, p, ww // p, p, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (hh // p) * (ww // p), p * p * c)
+
+
+def _layer(cfg: ViTConfig, x, lp, attn_impl: str):
+    b, s, _ = x.shape
+    nh, hd = cfg.num_heads, cfg.head_dim
+    xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = ((xn @ lp[w]).view(b, s, nh, hd).transpose(1, 2)
+               for w in ("wq", "wk", "wv"))
+    if attn_impl == "flash":
+        attn = flash_attention(q, k, v, False)  # bidirectional
+    else:
+        attn = blockwise_attention(q, k, v, causal=False)
+    x = x + attn.transpose(1, 2).reshape(b, s, nh * hd) @ lp["wo"]
+    xn = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + F.gelu(xn @ lp["w_up"], approximate="tanh") @ lp["w_down"]
+
+
+def _remat_wrap(layer_fn, remat):
+    if remat in (False, "none"):
+        return layer_fn
+    if remat in ("attn", "attn+", "dots", "dots+"):
+        raise NotImplementedError(
+            f"remat policy {remat!r} (name-based residual saving) is not "
+            f"ported for ViT; use 'none' or 'full'")
+    return partial(ckpt, layer_fn)  # True / "full"
+
+
+def forward(cfg: ViTConfig, params: dict, images: torch.Tensor,
+            attn_impl: str = "flash", remat: bool | str = False
+            ) -> torch.Tensor:
+    """[B, H, W, C] images (float in [0, 1]) -> [B, num_classes] f32
+    logits. ``attn_impl`` "flash" runs ``flash_attention``, anything else
+    ``blockwise_attention`` (JAX's ``use_pallas=False``)."""
+    x = patchify(cfg, images.to(cfg.torch_dtype)) @ params["patch_embed"]
+    cls = params["cls_token"].expand(x.shape[0], 1, cfg.hidden_size)
+    x = torch.cat([cls, x], dim=1) + params["pos_embed"][None]
+    layer_fn = _remat_wrap(partial(_layer, cfg, attn_impl=attn_impl), remat)
+    for lp in layer_params(params):
+        x = layer_fn(x, lp)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x[:, 0, :] @ params["head"]).float()  # the class token
+
+
+def loss_fn(cfg: ViTConfig, params: dict, images: torch.Tensor,
+            labels: torch.Tensor, attn_impl: str = "flash",
+            remat: bool | str = False) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` [B] (f32 log_softmax)."""
+    logits = forward(cfg, params, images, attn_impl=attn_impl, remat=remat)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels.long()[:, None]).mean()

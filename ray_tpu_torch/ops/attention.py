@@ -1,6 +1,7 @@
 """Attention: plain references, and flash attention with hand-written CUDA
-forward (csrc/flash_fwd.cu) and fused backward (csrc/flash_bwd.cu) kernels,
-and their chunk variants for ring attention (csrc/flash_chunk_fwd.cu,
+forward (csrc/flash_fwd.cu), fused backward (csrc/flash_bwd.cu) and split
+backward (csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu) kernels, and their
+chunk variants for ring attention (csrc/flash_chunk_fwd.cu,
 csrc/flash_chunk_bwd.cu).
 
 Port of ray_tpu/ops/attention.py, single device:
@@ -16,6 +17,19 @@ Port of ray_tpu/ops/attention.py, single device:
   ``flash_bwd_plain``, which repeat the kernels' arithmetic, roundings
   included. There is no fallback: on a CUDA tensor the kernels launch or
   the call raises;
+- the backward's switch ``FUSED_BWD``, read once at import from
+  ``RTPU_FLASH_FUSED_BWD`` (default "1"; "0" turns it off) and at call
+  time by the backward, as the JAX package's is. True: K3, one kernel of
+  five products per tile pair, whose dq is summed into an f32 buffer by
+  atomics in no fixed order, so two runs on the same inputs differ in
+  dq's last bits. False: the split backward, K4 (dq, each q tile's rows
+  written once from registers) then K5 (dk/dv per q head, each kv tile's
+  rows written once), then the GQA fold in the wrapper (the rep q heads
+  summed in f32, rounded once more: the TPU contract). Seven products per
+  tile pair, and the same bits on every run. Its twins are
+  ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain`` and
+  ``flash_bwd_split_plain``; unlike K3 they apply the softmax scale to ds
+  in f32 before its rounding instead of folding it into the operands;
 - ``flash_attention_chunk(q, k, v, qpos, kpos, causal, sm_scale)``: local
   q against one visiting K/V chunk with global int32 positions, returning
   (out f32, lse f32), both differentiable. On CUDA tensors K6 (forward)
@@ -33,8 +47,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
+
+# The backward's switch: K3 (fused) when true, K4 + K5 + fold (split) when
+# false; see the module docstring. Tests flip it in a try/finally.
+FUSED_BWD = os.environ.get("RTPU_FLASH_FUSED_BWD", "1") != "0"
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # base-2 softmax, as the TPU kernels run it
@@ -220,6 +239,87 @@ def flash_chunk_bwd_plain(q, k, v, qpos, kpos, out, lse, g_out, g_lse,
                      g_lse.float() - delta, causal, sm_scale)
 
 
+def _twin_split(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
+                dq_pass: bool):
+    """The split kernels' arithmetic (K4 when ``dq_pass``, else K5). s is
+    recomputed from the forward's rounded qs; p = exp2(s - lse*log2e); ds =
+    p*(dp - delta)*scale in f32, then rounded to the input dtype (K3
+    folds the scale into the operands instead); dq = ds.k and dk = ds^T.q
+    with k and q unscaled, dv = bf16(p)^T.dO. dk/dv come out per q head,
+    [B, H, Skv, D]. ``do`` is dO in the input dtype, delta f32."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    dt = q.dtype
+    kr = _repeat_kv(k, h).float()
+    vr = _repeat_kv(v, h).float()
+    lse2 = lse.float() * LOG2E
+    qpos, kpos = _arange(sq, q.device), _arange(skv, q.device)
+    if dq_pass:
+        dq = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    else:
+        dk = torch.zeros((b, h, skv, d), dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+    for m0 in range(0, sq, _TWIN_Q_BLOCK):
+        rows = slice(m0, m0 + _TWIN_Q_BLOCK)
+        qf = q[:, :, rows].float()
+        qs = (qf * (sm_scale * LOG2E)).to(dt).float()
+        s = _mask(qs @ kr.transpose(-1, -2), qpos[rows], kpos, causal)
+        p = torch.exp2(s - lse2[:, :, rows, None])
+        dof = do[:, :, rows].float()
+        dp = dof @ vr.transpose(-1, -2)
+        ds = (p * (dp - delta[:, :, rows, None]) * sm_scale).to(dt).float()
+        if dq_pass:
+            dq[:, :, rows] = ds @ kr
+        else:
+            dv += p.to(dt).float().transpose(-1, -2) @ dof
+            dk += ds.transpose(-1, -2) @ qf
+    return dq.to(dt) if dq_pass else (dk.to(dt), dv.to(dt))
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool,
+                       sm_scale: float):
+    """The K4 kernel's arithmetic in plain PyTorch: dq [B,H,Sq,D] in q's
+    dtype; see ``_twin_split``."""
+    return _twin_split(q, k, v, do, lse, delta, causal, sm_scale, True)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
+                        sm_scale: float):
+    """The K5 kernel's arithmetic in plain PyTorch: (dk, dv) per q head,
+    [B,H,Skv,D] in q's dtype; see ``_twin_split``."""
+    return _twin_split(q, k, v, do, lse, delta, causal, sm_scale, False)
+
+
+def fold_heads(t: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
+    """Per-q-head dk or dv [B, H, S, D] -> [B, Hkv, S, D]: each kv head's
+    rep q heads summed in f32 and rounded once to t's dtype (the JAX
+    wrapper's fold, ray_tpu/ops/attention.py:1063-1069)."""
+    b, h, s, d = t.shape
+    if h == num_kv_heads:
+        return t
+    return t.float().reshape(b, num_kv_heads, h // num_kv_heads, s, d) \
+        .sum(2).to(t.dtype)
+
+
+def _split_bwd(dq_fn, dkv_fn, q, k, v, out, lse, g, causal, sm_scale):
+    """dO = g in q's dtype, delta = rowsum(dO*O) in f32 (as K3's wrapper),
+    then the dq pass, the dk/dv pass and the fold."""
+    do = g.to(q.dtype)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = dq_fn(q, k, v, do, lse, delta, causal, sm_scale)
+    dk, dv = dkv_fn(q, k, v, do, lse, delta, causal, sm_scale)
+    hkv = k.shape[1]
+    return dq, fold_heads(dk, hkv), fold_heads(dv, hkv)
+
+
+def flash_bwd_split_plain(q, k, v, out, lse, g, causal: bool,
+                          sm_scale: float):
+    """The split backward in plain PyTorch: (dq, dk, dv) from K4's and
+    K5's twins and the fold, dk/dv [B,Hkv,Skv,D]."""
+    return _split_bwd(flash_bwd_dq_plain, flash_bwd_dkv_plain, q, k, v, out,
+                      lse, g, causal, sm_scale)
+
+
 # --------------------------------------------------------------------------
 # CUDA launches
 # --------------------------------------------------------------------------
@@ -231,6 +331,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     "flash_bwd": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
+    "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _P],
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
     "flash_chunk_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
     "flash_chunk_bwd": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P],
 }
@@ -340,6 +442,67 @@ def flash_bwd_cuda(q, k, v, out, lse, g, causal: bool, sm_scale: float):
 flash_bwd_cuda.launches = 0  # K3 launches since the last reset
 
 
+def _split_inputs(q, k, v, do, lse, delta):
+    _check_cuda(q, k, v)
+    return (_dense(q), _dense(k), _dense(v), _dense(do.to(q.dtype)),
+            _dense(lse.float()), _dense(delta.float()))
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
+                      sm_scale: float):
+    """Launch K4: dq [B,H,Sq,D] bf16 from dO, lse and delta = rowsum(dO*O)
+    (f32, [B,H,Sq]); each q tile's rows are written once, no atomics."""
+    q, k, v, do, lse, delta = _split_inputs(q, k, v, do, lse, delta)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    lib = _library("flash_bwd_dq")
+    with torch.cuda.device(q.device):
+        err = lib.rtt_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, hkv, sq,
+            skv, d, sm_scale, sm_scale * LOG2E, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "flash_bwd_dq", err, q.shape)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0  # K4 launches since the last reset
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
+                       sm_scale: float):
+    """Launch K5: (dk, dv) per q head, [B,H,Skv,D] bf16 (``fold_heads``
+    folds them to the kv heads); each kv tile's rows are written once."""
+    q, k, v, do, lse, delta = _split_inputs(q, k, v, do, lse, delta)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dk = torch.empty((b, h, skv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lib = _library("flash_bwd_dkv")
+    with torch.cuda.device(q.device):
+        err = lib.rtt_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, hkv, sq, skv, d, sm_scale, sm_scale * LOG2E, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "flash_bwd_dkv", err, q.shape)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0  # K5 launches since the last reset
+
+
+def flash_bwd_split_cuda(q, k, v, out, lse, g, causal: bool,
+                         sm_scale: float):
+    """The split backward on the card: K4, K5, then the fold; (dq, dk, dv)
+    bf16, dk/dv [B,Hkv,Skv,D]. The same bits on every run."""
+    return _split_bwd(flash_bwd_dq_cuda, flash_bwd_dkv_cuda, q, k, v, out,
+                      lse, g, causal, sm_scale)
+
+
 def flash_chunk_fwd_cuda(q, k, v, qpos, kpos, causal: bool,
                          sm_scale: float):
     """Launch K6: (out f32 [B,H,Sq,D], lse f32 [B,H,Sq]) of q against one
@@ -429,16 +592,21 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_bwd_plain if q.device.type == "cpu" else flash_bwd_cuda
+        cpu = q.device.type == "cpu"
+        if FUSED_BWD:
+            bwd = flash_bwd_plain if cpu else flash_bwd_cuda
+        else:
+            bwd = flash_bwd_split_plain if cpu else flash_bwd_split_cuda
         dq, dk, dv = bwd(q, k, v, out, lse, g, ctx.causal, ctx.sm_scale)
         return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True,
                     sm_scale: float | None = None) -> torch.Tensor:
-    """Flash attention, differentiable: K2 forward and K3 backward on CUDA
-    tensors, their plain twins on CPU tensors. The saved residuals are (q,
-    k, v, out, lse), so the backward never re-runs the forward."""
+    """Flash attention, differentiable: K2 forward and K3 backward (K4 +
+    K5 + fold when ``FUSED_BWD`` is false) on CUDA tensors, their plain
+    twins on CPU tensors. The saved residuals are (q, k, v, out, lse), so
+    the backward never re-runs the forward."""
     _check_shapes(q, k, v)
     return _FlashAttention.apply(q, k, v, causal, _scale(q, sm_scale))
 

@@ -1,6 +1,7 @@
 """Train-step factory: loss + init + optimizer -> one training step.
 
-Port of the single-device subset of ray_tpu/train/spmd.py. The JAX factory
+Port of the single-device subset of ray_tpu/train/spmd.py (the generic
+factory and its Llama and ViT specializations). The JAX factory
 jits one step over a mesh and donates the state; here the step runs
 eagerly on one device and updates the state in place (params, moments and
 the step counter are overwritten, as donated JAX buffers are). The
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device, tree_leaves, tree_map
+from ray_tpu_torch.models import vit
 from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
 from ray_tpu_torch.train.optim import (
     GradientTransformation,
@@ -125,5 +127,27 @@ def make_llama_train_step(
         loss=lambda p, tokens, targets: loss_fn(
             cfg, p, tokens, targets, attn_impl=attn_impl, remat=remat),
         init_fn=partial(init_params, cfg, device=dev),
+        optimizer=optimizer, seed=seed, device=dev, **step_options,
+    )
+
+
+def make_vit_train_step(
+    cfg: vit.ViTConfig,
+    optimizer: GradientTransformation | None = None,
+    attn_impl: str = "flash",
+    remat: bool | str = False,
+    seed: int = 0,
+    device: torch.device | str = "cuda",
+    **step_options,
+) -> tuple[Callable, Callable, Callable]:
+    """ViT specialization of :func:`make_train_step`: the step takes
+    ``(state, images, labels)``, images [B, H, W, C] floats in [0, 1] and
+    labels [B] ints. ``step_options`` forwards the multi-device options
+    (which raise)."""
+    dev = resolve_device(device)
+    return make_train_step(
+        loss=lambda p, images, labels: vit.loss_fn(
+            cfg, p, images, labels, attn_impl=attn_impl, remat=remat),
+        init_fn=partial(vit.init_params, cfg, device=dev),
         optimizer=optimizer, seed=seed, device=dev, **step_options,
     )

@@ -14,7 +14,9 @@ CPU. Flash kernels against their plain twins (bf16): out, dq, dk, dv
 within 1e-2 of the largest value (one bf16 ulp where sums in another
 order round a value apart; dq's f32 atomics add in no fixed order), lse
 within 2e-3 (f32 sums of the same bf16 p in another order); the chunk
-kernels K6/K7 alike (K6's out is f32). The ring's schedule on the card
+kernels K6/K7 alike (K6's out is f32), and the split backward K4/K5
+(dq, per-head dk/dv, and folded), which must also repeat bit for bit (no
+atomics). The ring's schedule on the card
 against K2/K3 on the whole sequence: 3e-2 of the largest value (the
 tolerance of tests/test_ops.py's ring checks: the ring rounds its f32
 output to bf16 once, the chunks' p roundings differ from one pass's).
@@ -405,3 +407,101 @@ def test_one_rank_nccl_cp_loss_matches_no_sp_on_card(cuda_device):
     finally:
         dist.destroy_process_group()
     assert abs(cp.item() - plain.item()) <= 1e-3 * abs(plain.item())
+
+
+# K4/K5 (the split backward) against their twins: causal/non-causal, GQA
+# rep 1/4, head_dim 64/128, a 256 length, the ViT-B/16 token count (197)
+# and a ragged 1000. K4's dq and K5's per-head dk/dv, then the folded
+# split backward, within 1e-2 of the largest value (one bf16 ulp where
+# sums in another order round a value apart).
+SPLIT_CASES = [(causal, rep, d, s) for causal in (True, False)
+               for rep in (1, 4) for d in (64, 128) for s in (256, 197, 1000)]
+
+
+def _split_residuals(q, k, v, do, causal, scale):
+    out, lse = att.flash_fwd_plain(q, k, v, causal, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    return out, lse, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,rep,d,s", SPLIT_CASES)
+def test_split_kernels_match_plain_twins_on_card(cuda_device, causal, rep,
+                                                 d, s):
+    q, k, v, do = _flash_inputs(cuda_device, rep, d, s, seed=rep * d + s + 1)
+    scale = d ** -0.5
+    out, lse, delta = _split_residuals(q, k, v, do, causal, scale)
+    before = (att.flash_bwd_dq_cuda.launches, att.flash_bwd_dkv_cuda.launches)
+    dq = att.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dk_h, dv_h = att.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
+                                        scale)
+    torch.cuda.synchronize()
+    assert (att.flash_bwd_dq_cuda.launches,
+            att.flash_bwd_dkv_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want_dq = att.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    want_dk, want_dv = att.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                               causal, scale)
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk_h, want_dk),
+                            ("dv", dv_h, want_dv)):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel(got, want) < 1e-2, name
+    grads = att.flash_bwd_split_cuda(q, k, v, out, lse, do, causal, scale)
+    plain = att.flash_bwd_split_plain(q, k, v, out, lse, do, causal, scale)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+        assert got.shape == want.shape, name
+        assert _rel(got, want) < 1e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_kernels_repeat_bit_for_bit_on_card(cuda_device, causal):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v, do = _flash_inputs(cuda_device, 4, 64, 1024, seed=21)
+    out, lse, delta = _split_residuals(q, k, v, do, causal, 0.125)
+    first = att.flash_bwd_split_cuda(q, k, v, out, lse, do, causal, 0.125)
+    again = att.flash_bwd_split_cuda(q, k, v, out, lse, do, causal, 0.125)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_split_kernels_at_the_vit_b16_shape_on_card(cuda_device):
+    """ViT-B/16's attention: 12 heads, 197 tokens, head_dim 64, non-causal
+    (16 images of the trainer's 128)."""
+    g = torch.Generator(device=cuda_device).manual_seed(197)
+    q, k, v, do = (torch.randn((16, 12, 197, 64), generator=g,
+                               device=cuda_device).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = 64 ** -0.5
+    out, lse = att.flash_fwd_cuda(q, k, v, False, scale)
+    grads = att.flash_bwd_split_cuda(q, k, v, out, lse, do, False, scale)
+    plain = att.flash_bwd_split_plain(q, k, v, out, lse, do, False, scale)
+    fused = att.flash_bwd_cuda(q, k, v, out, lse, do, False, scale)
+    torch.cuda.synchronize()
+    for name, got, want, k3 in zip(("dq", "dk", "dv"), grads, plain, fused):
+        assert _rel(got, want) < 1e-2, name
+        assert _rel(got, k3) < 2e-2, name  # K3 rounds at other points
+
+
+@pytest.mark.cuda
+def test_flash_attention_split_backward_launches_k4_k5_on_card(cuda_device):
+    q, k, v, do = _flash_inputs(cuda_device, 4, 64, 384, seed=6)
+    q, k, v = [t.requires_grad_() for t in (q, k, v)]
+    names = ("flash_fwd_cuda", "flash_bwd_cuda", "flash_bwd_dq_cuda",
+             "flash_bwd_dkv_cuda")
+    before = [getattr(att, n).launches for n in names]
+    old = att.FUSED_BWD
+    att.FUSED_BWD = False
+    try:
+        att.flash_attention(q, k, v, True).backward(do)
+    finally:
+        att.FUSED_BWD = old
+    torch.cuda.synchronize()
+    assert [getattr(att, n).launches - b for n, b in zip(names, before)] == \
+        [1, 0, 1, 1]
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    att.attention_reference(*ref, True).backward(do.float())
+    for got, r in zip((q.grad, k.grad, v.grad), ref):
+        assert got.shape == r.shape and _rel(got, r.grad) < 2e-2
