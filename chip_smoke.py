@@ -9,8 +9,9 @@ failure raises and the script exits non-zero without a result line:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel from ray_tpu_torch/csrc (rms_norm, flash_fwd,
    flash_bwd, flash_bwd_dq, flash_bwd_dkv, flash_chunk_fwd,
-   flash_chunk_bwd), one nvcc each, all at once, for sm_90a; ptxas
-   registers and each flash kernel's dynamic shared memory;
+   flash_chunk_bwd, flash_packed_fwd), one nvcc each, all at once, for
+   sm_90a; ptxas registers and spills by kernel instantiation and each
+   flash kernel's dynamic shared memory;
 3. kernel vs plain: rms_norm's kernel against rms_norm_reference over a
    grid of row counts, widths and dtypes, plus times at the engine's and
    the trainer's shapes (kernel, plain version, torch.nn.functional.
@@ -29,6 +30,17 @@ failure raises and the script exits non-zero without a result line:
    timed at the training shape, and the whole split backward through its
    wrapper beside K3's (both compute delta), the twins, the bound and
    scaled_dot_product_attention's backward alone;
+4c. kernel vs plain: the head-packed forward kernels packed_fwd_epi (K8),
+   packed_fwd_inl (K9) and packed_fwd (K10) of the profiling entry point
+   ray_tpu_torch.devbench.prof_flash_pack against their twins over
+   causal/non-causal, GQA rep 1/4, head_dim 64/128 and every (pack,
+   block_q, block_k) each takes (B1 H8 S512), and at the profiling shape
+   (B4 H32 Hkv8 S2048 D64 causal, the defaults pack 2, block_q 64,
+   block_k 64); each at block_k 64 against K2 on the same inputs
+   (bit-identity printed); times of the defaults beside the bound, the
+   twin, K2 and causal SDPA; then the entry point's check and its sweep
+   of K2 and the 25 packed variants (launch counts reset right before the
+   sweep and read right after);
 5. kernel vs plain: the ring's chunk kernels flash_chunk_fwd (K6) and
    flash_chunk_bwd (K7, nonzero lse cotangent) against their twins over
    causal/non-causal, GQA rep 1/4, head_dim 64/128 and six position cases
@@ -210,17 +222,35 @@ def phase_build():
     print(f"built {len(paths)} kernel librar{'y' if len(paths) == 1 else 'ies'}"
           f" in {dt:.2f} s with {build.nvcc_path()}: "
           + ", ".join(os.path.relpath(p) for p in paths))
+    spilled = []  # flash_packed_fwd's instantiations that spill
     for name, log in build.BUILD_LOGS.items():
+        entry = ""
         for line in log.splitlines():
-            if "Used" in line or "spill" in line and " 0 bytes spill" not in \
-                    line or "error" in line.lower():
-                print(f"  [{name}] {line.strip()}")
+            # ptxas names each entry before its report: keep the kernel and
+            # its integer and bool template arguments (flash_fwd_kernel<64>).
+            if "entry function" in line:
+                m = re.search(r"([A-Za-z_]+_kernel)I((?:L[ib]\d+E)+)E", line)
+                entry = (f"{m.group(1)}<"
+                         + ",".join(re.findall(r"\d+", m.group(2))) + "> "
+                         if m else "")
+            spill = "spill" in line and " 0 bytes spill" not in line
+            if "Used" in line or spill or "error" in line.lower():
+                print(f"  [{name}] {entry}{line.strip()}")
+            if spill and name == "flash_packed_fwd":
+                spilled.append(entry)
+    if spilled:
+        raise AssertionError(f"flash_packed_fwd spills registers in {spilled}")
+    from ray_tpu_torch.devbench.prof_flash_pack import MAX_ROWS, smem_bytes
     from ray_tpu_torch.ops.attention import kernel_smem_bytes
     for name in ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "flash_chunk_fwd", "flash_chunk_bwd"):
         print(f"  [{name}] dynamic shared memory per CTA: "
               + ", ".join(f"D={d}: {kernel_smem_bytes(name, d)} B"
                           for d in (64, 128)))
+    print("  [flash_packed_fwd] dynamic shared memory per CTA at its most "
+          "rows (256 at D 64, 128 at D 128): "
+          + ", ".join(f"D={d} block_k={bk}: {smem_bytes(d, bk, MAX_ROWS[d])}"
+                      " B" for d in (64, 128) for bk in (64, 128)))
 
 
 def phase_kernel():
@@ -898,6 +928,175 @@ def phase_split():
           f"({ms['split'] / lib_bwd_ms:.2f}x; k/v repeated to 32 heads "
           f"beforehand)")
     return rows
+
+
+# The head-packed forward kernels (ray_tpu_torch/devbench/prof_flash_pack.py):
+# kernel name on the kernels line -> (schedule, the TPU kernel's line).
+PACKED = {"packed_fwd_epi": ("epi", 59), "packed_fwd_inl": ("inl", 123),
+          "packed_fwd": ("masked", 262)}
+PACKED_CHECK = dict(b=1, h=8, s=512)  # the correctness cases' batch, heads, S
+
+
+def _packed_tiles(kind, rep, d):
+    """(pack, block_q, block_k) that kernel ``kind`` takes at GQA rep and
+    head_dim d."""
+    from ray_tpu_torch.devbench import prof_flash_pack as pfp
+
+    return [(p, bq, bk) for p in pfp.PACKS if rep % p == 0
+            for bq in pfp.BLOCKS for bk in pfp.BLOCKS
+            if p * bq <= pfp.MAX_ROWS[d] and (kind != "inl" or bq == bk)]
+
+
+def _packed_errs(got, want):
+    """(max abs err of out, relative to want's largest value, lse err)."""
+    (out, lse), (p_out, p_lse) = got, want
+    err = (out.float() - p_out.float()).abs().max().item()
+    return err, err / p_out.float().abs().max().item(), \
+        (lse - p_lse).abs().max().item()
+
+
+def phase_packed():
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.devbench import prof_flash_pack as pfp
+    from ray_tpu_torch.ops import attention as att
+
+    _phase("kernel vs plain: packed_fwd / packed_fwd_epi / packed_fwd_inl "
+           "(head-packed flash forward, the profiling entry point)")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    worst = {name: [0.0, 0.0, 0.0] for name in PACKED}  # abs, rel, lse
+    n = 0
+
+    def hold(name, got, want, label):
+        if not torch.isfinite(got[0].float()).all():
+            raise AssertionError(f"{name} out not finite at {label}")
+        errs = _packed_errs(got, want)
+        if not (errs[1] < FLASH_REL_TOL and errs[2] < FLASH_LSE_TOL):
+            raise AssertionError(
+                f"{name} disagrees with its twin at {label}: out max abs err "
+                f"{errs[0]:.3e} = {errs[1]:.3e} of the largest value (> "
+                f"{FLASH_REL_TOL}) or lse {errs[2]:.3e} (> {FLASH_LSE_TOL})")
+        worst[name] = [max(a, b) for a, b in zip(worst[name], errs)]
+        return errs
+
+    c = PACKED_CHECK
+    for causal in (True, False):
+        for rep in (1, 4):
+            for d in (64, 128):
+                q, k, v, _ = _flash_inputs(gen, c["b"], c["h"], c["h"] // rep,
+                                           c["s"], d)
+                scale = d ** -0.5
+                for name, (kind, _) in PACKED.items():
+                    fn, twin = pfp.KERNELS[kind]
+                    twins = {}
+                    for pack, bq, bk in _packed_tiles(kind, rep, d):
+                        if (bq, bk) not in twins:  # pack groups rows only
+                            twins[bq, bk] = twin(q, k, v, causal, scale, pack,
+                                                 bq, bk)
+                        hold(name, fn(q, k, v, causal, scale, pack, bq, bk),
+                             twins[bq, bk], f"causal={causal} rep={rep} "
+                             f"d={d} pack={pack} bq={bq} bk={bk}")
+                        n += 1
+    m = MAIN_ATTN
+    q, k, v, _ = _flash_inputs(gen, m["b"], m["h"], m["hkv"], m["s"], m["d"])
+    scale = m["d"] ** -0.5
+    main_errs, plain = {}, {}
+    for name, (kind, _) in PACKED.items():
+        fn, twin = pfp.KERNELS[kind]
+        plain[name] = twin(q, k, v, True, scale)
+        main_errs[name] = hold(name, fn(q, k, v, True, scale), plain[name],
+                               "the profiling shape")
+    print(f"packed kernels == plain twins over {n} cases (causal/non-causal, "
+          f"rep 1 and 4, D 64/128, every pack x (block_q, block_k) each "
+          f"takes, B1 H8 S512) + the profiling shape (B4 H32 Hkv8 S2048 D64 "
+          f"causal, the defaults pack 2 block_q 64 block_k 64); max abs err "
+          + ", ".join(f"{k_} {w[0]:.3e} (= {w[1]:.3e} of the largest value), "
+                      f"lse {w[2]:.3e}" for k_, w in worst.items())
+          + f"; at the profiling shape " + ", ".join(
+              f"{k_} {e[0]:.3e} / lse {e[2]:.3e}" for k_, e in
+              main_errs.items())
+          + f" (tolerance {FLASH_REL_TOL} of the largest value, lse "
+          f"{FLASH_LSE_TOL})")
+    if not all(torch.equal(o, plain["packed_fwd"][0])
+               and torch.equal(l, plain["packed_fwd"][1])
+               for o, l in plain.values()):
+        raise AssertionError("the three twins differ at the profiling shape")
+
+    # Against K2 at block_k 64, on the same inputs: within the flash
+    # tolerance, and whether bit-identical (same arithmetic, same tiles).
+    k2 = att.flash_fwd_cuda(q, k, v, True, scale)
+    same = {}
+    for name, (kind, _) in PACKED.items():
+        fn = pfp.KERNELS[kind][0]
+        for pack, bq, bk in _packed_tiles(kind, m["h"] // m["hkv"],
+                                          m["d"]):
+            if bk != 64:
+                continue
+            got = fn(q, k, v, True, scale, pack, bq, bk)
+            torch.cuda.synchronize()
+            errs = _packed_errs(got, k2)
+            if not (errs[1] < FLASH_REL_TOL and errs[2] < FLASH_LSE_TOL):
+                raise AssertionError(f"{name} pack={pack} bq={bq} disagrees "
+                                     f"with K2: {errs}")
+            same[f"{name} pack{pack}_bq{bq}_bk64"] = (
+                torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1]))
+    print(f"against K2 (flash_fwd_cuda) at block_k 64, the profiling shape: "
+          f"within tolerance; bit-identical: "
+          + ", ".join(f"{k_} {v_}" for k_, v_ in same.items()))
+
+    kr, vr = att._repeat_kv(k, m["h"]), att._repeat_kv(v, m["h"])
+    k2_ms = events_ms(lambda: att.flash_fwd_cuda(q, k, v, True, scale), 20)
+    lib_ms = events_ms(lambda: F.scaled_dot_product_attention(
+        q, kr, vr, is_causal=True), 20)
+    bound, by, flops, nbytes = flash_bounds(**m)["flash_fwd"]
+    rows = {}
+    for name, (kind, _) in PACKED.items():
+        fn, twin = pfp.KERNELS[kind]
+        ms = events_ms(lambda: fn(q, k, v, True, scale), 20)
+        plain_ms = events_ms(lambda: twin(q, k, v, True, scale), 2)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound, "bound_by": by, "k2_ms": k2_ms,
+                      "max_abs_err": worst[name][0],
+                      "max_rel_err": worst[name][1],
+                      "lse_err": worst[name][2],
+                      "tflops": flops / (ms * 1e-3) / 1e12,
+                      "k2_bit_identical": {k_: v_ for k_, v_ in same.items()
+                                           if k_.startswith(name + " ")}}
+        print(f"{name} (pack 2, block_q 64, block_k 64) B4 H32 Hkv8 S2048 "
+              f"D64 causal bf16: kernel {ms:.4f} ms ({flops / 1e9:.1f} GFLOP,"
+              f" {rows[name]['tflops']:.1f} TFLOP/s = {100 * bound / ms:.1f}% "
+              f"of the bound), plain twin {plain_ms:.4f} ms, K2 {k2_ms:.4f} ms"
+              f" ({ms / k2_ms:.2f}x K2), scaled_dot_product_attention forward"
+              f" {lib_ms:.4f} ms (k/v repeated to 32 heads beforehand; "
+              f"{ms / lib_ms:.2f}x), bound {bound:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB)")
+
+    # The entry point's own check, then its sweep: the main path of this
+    # slice, with the launch counts reset right before and read right after.
+    errs = pfp.check("cuda", print_fn=lambda line: None)
+    print(f"prof_flash_pack check (B1 H8 Hkv2 S1024 D64 causal against f32 "
+          f"attention_reference, limit {pfp.CHECK_TOL} of its largest value):"
+          f" {len(errs)} variants, max abs err {max(errs.values()):.3e}")
+    fns = {name: pfp.KERNELS[kind][0] for name, (kind, _) in PACKED.items()}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sweep = pfp.sweep()
+    launches = {name: fn.launches for name, fn in fns.items()}
+    best = min(sweep[1:], key=lambda r: r["ms"])
+    print(f"prof_flash_pack sweep: {len(sweep)} variants in "
+          f"{time.perf_counter() - t0:.1f} s; best {best['name']} "
+          f"{best['ms']:.4f} ms = {best['ms'] / sweep[0]['ms']:.2f}x prod "
+          f"(K2) {sweep[0]['ms']:.4f} ms; launches {launches}")
+    for name, (kind, _) in PACKED.items():
+        if not launches[name]:
+            raise AssertionError(f"the sweep launched {name} no time")
+        prefix = {"masked": "pack", "epi": "epi_", "inl": "inl_"}[kind]
+        rows[name].update(launches=launches[name], sweep_ms={
+            r["name"]: r["ms"] for r in sweep
+            if r["name"].startswith(prefix)})
+    return rows, sweep
 
 
 # K6/K7 position cases (Sq, Skv, qpos offset, kpos offset): the diagonal
@@ -2409,6 +2608,7 @@ def main() -> int:
     max_err, times = phase_kernel()
     flash = phase_flash()
     split = phase_split()
+    packed, sweep = phase_packed()
     chunk = phase_chunk()
     ring = phase_ring_schedule()
     eng = phase_engine(times[0]["host_us"])
@@ -2527,11 +2727,26 @@ def main() -> int:
             "shape": [1, 32, 8, CP_SEQ, CP_SEQ, 64], "dtype": "bfloat16",
             "positions": "0..S-1, causal (the CP step's)",
             "tflops": row["tflops"], "chunk_4096": row["chunk_4096"]})
+    for name, (sched, line) in PACKED.items():
+        row = packed[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_packed_fwd.cu",
+            "replaces": f"devbench/prof_flash_pack.py:{line}",
+            "tpu": "devbench/prof_flash_pack.py:_packed_fwd"
+                   + {"masked": "", "epi": "_epi", "inl": "_inl"}[sched]
+                   + "_kernel",
+            "checked": True, "launches": row["launches"],
+            "launches_by_path": {"prof_flash_pack": row["launches"]},
+            **{k_: v_ for k_, v_ in row.items() if k_ != "launches"},
+            "shape": [4, 32, 8, 2048, 64], "dtype": "bfloat16",
+            "causal": True, "variant": "pack2_bq64_bk64"})
     summary = {k: v for k, v in eng.items() if k != "launches"}
     vit_summary = {k: v for k, v in vit.items() if k != "attention"}
     print(json.dumps({"card": smi, "engine": summary, "train": train,
                       "train_split": train_split, "ring_schedule": ring,
-                      "cp_train": cp, "vit": vit_summary, "ranks": ranks}))
+                      "cp_train": cp, "vit": vit_summary,
+                      "prof_flash_pack": sweep, "ranks": ranks}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -138,34 +138,57 @@ def _mask(s, qpos, kpos, causal):
     return torch.where(ok, s, torch.full_like(s, NEG_INF))
 
 
-def flash_chunk_fwd_plain(q, k, v, qpos, kpos, causal: bool,
-                          sm_scale: float):
-    """The K6 kernel's arithmetic in plain PyTorch, which is K2's at given
-    positions: (out f32, lse f32 natural-log) of q against one K/V chunk,
-    masked by the global positions qpos [Sq] and kpos [Skv]. qs =
-    q*scale*log2e rounded to q's dtype once; s in f32; base-2 online
-    softmax over the kernels' 64-wide kv tiles; p rounded to v's dtype for
-    p.v and for the row sum l."""
+def fwd_twin_begin(q, k, v, sm_scale: float):
+    """The forward kernels' operands and starting state, in plain PyTorch:
+    (qs, k, v, state). qs = q*scale*log2e rounded to q's dtype once, held
+    in f32; k repeated to the q heads in f32, v repeated in its dtype;
+    state = (o, m, l) = (0, -1e30, 0) for every q row."""
     b, h, sq, d = q.shape
-    skv = k.shape[2]
-    k = _repeat_kv(k, h).float()
-    v = _repeat_kv(v, h)
     qs = (q.float() * (sm_scale * LOG2E)).to(q.dtype).float()
     o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    for n0 in range(0, skv, BLOCK_N):
-        cols = slice(n0, n0 + BLOCK_N)
-        s = _mask(qs @ k[:, :, cols].transpose(-1, -2), qpos, kpos[cols],
-                  causal)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp2(s - m_new[..., None]).to(v.dtype)
-        alpha = torch.exp2(m - m_new)
-        l = l * alpha + p.float().sum(dim=-1)
-        o = o * alpha[..., None] + p.float() @ v[:, :, cols].float()
-        m = m_new
+    return qs, _repeat_kv(k, h).float(), _repeat_kv(v, h), (o, m, l)
+
+
+def fwd_tile_step(state, qs, k, v, qpos=None, kpos=None):
+    """One kv tile of the forward kernels' base-2 online softmax, of any
+    width (the kernel's block_k), for the rows of qs: s = qs.k^T in f32,
+    -1e30 where kpos > qpos when positions are given; m' = max(m, rowmax
+    s), p = exp2(s - m') rounded to v's dtype for both p.v and the row sum
+    l, alpha = exp2(m - m'). A row that sees the whole tile, or (once m is
+    finite) none of it, comes out the same masked or not."""
+    o, m, l = state
+    s = qs @ k.transpose(-1, -2)
+    if qpos is not None:
+        s = _mask(s, qpos, kpos, True)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp2(s - m_new[..., None]).to(v.dtype)
+    alpha = torch.exp2(m - m_new)
+    l = l * alpha + p.float().sum(dim=-1)
+    o = o * alpha[..., None] + p.float() @ v.float()
+    return o, m_new, l
+
+
+def fwd_twin_end(state):
+    """(out f32, lse f32 natural-log) from the online-softmax state."""
+    o, m, l = state
     l = torch.clamp(l, min=1e-30)
     return o / l[..., None], (m + torch.log2(l)) * LN2
+
+
+def flash_chunk_fwd_plain(q, k, v, qpos, kpos, causal: bool,
+                          sm_scale: float):
+    """The K6 kernel's arithmetic in plain PyTorch, which is K2's at given
+    positions: (out f32, lse f32 natural-log) of q against one K/V chunk,
+    masked by the global positions qpos [Sq] and kpos [Skv]; the online
+    softmax of ``fwd_tile_step`` over the kernels' 64-wide kv tiles."""
+    qs, k, v, state = fwd_twin_begin(q, k, v, sm_scale)
+    for n0 in range(0, k.shape[2], BLOCK_N):
+        cols = slice(n0, n0 + BLOCK_N)
+        state = fwd_tile_step(state, qs, k[:, :, cols], v[:, :, cols],
+                              qpos if causal else None, kpos[cols])
+    return fwd_twin_end(state)
 
 
 def _twin_bwd(q, k, v, qpos, kpos, do, lse, rowbias, causal: bool,

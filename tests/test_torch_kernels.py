@@ -505,3 +505,72 @@ def test_flash_attention_split_backward_launches_k4_k5_on_card(cuda_device):
     att.attention_reference(*ref, True).backward(do.float())
     for got, r in zip((q.grad, k.grad, v.grad), ref):
         assert got.shape == r.shape and _rel(got, r.grad) < 2e-2
+
+
+# The head-packed forward kernels K8 (epi), K9 (inl) and K10 (masked):
+# (kernel, causal, rep, D, pack, block_q, block_k), every tile each takes
+# at some pack, at S 512 (B2 H8); at most 256 rows a CTA at D 64 (16
+# warps) and 128 at D 128.
+PACKED_CASES = [
+    (kind, causal, rep, d, pack, bq, bk)
+    for kind in ("masked", "epi", "inl") for causal in (True, False)
+    for d in (64, 128)
+    for rep, pack, bq, bk in ((1, 1, 64, 64), (4, 2, 128, 128),
+                              (4, 4, 64, 128), (4, 1, 128, 64),
+                              (4, 2, 64, 64), (4, 4, 64, 64),
+                              (4, 2, 64, 128), (4, 1, 128, 128))
+    if (kind != "inl" or bq == bk) and pack * bq <= (256 if d == 64 else 128)]
+
+
+def _packed(kind):
+    from ray_tpu_torch.devbench import prof_flash_pack as pfp
+
+    return pfp.KERNELS[kind]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,causal,rep,d,pack,bq,bk", PACKED_CASES)
+def test_packed_kernels_match_plain_twins_on_card(cuda_device, kind, causal,
+                                                  rep, d, pack, bq, bk):
+    q, k, v, _ = _flash_inputs(cuda_device, rep, d, 512, seed=rep * d + bk)
+    scale = d ** -0.5
+    fn, twin = _packed(kind)
+    before = fn.launches
+    out, lse = fn(q, k, v, causal, scale, pack, bq, bk)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    p_out, p_lse = twin(q, k, v, causal, scale, pack, bq, bk)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert _rel(out, p_out) < 1e-2
+    assert (lse - p_lse).abs().max().item() < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_kernels_agree_with_k2_at_block_k_64_on_card(cuda_device,
+                                                            causal):
+    """The same arithmetic over the same 64-wide kv tiles as K2: within
+    the flash tolerance (bit-identity is printed by chip_smoke.py)."""
+    q, k, v, _ = _flash_inputs(cuda_device, 4, 64, 1024, seed=64)
+    out, lse = att.flash_fwd_cuda(q, k, v, causal, 0.125)
+    for kind in ("masked", "epi", "inl"):
+        got, got_lse = _packed(kind)[0](q, k, v, causal, 0.125, 4, 64, 64)
+        torch.cuda.synchronize()
+        assert _rel(got, out) < 1e-2, kind
+        assert (got_lse - lse).abs().max().item() < 2e-3, kind
+
+
+@pytest.mark.cuda
+def test_packed_kernels_reject_what_they_do_not_take_on_card(cuda_device):
+    q, k, v, _ = _flash_inputs(cuda_device, 2, 64, 256, seed=3)  # rep 2
+    for kind in ("masked", "epi", "inl"):
+        fn = _packed(kind)[0]
+        before = fn.launches
+        with pytest.raises(ValueError, match="divide"):
+            fn(q, k, v, True, 0.125, 4, 64, 64)
+        with pytest.raises(ValueError, match="ragged"):
+            fn(q[:, :, :200], k[:, :, :200], v[:, :, :200], True, 0.125, 1,
+               64, 64)
+        with pytest.raises(TypeError, match="bfloat16"):
+            fn(q.float(), k.float(), v.float(), True, 0.125, 1, 64, 64)
+        assert fn.launches == before
