@@ -9,9 +9,10 @@ failure raises and the script exits non-zero without a result line:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel from ray_tpu_torch/csrc (rms_norm, flash_fwd,
    flash_bwd, flash_bwd_dq, flash_bwd_dkv, flash_chunk_fwd,
-   flash_chunk_bwd, flash_packed_fwd), one nvcc each, all at once, for
-   sm_90a; ptxas registers and spills by kernel instantiation and each
-   flash kernel's dynamic shared memory;
+   flash_chunk_bwd, chunk_tile_bounds, flash_packed_fwd), one nvcc each,
+   all at once, for sm_90a; ptxas registers and spills by kernel
+   instantiation (any spill of the packed, chunk or pre-pass kernels
+   fails) and each flash kernel's dynamic shared memory;
 3. kernel vs plain: rms_norm's kernel against rms_norm_reference over a
    grid of row counts, widths and dtypes, plus times at the engine's and
    the trainer's shapes (kernel, plain version, torch.nn.functional.
@@ -42,15 +43,21 @@ failure raises and the script exits non-zero without a result line:
    of K2 and the 25 packed variants (launch counts reset right before the
    sweep and read right after);
 5. kernel vs plain: the ring's chunk kernels flash_chunk_fwd (K6) and
-   flash_chunk_bwd (K7, nonzero lse cotangent) against their twins over
-   causal/non-causal, GQA rep 1/4, head_dim 64/128 and six position cases
-   (the diagonal chunk, a past, a future and an offset chunk, ragged
-   lengths partly and wholly masked), the sp = 4 ring's past, diagonal
-   and future chunks (B1 H32 Hkv8 Sq=Skv=4096 D64) and the CP step's own
-   shape (B1 H32 Hkv8 S16384 D64, positions 0..S-1, causal); then times at
-   the CP step's shape and at the ring's past chunk: kernel, twin, bound
-   (the FLOPs the mask keeps), and scaled_dot_product_attention (forward
-   for K6, its backward alone for K7) as the yardstick;
+   flash_chunk_bwd (K7, nonzero lse cotangent), and their tile-bounds
+   pre-pass chunk_tile_bounds, against their twins over causal/non-causal,
+   GQA rep 1/4, head_dim 64/128 and nine position cases (the diagonal
+   chunk, a past, a future and an offset chunk, ragged lengths partly and
+   wholly masked, and the tile classes' cases: rows that see no key beside
+   rows that do, shuffled positions, S 1024 causal; there rows that see no
+   key keep lse < -1e29 and K7's dk/dv repeat bit for bit), the sp = 4
+   ring's past, diagonal and future chunks (B1 H32 Hkv8 Sq=Skv=4096 D64)
+   and the CP step's own shape (B1 H32 Hkv8 S16384 D64, positions 0..S-1,
+   causal); then times at the CP step's shape and at the ring's past
+   chunk: kernel, twin, bound (the FLOPs the mask keeps), TFLOP/s over the
+   kept pairs and at the full-pass rate, the (q tile, kv tile) pairs each
+   kernel skips, masks and takes whole, and scaled_dot_product_attention
+   (forward for K6, its backward alone for K7) as the yardstick; the
+   pre-pass's time at the CP step's positions;
 6. the ring's schedule at sp = 4 in one process: B1 H32 Hkv8 S16384 D64
    bf16 in four chunks, every (virtual rank, step) pair through the flash
    ring step (16 K6 launches, 16 K7 through autograd), output and dq/dk/dv
@@ -222,7 +229,10 @@ def phase_build():
     print(f"built {len(paths)} kernel librar{'y' if len(paths) == 1 else 'ies'}"
           f" in {dt:.2f} s with {build.nvcc_path()}: "
           + ", ".join(os.path.relpath(p) for p in paths))
-    spilled = []  # flash_packed_fwd's instantiations that spill
+    # Libraries whose every instantiation must not spill.
+    no_spill = ("flash_packed_fwd", "flash_chunk_fwd", "flash_chunk_bwd",
+                "chunk_tile_bounds")
+    spilled = []
     for name, log in build.BUILD_LOGS.items():
         entry = ""
         for line in log.splitlines():
@@ -236,10 +246,10 @@ def phase_build():
             spill = "spill" in line and " 0 bytes spill" not in line
             if "Used" in line or spill or "error" in line.lower():
                 print(f"  [{name}] {entry}{line.strip()}")
-            if spill and name == "flash_packed_fwd":
-                spilled.append(entry)
+            if spill and name in no_spill:
+                spilled.append(f"{name}: {entry}")
     if spilled:
-        raise AssertionError(f"flash_packed_fwd spills registers in {spilled}")
+        raise AssertionError(f"kernels spill registers: {spilled}")
     from ray_tpu_torch.devbench.prof_flash_pack import MAX_ROWS, smem_bytes
     from ray_tpu_torch.ops.attention import kernel_smem_bytes
     for name in ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -1107,7 +1117,15 @@ CHUNK_POS = {"diagonal": (2048, 2048, 2048, 2048),
              "future": (2048, 2048, 0, 2048),
              "offset": (2048, 2048, 1000, 37),
              "ragged": (1000, 936, 300, 0),
-             "ragged future": (1000, 936, 0, 2000)}
+             "ragged future": (1000, 936, 0, 2000),
+             # The tile classes' cases: rows that see no key sharing tiles
+             # with rows that do; the diagonal's positions permuted (seeded),
+             # so a tile's min and max are not its ends; S 1024 causal, 16
+             # tiles a side with every class present.
+             "mixed": (2048, 2048, 0, 30),
+             "shuffled": (2048, 2048, 2048, 2048),
+             "long causal": (1024, 1024, 0, 0)}
+TILE_CASES = ("mixed", "shuffled", "long causal")
 # The JAX bench's 1.1B geometry (bench.py:292-297); max_seq_len per phase.
 BENCH_GEOMETRY = dict(vocab_size=32128, hidden_size=2048,
                       intermediate_size=8192, num_layers=16, num_heads=32,
@@ -1120,9 +1138,10 @@ CP_ATTN = dict(b=1, h=32, hkv=8, s=CP_SEQ, d=64)
 RING_CHUNK = dict(CP_ATTN, s=CP_SEQ // 4)
 
 
-def _chunk_inputs(gen, b, h, hkv, sq, skv, d, q0, k0):
-    """bf16 q/k/v, int32 global positions, and f32 cotangents of out and
-    lse (the lse one nonzero, as the ring's combine makes it)."""
+def _chunk_inputs(gen, b, h, hkv, sq, skv, d, q0, k0, shuffle=False):
+    """bf16 q/k/v, int32 global positions (each vector permuted, seeded,
+    with ``shuffle``), and f32 cotangents of out and lse (the lse one
+    nonzero, as the ring's combine makes it)."""
     import torch
 
     def rnd(*shape, dtype=torch.bfloat16):
@@ -1130,20 +1149,30 @@ def _chunk_inputs(gen, b, h, hkv, sq, skv, d, q0, k0):
 
     qpos = torch.arange(sq, dtype=torch.int32, device="cuda") + q0
     kpos = torch.arange(skv, dtype=torch.int32, device="cuda") + k0
+    if shuffle:
+        perm = torch.Generator().manual_seed(SEED + 11)
+        qpos = qpos[torch.randperm(sq, generator=perm).cuda()]
+        kpos = kpos[torch.randperm(skv, generator=perm).cuda()]
     return (rnd(b, h, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, d), qpos,
             kpos, rnd(b, h, sq, d, dtype=torch.float32),
             rnd(b, h, sq, dtype=torch.float32))
 
 
-def _chunk_check(inputs, causal, label, worst):
+def _chunk_check(inputs, causal, label, worst, strict=False):
     """K6 and K7 against their twins on one input (K7 on the twin's
-    residuals); raises past the tolerance, folds the max abs errors into
-    ``worst``."""
+    residuals), and the tile-bounds pre-pass against its twin; raises past
+    the tolerance, folds the max abs errors into ``worst``. ``strict``
+    also holds rows that see no key finite with lse < -1e29 and K7's dk/dv
+    to the same bits on a second launch."""
     import torch
     from ray_tpu_torch.ops import attention as att
 
     q, k, v, qpos, kpos, g_out, g_lse = inputs
     scale = q.shape[-1] ** -0.5
+    if not torch.equal(att.chunk_tile_bounds_cuda(qpos, kpos),
+                       att.chunk_tile_bounds_plain(qpos, kpos)):
+        raise AssertionError(f"chunk_tile_bounds disagrees with its twin at "
+                             f"{label}")
     out, lse = att.flash_chunk_fwd_cuda(q, k, v, qpos, kpos, causal, scale)
     p_out, p_lse = att.flash_chunk_fwd_plain(q, k, v, qpos, kpos, causal,
                                              scale)
@@ -1170,6 +1199,17 @@ def _chunk_check(inputs, causal, label, worst):
     if not errs["lse"] < FLASH_LSE_TOL:
         raise AssertionError(f"flash chunk lse disagrees at {label}: "
                              f"{errs['lse']:.3e} > {FLASH_LSE_TOL}")
+    if strict:
+        nokey = qpos < kpos.min() if causal else torch.zeros_like(qpos).bool()
+        if not (lse[..., nokey] < -1e29).all():
+            raise AssertionError(f"rows that see no key lost lse ~ -6.9e29 "
+                                 f"at {label}")
+        again = att.flash_chunk_bwd_cuda(q, k, v, qpos, kpos, p_out, p_lse,
+                                         g_out, g_lse, causal, scale)
+        if not (torch.equal(again[1], grads[1])
+                and torch.equal(again[2], grads[2])):
+            raise AssertionError(f"K7's dk/dv differ between two launches "
+                                 f"at {label}")
     worst["flash_chunk_fwd"] = max(worst["flash_chunk_fwd"], errs["out"],
                                    errs["lse"])
     worst["flash_chunk_bwd"] = max(worst["flash_chunk_bwd"], errs["dq"],
@@ -1183,10 +1223,10 @@ def _chunk_check(inputs, causal, label, worst):
 
 def chunk_bounds(b, h, hkv, qpos, kpos, d, causal):
     """(K6, K7) least times in ms with what bounds each: the FLOPs that
-    these positions need (4 and 10 * B*H*D per visible (q, k) pair; the
-    kernels make full passes, the bound counts only the pairs the mask
-    keeps) over the bf16 peak vs bytes (each input read once, each output
-    written once) over HBM bandwidth."""
+    these positions need (4 and 10 * B*H*D per visible (q, k) pair: the
+    pairs the mask keeps, kpos ascending) over the bf16 peak vs bytes (each
+    input read once, each output written once) over HBM bandwidth. Also the
+    full pass's FLOPs, for its rate beside the kept pairs'."""
     import torch
     from ray_tpu_torch.accelerators.flops import peak_flops
 
@@ -1210,6 +1250,45 @@ def chunk_bounds(b, h, hkv, qpos, kpos, d, causal):
                      "operations" if t_ops >= t_bytes else "bytes",
                      flops, nbytes, 4.0 * b * h * d * sq * skv
                      * (2.5 if name == "flash_chunk_bwd" else 1.0))
+    return out
+
+
+def tile_pairs(qpos, kpos, causal: bool) -> dict:
+    """{kernel: {"skipped", "partial", "visible": pairs}} over one head's
+    (q tile, kv tile) pairs in each kernel's own geometry, counted on the
+    host from the positions: K6 classes 64-row q halves against 64-wide kv
+    tiles, K7 64-row q tiles against its 128-row kv tiles. Skipped: kmin >
+    qmax and every row of the q tile sees a key (qmin >= min kpos);
+    visible: kmax <= qmin with whole tiles (K6 needs only the kv tile
+    whole); partial: the rest, masked per element."""
+    import numpy as np
+
+    qp, kp = qpos.cpu().numpy(), kpos.cpu().numpy()
+    cmin = kp.min()
+
+    def blocks(pos, n):
+        nb = -(-pos.size // n)
+        pad = np.concatenate([pos, np.full(nb * n - pos.size, pos[-1])])
+        full = np.arange(nb) * n + n <= pos.size
+        return pad.reshape(nb, n).min(1), pad.reshape(nb, n).max(1), full
+
+    out = {}
+    for name, bk, need_q_whole in (("flash_chunk_fwd", 64, False),
+                                   ("flash_chunk_bwd", 128, True)):
+        qlo, qhi, qfull = (a[:, None] for a in blocks(qp, 64))
+        klo, khi, kfull = (a[None, :] for a in blocks(kp, bk))
+        whole = kfull & (qfull if need_q_whole else True)
+        if causal:
+            skipped = (klo > qhi) & (qlo >= cmin)
+            visible = (khi <= qlo) & whole & ~skipped
+        else:
+            skipped = np.zeros(qlo.shape[0] * klo.shape[1], bool).reshape(
+                qlo.shape[0], klo.shape[1])
+            visible = np.broadcast_to(whole, skipped.shape)
+        n = skipped.size
+        out[name] = {"skipped": int(skipped.sum()),
+                     "visible": int(visible.sum()),
+                     "partial": int(n - skipped.sum() - visible.sum())}
     return out
 
 
@@ -1254,6 +1333,7 @@ def _chunk_times(inputs, m, causal, lib_causal, iters):
 
 def phase_chunk():
     import torch
+    from ray_tpu_torch.ops import attention as att
 
     _phase("kernel vs plain: flash_chunk_fwd / flash_chunk_bwd (ring step)")
     gen = torch.Generator(device="cuda")
@@ -1265,10 +1345,13 @@ def phase_chunk():
         for rep in (1, 4):
             for d in (64, 128):
                 for where, (sq, skv, q0, k0) in CHUNK_POS.items():
+                    tile = where in TILE_CASES
                     _chunk_check(_chunk_inputs(gen, 1, 8, 8 // rep, sq, skv,
-                                               d, q0, k0), causal,
+                                               d, q0, k0,
+                                               shuffle=where == "shuffled"),
+                                 causal,
                                  f"causal={causal} rep={rep} d={d} {where}",
-                                 worst)
+                                 worst, strict=tile)
                     n += 1
     # The sp = 4 schedule's three kinds of chunk pair at its shape, then the
     # CP step's own inputs (the main path's shape).
@@ -1279,12 +1362,15 @@ def phase_chunk():
                                     ("diagonal", (r["s"], r["s"])),
                                     ("future", (0, r["s"])))}
     ring_errs = {where: _chunk_check(inputs, True, f"the ring's {where} "
-                                     f"chunk", worst)
+                                     f"chunk", worst, strict=True)
                  for where, inputs in ring.items()}
     main = _chunk_inputs(gen, c["b"], c["h"], c["hkv"], c["s"], c["s"],
                          c["d"], 0, 0)
-    main_errs = _chunk_check(main, True, "the CP step's shape", worst)
-    print(f"flash chunk kernels == plain twins over {n} cases, the sp=4 "
+    main_errs = _chunk_check(main, True, "the CP step's shape", worst,
+                             strict=True)
+    print(f"flash chunk kernels == plain twins over {n} cases (the tile "
+          f"classes' {', '.join(TILE_CASES)} with no-key rows and K7's "
+          f"dk/dv repeat checked), the sp=4 "
           f"ring's past/diagonal/future chunks (B1 H32 Hkv8 4096x4096 D64) "
           f"and the CP step's shape (B1 H32 Hkv8 S16384 D64, positions "
           f"0..16383, causal); bf16, nonzero lse cotangent; max abs err: "
@@ -1293,7 +1379,7 @@ def phase_chunk():
           f"{worst['flash_chunk_fwd rel']:.3e}"
           f" and {worst['flash_chunk_bwd rel']:.3e} of the case's largest "
           f"value; tolerance {FLASH_REL_TOL} of the largest value, lse "
-          f"{FLASH_LSE_TOL})")
+          f"{FLASH_LSE_TOL}); chunk_tile_bounds == its twin on every case")
     for where, errs in (*ring_errs.items(), ("CP step", main_errs)):
         print(f"  at the {where} shape: "
               + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items()))
@@ -1305,29 +1391,51 @@ def phase_chunk():
         times = _chunk_times(inputs, m, True, lib_causal, iters)
         bounds = chunk_bounds(m["b"], m["h"], m["hkv"], inputs[3],
                               inputs[4], m["d"], True)
+        pairs = tile_pairs(inputs[3], inputs[4], True)
         for name, (ms, plain_ms, lib_ms) in times.items():
             bound, by, flops, nbytes, full = bounds[name]
             row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": bound, "bound_by": by,
-                   "tflops": full / (ms * 1e-3) / 1e12}
+                   "tflops": flops / (ms * 1e-3) / 1e12,
+                   "tflops_full_pass": full / (ms * 1e-3) / 1e12,
+                   "tile_pairs": pairs[name]}
             if label == "CP step":
                 rows[name] = dict(row, max_abs_err=worst[name],
                                   max_rel_err=worst[name + " rel"],
                                   main_shape_errs=main_errs)
             else:
                 rows[name]["chunk_4096"] = row
-            print(f"{name} {label}: kernel {ms:.4f} ms ({full / 1e9:.1f} "
-                  f"GFLOP a full pass, {row['tflops']:.1f} TFLOP/s; "
-                  f"{100 * bound / ms:.1f}% of the bound), plain twin "
-                  f"{plain_ms:.4f} ms, "
+            print(f"{name} {label}: kernel {ms:.4f} ms ({row['tflops']:.1f} "
+                  f"TFLOP/s over the {flops / 1e9:.1f} GFLOP the mask keeps;"
+                  f" full-pass rate {row['tflops_full_pass']:.1f} TFLOP/s of "
+                  f"{full / 1e9:.1f} GFLOP; {100 * bound / ms:.1f}% of the "
+                  f"bound), plain twin {plain_ms:.4f} ms, "
                   f"{'causal' if lib_causal else 'non-causal'} "
                   f"scaled_dot_product_attention "
                   + ("backward alone" if name == "flash_chunk_bwd"
                      else "forward")
                   + f" {lib_ms:.4f} ms (k/v repeated to 32 heads beforehand; "
                   f"{ms / lib_ms:.2f}x), bound {bound:.4f} ms ({by}; "
-                  f"{flops / 1e9:.1f} GFLOP the mask keeps, "
-                  f"{nbytes / 1e6:.1f} MB)")
+                  f"{nbytes / 1e6:.1f} MB); tile pairs a head (skipped / "
+                  f"partial / visible): {pairs[name]['skipped']} / "
+                  f"{pairs[name]['partial']} / {pairs[name]['visible']}")
+    # The pre-pass at the CP step's positions: bytes bound (the positions
+    # read once, the bounds written once).
+    qpos, kpos = main[3], main[4]
+    out = att.chunk_tile_bounds_cuda(qpos, kpos)
+    nbytes = (qpos.numel() + kpos.numel() + out.numel()) * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    pre = {"ms": events_ms(lambda: att.chunk_tile_bounds_cuda(qpos, kpos),
+                           200),
+           "plain_ms": events_ms(
+               lambda: att.chunk_tile_bounds_plain(qpos, kpos), 50),
+           "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+           "max_abs_err": 0}
+    rows["chunk_tile_bounds"] = pre
+    print(f"chunk_tile_bounds CP step: kernel {pre['ms']:.4f} ms (one CTA; "
+          f"exact, == its twin), plain twin {pre['plain_ms']:.4f} ms, bound "
+          f"{bound:.6f} ms (bytes; {nbytes / 1e3:.1f} KB); no single "
+          f"PyTorch call computes it")
     return rows
 
 
@@ -1440,7 +1548,7 @@ def predicted_launches(remat, num_layers: int, ring: int = 0,
     backward is plain tensor ops (no launch). The flash kernels are K2/K3,
     K2 and K4 + K5 with ``split`` (the split backward), or with ``ring`` >
     0 (context parallel over that many ranks: as many ring steps a layer)
-    K6/K7."""
+    K6/K7, each after its tile-bounds pre-pass."""
     recompute = 0 if remat in (False, "none") else 2
     full = remat not in (False, "none", "attn", "attn+")
     fwd, bwd = num_layers * (2 if full else 1), num_layers
@@ -1450,7 +1558,9 @@ def predicted_launches(remat, num_layers: int, ring: int = 0,
             "flash_bwd": 0 if split else bwd * flat,
             "flash_bwd_dq": bwd * flat if split else 0,
             "flash_bwd_dkv": bwd * flat if split else 0,
-            "flash_chunk_fwd": fwd * ring, "flash_chunk_bwd": bwd * ring}
+            "flash_chunk_fwd": fwd * ring, "flash_chunk_bwd": bwd * ring,
+            # K6 and K7 each launch the tile-bounds pre-pass first
+            "chunk_tile_bounds": (fwd + bwd) * ring}
 
 
 def kernel_category(name: str) -> str:
@@ -1477,7 +1587,8 @@ def _counters():
             "flash_bwd_dq": att.flash_bwd_dq_cuda,
             "flash_bwd_dkv": att.flash_bwd_dkv_cuda,
             "flash_chunk_fwd": att.flash_chunk_fwd_cuda,
-            "flash_chunk_bwd": att.flash_chunk_bwd_cuda}
+            "flash_chunk_bwd": att.flash_chunk_bwd_cuda,
+            "chunk_tile_bounds": att.chunk_tile_bounds_cuda}
 
 
 @contextlib.contextmanager
@@ -2041,8 +2152,8 @@ def phase_cp_train():
               f"window on the host clock: {step_s * 1e3:.2f} ms a step, "
               f"{toks:.1f} tokens/s, MFU {100 * mfu:.2f}% "
               f"({flops / 1e12:.2f} TFLOP per step counted as 6*N*tokens + "
-              f"causal attention; the ring's kernels make full passes, "
-              f"twice that attention work); peak device memory "
+              f"causal attention; the ring's kernels skip the tiles the "
+              f"mask hides wholly); peak device memory "
               f"{peak:.3f} GiB")
         print(f"loss " + " ".join(f"{x:.4f}" for x in loss_vals))
         print(f"launches per step: " + ", ".join(
@@ -2726,7 +2837,21 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": [1, 32, 8, CP_SEQ, CP_SEQ, 64], "dtype": "bfloat16",
             "positions": "0..S-1, causal (the CP step's)",
-            "tflops": row["tflops"], "chunk_4096": row["chunk_4096"]})
+            "tflops": row["tflops"],
+            "tflops_full_pass": row["tflops_full_pass"],
+            "tile_pairs": row["tile_pairs"], "chunk_4096": row["chunk_4096"]})
+    row = chunk["chunk_tile_bounds"]
+    kernels.append({
+        "name": "chunk_tile_bounds", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/chunk_tile_bounds.cu",
+        "replaces": "ray_tpu/ops/attention.py:735",
+        "tpu": "none: the pre-pass of K6/K7 (ray_tpu/ops/attention.py:735, "
+               ":779), whose tile classes the TPU kernels do not have",
+        "checked": True, "launches": cp["launches"]["chunk_tile_bounds"],
+        "launches_by_path": {
+            "ring_schedule": ring["launches"]["chunk_tile_bounds"],
+            "cp_train": cp["launches"]["chunk_tile_bounds"]},
+        **row, "shape": [CP_SEQ, CP_SEQ], "dtype": "int32"})
     for name, (sched, line) in PACKED.items():
         row = packed[name]
         kernels.append({

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` builds into its own shared library with a plain C
 interface, ``_build/lib<name>-<hash>.so``, where the hash covers the source,
-the compiler and the flags. Libraries are loaded with ``ctypes`` at first
-use; a missing or stale one is rebuilt then, so a fresh checkout needs no
-separate build step. ``build_all`` starts one ``nvcc`` per source, all at
-once, and waits for them (the build counts against a caller's time limit).
+the shared headers (``csrc/*.cuh``), the compiler and the flags. Libraries
+are loaded with ``ctypes`` at first use; a missing or stale one is
+rebuilt then, so a fresh checkout needs no separate build step.
+``build_all`` starts one ``nvcc`` per source, all at once, and waits for
+them (the build counts against a caller's time limit).
 A failed build raises with the compiler's output.
 """
 
@@ -56,8 +57,11 @@ def kernel_sources() -> list[str]:
 
 def _so_path(name: str, nvcc: str) -> str:
     h = hashlib.sha1()
-    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
-        h.update(f.read())
+    # The source and every shared header beside it (csrc/*.cuh).
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(SRC_DIR, fname), "rb") as f:
+            h.update(f.read())
     h.update(nvcc.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")

@@ -2,7 +2,7 @@
 forward (csrc/flash_fwd.cu), fused backward (csrc/flash_bwd.cu) and split
 backward (csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu) kernels, and their
 chunk variants for ring attention (csrc/flash_chunk_fwd.cu,
-csrc/flash_chunk_bwd.cu).
+csrc/flash_chunk_bwd.cu, with their pre-pass csrc/chunk_tile_bounds.cu).
 
 Port of ray_tpu/ops/attention.py, single device:
 
@@ -34,8 +34,11 @@ Port of ray_tpu/ops/attention.py, single device:
   q against one visiting K/V chunk with global int32 positions, returning
   (out f32, lse f32), both differentiable. On CUDA tensors K6 (forward)
   and K7 (backward, with the lse cotangent); on CPU tensors their twins
-  ``flash_chunk_fwd_plain`` and ``flash_chunk_bwd_plain``. K6/K7 make a
-  full pass over the chunk (no diagonal skip), as the TPU kernels do.
+  ``flash_chunk_fwd_plain`` and ``flash_chunk_bwd_plain``. Unlike the TPU
+  kernels, K6/K7 skip the tiles that the positions mask wholly, by the
+  tile bounds of a pre-pass (csrc/chunk_tile_bounds.cu, twin
+  ``chunk_tile_bounds_plain``); the skip is exact, so the twins make the
+  full pass and stay the arithmetic the kernels are held to.
 
 Shapes: q [B, H, Sq, D], k/v [B, Hkv, Skv, D], GQA when Hkv < H; k/v are
 never repeated on the kernel path. The kernels take bf16 and D in {64, 128},
@@ -262,6 +265,28 @@ def flash_chunk_bwd_plain(q, k, v, qpos, kpos, out, lse, g_out, g_lse,
                      g_lse.float() - delta, causal, sm_scale)
 
 
+def chunk_tile_bounds_plain(qpos, kpos):
+    """The chunk kernels' pre-pass in plain PyTorch: an int32 vector of the
+    (min, max) of every BLOCK_N-wide block of qpos, then of kpos, then
+    min(kpos). K6 and K7 class each (q tile, kv tile) pair by it: masked
+    (kmin > qmax, skipped unless the q tile holds a row that sees no key,
+    qmin < min kpos), visible (kmax <= qmin) or partial."""
+    def blocks(pos):
+        n = pos.numel()
+        nb = -(-n // BLOCK_N)
+        big = torch.iinfo(torch.int32)
+        lo = torch.full((nb * BLOCK_N,), big.max, dtype=torch.int32,
+                        device=pos.device)
+        hi = torch.full_like(lo, big.min)
+        lo[:n] = pos
+        hi[:n] = pos
+        return torch.stack([lo.view(nb, BLOCK_N).amin(1),
+                            hi.view(nb, BLOCK_N).amax(1)], 1).reshape(-1)
+
+    qpos, kpos = qpos.to(torch.int32), kpos.to(torch.int32)
+    return torch.cat([blocks(qpos), blocks(kpos), kpos.amin().reshape(1)])
+
+
 def _twin_split(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
                 dq_pass: bool):
     """The split kernels' arithmetic (K4 when ``dq_pass``, else K5). s is
@@ -356,8 +381,10 @@ _ARGTYPES = {
     "flash_bwd": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
     "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
-    "flash_chunk_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
-    "flash_chunk_bwd": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P],
+    "flash_chunk_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    "flash_chunk_bwd": [_P] * 13 + [_I] * 6 + [_F, _F, _I, _P],
+    # the chunk kernels' pre-pass: qpos, kpos, out, Sq, Skv, stream
+    "chunk_tile_bounds": [_P] * 3 + [_I] * 2 + [_P],
 }
 
 
@@ -526,15 +553,46 @@ def flash_bwd_split_cuda(q, k, v, out, lse, g, causal: bool,
                       lse, g, causal, sm_scale)
 
 
+def chunk_tile_bounds_cuda(qpos, kpos):
+    """Launch the chunk kernels' pre-pass (csrc/chunk_tile_bounds.cu): the
+    int32 vector of ``chunk_tile_bounds_plain`` from int32 qpos/kpos on
+    the card."""
+    if not (qpos.is_cuda and kpos.device == qpos.device):
+        raise ValueError(f"chunk_tile_bounds needs qpos and kpos on one CUDA "
+                         f"device, got {qpos.device}, {kpos.device}")
+    qpos = _dense(qpos.to(torch.int32))
+    kpos = _dense(kpos.to(torch.int32))
+    sq, skv = qpos.numel(), kpos.numel()
+    blocks = -(-sq // BLOCK_N) + -(-skv // BLOCK_N)
+    out = torch.empty(2 * blocks + 1, dtype=torch.int32, device=qpos.device)
+    lib = _library("chunk_tile_bounds")
+    with torch.cuda.device(qpos.device):
+        err = lib.rtt_chunk_tile_bounds(
+            qpos.data_ptr(), kpos.data_ptr(), out.data_ptr(), sq, skv,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "chunk_tile_bounds", err, qpos.shape)
+    chunk_tile_bounds_cuda.launches += 1
+    return out
+
+
+chunk_tile_bounds_cuda.launches = 0  # pre-pass launches since the last reset
+
+
+def _chunk_positions(q, qpos, kpos):
+    qpos = _dense(qpos.to(device=q.device, dtype=torch.int32))
+    kpos = _dense(kpos.to(device=q.device, dtype=torch.int32))
+    return qpos, kpos, chunk_tile_bounds_cuda(qpos, kpos)
+
+
 def flash_chunk_fwd_cuda(q, k, v, qpos, kpos, causal: bool,
                          sm_scale: float):
     """Launch K6: (out f32 [B,H,Sq,D], lse f32 [B,H,Sq]) of q against one
     visiting K/V chunk, masked by the int32 global positions qpos [Sq]
-    and kpos [Skv]."""
+    and kpos [Skv]. The pre-pass gives K6 the positions' tile bounds, by
+    which it skips the kv tiles that the mask hides wholly."""
     _check_cuda(q, k, v)
     q, k, v = _dense(q), _dense(k), _dense(v)
-    qpos = _dense(qpos.to(device=q.device, dtype=torch.int32))
-    kpos = _dense(kpos.to(device=q.device, dtype=torch.int32))
+    qpos, kpos, bounds = _chunk_positions(q, qpos, kpos)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -543,9 +601,9 @@ def flash_chunk_fwd_cuda(q, k, v, qpos, kpos, causal: bool,
     with torch.cuda.device(q.device):
         err = lib.rtt_flash_chunk_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-            kpos.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, hkv, sq,
-            skv, d, sm_scale * LOG2E, int(causal),
-            torch.cuda.current_stream().cuda_stream)
+            kpos.data_ptr(), bounds.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, hkv, sq, skv, d, sm_scale * LOG2E,
+            int(causal), torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "flash_chunk_fwd", err, q.shape)
     flash_chunk_fwd_cuda.launches += 1
     return out, lse
@@ -564,8 +622,7 @@ def flash_chunk_bwd_cuda(q, k, v, qpos, kpos, out, lse, g_out, g_lse,
     delta = _dense((g_out.float() * out.float()).sum(-1))
     do = _dense(g_out.to(q.dtype))
     q, k, v = _dense(q), _dense(k), _dense(v)
-    qpos = _dense(qpos.to(device=q.device, dtype=torch.int32))
-    kpos = _dense(kpos.to(device=q.device, dtype=torch.int32))
+    qpos, kpos, bounds = _chunk_positions(q, qpos, kpos)
     lse = _dense(lse.float())
     g_lse = _dense(g_lse.float())
     b, h, sq, d = q.shape
@@ -577,7 +634,7 @@ def flash_chunk_bwd_cuda(q, k, v, qpos, kpos, out, lse, g_out, g_lse,
     with torch.cuda.device(q.device):
         err = lib.rtt_flash_chunk_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-            kpos.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            kpos.data_ptr(), bounds.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), g_lse.data_ptr(), dq_acc.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, d, sm_scale,
             sm_scale * LOG2E, int(causal),

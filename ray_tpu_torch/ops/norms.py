@@ -35,9 +35,6 @@ def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor,
 
 def _check(x: torch.Tensor, weight: torch.Tensor) -> int:
     d = x.shape[-1]
-    if d <= 0 or d % 8:
-        raise ValueError(f"rms_norm needs a last dim that is a positive "
-                         f"multiple of 8, got {d}")
     if tuple(weight.shape) != (d,):
         raise ValueError(f"rms_norm weight shape {tuple(weight.shape)} != "
                          f"({d},)")
@@ -54,6 +51,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     d = _check(x, weight)
     if x.device.type == "cpu" and weight.device.type == "cpu":
         return rms_norm_reference(x, weight, eps)
+    if d <= 0 or d % 8:  # the kernel's 16-byte vectors; the plain path takes any d
+        raise ValueError(f"rms_norm's kernel needs a last dim that is a "
+                         f"positive multiple of 8, got {d}")
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return _RmsNormFn.apply(x, weight, eps)
     return _rms_norm_cuda(x, weight, eps, d)

@@ -33,9 +33,11 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def test_rms_norm_rejects_what_the_kernel_does_not_take():
-    x = torch.ones((4, 60))
+    # The width limit is the kernel's (16-byte vectors): a tensor off the
+    # CPU is refused before any launch; the plain path takes any width.
+    x = torch.empty((4, 60), device="meta")
     with pytest.raises(ValueError, match="multiple of 8"):
-        norms.rms_norm(x, torch.ones(60))
+        norms.rms_norm(x, torch.empty(60, device="meta"))
     with pytest.raises(ValueError, match="weight shape"):
         norms.rms_norm(torch.ones((4, 64)), torch.ones(32))
     with pytest.raises(TypeError):
@@ -65,6 +67,18 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the rms_norm kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_rms_norm_cuda_refuses_last_dim_6(cuda_device):
+    """On the card the kernel's 16-byte vectors still need d % 8 == 0 (the
+    CPU path takes d 6: tests/test_torch_ops.py's
+    test_rms_norm_cpu_any_last_dim)."""
+    before = norms.rms_norm.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        norms.rms_norm(torch.ones((3, 6), device=cuda_device),
+                       torch.ones(6, device=cuda_device))
+    assert norms.rms_norm.launches == before
 
 
 @pytest.mark.cuda
@@ -348,6 +362,95 @@ def test_flash_chunk_kernels_match_plain_twins_on_card(cuda_device, causal,
         assert got.shape == want.shape and got.dtype == torch.bfloat16
         assert torch.isfinite(got.float()).all(), name
         assert _rel(got, want) < 1e-2, name
+
+
+# Tile-class cases of K6/K7 (positions in the kernels' own tiles: K6 skips
+# 64-wide kv tiles for 64-row halves of its 128-row q tiles, K7 skips
+# 64-row q tiles for its 128-row kv tiles): "mixed" puts rows that see no
+# key (qpos 0.., kpos 30..) in tiles with rows that do; "shuffled" is a
+# seeded permutation of the diagonal case's positions, so a tile's min and
+# max are not its first and last; "long causal" is S 1024, 16 tiles a
+# side, every class present.
+TILE_CASES = [(where, d, rep, causal)
+              for where in ("mixed", "shuffled", "long causal")
+              for d in (64, 128) for rep in (1, 4) for causal in (True, False)]
+
+
+def _tile_positions(dev, where):
+    if where == "mixed":
+        return (torch.arange(256, dtype=torch.int32, device=dev),
+                torch.arange(256, dtype=torch.int32, device=dev) + 30)
+    if where == "shuffled":
+        g = torch.Generator().manual_seed(11)
+        base = torch.arange(256, dtype=torch.int32) + 256
+        return (base[torch.randperm(256, generator=g)].to(dev),
+                base[torch.randperm(256, generator=g)].to(dev))
+    pos = torch.arange(1024, dtype=torch.int32, device=dev)
+    return pos, pos.clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where,d,rep,causal", TILE_CASES)
+def test_flash_chunk_kernels_tile_classes_on_card(cuda_device, where, d, rep,
+                                                  causal):
+    """K6 and K7 against their twins where they skip, mask or take whole
+    tiles, at the twins' tolerances; rows that see no key finite with lse
+    < -1e29; K7's dk/dv the same bits on a second launch."""
+    qpos, kpos = _tile_positions(cuda_device, where)
+    h, sq, skv = 8, qpos.numel(), kpos.numel()
+    g = torch.Generator(device=cuda_device).manual_seed(d + rep)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    q, k, v = rnd(1, h, sq, d), rnd(1, h // rep, skv, d), rnd(1, h // rep,
+                                                               skv, d)
+    g_out, g_lse = rnd(1, h, sq, d, dtype=torch.float32), rnd(
+        1, h, sq, dtype=torch.float32)
+    scale = d ** -0.5
+    out, lse = att.flash_chunk_fwd_cuda(q, k, v, qpos, kpos, causal, scale)
+    p_out, p_lse = att.flash_chunk_fwd_plain(q, k, v, qpos, kpos, causal,
+                                             scale)
+    grads = att.flash_chunk_bwd_cuda(q, k, v, qpos, kpos, p_out, p_lse,
+                                     g_out, g_lse, causal, scale)
+    again = att.flash_chunk_bwd_cuda(q, k, v, qpos, kpos, p_out, p_lse,
+                                     g_out, g_lse, causal, scale)
+    plain = att.flash_chunk_bwd_plain(q, k, v, qpos, kpos, p_out, p_lse,
+                                      g_out, g_lse, causal, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert _rel(out, p_out) < 1e-2
+    assert (lse - p_lse).abs().max().item() < 2e-3
+    nokey = (qpos < kpos.min()) if causal else torch.zeros_like(qpos).bool()
+    assert bool(nokey.any()) == (causal and where == "mixed")
+    assert (lse[..., nokey] < -1e29).all()
+    for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel(got, want) < 1e-2, name
+    assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
+
+
+def test_pair_chunk_refuses_to_time_without_a_card(tmp_path):
+    """The paired K6/K7 reading measures only on a card: exit 2 here."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the script would time")
+    from ray_tpu_torch.devbench import pair_chunk
+
+    assert pair_chunk.main(["--other", str(tmp_path)]) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["mixed", "shuffled", "long causal"])
+def test_chunk_tile_bounds_kernel_matches_plain_on_card(cuda_device, where):
+    """The chunk kernels' pre-pass against chunk_tile_bounds_plain, one
+    launch counted; also on ragged lengths."""
+    qpos, kpos = _tile_positions(cuda_device, where)
+    for qp, kp in ((qpos, kpos), (qpos[:200], kpos[:70])):
+        before = att.chunk_tile_bounds_cuda.launches
+        got = att.chunk_tile_bounds_cuda(qp, kp)
+        torch.cuda.synchronize()
+        assert att.chunk_tile_bounds_cuda.launches == before + 1
+        assert torch.equal(got, att.chunk_tile_bounds_plain(qp, kp))
 
 
 @pytest.mark.cuda

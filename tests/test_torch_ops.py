@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu.ops.norms import rms_norm as jax_rms_norm
 from ray_tpu.ops.norms import rms_norm_pallas
 from ray_tpu.ops.norms import rms_norm_reference as jax_rms_norm_reference
 from ray_tpu.ops.rope import apply_rope as jax_apply_rope
@@ -89,6 +90,18 @@ def test_rms_norm_cpu_path_is_the_reference_on_any_row_count():
                                    norms.rms_norm_reference(
                                        tx.view(rows, 1, 64), tw),
                                    rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [6, 12, 100])
+def test_rms_norm_cpu_any_last_dim(d):
+    """The plain path takes a last dim that is no multiple of 8, as the
+    JAX package's rms_norm does (only the kernel needs the multiple; its
+    refusal of d 6 on the card is tests/test_torch_kernels.py's
+    test_rms_norm_cuda_refuses_last_dim_6)."""
+    jx, jw, tx, tw = _rms_inputs(3, d, "float32", seed=d)
+    want = np.asarray(jax_rms_norm(jx, jw)).astype(np.float32)
+    got = norms.rms_norm(tx, tw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("scaling", [None, LLAMA3_SCALING])

@@ -200,6 +200,181 @@ def test_flash_attention_chunk_never_falls_back_off_the_cpu():
 
 
 # --------------------------------------------------------------------------
+# Tile classes: position cases where K6/K7 skip, mask or take whole tiles
+# --------------------------------------------------------------------------
+
+# (S, positions): "mixed" has rows that see no key (qpos 0.., kpos 30..)
+# in the same 64-row tiles as rows that do; "shuffled" permutes the
+# diagonal case's positions (seeded), so a tile's min and max are not its
+# first and last; "long causal" is S 1024, 16 tiles a side, with masked,
+# visible and partial pairs.
+TILE_CASES = ("mixed", "shuffled", "long causal")
+TILE_PARAMS = [(where, d, rep, causal) for where in TILE_CASES
+               for d in (64, 128) for rep in (1, 4)
+               for causal in (True, False)]
+
+
+def tile_case_positions(where):
+    """(qpos, kpos) int32 numpy vectors of a tile-class case."""
+    if where == "mixed":
+        return (np.arange(256, dtype=np.int32),
+                np.arange(256, dtype=np.int32) + 30)
+    if where == "shuffled":
+        rng = np.random.default_rng(11)
+        base = np.arange(256, dtype=np.int32) + 256
+        return rng.permutation(base), rng.permutation(base)
+    return np.arange(1024, dtype=np.int32), np.arange(1024, dtype=np.int32)
+
+
+def _tile_inputs(where, d, rep, seed):
+    h = 4
+    qpos, kpos = tile_case_positions(where)
+    sq, skv = qpos.size, kpos.size
+    q, k, v, g, gl = _arrays([(1, h, sq, d), (1, h // rep, skv, d),
+                              (1, h // rep, skv, d), (1, h, sq, d),
+                              (1, h, sq)], seed)
+    return q, k, v, g, gl, qpos, kpos
+
+
+def _no_key_rows(qpos, kpos, causal):
+    return qpos < kpos.min() if causal else np.zeros(qpos.size, bool)
+
+
+@pytest.mark.parametrize("where,d,rep,causal", TILE_PARAMS)
+def test_chunk_fwd_twin_matches_pallas_on_tile_classes(where, d, rep,
+                                                       causal):
+    """K6's twin against _flash_chunk_fwd_pallas (interpret mode, 64-wide
+    tiles) where the kernel skips, masks or takes whole tiles: out within
+    one bf16 ulp of its largest value, lse within 2e-4; rows that see no
+    key finite with lse < -1e29."""
+    import jax.numpy as jnp
+
+    q, k, v, _, _, qpos, kpos = _tile_inputs(where, d, rep, seed=d + rep)
+    scale = d ** -0.5
+    with _interpret() as attn_mod:
+        want_o, want_lse = attn_mod._flash_chunk_fwd_pallas(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+            jnp.asarray(qpos), jnp.asarray(kpos), causal, scale,
+            block_q=64, block_k=64)
+    bq, bk, bv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out, lse = att.flash_chunk_fwd_plain(bq, bk, bv, torch.from_numpy(qpos),
+                                         torch.from_numpy(kpos), causal,
+                                         scale)
+    assert np.isfinite(out.numpy()).all() and np.isfinite(lse.numpy()).all()
+    assert _bf16_ulp_err(out, want_o) <= 1.0
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=0,
+                               atol=2e-4)
+    nokey = _no_key_rows(qpos, kpos, causal)
+    assert nokey.any() == (causal and where == "mixed")
+    assert (lse.numpy()[..., nokey] < -1e29).all()
+
+
+@pytest.mark.parametrize("where,d,rep,causal", TILE_PARAMS)
+def test_chunk_bwd_twin_matches_pallas_on_tile_classes(where, d, rep, causal,
+                                                       monkeypatch):
+    """K7's twin against _flash_chunk_bwd_pallas on the same residuals with
+    a nonzero lse cotangent, 64-wide tiles, where the kernel skips, masks
+    or takes whole tiles: dq, dk and dv within one bf16 ulp of each one's
+    largest value (the TPU kernel rounds each q head's dk/dv to bf16
+    before the f32 fold over the rep heads, the twin folds in f32 and
+    rounds once)."""
+    import jax.numpy as jnp
+
+    monkeypatch.setenv("RTPU_FLASH_BLOCK_K", "64")
+    monkeypatch.setenv("RTPU_FLASH_BLOCK_Q", "64")
+    q, k, v, g, gl, qpos, kpos = _tile_inputs(where, d, rep, seed=20 + d)
+    scale = d ** -0.5
+    bq, bk, bv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    tqp, tkp = torch.from_numpy(qpos), torch.from_numpy(kpos)
+    out, lse = att.flash_chunk_fwd_plain(bq, bk, bv, tqp, tkp, causal, scale)
+    got = att.flash_chunk_bwd_plain(bq, bk, bv, tqp, tkp, out, lse,
+                                    torch.from_numpy(g), torch.from_numpy(gl),
+                                    causal, scale)
+    with _interpret() as attn_mod:
+        dq, dk, dv = attn_mod._flash_chunk_bwd_pallas(
+            *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+            jnp.asarray(qpos), jnp.asarray(kpos), jnp.asarray(out.numpy()),
+            jnp.asarray(lse.numpy()), jnp.asarray(g), jnp.asarray(gl),
+            causal, scale)
+    hkv, skv = 4 // rep, kpos.size
+    want = [np.asarray(dq, np.float32)] + [
+        np.asarray(t, np.float32).reshape(1, hkv, rep, skv, d).sum(2)
+        for t in (dk, dv)]
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and np.isfinite(
+            a.float().numpy()).all(), name
+        w = np.asarray(jnp.asarray(w, jnp.bfloat16).astype(jnp.float32))
+        assert _bf16_ulp_err(a.float(), w) <= 1.0, name
+
+
+def _skipping_fwd(q, k, v, qpos, kpos, causal, scale):
+    """K6's tile schedule in plain PyTorch: per 64-row q block, the online
+    softmax of ``fwd_tile_step`` over the kv tiles that the classes of
+    ``chunk_tile_bounds_plain`` keep (a masked tile is skipped unless the
+    block holds a row that sees no key)."""
+    n = att.BLOCK_N
+    bounds = att.chunk_tile_bounds_plain(qpos, kpos)
+    nq, nk = -(-qpos.numel() // n), -(-kpos.numel() // n)
+    qb, kb = bounds[:2 * nq].view(nq, 2), bounds[2 * nq:-1].view(nk, 2)
+    cmin = int(bounds[-1])
+    qs, kr, vr, (o, m, l) = att.fwd_twin_begin(q, k, v, scale)
+    outs, lses = [], []
+    for i in range(nq):
+        rows = slice(n * i, n * (i + 1))
+        state = (o[:, :, rows], m[:, :, rows], l[:, :, rows])
+        for j in range(nk):
+            if causal and kb[j, 0] > qb[i, 1] and qb[i, 0] >= cmin:
+                continue  # masked for every row of the block
+            cols = slice(n * j, n * (j + 1))
+            state = att.fwd_tile_step(state, qs[:, :, rows], kr[:, :, cols],
+                                      vr[:, :, cols],
+                                      qpos[rows] if causal else None,
+                                      kpos[cols])
+        out, lse = att.fwd_twin_end(state)
+        outs.append(out)
+        lses.append(lse)
+    return torch.cat(outs, 2), torch.cat(lses, 2)
+
+
+@pytest.mark.parametrize("where", TILE_CASES + ("ragged",))
+@pytest.mark.parametrize("causal", [True, False])
+def test_tile_skip_is_exact_on_the_twin(where, causal):
+    """Skipping the tiles the positions mask wholly gives the full pass's
+    out and lse bit for bit (a masked tile adds exp2(-1e30 - m) = 0, or is
+    wiped by alpha = 0), rows that see no key included."""
+    if where == "ragged":
+        qpos = np.arange(200, dtype=np.int32) + 60
+        kpos = np.arange(136, dtype=np.int32)
+    else:
+        qpos, kpos = tile_case_positions(where)
+    q, k, v = _arrays([(1, 4, qpos.size, 64), (1, 2, kpos.size, 64),
+                       (1, 2, kpos.size, 64)], 5)
+    bq, bk, bv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    tqp, tkp = torch.from_numpy(qpos), torch.from_numpy(kpos)
+    want = att.flash_chunk_fwd_plain(bq, bk, bv, tqp, tkp, causal, 0.125)
+    got = _skipping_fwd(bq, bk, bv, tqp, tkp, causal, 0.125)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+def test_chunk_tile_bounds_plain_reads_any_order():
+    """The pre-pass's twin: (min, max) of every 64-block of qpos then kpos,
+    then min(kpos), on unsorted and ragged positions."""
+    rng = np.random.default_rng(2)
+    qpos = rng.permutation(200).astype(np.int32) - 50
+    kpos = rng.permutation(70).astype(np.int32) + 7
+    got = att.chunk_tile_bounds_plain(torch.from_numpy(qpos),
+                                      torch.from_numpy(kpos)).numpy()
+    want = []
+    for pos in (qpos, kpos):
+        for i in range(0, pos.size, 64):
+            want += [pos[i:i + 64].min(), pos[i:i + 64].max()]
+    want.append(kpos.min())
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, np.asarray(want, np.int32))
+
+
+# --------------------------------------------------------------------------
 # The ring's schedule in one process against JAX's ring over 4 devices
 # --------------------------------------------------------------------------
 
