@@ -1,16 +1,44 @@
 // Split flash-attention backward, dq pass, for Hopper (sm_90a): dq from the
-// forward's saved logsumexp, one write per q tile, no atomics.
+// forward's saved logsumexp, one write per q row, no atomics.
 //
 // Replaces the Pallas kernel _flash_bwd_dq_kernel (ray_tpu/ops/attention.py),
 // which ran a grid over (batch * q head, q block) and walked the kv blocks of
-// its kv head up to the causal diagonal in a fori_loop. The shape carries
-// over to Hopper as it is: one CTA of 4 warps per (batch * q head, 64-row q
-// tile) reads kv head h / (H / Hkv) and loops over the 64-row kv tiles up to
-// the diagonal (causal: ceil((m0 + 64) / 64) tiles, the TPU bound
-// ceil((qi + 1) * bq / bk)). Each warp owns 16 q rows and keeps their dq in
-// f32 registers across the whole loop, then writes it once in bf16. Nothing
-// is shared between CTAs, so dq is the same bit for bit on every run (the
-// fused K3 adds dq into an f32 buffer with atomics, in no fixed order).
+// its kv head up to the causal diagonal in a fori_loop. On Hopper one CTA
+// takes 128 q rows of one q head and loops over the 64-row kv tiles of kv
+// head h / (H / Hkv) up to the diagonal. Its dq stays in f32 registers
+// across the whole loop and is written once in bf16. Nothing is shared
+// between CTAs, so dq is the same bit for bit on every run (the fused K3
+// adds dq into an f32 buffer with atomics, in no fixed order).
+//
+// Bound: operations. Three products per kept (q, k) pair, 6 * D FLOPs: ~103
+// GFLOP at the training shape (B4 H32 Hkv8 S2048 D64 causal), ~104 us at
+// 989 TFLOP/s, against ~120 MB of traffic (~36 us at 3.35 TB/s). At
+// ViT-B/16's shape (B128 H12 S197 D64, non-causal) bytes bound it: ~196 MB
+// against ~23 GFLOP. What the design does about it:
+// - 128 q rows per CTA: two consumer warpgroups of 64 rows read each
+//   staged K/V tile, then one producer warp. The grid is linear over
+//   (q tile, batch * head), the last q tiles (the longest under causal)
+//   first, so B * H has no 65535 limit.
+// - Asynchronous staging: the producer's one thread loads the CTA's q and
+//   dO rows once and K and V tiles into a ring of 3 stages at D 64 (2 at D
+//   128) by TMA (64 x 64 bf16 boxes, 128-byte swizzle, rows past the end
+//   zero-filled), with full/empty mbarriers between it and the consumers,
+//   so tile j + 1 loads while tile j computes. The tensor maps are made on
+//   the host by cuTensorMapEncodeTiled (hopper.cuh).
+// - qs = bf16(q * scale * log2 e) is made once per CTA, in place over the
+//   staged q rows (each warpgroup its own 64), 16 bytes a thread.
+// - wgmma for all three products: s = qs . K^T and dp = dO . V^T with both
+//   operands in shared memory (m64n64k16, K and V read K-major), dq += ds .
+//   K with ds packed from s's and dp's accumulators as the register A
+//   operand and K read MN-major (m64nDk16). No tile is transposed by hand.
+// - Tile classes: a kv tile past a warpgroup's diagonal is not computed
+//   (the loop ends there); the mask runs only on the diagonal tile and on
+//   the ragged last kv tile. The skip and the mask change no value.
+// 128 rows of one q head, not 64 rows each of two q heads of one kv head:
+// timed in turns on the card at the training shape, the two-head CTA ran
+// slower, though both warpgroups then need the same kv tiles.
+// Not yet: one warpgroup's exp2 overlapped with its next products (FA3's
+// ping-pong, slower in K5's trials), a persistent grid.
 //
 // Arithmetic, kept identical to the TPU kernel and to the plain twin
 // flash_bwd_dq_plain in ray_tpu_torch/ops/attention.py:
@@ -19,240 +47,263 @@
 //   dp  = dO . v^T (f32)
 //   ds  = bf16(p * (dp - delta) * scale)  (delta = rowsum(dO * O), f32)
 //   dq += ds . k                          (k unscaled; f32 accumulate)
-// Unlike K3, the softmax scale is applied to ds in f32 before its rounding,
-// not folded into the q/k operands.
-//
-// Bound: operations. Three products per kept (q, k) pair, 6 * D FLOPs: ~103
-// GFLOP at the training shape (B4 H32 Hkv8 S2048 D64 causal), ~104 us at
-// 989 TFLOP/s, against ~120 MB of traffic (~36 us at 3.35 TB/s). Simple
-// first: mma.sync m16n8k16 (bf16 in, f32 accumulate), the q/dO tiles staged
-// once per CTA and k, v and k^T once per kv tile in padded shared memory
-// (row pitch +8 bf16), the ds accumulators reused in registers as the A
-// operand of the dq product, the heaviest causal q tiles scheduled first.
-// Not yet: wgmma, TMA, cp.async double buffering.
+// lse * log2 e is rounded as a product before the subtraction (no fused
+// multiply-add). wgmma may sum a product in another order than the twin's
+// matmul, so the result is held to the twin's tolerances, not its bits.
 //
 // C interface (called through ctypes by ray_tpu_torch/ops/attention.py):
 //   int rtt_flash_bwd_dq(q, k, v, dout, lse, delta, dq,
 //                        B, H, Hkv, Sq, Skv, D, scale, scale_log2, causal,
 //                        stream)
 // q/dout/dq [B,H,Sq,D], k/v [B,Hkv,Skv,D] bf16 contiguous and 16-byte
-// aligned; lse/delta [B,H,Sq] f32. D is 64 or 128; any Sq, Skv >= 1.
-// Returns a cudaError_t or -1 for an unsupported D.
+// aligned; lse/delta [B,H,Sq] f32. D is 64 or 128; any Sq, Skv >= 1; H %
+// Hkv == 0. Returns a cudaError_t (0 = launched), -1 for an unsupported D,
+// -2/-3 when the tensor maps cannot be made.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <limits.h>
+#include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // q rows per CTA, 16 per warp
-constexpr int kBlockN = 64;  // kv rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kVec = 8;
+using namespace rtt;
+
+constexpr int kWG = 2;                      // consumer warpgroups
+constexpr int kBlockM = 64 * kWG;           // q rows per CTA
+constexpr int kBlockN = 64;                 // kv rows per staged tile
+constexpr int kConsumers = 128 * kWG;
+constexpr int kThreads = kConsumers + 32;   // + the producer warp
+constexpr int kBox = 64 * 64 * 2;           // one 64 x 64 bf16 TMA box
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c[nt] += A . B for the 16 rows a_row0.. of a_tile, where B[kk][n] =
-// bt[n][kk]: bt holds B transposed, one row per output column (pitch ldb).
-template <int NT, int KT>
-__device__ __forceinline__ void mma_rows(float (&c)[NT][4], const __nv_bfloat16* a_tile,
-                                         int lda, int a_row0,
-                                         const __nv_bfloat16* bt, int ldb,
-                                         int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const __nv_bfloat16* ap = a_tile + (a_row0 + g) * lda + kk * 16 + 2 * t;
-    const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * lda), ld32(ap + 8),
-                           ld32(ap + 8 * lda + 8)};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* p = bt + (nt * 8 + g) * ldb + kk * 16 + 2 * t;
-      mma16816(c[nt], a, ld32(p), ld32(p + 8));
-    }
-  }
-}
-
 template <int D>
-struct Smem {
-  static constexpr int LD = D + 8;         // pitch of [row][D] tiles
-  static constexpr int LDN = kBlockN + 8;  // pitch of the [D][kv] tile
-  static constexpr int Q = 0;                    // qs rows  [M][LD]
-  static constexpr int DO = Q + kBlockM * LD;    // dO rows  [M][LD]
-  static constexpr int K = DO + kBlockM * LD;    // k rows   [N][LD]
-  static constexpr int V = K + kBlockN * LD;     // v rows   [N][LD]
-  static constexpr int KT = V + kBlockN * LD;    // k^T      [D][LDN]
-  static constexpr int END = KT + D * LDN;       // in bf16 elements
-  static constexpr int BYTES = END * 2 + 2 * kBlockM * 4;  // + lse2, delta
+struct Cfg {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kBoxes = D / 64;            // boxes across a row
+  static constexpr int kRows = kBoxes * kBox;      // 64 rows x D
+  // Byte offsets from the 1024-aligned base: qs and dO rows (kWG blocks of
+  // 64 rows each), the K/V stages, the barriers.
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + kWG * kRows;
+  static constexpr int kStage0 = kDO + kWG * kRows;
+  static constexpr int kStage = 2 * kRows;          // K then V
+  static constexpr int kBars = kStage0 + kStages * kStage;
+  static constexpr int kSmem = kBars + (2 * kStages + 1) * 8 + 1024;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int H, int Hkv,
-                        int Sq, int Skv, float scale, float scale2,
+                        __nv_bfloat16* __restrict__ dq, int BH, int H,
+                        int Hkv, int Sq, int Skv, float scale, float scale2,
                         int causal) {
-  using L = Smem<D>;
-  constexpr int ROW_VECS = D / kVec;
+  using C = Cfg<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sQ = sm + L::Q;
-  __nv_bfloat16* sdO = sm + L::DO;
-  __nv_bfloat16* sK = sm + L::K;
-  __nv_bfloat16* sV = sm + L::V;
-  __nv_bfloat16* sKt = sm + L::KT;
-  float* sL = reinterpret_cast<float*>(sm + L::END);
-  float* sDelta = sL + kBlockM;
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBars);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* qbar = empty + C::kStages;
 
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // heavy tiles first
-  const int bh = blockIdx.y;  // b * H + h
+  const int nqt = (Sq + kBlockM - 1) / kBlockM;
+  const int mt = nqt - 1 - blockIdx.x / BH;  // last (heaviest) q tiles first
+  const int bh = blockIdx.x % BH;            // b * H + h
   const int b = bh / H;
   const int hk = (bh % H) / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int m0 = mt * kBlockM;
+  // kv tiles the CTA loads: up to the diagonal of its last row.
+  const int nkt = ((causal ? min(Skv, m0 + kBlockM) : Skv) + kBlockN - 1) /
+                  kBlockN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(qbar, 2 * kWG * C::kRows);
+#pragma unroll
+      for (int rb = 0; rb < kWG; ++rb)
+#pragma unroll
+        for (int bx = 0; bx < C::kBoxes; ++bx) {
+          const int off = rb * C::kRows + bx * kBox;
+          tma_load_3d(smem + C::kQ + off, &tm_q, qbar, bx * 64, m0 + rb * 64,
+                      bh);
+          tma_load_3d(smem + C::kDO + off, &tm_do, qbar, bx * 64,
+                      m0 + rb * 64, bh);
+        }
+      const int plane = b * Hkv + hk;
+      for (int j = 0; j < nkt; ++j) {
+        const int s = j % C::kStages;
+        mbar_wait(&empty[s], ((j / C::kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::kStage);
+        unsigned char* kt = smem + C::kStage0 + s * C::kStage;
+#pragma unroll
+        for (int bx = 0; bx < C::kBoxes; ++bx) {
+          tma_load_3d(kt + bx * kBox, &tm_k, &full[s], bx * 64, j * kBlockN,
+                      plane);
+          tma_load_3d(kt + C::kRows + bx * kBox, &tm_v, &full[s], bx * 64,
+                      j * kBlockN, plane);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers: warpgroup wg owns q rows r0 .. r0 + 63 ----
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int wr = warp * 16;  // this warp's q rows in the tile
-  const size_t q_base = (size_t)bh * Sq * D;
-  const size_t row_base = (size_t)bh * Sq;
-  const size_t kv_base = ((size_t)b * Hkv + hk) * Skv * D;
-
-  // The CTA's q tile: qs = bf16(q * scale2) and dO rows (zero past Sq).
-  for (int i = tid; i < kBlockM * ROW_VECS; i += kThreads) {
-    const int r = i / ROW_VECS, c = (i % ROW_VECS) * kVec;
-    uint4 qr = make_uint4(0u, 0u, 0u, 0u), gr = qr;
-    if (m0 + r < Sq) {
-      const size_t off = q_base + (size_t)(m0 + r) * D + c;
-      qr = *reinterpret_cast<const uint4*>(q + off);
-      gr = *reinterpret_cast<const uint4*>(dout + off);
-    }
-    const __nv_bfloat16* qe = reinterpret_cast<const __nv_bfloat16*>(&qr);
-    uint4 qs;
-    __nv_bfloat16* qse = reinterpret_cast<__nv_bfloat16*>(&qs);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      qse[j] = __float2bfloat16_rn(__bfloat162float(qe[j]) * scale2);
-    *reinterpret_cast<uint4*>(sQ + r * L::LD + c) = qs;
-    *reinterpret_cast<uint4*>(sdO + r * L::LD + c) = gr;
-  }
-  if (tid < kBlockM) {
-    const bool in = m0 + tid < Sq;
-    sL[tid] = in ? lse[row_base + m0 + tid] * kLog2e : 0.f;
-    sDelta[tid] = in ? delta[row_base + m0 + tid] : 0.f;
-  }
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    dq_acc[dt][0] = dq_acc[dt][1] = dq_acc[dt][2] = dq_acc[dt][3] = 0.f;
-  const int row0 = m0 + wr + g;  // this thread's two q rows
+  const int r0 = m0 + wg * 64;
+  const bool live = r0 < Sq;  // a warpgroup past Sq only keeps the ring going
+  const int row0 = r0 + warp * 16 + g;  // this thread's two q rows
   const int row1 = row0 + 8;
+  const size_t row_base = (size_t)bh * Sq;
+  float l2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if (row0 < Sq) {
+    l2[0] = __fmul_rn(lse[row_base + row0], kLog2e);
+    dl[0] = delta[row_base + row0];
+  }
+  if (row1 < Sq) {
+    l2[1] = __fmul_rn(lse[row_base + row1], kLog2e);
+    dl[1] = delta[row_base + row1];
+  }
+  // kv tiles this warpgroup computes: up to the diagonal of its own rows.
+  const int nkt_wg =
+      !live ? 0
+            : causal ? (min(Skv, r0 + 64) + kBlockN - 1) / kBlockN : nkt;
 
-  const int n_end = causal ? min(Skv, m0 + kBlockM) : Skv;
-  for (int n0 = 0; n0 < n_end; n0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous kv tile
-    for (int i = tid; i < kBlockN * ROW_VECS; i += kThreads) {
-      const int r = i / ROW_VECS, c = (i % ROW_VECS) * kVec;
-      uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
-      if (n0 + r < Skv) {
-        const size_t off = kv_base + (size_t)(n0 + r) * D + c;
-        kr = *reinterpret_cast<const uint4*>(k + off);
-        vr = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(sK + r * L::LD + c) = kr;
-      *reinterpret_cast<uint4*>(sV + r * L::LD + c) = vr;
-      const __nv_bfloat16* ke = reinterpret_cast<const __nv_bfloat16*>(&kr);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) sKt[(c + j) * L::LDN + r] = ke[j];
-    }
-    __syncthreads();
-
-    // s = qs . k^T and dp = dO . v^T: this warp's 16 q rows x 64 kv columns.
-    float st[kBlockN / 8][4], dpt[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-    mma_rows<kBlockN / 8, D / 16>(st, sQ, L::LD, wr, sK, L::LD, g, t);
-    mma_rows<kBlockN / 8, D / 16>(dpt, sdO, L::LD, wr, sV, L::LD, g, t);
-
-    // ds = bf16(p * (dp - delta) * scale), packed as A fragments.
-    const float l2[2] = {sL[wr + g], sL[wr + g + 8]};
-    const float dl[2] = {sDelta[wr + g], sDelta[wr + g + 8]};
-    uint32_t dsk[kBlockN / 8][2];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      float dsv[4];
+  // qs = bf16(q * scale * log2 e) in place over this warpgroup's q rows.
+  unsigned char* qrows = smem + C::kQ + wg * C::kRows;
+  mbar_wait(qbar, 0);
+  if (live) {
+    for (int i = threadIdx.x & 127; i < C::kRows / 16; i += 128) {
+      uint4 raw = reinterpret_cast<const uint4*>(qrows)[i];
+      uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = n0 + nt * 8 + 2 * t + (e & 1);
-        const int hi = e >> 1;
-        const int row = hi ? row1 : row0;
-        float s = st[nt][e];
-        if (col >= Skv || (causal && col > row)) s = kNegInf;
-        const float p = exp2f(s - l2[hi]);
-        dsv[e] = p * (dpt[nt][e] - dl[hi]) * scale;
+        const float2 f = unpack_bf16(w[e]);
+        w[e] = pack_bf16(f.x * scale2, f.y * scale2);
       }
-      dsk[nt][0] = pack_bf16(dsv[0], dsv[1]);
-      dsk[nt][1] = pack_bf16(dsv[2], dsv[3]);
+      reinterpret_cast<uint4*>(qrows)[i] = raw;
     }
+    fence_proxy_async();  // the generic writes, before wgmma reads them
+  }
+  named_barrier_sync(1 + wg, 128);
+  const uint32_t qaddr = smem_u32(qrows);
+  const uint32_t doaddr = smem_u32(smem + C::kDO + wg * C::kRows);
 
-    // dq += ds . k: the ds accumulators of two kv column tiles are one A
-    // fragment; k^T supplies B one output column (head dim) per row.
+  float dqa[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a[4] = {dsk[2 * kk][0], dsk[2 * kk][1],
-                             dsk[2 * kk + 1][0], dsk[2 * kk + 1][1]};
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  float sc[32], dp[32];
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* p = sKt + (dt * 8 + g) * L::LDN + kk * 16 + 2 * t;
-        mma16816(dq_acc[dt], a, ld32(p), ld32(p + 8));
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    const int s = j % C::kStages;
+    mbar_wait(&full[s], (j / C::kStages) & 1);
+    if (j < nkt_wg) {
+      const int n0 = j * kBlockN;
+      // The diagonal tile and the ragged last tile take the mask.
+      const bool masked = n0 + kBlockN > Skv || (causal && n0 + 63 > r0);
+      const uint32_t kaddr = smem_u32(smem + C::kStage0 + s * C::kStage);
+      const uint32_t vaddr = kaddr + C::kRows;
+
+      // s = qs . K^T and dp = dO . V^T: 64 q rows x 64 kv columns.
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_m64n64k16_ss<0>(sc, wgmma_desc(qaddr + off, 16, 1024),
+                              wgmma_desc(kaddr + off, 16, 1024), kk > 0);
       }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_m64n64k16_ss<0>(dp, wgmma_desc(doaddr + off, 16, 1024),
+                              wgmma_desc(vaddr + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // ds = bf16(p * (dp - delta) * scale), packed as A fragments.
+      uint32_t dsa[kBlockN / 16][4];
+#pragma unroll
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * nt + e];
+          if (masked) {
+            const int col = n0 + nt * 8 + 2 * t + (e & 1);
+            if (col >= Skv || (causal && col > (e < 2 ? row0 : row1)))
+              x = kNegInf;
+          }
+          const float p = exp2f(x - l2[e >> 1]);
+          v[e] = p * (dp[4 * nt + e] - dl[e >> 1]) * scale;
+        }
+        dsa[nt / 2][(nt & 1) * 2] = pack_bf16(v[0], v[1]);
+        dsa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(v[2], v[3]);
+      }
+
+      // dq += ds . K, K read MN-major: kv rows 16 kk .. 16 kk + 15.
+      fence_regs(dqa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        const uint64_t desc = wgmma_desc(kaddr + kk * 2048, kBox, 1024);
+        if constexpr (D == 64)
+          wgmma_m64n64k16_rs<1>(dqa, dsa[kk], desc, 1);
+        else
+          wgmma_m64n128k16_rs<1>(dqa, dsa[kk], desc, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
     }
+    mbar_arrive(&empty[s]);
   }
 
+  if (!live) return;
+  const size_t q_base = row_base * D;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * t;
     if (row0 < Sq)
       *reinterpret_cast<uint32_t*>(dq + q_base + (size_t)row0 * D + col) =
-          pack_bf16(dq_acc[dt][0], dq_acc[dt][1]);
+          pack_bf16(dqa[4 * dt], dqa[4 * dt + 1]);
     if (row1 < Sq)
       *reinterpret_cast<uint32_t*>(dq + q_base + (size_t)row1 * D + col) =
-          pack_bf16(dq_acc[dt][2], dq_acc[dt][3]);
+          pack_bf16(dqa[4 * dt + 2], dqa[4 * dt + 3]);
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, int B, int H, int Hkv, int Sq, int Skv,
-                   float scale, float scale2, int causal, cudaStream_t stream) {
-  constexpr int smem = Smem<D>::BYTES;
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, int B, int H,
+           int Hkv, int Sq, int Skv, float scale, float scale2, int causal,
+           cudaStream_t stream) {
+  constexpr int smem = Cfg<D>::kSmem;
   static bool smem_set = false;  // once per process, before any capture
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -261,12 +312,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, B * H);
+  CUtensorMap tq, tdo, tk, tv;
+  int err = rtt_make_tile_map(&tq, q, B * H, Sq, D);
+  if (err == 0) err = rtt_make_tile_map(&tdo, dout, B * H, Sq, D);
+  if (err == 0) err = rtt_make_tile_map(&tk, k, B * Hkv, Skv, D);
+  if (err == 0) err = rtt_make_tile_map(&tv, v, B * Hkv, Skv, D);
+  if (err) return err;
+  const int grid = ((Sq + kBlockM - 1) / kBlockM) * B * H;
   flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      static_cast<__nv_bfloat16*>(dq), H, Hkv, Sq, Skv, scale, scale2, causal);
+      tq, tdo, tk, tv, lse, delta, static_cast<__nv_bfloat16*>(dq), B * H, H,
+      Hkv, Sq, Skv, scale, scale2, causal);
   return cudaGetLastError();
 }
 
@@ -278,7 +333,7 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int Hkv, int Sq, int Skv, int D, float scale,
                                 float scale2, int causal, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0 ||
-      (long long)B * H > 65535)
+      (long long)((Sq + kBlockM - 1) / kBlockM) * B * H > INT_MAX)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -296,10 +351,12 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 extern "C" int rtt_flash_bwd_dq_smem_bytes(int D) {
-  return D == 64 ? Smem<64>::BYTES : D == 128 ? Smem<128>::BYTES : -1;
+  return D == 64 ? Cfg<64>::kSmem : D == 128 ? Cfg<128>::kSmem : -1;
 }
 
 extern "C" const char* rtt_flash_bwd_dq_error_string(int code) {
   if (code == -1) return "unsupported head_dim (64 or 128)";
+  if (code == -2) return "cuTensorMapEncodeTiled not found in the CUDA driver";
+  if (code == -3) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

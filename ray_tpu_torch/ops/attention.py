@@ -23,11 +23,13 @@ Port of ray_tpu/ops/attention.py, single device:
   five products per tile pair, whose dq is summed into an f32 buffer by
   atomics in no fixed order, so two runs on the same inputs differ in
   dq's last bits. False: the split backward, K4 (dq, each q tile's rows
-  written once from registers) then K5 (dk/dv per q head, each kv tile's
-  rows written once), then the GQA fold in the wrapper (the rep q heads
-  summed in f32, rounded once more: the TPU contract). Seven products per
-  tile pair, and the same bits on every run. Its twins are
-  ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain`` and
+  written once from registers) then K5 (dk/dv, each kv tile's rows written
+  once), which folds the GQA heads inside the kernel: each q head's dk/dv
+  rounded to bf16, the rep q heads of a kv head summed in f32 and rounded
+  once more (the TPU contract, whose JAX wrapper folds after the per-head
+  Pallas kernel). Seven products per tile pair, and the same bits on every
+  run. Its twins are ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain`` (per
+  q head, the TPU kernel's arithmetic) with ``fold_heads``, and
   ``flash_bwd_split_plain``; unlike K3 they apply the softmax scale to ds
   in f32 before its rounding instead of folding it into the operands;
 - ``flash_attention_chunk(q, k, v, qpos, kpos, causal, sm_scale)``: local
@@ -54,7 +56,7 @@ import os
 
 import torch
 
-# The backward's switch: K3 (fused) when true, K4 + K5 + fold (split) when
+# The backward's switch: K3 (fused) when true, K4 + K5 (split) when
 # false; see the module docstring. Tests flip it in a try/finally.
 FUSED_BWD = os.environ.get("RTPU_FLASH_FUSED_BWD", "1") != "0"
 
@@ -351,20 +353,28 @@ def fold_heads(t: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
 
 def _split_bwd(dq_fn, dkv_fn, q, k, v, out, lse, g, causal, sm_scale):
     """dO = g in q's dtype, delta = rowsum(dO*O) in f32 (as K3's wrapper),
-    then the dq pass, the dk/dv pass and the fold."""
+    then the dq pass and the dk/dv pass (``dkv_fn`` returns dk/dv folded
+    to the kv heads)."""
     do = g.to(q.dtype)
     delta = (do.float() * out.float()).sum(-1)
     dq = dq_fn(q, k, v, do, lse, delta, causal, sm_scale)
     dk, dv = dkv_fn(q, k, v, do, lse, delta, causal, sm_scale)
-    hkv = k.shape[1]
-    return dq, fold_heads(dk, hkv), fold_heads(dv, hkv)
+    return dq, dk, dv
+
+
+def _dkv_folded_plain(q, k, v, do, lse, delta, causal: bool,
+                      sm_scale: float):
+    """K5's output in plain PyTorch: its twin's per-q-head dk/dv folded
+    to [B,Hkv,Skv,D] by ``fold_heads``."""
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    return fold_heads(dk, k.shape[1]), fold_heads(dv, k.shape[1])
 
 
 def flash_bwd_split_plain(q, k, v, out, lse, g, causal: bool,
                           sm_scale: float):
     """The split backward in plain PyTorch: (dq, dk, dv) from K4's and
     K5's twins and the fold, dk/dv [B,Hkv,Skv,D]."""
-    return _split_bwd(flash_bwd_dq_plain, flash_bwd_dkv_plain, q, k, v, out,
+    return _split_bwd(flash_bwd_dq_plain, _dkv_folded_plain, q, k, v, out,
                       lse, g, causal, sm_scale)
 
 
@@ -380,7 +390,7 @@ _ARGTYPES = {
     "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     "flash_bwd": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
     "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _P],
-    "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
+    "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
     "flash_chunk_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     "flash_chunk_bwd": [_P] * 13 + [_I] * 6 + [_F, _F, _I, _P],
     # the chunk kernels' pre-pass: qpos, kpos, out, Sq, Skv, stream
@@ -403,6 +413,9 @@ def _library(name: str) -> ctypes.CDLL:
         smem_fn = getattr(lib, f"rtt_{name}_smem_bytes")
         smem_fn.argtypes = [_I]
         smem_fn.restype = _I
+        if name == "flash_bwd_dkv":  # its f32 fold scratch at D 128
+            lib.rtt_flash_bwd_dkv_fold_floats.argtypes = [_I] * 4
+            lib.rtt_flash_bwd_dkv_fold_floats.restype = ctypes.c_longlong
         _LIBS[name] = lib
     return lib
 
@@ -523,19 +536,25 @@ flash_bwd_dq_cuda.launches = 0  # K4 launches since the last reset
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
                        sm_scale: float):
-    """Launch K5: (dk, dv) per q head, [B,H,Skv,D] bf16 (``fold_heads``
-    folds them to the kv heads); each kv tile's rows are written once."""
+    """Launch K5: (dk, dv) folded to the kv heads inside the kernel,
+    [B,Hkv,Skv,D] bf16 (each q head's dk/dv rounded to bf16, then summed
+    in f32 and rounded once: ``fold_heads`` of ``flash_bwd_dkv_plain``);
+    each kv tile's rows are written once."""
     q, k, v, do, lse, delta = _split_inputs(q, k, v, do, lse, delta)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    dk = torch.empty((b, h, skv, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
     lib = _library("flash_bwd_dkv")
+    n_fold = lib.rtt_flash_bwd_dkv_fold_floats(b, hkv, skv, d)
+    fold = (torch.empty(n_fold, dtype=torch.float32, device=q.device)
+            if n_fold else None)
     with torch.cuda.device(q.device):
         err = lib.rtt_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, hkv, sq, skv, d, sm_scale, sm_scale * LOG2E, int(causal),
+            None if fold is None else fold.data_ptr(), b, h, hkv, sq, skv, d,
+            sm_scale, sm_scale * LOG2E, int(causal),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "flash_bwd_dkv", err, q.shape)
     flash_bwd_dkv_cuda.launches += 1
@@ -547,8 +566,9 @@ flash_bwd_dkv_cuda.launches = 0  # K5 launches since the last reset
 
 def flash_bwd_split_cuda(q, k, v, out, lse, g, causal: bool,
                          sm_scale: float):
-    """The split backward on the card: K4, K5, then the fold; (dq, dk, dv)
-    bf16, dk/dv [B,Hkv,Skv,D]. The same bits on every run."""
+    """The split backward on the card: K4, then K5 with the GQA fold
+    inside; (dq, dk, dv) bf16, dk/dv [B,Hkv,Skv,D]. The same bits on every
+    run."""
     return _split_bwd(flash_bwd_dq_cuda, flash_bwd_dkv_cuda, q, k, v, out,
                       lse, g, causal, sm_scale)
 
@@ -684,7 +704,7 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True,
                     sm_scale: float | None = None) -> torch.Tensor:
     """Flash attention, differentiable: K2 forward and K3 backward (K4 +
-    K5 + fold when ``FUSED_BWD`` is false) on CUDA tensors, their plain
+    K5 when ``FUSED_BWD`` is false) on CUDA tensors, their plain
     twins on CPU tensors. The saved residuals are (q, k, v, out, lse), so
     the backward never re-runs the forward."""
     _check_shapes(q, k, v)

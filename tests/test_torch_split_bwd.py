@@ -72,14 +72,20 @@ SPLIT_CASES = [(2, 2, True, 256), (4, 2, True, 256), (2, 2, False, 256),
                (8, 2, True, 256), (8, 1, False, 256), (4, 4, False, 65)]
 
 
-@pytest.mark.parametrize("h,hkv,causal,s", SPLIT_CASES)
-def test_split_twins_match_pallas_split_backward(h, hkv, causal, s):
-    d = 64
+# At head_dim 128, the CUDA kernels' 128-row tile edge (S 129: one q row
+# and one kv row past a tile; the Pallas side takes it as one block) and
+# the widest GQA group (rep 8: H 8, Hkv 1).
+SPLIT_EDGE_CASES = [(8, 2, True, 129), (8, 2, False, 129), (8, 1, True, 256),
+                    (8, 1, False, 129)]
+
+
+def _check_split_twins(h, hkv, causal, s, d):
     scale = d ** -0.5
     q, k, v, do = _inputs(h, hkv, s, d, seed=h * 10 + hkv + s)
     out, lse = att.flash_fwd_plain(q, k, v, causal, scale)
+    block = 128 if s % 128 == 0 else s  # a block must divide S
     (wdq, wdk, wdv), (wdk_h, wdv_h) = _jax_split(q, k, v, out, lse, do,
-                                                 causal, scale, min(128, s))
+                                                 causal, scale, block)
     got = att.flash_bwd_split_plain(q, k, v, out, lse, do, causal, scale)
     for name, a, w in zip(("dq", "dk", "dv"), got, (wdq, wdk, wdv)):
         assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
@@ -91,6 +97,16 @@ def test_split_twins_match_pallas_split_backward(h, hkv, causal, s):
     assert dk_h.shape == (1, h, s, d)
     assert _bf16_ulp_err(dk_h, wdk_h) <= 1.0
     assert _bf16_ulp_err(dv_h, wdv_h) <= 1.0
+
+
+@pytest.mark.parametrize("h,hkv,causal,s", SPLIT_CASES)
+def test_split_twins_match_pallas_split_backward(h, hkv, causal, s):
+    _check_split_twins(h, hkv, causal, s, 64)
+
+
+@pytest.mark.parametrize("h,hkv,causal,s", SPLIT_EDGE_CASES)
+def test_split_twins_match_pallas_at_tile_edges_d128(h, hkv, causal, s):
+    _check_split_twins(h, hkv, causal, s, 128)
 
 
 def test_fold_heads_sums_the_rep_groups_in_f32_and_rounds_once():
