@@ -139,8 +139,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* sBias = sL + kBlockM;
   int* sQpos = reinterpret_cast<int*>(sBias + kBlockM);
 
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
+  // Grid (B, Hkv, kv tiles): the batch on x, which has no 65535 limit.
+  const int b = blockIdx.x;
+  const int hk = blockIdx.y;
   const int n0 = blockIdx.z * kBlockN;  // first kv tiles first
   const int rep = H / Hkv;
   const int tid = threadIdx.x;
@@ -451,7 +452,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  const dim3 grid(Hkv, B, (Skv + kBlockN - 1) / kBlockN);
+  const dim3 grid(B, Hkv, (Skv + kBlockN - 1) / kBlockN);
   flash_chunk_bwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), qpos, kpos, bounds,
@@ -472,7 +473,7 @@ extern "C" int rtt_flash_chunk_bwd(const void* q, const void* k, const void* v,
                                    int Skv, int D, float scale, float scale2,
                                    int causal, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0 ||
-      Hkv > 65535 || B > 65535 || (Skv + kBlockN - 1) / kBlockN > 65535)
+      Hkv > 65535 || (Skv + kBlockN - 1) / kBlockN > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(qpos);

@@ -112,8 +112,9 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kStages * C::kStage);
   uint64_t* empty = full + C::kStages;
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+  // Grid (B, H, q tiles): the batch on x, which has no 65535 limit.
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
   const int mt = gridDim.z - 1 - blockIdx.z;  // last q tiles first
   const int m0 = mt * C::kBlockM;
   const int hk = h / (H / Hkv);
@@ -353,7 +354,7 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
   int err = rtt_make_tile_map(&tk, k, B * Hkv, Skv, D);
   if (err == 0) err = rtt_make_tile_map(&tv, v, B * Hkv, Skv, D);
   if (err) return err;
-  const dim3 grid(H, B, (Sq + Cfg<D>::kBlockM - 1) / Cfg<D>::kBlockM);
+  const dim3 grid(B, H, (Sq + Cfg<D>::kBlockM - 1) / Cfg<D>::kBlockM);
   flash_chunk_fwd_kernel<D><<<grid, Cfg<D>::kThreads, smem, stream>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q), qpos, kpos, bounds, out,
       lse, H, Hkv, Sq, Skv, scale2, causal);
@@ -369,7 +370,7 @@ extern "C" int rtt_flash_chunk_fwd(const void* q, const void* k, const void* v,
                                    int D, float scale2, int causal,
                                    void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0 ||
-      H > 65535 || B > 65535 || (Sq + 127) / 128 > 65535)
+      H > 65535 || (Sq + 127) / 128 > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(qpos);

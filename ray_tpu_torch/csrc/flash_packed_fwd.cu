@@ -59,6 +59,8 @@
 // lse [B,H,S] f32. Returns a cudaError_t (0 = launched) or a negative code
 // for a shape the kernels do not take (rtt_flash_packed_fwd_error_string).
 
+#include <limits.h>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -309,9 +311,13 @@ __global__ void __launch_bounds__(WIDE ? kMaxRows * 2 : kNarrowRows * 2)
   __nv_bfloat16* sVt = sK + BK * LD;
   float* stash = reinterpret_cast<float*>(sVt + D * LDV);
 
-  const int qi = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // heavy first
+  // A linear grid over (pack of heads, q tile), q tile fastest: the order
+  // of the former (q tiles, B * H / pack) grid, with no 65535 limit.
+  const int nq = S / block_q;
+  const int qx = blockIdx.x % nq;
+  const int qi = causal ? nq - 1 - qx : qx;  // heavy first
   const int m0 = qi * block_q;
-  const int bh0 = blockIdx.y * pack;  // flat (batch, q head) of head 0 of the pack
+  const int bh0 = (blockIdx.x / nq) * pack;  // flat (batch, q head) of head 0 of the pack
   const int hk = (bh0 % H) / rep;
   const size_t kv_base = ((size_t)(bh0 / H) * (H / rep) + hk) * S * D;
   const int tid = threadIdx.x;
@@ -420,7 +426,7 @@ cudaError_t launch_kernel(const void* q, const void* k, const void* v,
     smem_set = true;
   }
   const int rows = pack * block_q;
-  const dim3 grid(S / block_q, B * H / pack);
+  const int grid = (S / block_q) * (B * H / pack);
   packed_fwd_kernel<D, BK, SCHED, WIDE><<<grid, rows / 16 * 32,
                                           smem_bytes<D, BK>(rows), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -459,7 +465,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
     return kErrPack;
   if (S % block_q != 0 || S % block_k != 0) return kErrRagged;
   if (SCHED == kInline && block_q != block_k) return kErrInline;
-  if ((long long)B * H / pack > 65535) return kErrGrid;
+  if ((long long)(S / block_q) * B * H / pack > INT_MAX) return kErrGrid;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
 #define RTT_PACKED_LAUNCH(DD, BB)                                          \
@@ -521,7 +527,7 @@ extern "C" const char* rtt_flash_packed_fwd_error_string(int code) {
              "pack * block_q <= 256 rows at D 64, 128 at D 128";
     case kErrRagged: return "S must be a multiple of block_q and block_k";
     case kErrInline: return "the inline-diagonal kernel needs block_q == block_k";
-    case kErrGrid: return "B * H / pack above 65535";
+    case kErrGrid: return "S / block_q * B * H / pack above INT_MAX";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

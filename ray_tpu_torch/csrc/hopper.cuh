@@ -1,10 +1,12 @@
-// Hopper (sm_90a) building blocks shared by the ring-attention chunk
-// kernels (flash_chunk_fwd.cu, flash_chunk_bwd.cu) and the split backward
-// (flash_bwd_dq.cu, flash_bwd_dkv.cu): bf16 packing, quad
-// reductions over an mma/wgmma accumulator row, mbarriers, TMA tile loads,
-// cp.async, ldmatrix, mma.sync, proxy fences and named barriers, and wgmma
-// (A from registers or from shared memory) with its shared-memory
-// descriptors. Header only; each kernel library compiles its own copy.
+// Hopper (sm_90a) building blocks shared by the flash forward and fused
+// backward (flash_fwd.cu, flash_bwd.cu), the ring-attention chunk kernels
+// (flash_chunk_fwd.cu, flash_chunk_bwd.cu) and the split backward
+// (flash_bwd_dq.cu, flash_bwd_dkv.cu): bf16 packing, quad reductions over
+// an mma/wgmma accumulator row, mbarriers, TMA tile loads, cp.async,
+// ldmatrix, mma.sync, proxy fences and named barriers, and wgmma (A from
+// registers or from shared memory, A K-major or MN-major) with its
+// shared-memory descriptors. Header only; each kernel library compiles its
+// own copy.
 //
 // Accumulator layout (mma.sync m16n8k16 and wgmma m64nNk16 alike): in a
 // warp's 16 rows, lane = 4 g + t holds rows g and g + 8; for each 8-column
@@ -201,6 +203,16 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// The same for register A fragments: placed after the wgmma.wait that ends
+// their last read, it keeps them from being reused while it runs.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
 // d (+)= A . B, A (64 x 16 bf16) from registers, B (16 x N) from shared
 // memory through `desc`; TRANS_B 1 reads B MN-major (N contiguous), 0
 // K-major. scale_d 0 overwrites d.
@@ -264,9 +276,10 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "n"(TRANS_B));
 }
 
-// d (+)= A . B with both operands in shared memory: A (64 x 16, K-major)
-// through `desc_a`, B (16 x N) through `desc_b` (TRANS_B as above).
-template <int TRANS_B>
+// d (+)= A . B with both operands in shared memory: A (64 x 16) through
+// `desc_a`, K-major (TRANS_A 0) or MN-major (TRANS_A 1: M contiguous, a
+// transposed tile), B (16 x N) through `desc_b` (TRANS_B as above).
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
                                                 uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -277,7 +290,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -286,10 +299,10 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
                                                 uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -298,12 +311,12 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 }  // namespace rtt
@@ -356,3 +369,4 @@ static inline int rtt_make_tile_map(CUtensorMap* map, const void* base,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
 }
+

@@ -6,13 +6,14 @@ shape and at the sp = 4 ring's 4096 past and diagonal chunks.
     git show <commit>:ray_tpu_torch/csrc/flash_chunk_bwd.cu > DIR/flash_chunk_bwd.cu
     python3 -m ray_tpu_torch.devbench.pair_chunk --other DIR
 
-DIR's sources must have the C interface of the kernels before the tile
-bounds (commits up to 7e022cd: no ``bounds`` pointer). Both builds get the
-same inputs; this tree's launches include its tile-bounds pre-pass, and
-K7's include zeroing the dq buffer on both sides. Prints each build's
-worst difference from the other (out, lse, dq, dk, dv), the times in ms
-(CUDA events), the card's name and power limit, and a JSON line last.
-Exits 2 without a card.
+DIR's sources may have either C interface: before the tile bounds
+(commits up to 7e022cd, no ``bounds`` pointer) or with them (later
+commits, whose launches then take this tree's pre-pass output too). Both
+builds get the same inputs; this tree's launches include its tile-bounds
+pre-pass, and K7's include zeroing the dq buffer on both sides. Prints
+each build's worst difference from the other (out, lse, dq, dk, dv), the
+times in ms (CUDA events), the card's name and power limit, and a JSON
+line last. Exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -30,8 +31,12 @@ SHAPES = (("CP step S16384 causal", 16384, 0, 0, 5),
 
 
 def _other_libs(src_dir: str):
-    """Build and load DIR's two sources with this tree's nvcc flags."""
+    """Build and load DIR's two sources with this tree's nvcc flags; also
+    whether they take the pre-pass's tile bounds."""
     from ray_tpu_torch._native import build
+
+    with open(os.path.join(src_dir, "flash_chunk_fwd.cu")) as f:
+        bounds = "const void* bounds" in f.read()
 
     procs = {n: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
@@ -46,11 +51,12 @@ def _other_libs(src_dir: str):
             raise RuntimeError(f"nvcc build of {src_dir}/{n}.cu failed:\n{out}")
         lib = ctypes.CDLL(os.path.join(src_dir, f"lib{n}.so"))
         fn = getattr(lib, f"rtt_{n}")
-        fn.argtypes = ([p_] * 7 + [i_] * 6 + [f_, i_, p_] if n.endswith("fwd")
-                       else [p_] * 12 + [i_] * 6 + [f_, f_, i_, p_])
+        fn.argtypes = ([p_] * (7 + bounds) + [i_] * 6 + [f_, i_, p_]
+                       if n.endswith("fwd")
+                       else [p_] * (12 + bounds) + [i_] * 6 + [f_, f_, i_, p_])
         fn.restype = i_
         libs[n] = fn
-    return libs
+    return libs, bounds
 
 
 def _events_ms(fn, iters: int) -> float:
@@ -73,7 +79,7 @@ def pair(src_dir: str, h: int = 32, hkv: int = 8, d: int = 64) -> list:
 
     from ray_tpu_torch.ops import attention as att
 
-    other = _other_libs(src_dir)
+    other, other_bounds = _other_libs(src_dir)
     this_fwd = att._library("flash_chunk_fwd").rtt_flash_chunk_fwd
     this_bwd = att._library("flash_chunk_bwd").rtt_flash_chunk_bwd
     gen = torch.Generator(device="cuda")
@@ -100,11 +106,13 @@ def pair(src_dir: str, h: int = 32, hkv: int = 8, d: int = 64) -> list:
         def fwd(who):
             b = bufs[who]
             stream = torch.cuda.current_stream().cuda_stream
+            bounds = att.chunk_tile_bounds_cuda(qpos, kpos)
             if who == "other":
                 return other["flash_chunk_fwd"](
-                    *ptrs(q, k, v, qpos, kpos, b["out"], b["lse"]), 1, h, hkv,
-                    s, s, d, scale * att.LOG2E, 1, stream)
-            bounds = att.chunk_tile_bounds_cuda(qpos, kpos)
+                    *ptrs(q, k, v, qpos, kpos,
+                          *([bounds] if other_bounds else []), b["out"],
+                          b["lse"]), 1, h, hkv, s, s, d, scale * att.LOG2E, 1,
+                    stream)
             return this_fwd(*ptrs(q, k, v, qpos, kpos, bounds, b["out"],
                                   b["lse"]), 1, h, hkv, s, s, d,
                             scale * att.LOG2E, 1, stream)
@@ -121,12 +129,13 @@ def pair(src_dir: str, h: int = 32, hkv: int = 8, d: int = 64) -> list:
             b = bufs[who]
             b["dq"].zero_()
             stream = torch.cuda.current_stream().cuda_stream
+            bounds = att.chunk_tile_bounds_cuda(qpos, kpos)
             if who == "other":
                 return other["flash_chunk_bwd"](
-                    *ptrs(q, k, v, qpos, kpos, do, lse, delta, g_lse, b["dq"],
-                          b["dk"], b["dv"]), 1, h, hkv, s, s, d, scale,
-                    scale * att.LOG2E, 1, stream)
-            bounds = att.chunk_tile_bounds_cuda(qpos, kpos)
+                    *ptrs(q, k, v, qpos, kpos,
+                          *([bounds] if other_bounds else []), do, lse, delta,
+                          g_lse, b["dq"], b["dk"], b["dv"]), 1, h, hkv, s, s,
+                    d, scale, scale * att.LOG2E, 1, stream)
             return this_bwd(*ptrs(q, k, v, qpos, kpos, bounds, do, lse, delta,
                                   g_lse, b["dq"], b["dk"], b["dv"]), 1, h, hkv,
                             s, s, d, scale, scale * att.LOG2E, 1, stream)

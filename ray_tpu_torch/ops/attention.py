@@ -20,11 +20,12 @@ Port of ray_tpu/ops/attention.py, single device:
 - the backward's switch ``FUSED_BWD``, read once at import from
   ``RTPU_FLASH_FUSED_BWD`` (default "1"; "0" turns it off) and at call
   time by the backward, as the JAX package's is. True: K3, one kernel of
-  five products per tile pair, whose dq is summed into an f32 buffer by
-  atomics in no fixed order, so two runs on the same inputs differ in
-  dq's last bits. False: the split backward, K4 (dq, each q tile's rows
-  written once from registers) then K5 (dk/dv, each kv tile's rows written
-  once), which folds the GQA heads inside the kernel: each q head's dk/dv
+  five products per tile pair, whose dq is summed across its CTAs into an
+  f32 buffer by reductions in no fixed order, so two runs on the same
+  inputs differ in dq's last bits (dk/dv repeat bit for bit). False: the
+  split backward, K4 (dq, each q tile's rows written once from registers)
+  then K5 (dk/dv, each kv tile's rows written once), which folds the GQA
+  heads inside the kernel: each q head's dk/dv
   rounded to bf16, the rep q heads of a kv head summed in f32 and rounded
   once more (the TPU contract, whose JAX wrapper folds after the per-head
   Pallas kernel). Seven products per tile pair, and the same bits on every
@@ -476,16 +477,21 @@ flash_fwd_cuda.launches = 0  # K2 launches since the last reset
 
 
 def flash_bwd_cuda(q, k, v, out, lse, g, causal: bool, sm_scale: float):
-    """Launch K3: (dq [B,H,Sq,D], dk, dv [B,Hkv,Skv,D]), all bf16. delta =
-    rowsum(dO*O) in f32 is computed here, as the JAX wrapper leaves it to
-    XLA; dq is summed in an f32 buffer by the kernel's atomics."""
+    """Launch K3: (dq [B,H,Sq,D], dk, dv [B,Hkv,Skv,D]), all bf16. The
+    kernel makes delta = rowsum(dO*O) in f32 itself, from dO = g in q's
+    dtype and the forward's out (the JAX wrapper leaves delta to XLA), and
+    sums dq across its CTAs into a zeroed f32 buffer, cast here."""
     _check_cuda(q, k, v)
+    if out.shape != q.shape or g.shape != q.shape:
+        raise ValueError(f"flash_bwd_cuda: out {tuple(out.shape)} and g "
+                         f"{tuple(g.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
     g = _dense(g.to(q.dtype))
+    out = _dense(out.to(q.dtype))
     q, k, v = _dense(q), _dense(k), _dense(v)
     lse = _dense(lse.float())
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    delta = _dense((g.float() * out.float()).sum(-1))
     dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -493,7 +499,7 @@ def flash_bwd_cuda(q, k, v, out, lse, g, causal: bool, sm_scale: float):
     with torch.cuda.device(q.device):
         err = lib.rtt_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+            lse.data_ptr(), out.data_ptr(), dq_acc.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, d, sm_scale,
             sm_scale * LOG2E, int(causal),
             torch.cuda.current_stream().cuda_stream)

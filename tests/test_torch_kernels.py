@@ -742,3 +742,173 @@ def test_packed_kernels_reject_what_they_do_not_take_on_card(cuda_device):
         with pytest.raises(TypeError, match="bfloat16"):
             fn(q.float(), k.float(), v.float(), True, 0.125, 1, 64, 64)
         assert fn.launches == before
+
+
+# K2 and K3 (redesigned for Hopper: TMA rings, wgmma, 128-row tiles, dq
+# summed across K3's CTAs by float4 reductions, delta made inside K3)
+# against their twins at the lengths the main paths and their edges give:
+# S 2048 (the 1.1B step), 1000 (a ragged tail), 197 (ViT-B/16's tokens)
+# and 1, within 1e-2 of the largest value (lse 2e-3). At S 1 a row's
+# softmax has one key: p = 1 and dp = delta, so dq and dk vanish in exact
+# arithmetic and hold rounding noise alone; there each output is held to
+# 1e-2 of the twin's largest gradient (dv = dO).
+FLASH_LENGTH_CASES = [(causal, rep, d, s) for causal in (True, False)
+                      for rep in (1, 4) for d in (64, 128)
+                      for s in (2048, 1000, 197, 1)]
+
+
+def _flash_errs(q, k, v, do, causal, scale):
+    """K2 and K3 (on the twin's residuals) against their twins: out's and
+    each gradient's max error over the largest value (at S 1 over the
+    largest gradient), lse's max error."""
+    out, lse = att.flash_fwd_cuda(q, k, v, causal, scale)
+    p_out, p_lse = att.flash_fwd_plain(q, k, v, causal, scale)
+    grads = att.flash_bwd_cuda(q, k, v, p_out, p_lse, do, causal, scale)
+    plain = att.flash_bwd_plain(q, k, v, p_out, p_lse, do, causal, scale)
+    torch.cuda.synchronize()
+    floor = (max(w.float().abs().max().item() for w in plain)
+             if q.shape[2] == 1 else 0.0)
+    errs = {"out": _rel(out, p_out),
+            "lse": (lse - p_lse).abs().max().item()}
+    for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16, name
+        assert torch.isfinite(got.float()).all(), name
+        err = (got.float() - want.float()).abs().max().item()
+        errs[name] = err / max(want.float().abs().max().item(), floor)
+    return errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,rep,d,s", FLASH_LENGTH_CASES)
+def test_flash_kernels_match_plain_twins_at_main_path_lengths_on_card(
+        cuda_device, causal, rep, d, s):
+    q, k, v, do = _flash_inputs(cuda_device, rep, d, s, seed=rep * d + s + 2)
+    errs = _flash_errs(q, k, v, do, causal, d ** -0.5)
+    assert errs.pop("lse") < 2e-3
+    for name, e in errs.items():
+        assert e < 1e-2, (name, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", [(256, 384), (384, 256), (100, 300),
+                                    (197, 64)])
+def test_flash_kernels_take_sq_unlike_skv_on_card(cuda_device, causal, d, sq,
+                                                  skv):
+    """Sq != Skv (positions 0..Sq-1 against 0..Skv-1), GQA rep 4."""
+    g = torch.Generator(device=cuda_device).manual_seed(sq + skv + d)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+
+    q, k, v, do = rnd(2, 8, sq, d), rnd(2, 2, skv, d), rnd(2, 2, skv, d), \
+        rnd(2, 8, sq, d)
+    errs = _flash_errs(q, k, v, do, causal, d ** -0.5)
+    assert errs.pop("lse") < 2e-3
+    for name, e in errs.items():
+        assert e < 1e-2, (name, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fused_backward_repeats_dk_dv_bit_for_bit_on_card(cuda_device,
+                                                          causal, d):
+    """K3 sums dk/dv of a kv head in one CTA's registers: the same bits on
+    every run. dq is summed across CTAs in no fixed order: two runs agree
+    within 1e-2 of the largest value."""
+    q, k, v, do = _flash_inputs(cuda_device, 4, d, 1000, seed=31 + d)
+    scale = d ** -0.5
+    out, lse = att.flash_fwd_cuda(q, k, v, causal, scale)
+    first = att.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
+    again = att.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
+    assert _rel(first[0], again[0]) < 1e-2
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_count_one_launch_a_call_on_card(cuda_device):
+    """Each call of K2's and K3's wrappers adds one to its own count, and to
+    no other kernel's; a refused call adds none."""
+    q, k, v, do = _flash_inputs(cuda_device, 4, 64, 256, seed=41)
+    names = ("flash_fwd_cuda", "flash_bwd_cuda", "flash_bwd_dq_cuda",
+             "flash_bwd_dkv_cuda", "flash_chunk_fwd_cuda",
+             "flash_chunk_bwd_cuda")
+    before = [getattr(att, n).launches for n in names]
+    out, lse = att.flash_fwd_cuda(q, k, v, True, 0.125)
+    att.flash_fwd_cuda(q, k, v, False, 0.125)
+    att.flash_bwd_cuda(q, k, v, out, lse, do, True, 0.125)
+    with pytest.raises(RuntimeError, match="flash_fwd"):  # 3 % 2 heads
+        att.flash_fwd_cuda(q[:, :3], k, v, True, 0.125)
+    with pytest.raises(ValueError, match="q's shape"):  # K3 reads out whole
+        att.flash_bwd_cuda(q, k, v, out[:, :, :128], lse, do, True, 0.125)
+    torch.cuda.synchronize()
+    assert [getattr(att, n).launches - b for n, b in zip(names, before)] == \
+        [2, 1, 0, 0, 0, 0]
+
+
+# lse of a row that sees few keys: one p in [0.5, 1) that rounds to the
+# other side of a bf16 step in the kernel than in the twin (s summed in
+# another order) moves l >= 1 by 2^-8, so lse by up to 2^-8. Causal S 64
+# over 4M rows meets such a row (2.1e-3 read on an H100); rows that see 64
+# keys (l >> 1) stay within 2e-3.
+FEW_KEYS_LSE_TOL = 2 ** -8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_kernels_take_a_batch_of_65536_on_card(cuda_device,
+                                                         causal):
+    """B 65536 (H 1, S 64, D 64): more batch rows than a grid's y or z
+    dimension holds. K2, K3, K6 and K7 keep them on a linear grid and
+    match their twins."""
+    q, k, v, do = _flash_inputs(cuda_device, 1, 64, 64, seed=47, b=65536,
+                                h=1)
+    lse_tol = FEW_KEYS_LSE_TOL if causal else 2e-3
+    errs = _flash_errs(q, k, v, do, causal, 0.125)
+    assert errs.pop("lse") < lse_tol
+    for name, e in errs.items():
+        assert e < 1e-2, ("K2/K3", name, e)
+    pos = torch.arange(64, dtype=torch.int32, device=cuda_device)
+    out, lse = att.flash_chunk_fwd_cuda(q, k, v, pos, pos, causal, 0.125)
+    p_out, p_lse = att.flash_chunk_fwd_plain(q, k, v, pos, pos, causal,
+                                             0.125)
+    g_lse = torch.zeros_like(p_lse)
+    grads = att.flash_chunk_bwd_cuda(q, k, v, pos, pos, p_out, p_lse,
+                                     do.float(), g_lse, causal, 0.125)
+    plain = att.flash_chunk_bwd_plain(q, k, v, pos, pos, p_out, p_lse,
+                                      do.float(), g_lse, causal, 0.125)
+    torch.cuda.synchronize()
+    assert _rel(out, p_out) < 1e-2
+    assert (lse - p_lse).abs().max().item() < lse_tol
+    for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+        assert _rel(got, want) < 1e-2, ("K7", name)
+
+
+@pytest.mark.cuda
+def test_packed_kernel_takes_more_than_65535_head_packs_on_card(cuda_device):
+    """B * H / pack = 65536 (B 65536, H 2, Hkv 1, pack 2, S 64, D 64): more
+    packs of heads than a grid's y dimension holds; K10 keeps them on a
+    linear grid and matches its twin."""
+    q, k, v, _ = _flash_inputs(cuda_device, 2, 64, 64, seed=53, b=65536,
+                               h=2)
+    fn, twin = _packed("masked")
+    out, lse = fn(q, k, v, True, 0.125, 2, 64, 64)
+    p_out, p_lse = twin(q, k, v, True, 0.125, 2, 64, 64)
+    torch.cuda.synchronize()
+    assert _rel(out, p_out) < 1e-2
+    assert (lse - p_lse).abs().max().item() < FEW_KEYS_LSE_TOL
+
+
+def test_pair_flash_refuses_to_time_without_a_card(tmp_path):
+    """The paired K2/K3 reading measures only on a card: exit 2 here,
+    before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the script would time")
+    from ray_tpu_torch.devbench import pair_flash
+
+    assert pair_flash.main(["--other", str(tmp_path)]) == 2
+    assert list(tmp_path.iterdir()) == []
