@@ -45,12 +45,13 @@ failure raises and the script exits non-zero without a result line:
    causal/non-causal, GQA rep 1/4, head_dim 64/128 and every (pack,
    block_q, block_k) each takes (B1 H8 S512), and at the profiling shape
    (B4 H32 Hkv8 S2048 D64 causal, the defaults pack 2, block_q 64,
-   block_k 64), and packed_fwd at B * H / pack = 65536 (B65536 H2 Hkv1
-   S64); each at block_k 64 against K2 on the same inputs
-   (bit-identity printed); times of the defaults beside the bound, the
-   twin, K2 and causal SDPA; then the entry point's check and its sweep
-   of K2 and the 25 packed variants (launch counts reset right before the
-   sweep and read right after);
+   block_k 64), and at B * H / pack = 65536 (B65536 H2 Hkv1 S64); at the
+   profiling shape every variant at block_k 64 bit-identical
+   to K2, and for each block_k every variant of the three kernels the
+   same bits; times of the defaults beside the bound, the twin, K2 and
+   causal SDPA, with TFLOP/s and ptxas registers; then the entry point's
+   check and its sweep of K2 and the 25 packed variants (launch counts
+   reset right before the sweep and read right after);
 5. kernel vs plain: the ring's chunk kernels flash_chunk_fwd (K6) and
    flash_chunk_bwd (K7, nonzero lse cotangent), and their tile-bounds
    pre-pass chunk_tile_bounds, against their twins over causal/non-causal,
@@ -1070,6 +1071,15 @@ def phase_split():
 # kernel name on the kernels line -> (schedule, the TPU kernel's line).
 PACKED = {"packed_fwd_epi": ("epi", 59), "packed_fwd_inl": ("inl", 123),
           "packed_fwd": ("masked", 262)}
+# schedule -> its template argument in csrc/flash_packed_fwd.cu
+PACKED_SCHED = {"masked": 0, "epi": 1, "inl": 2}
+PACKED_DESIGN = ("Hopper design (K2's machinery with head packing on top): "
+                 "one warpgroup per 64 rows of one packed head, 1-4 a CTA, "
+                 "no producer warp (thread 0 issues TMA), K/V tiles of "
+                 "block_k rows through a 3-stage (D 64) / 2-stage TMA "
+                 "ring read by every warpgroup, wgmma for both products, "
+                 "warpgroups stop after the tile holding their last row, "
+                 "linear grid with the last q tiles first")
 PACKED_CHECK = dict(b=1, h=8, s=512)  # the correctness cases' batch, heads, S
 
 
@@ -1162,38 +1172,53 @@ def phase_packed():
     # 65536 on a linear grid (causal S 64: rows that see few keys).
     big = BIG_BATCH
     qb, kb, vb, _ = _flash_inputs(gen, big["b"], 2, 1, big["s"], big["d"])
-    fn, twin = pfp.KERNELS["masked"]
-    big_errs = hold("packed_fwd", fn(qb, kb, vb, True, 0.125, 2, 64, 64),
-                    twin(qb, kb, vb, True, 0.125, 2, 64, 64),
-                    f"B{big['b']} H2 Hkv1 pack 2 S{big['s']}",
-                    FEW_KEYS_LSE_TOL)
-    del qb, kb, vb
-    print(f"packed_fwd at B * H / pack = {big['b']} (B{big['b']} H2 Hkv1 "
-          f"pack 2 S{big['s']} D64 causal) == its twin on a linear grid: out"
-          f" {big_errs[0]:.3e}, lse {big_errs[2]:.3e} (lse tolerance "
-          f"{FEW_KEYS_LSE_TOL:.3e})")
+    big_twin = pfp.packed_fwd_plain(qb, kb, vb, True, 0.125, 2, 64, 64)
+    big_errs = {name: hold(name, pfp.KERNELS[kind][0](qb, kb, vb, True,
+                                                      0.125, 2, 64, 64),
+                           big_twin, f"B{big['b']} H2 Hkv1 pack 2 "
+                           f"S{big['s']}", FEW_KEYS_LSE_TOL)
+                for name, (kind, _) in PACKED.items()}
+    del qb, kb, vb, big_twin
+    print(f"packed kernels at B * H / pack = {big['b']} (B{big['b']} H2 "
+          f"Hkv1 pack 2 S{big['s']} D64 causal) == their twin on a linear "
+          f"grid: " + ", ".join(f"{k_} out {e[0]:.3e}, lse {e[2]:.3e}"
+                                for k_, e in big_errs.items())
+          + f" (lse tolerance {FEW_KEYS_LSE_TOL:.3e})")
 
-    # Against K2 at block_k 64, on the same inputs: within the flash
-    # tolerance, and whether bit-identical (same arithmetic, same tiles).
+    # Against K2 at block_k 64, on the same inputs: the same bits (the
+    # same arithmetic on the same wgmma products over the same tiles); and
+    # for each block_k the three schedules at every pack give one result.
     k2 = att.flash_fwd_cuda(q, k, v, True, scale)
-    same = {}
+    same, by_bk = {}, {}
     for name, (kind, _) in PACKED.items():
         fn = pfp.KERNELS[kind][0]
         for pack, bq, bk in _packed_tiles(kind, m["h"] // m["hkv"],
                                           m["d"]):
-            if bk != 64:
-                continue
             got = fn(q, k, v, True, scale, pack, bq, bk)
             torch.cuda.synchronize()
-            errs = _packed_errs(got, k2)
-            if not (errs[1] < FLASH_REL_TOL and errs[2] < FLASH_LSE_TOL):
-                raise AssertionError(f"{name} pack={pack} bq={bq} disagrees "
-                                     f"with K2: {errs}")
-            same[f"{name} pack{pack}_bq{bq}_bk64"] = (
-                torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1]))
-    print(f"against K2 (flash_fwd_cuda) at block_k 64, the profiling shape: "
-          f"within tolerance; bit-identical: "
-          + ", ".join(f"{k_} {v_}" for k_, v_ in same.items()))
+            label = f"{name} pack{pack}_bq{bq}_bk{bk}"
+            first = by_bk.setdefault(bk, (label, got))
+            if not (torch.equal(got[0], first[1][0])
+                    and torch.equal(got[1], first[1][1])):
+                raise AssertionError(f"{label}'s out/lse bits differ from "
+                                     f"{first[0]}'s at the profiling shape")
+            if bk != 64:
+                continue
+            same[label] = (torch.equal(got[0], k2[0])
+                           and torch.equal(got[1], k2[1]))
+            if not same[label]:
+                raise AssertionError(
+                    f"{label} is not bit-identical to K2: out/lse errs "
+                    f"{_packed_errs(got, k2)}")
+    print(f"at the profiling shape: every packed variant at block_k 64 "
+          f"({len(same)}) bit-identical to K2 (flash_fwd_cuda); for each "
+          f"block_k the three kernels at every pack and block_q give the "
+          f"same bits as " + ", ".join(lab for lab, _ in by_bk.values()))
+    del by_bk
+    regs = build_registers("flash_packed_fwd")
+    print("packed_fwd_kernel<D, block_k, schedule, more than 128 rows> "
+          "registers a thread (ptxas): "
+          + ", ".join(f"{k_} {v_}" for k_, v_ in regs.items()))
 
     kr, vr = att._repeat_kv(k, m["h"]), att._repeat_kv(v, m["h"])
     k2_ms = events_ms(lambda: att.flash_fwd_cuda(q, k, v, True, scale), 20)
@@ -1212,7 +1237,11 @@ def phase_packed():
                       "lse_err": worst[name][2],
                       "tflops": flops / (ms * 1e-3) / 1e12,
                       "k2_bit_identical": {k_: v_ for k_, v_ in same.items()
-                                           if k_.startswith(name + " ")}}
+                                           if k_.startswith(name + " ")},
+                      # <D, block_k, schedule, more than 128 rows>
+                      "registers": {k_: v_ for k_, v_ in regs.items()
+                                    if k_.split(",")[2] == str(
+                                        PACKED_SCHED[kind])}}
         print(f"{name} (pack 2, block_q 64, block_k 64) B4 H32 Hkv8 S2048 "
               f"D64 causal bf16: kernel {ms:.4f} ms ({flops / 1e9:.1f} GFLOP,"
               f" {rows[name]['tflops']:.1f} TFLOP/s = {100 * bound / ms:.1f}% "
@@ -3010,7 +3039,8 @@ def main() -> int:
             "launches_by_path": {"prof_flash_pack": row["launches"]},
             **{k_: v_ for k_, v_ in row.items() if k_ != "launches"},
             "shape": [4, 32, 8, 2048, 64], "dtype": "bfloat16",
-            "causal": True, "variant": "pack2_bq64_bk64"})
+            "causal": True, "variant": "pack2_bq64_bk64",
+            "design": PACKED_DESIGN})
     summary = {k: v for k, v in eng.items() if k != "launches"}
     vit_summary = {k: v for k, v in vit.items() if k != "attention"}
     print(json.dumps({"card": smi, "engine": summary, "train": train,

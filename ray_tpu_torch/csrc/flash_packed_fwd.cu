@@ -14,41 +14,58 @@
 // On the TPU a grid row held `pack` q heads of one kv head as one
 // [pack*block_q, D] tile, so every product and vector op grew pack-fold.
 // Here one CTA owns one q tile (block_q rows) of `pack` q heads that share
-// a kv head, one warp per 16 rows of one head (pack*block_q/16 warps, at
-// most 16). Each K/V tile is staged in padded shared memory once and read
-// by the warps of all `pack` heads, where K2 (flash_fwd.cu) stages it once
-// per q head and the rep heads of a kv head re-read it from L2.
-//
-// Arithmetic, K2's and the TPU kernels' (the plain twins are in
-// ray_tpu_torch/devbench/prof_flash_pack.py):
-//   qs = bf16(q * scale * log2 e); s = qs . k^T in f32 (mma.sync m16n8k16);
-//   -1e30 where kpos > qpos on the tiles the schedule masks; base-2 online
-//   softmax over block_k-wide tiles; p16 = bf16(p) feeds both p16 . v and
-//   the row sum l; out = bf16(o / max(l, 1e-30)), lse = (m + log2 l) ln 2.
-// The schedules differ only in which tiles they mask. A fully visible tile
-// has nothing to mask, and a tile wholly right of a row's diagonal adds
-// exp2(-1e30 - m) = 0 with alpha = 1. So for one block_k the three give
-// the same bits, and at block_k 64 K2's.
+// a kv head: pack * block_q / 64 consumer warpgroups (1, 2 or 4), warpgroup
+// w on head w / (block_q / 64) of the pack, rows m0 + 64 (w % (block_q /
+// 64)). Each K/V tile is staged once and read by every warpgroup of the
+// CTA, where K2 (flash_fwd.cu, whose machinery this is) stages it once per
+// q head and the rep heads of a kv head re-read it from L2.
 //
 // Bound: operations. At B4 H32 Hkv8 S2048 D64 causal the two products are
 // 68.7 GFLOP, ~69 us at 989 TFLOP/s, against ~25 us for the ~84 MB that
-// must move. Tiles: block_q and block_k in {64, 128}, pack in {1, 2, 4},
-// pack * block_q <= 256 rows a CTA at D 64 and <= 128 at D 128. Registers
-// decide those limits:
-//   - a CTA of 16 warps (256 rows) has 65536 / 512 = 128 registers a
-//     thread; at D 128 o alone takes 64 of them, so D 128 stops at 8 warps
-//     (launch bound 256 threads: up to 255 registers, as K2 uses 168);
-//   - Q fragments stay in registers (as in K2), except at D 64, block_k
-//     128, where each warp re-reads them from shared memory every kv tile;
-//   - at D 64, block_k 128 the s tile (64 f32 a thread) does not fit
-//     beside o under 128 registers: s is computed in four 32-column
-//     chunks, the first three of which wait in a per-warp f32 stash in
-//     shared memory (each thread reads back what it wrote) while the last
-//     is computed, so the row max covers the whole tile and p, l and p.v
-//     run in the same order, with the same bits, as in one pass (two
-//     64-column chunks spill 4-20 bytes at 128 registers).
-// Simple first: no wgmma, TMA or cp.async; all threads stage K and V^T
-// between two barriers; the heaviest causal q tiles launch first.
+// must move. What the design does about it:
+// - Asynchronous staging: thread 0 loads each warpgroup's 64 q rows once
+//   and K and V tiles of block_k rows (block_k / 64 boxes of 64 x 64 bf16 a
+//   row block, 128-byte swizzle) into a ring of 3 stages at D 64 (2 at D
+//   128) by TMA, with full/empty mbarriers between it and the consumers, so
+//   tile j + 1 loads while tile j computes. There is no producer warp: a
+//   CTA of four warpgroups plus one warp would put five warps on one
+//   scheduler and cap a thread at 96 registers (a quarter of the register
+//   file over the fullest scheduler's warps); with 16 warps the cap is 128,
+//   with 8 it is 255. Thread 0 refills a stage as soon as every consumer
+//   has released it, so its warpgroup waits on the slowest one; the other
+//   warpgroups run up to the ring's depth ahead.
+// - qs = bf16(q * scale * log2 e) made in place over each warpgroup's
+//   staged q rows, 16 bytes a thread.
+// - wgmma for both products: s = qs . K^T with both operands in shared
+//   memory (m64n64k16, K read K-major; at block_k 128 two 64-column
+//   products into two accumulators, whose row max is taken over both before
+//   any p: each element of s is the same sum over D either way, so this is
+//   one 128-wide tile's arithmetic), and o += p . V with bf16 p straight
+//   from s's accumulators as the register A operand and V read MN-major
+//   (m64nDk16), walking V's row blocks. Nothing is transposed by hand.
+// - The grid is linear over (q tile, pack of heads), the last (heaviest
+//   under causal) q tiles first, so B * H / pack has no 65535 limit.
+// Not yet: a producer warpgroup with setmaxnreg, FA3's ping-pong, a
+// persistent grid.
+//
+// Arithmetic, K2's and the TPU kernels' (the plain twins are in
+// ray_tpu_torch/devbench/prof_flash_pack.py):
+//   qs = bf16(q * scale * log2 e); s = qs . k^T in f32;
+//   -1e30 where kpos > qpos on the tiles the schedule masks; base-2 online
+//   softmax over block_k-wide tiles; p16 = bf16(p) feeds both p16 . v and
+//   the row sum l; out = bf16(o / max(l, 1e-30)), lse = (m + log2 l) ln 2.
+// The schedules differ only in which tiles they mask: K10 every tile in
+// [0, n_end), K8 the tiles from m0 / block_k on, K9 tile qi alone, whose
+// local mask (row r % block_q against column c) is the global one there,
+// since that tile starts at m0. A warpgroup stops after the last kv tile
+// that reaches its own last row, in all three alike: a tile wholly past
+// its rows would add exp2(-1e30 - m) = 0 with alpha = 1. A fully visible
+// tile has nothing to mask. So for one block_k the three give the same
+// bits at every pack, and at block_k 64 K2's.
+//
+// Tiles: block_q and block_k in {64, 128}, pack in {1, 2, 4}, pack *
+// block_q <= 256 rows a CTA at D 64 (16 warps, 128 registers a thread) and
+// <= 128 at D 128 (8 warps; o alone takes 64 registers there).
 //
 // C interface (called through ctypes by
 // ray_tpu_torch/devbench/prof_flash_pack.py):
@@ -61,16 +78,16 @@
 
 #include <limits.h>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kMaxRows = 256;  // pack * block_q a CTA at D 64 (16 warps)
-constexpr int kMaxRowsD128 = 128;  // at D 128 (8 warps)
-constexpr int kNarrowRows = 128;   // up to here a CTA runs 256 threads
-constexpr int kVec = 8;  // bf16 values per 16-byte access
+using namespace rtt;
+
+constexpr int kMaxRows = 256;       // pack * block_q a CTA at D 64 (16 warps)
+constexpr int kMaxRowsD128 = 128;   // at D 128 (8 warps)
+constexpr int kNarrowRows = 128;    // up to here a CTA runs 256 threads
+constexpr int kBox = 64 * 64 * 2;   // one 64 x 64 bf16 TMA box
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -83,280 +100,63 @@ enum Error {
   kErrRagged = -4,
   kErrInline = -5,
   kErrGrid = -6,
+  kErrNoEncoder = -7,
+  kErrMap = -8,
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a . b for one m16n8k16 tile, bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 template <int D, int BK>
 struct Cfg {
-  static constexpr int LD = D + 8;    // pitch of the Q and K tiles
-  static constexpr int LDV = BK + 8;  // pitch of the transposed V tile
-  static constexpr bool kStash = D == 64 && BK == 128;
-  static constexpr bool kQRegs = !kStash;
-  static constexpr int kChunks = kStash ? 4 : 1;  // s chunks of a kv tile
-  static constexpr int NT = BK / 8 / kChunks;     // 8-column n tiles a chunk
-};
-
-// Bytes of one warp's s stash: the chunks of a kv tile but the last, as
-// NT x 4 f32 per lane.
-template <int D, int BK>
-__host__ __device__ constexpr int stash_bytes() {
-  return (Cfg<D, BK>::kChunks - 1) * Cfg<D, BK>::NT * 4 * 32 * 4;
-}
-
-template <int D, int BK>
-constexpr int smem_bytes(int rows) {
-  return (rows * (D + 8) + BK * (D + 8) + D * (BK + 8)) * 2 +
-         rows / 16 * stash_bytes<D, BK>();
-}
-
-// A warp's Q fragments (its 16 rows of one head): held in registers, or
-// re-read from the staged tile at each use.
-template <int D, int BK>
-struct QFrag {
-  static constexpr int LD = Cfg<D, BK>::LD;
-  uint32_t r[Cfg<D, BK>::kQRegs ? D / 16 : 1][4];
-  const __nv_bfloat16* base;  // this thread's element of sQ at kk = 0
-
-  __device__ __forceinline__ void load(int kk, uint32_t (&a)[4]) const {
-    const __nv_bfloat16* p = base + kk * 16;
-    a[0] = ld32(p);
-    a[1] = ld32(p + 8 * LD);
-    a[2] = ld32(p + 8);
-    a[3] = ld32(p + 8 * LD + 8);
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kBoxes = D / 64;        // boxes across a row
+  static constexpr int kRows = kBoxes * kBox;  // 64 rows x D
+  static constexpr int kHalves = BK / 64;      // 64-row blocks of a kv tile
+  static constexpr int kTile = kHalves * kRows;  // one K (or V) tile
+  static constexpr int kStage = 2 * kTile;       // K then V
+  // Byte offsets from the 1024-aligned base, for a CTA of `rows` q rows:
+  // q (rows / 64 blocks of 64), the K/V stages, the barriers (full, empty,
+  // q).
+  __host__ __device__ static constexpr int stage0(int rows) {
+    return rows / 64 * kRows;
   }
-  __device__ __forceinline__ void init(const __nv_bfloat16* p) {
-    base = p;
-    if constexpr (Cfg<D, BK>::kQRegs) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) load(kk, r[kk]);
-    }
+  __host__ __device__ static constexpr int bars(int rows) {
+    return stage0(rows) + kStages * kStage;
   }
-  __device__ __forceinline__ void get(int kk, uint32_t (&a)[4]) const {
-    if constexpr (Cfg<D, BK>::kQRegs) {
-      a[0] = r[kk][0];
-      a[1] = r[kk][1];
-      a[2] = r[kk][2];
-      a[3] = r[kk][3];
-    } else {
-      load(kk, a);
-    }
+  __host__ __device__ static constexpr int smem(int rows) {
+    return bars(rows) + (2 * kStages + 1) * 8 + 1024;
   }
 };
 
-// s = qs . k^T for this warp's 16 rows and the staged K tile's columns
-// [c0, c0 + 8*NT). MASKED: -1e30 where col_base + column > row0 (+8 for a
-// thread's second row); the caller passes global positions, or K9's local
-// ones on the diagonal tile.
-template <int D, int BK, bool MASKED>
-__device__ __forceinline__ void scores(float (&s)[Cfg<D, BK>::NT][4],
-                                       const QFrag<D, BK>& qf,
-                                       const __nv_bfloat16* sK, int c0, int g,
-                                       int t, int row0, int col_base) {
-  constexpr int NT = Cfg<D, BK>::NT;
-  constexpr int LD = Cfg<D, BK>::LD;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    qf.get(kk, a);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* p = sK + (c0 + nt * 8 + g) * LD + kk * 16 + 2 * t;
-      mma16816(s[nt], a, ld32(p), ld32(p + 8));
-    }
-  }
-  if constexpr (MASKED) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = col_base + c0 + nt * 8 + 2 * t + (e & 1);
-        if (col > row0 + (e < 2 ? 0 : 8)) s[nt][e] = kNegInf;
-      }
-    }
-  }
-}
-
-// One kv tile of the online softmax for this warp's 16 rows. ``stash``
-// is this warp's f32 stash (kStash only), indexed by lane so that every
-// thread reads back exactly what it wrote.
-template <int D, int BK, bool MASKED>
-__device__ __forceinline__ void kv_step(const QFrag<D, BK>& qf,
-                                        const __nv_bfloat16* sK,
-                                        const __nv_bfloat16* sVt,
-                                        float* stash, int lane,
-                                        float (&o)[D / 8][4], float (&m_run)[2],
-                                        float (&l_run)[2], int g, int t,
-                                        int row0, int col_base) {
-  using C = Cfg<D, BK>;
-  constexpr int NT = C::NT;
-  constexpr int LDV = C::LDV;
-  float s[NT][4];
-  float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-  for (int ch = 0; ch < C::kChunks; ++ch) {
-    scores<D, BK, MASKED>(s, qf, sK, ch * NT * 8, g, t, row0, col_base);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-      if (ch < C::kChunks - 1) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          stash[((ch * NT + nt) * 4 + e) * 32 + lane] = s[nt][e];
-      }
-    }
-  }
-  const float mn0 = fmaxf(m_run[0], quad_max(mx0));
-  const float mn1 = fmaxf(m_run[1], quad_max(mx1));
-  const float alpha0 = exp2f(m_run[0] - mn0);
-  const float alpha1 = exp2f(m_run[1] - mn1);
-  m_run[0] = mn0;
-  m_run[1] = mn1;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    o[dt][0] *= alpha0;
-    o[dt][1] *= alpha0;
-    o[dt][2] *= alpha1;
-    o[dt][3] *= alpha1;
-  }
-
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int ch = 0; ch < C::kChunks; ++ch) {
-    // p in bf16; l sums exactly the rounded values that multiply v. The
-    // last chunk's s is still in registers, the earlier ones in the stash.
-    uint32_t pk[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float x[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        x[e] = ch < C::kChunks - 1
-                   ? stash[((ch * NT + nt) * 4 + e) * 32 + lane]
-                   : s[nt][e];
-      pk[nt][0] = pack_bf16(exp2f(x[0] - mn0), exp2f(x[1] - mn0));
-      pk[nt][1] = pack_bf16(exp2f(x[2] - mn1), exp2f(x[3] - mn1));
-      const float2 a = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&pk[nt][0]));
-      const float2 c = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&pk[nt][1]));
-      sum0 += a.x + a.y;
-      sum1 += c.x + c.y;
-    }
-    // o += p16 . v: the s accumulators of two n tiles are one A fragment.
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0],
-                             pk[2 * kk + 1][1]};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* p =
-            sVt + (dt * 8 + g) * LDV + ch * NT * 8 + kk * 16 + 2 * t;
-        mma16816(o[dt], a, ld32(p), ld32(p + 8));
-      }
-    }
-  }
-  l_run[0] = l_run[0] * alpha0 + quad_sum(sum0);
-  l_run[1] = l_run[1] * alpha1 + quad_sum(sum1);
-}
-
-// WIDE: a CTA of more than kNarrowRows rows (D 64 only), up to 16 warps
-// and so 128 registers a thread; otherwise up to 8 warps and 255.
+// WIDE: a CTA of more than kNarrowRows rows (D 64 only), 16 warps and so
+// 128 registers a thread; otherwise up to 8 warps and 255.
 template <int D, int BK, int SCHED, bool WIDE>
-__global__ void __launch_bounds__(WIDE ? kMaxRows * 2 : kNarrowRows * 2)
-    packed_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(WIDE ? kMaxRows * 2 : kNarrowRows * 2, 1)
+    packed_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                       int H, int rep, int S, int pack, int block_q,
                       float scale2, int causal) {
   using C = Cfg<D, BK>;
-  constexpr int LD = C::LD;
-  constexpr int LDV = C::LDV;
-  constexpr int ROW_VECS = D / kVec;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rows = pack * block_q;
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + rows * LD;
-  __nv_bfloat16* sVt = sK + BK * LD;
-  float* stash = reinterpret_cast<float*>(sVt + D * LDV);
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int nwg = blockDim.x >> 7;  // consumer warpgroups: pack * block_q / 64
+  const int rows = nwg * 64;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bars(rows));
+  uint64_t* empty = full + C::kStages;
+  uint64_t* qbar = empty + C::kStages;
+  unsigned char* stages = smem + C::stage0(rows);
 
-  // A linear grid over (pack of heads, q tile), q tile fastest: the order
-  // of the former (q tiles, B * H / pack) grid, with no 65535 limit.
+  // A linear grid over (q tile, pack of heads), the pack fastest and the
+  // last (heaviest) q tiles first.
   const int nq = S / block_q;
-  const int qx = blockIdx.x % nq;
-  const int qi = causal ? nq - 1 - qx : qx;  // heavy first
+  const int npacks = gridDim.x / nq;
+  const int qx = blockIdx.x / npacks;
+  const int qi = causal ? nq - 1 - qx : qx;
   const int m0 = qi * block_q;
-  const int bh0 = (blockIdx.x / nq) * pack;  // flat (batch, q head) of head 0 of the pack
-  const int hk = (bh0 % H) / rep;
-  const size_t kv_base = ((size_t)(bh0 / H) * (H / rep) + hk) * S * D;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // row within an 8-row group of a fragment
-  const int t = lane & 3;   // column pair within a fragment
-  const int head = warp / (block_q / 16);       // this warp's head in the pack
-  const int wr = (warp % (block_q / 16)) * 16;  // its first row in the q tile
-
-  // Q tiles of the pack's heads, pre-scaled and rounded to bf16 once; CTA
-  // row r is row r % block_q of head r / block_q.
-  for (int i = tid; i < rows * ROW_VECS; i += nthreads) {
-    const int r = i / ROW_VECS, c = (i % ROW_VECS) * kVec;
-    const size_t src =
-        ((size_t)(bh0 + r / block_q) * S + m0 + r % block_q) * D + c;
-    const uint4 raw = *reinterpret_cast<const uint4*>(q + src);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    uint4 o;
-    __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&o);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      oe[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale2);
-    *reinterpret_cast<uint4*>(sQ + r * LD + c) = o;
-  }
-  __syncthreads();
-
-  stash += warp * (stash_bytes<D, BK>() / 4);
-  QFrag<D, BK> qf;
-  qf.init(sQ + (head * block_q + wr + g) * LD + 2 * t);
-  float o[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};
-  const int lrow = wr + g;    // this thread's first row within the q tile
-  const int grow = m0 + lrow;  // and its position in the sequence
+  const int bh0 = (blockIdx.x % npacks) * pack;  // flat (batch, q head) of head 0
+  const int plane_kv = (bh0 / H) * (H / rep) + (bh0 % H) / rep;
+  const int blocks = block_q / 64;  // 64-row blocks of one head's q tile
 
   // The schedule: kv tiles [0, n_free) run mask-free, [n_free, n_end)
   // masked. Causal: K10 masks every tile up to the bound; K8 only those
@@ -368,86 +168,246 @@ __global__ void __launch_bounds__(WIDE ? kMaxRows * 2 : kNarrowRows * 2)
     n_end = min((m0 + block_q + BK - 1) / BK, nkv);
     n_free = SCHED == kMasked ? 0 : SCHED == kEpilogue ? m0 / BK : qi;
   }
-  for (int j = 0; j < n_end; ++j) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = tid; i < BK * ROW_VECS; i += nthreads) {
-      const int r = i / ROW_VECS, c = (i % ROW_VECS) * kVec;
-      const size_t off = kv_base + (size_t)(j * BK + r) * D + c;
-      *reinterpret_cast<uint4*>(sK + r * LD + c) =
-          *reinterpret_cast<const uint4*>(k + off);
-      const uint4 vr = *reinterpret_cast<const uint4*>(v + off);
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vr);
+
+  const int tid = threadIdx.x;
+  auto load_tile = [&](int j) {  // thread 0: kv tile j into its stage
+    const int s = j % C::kStages;
+    unsigned char* kt = stages + s * C::kStage;
+    mbar_expect_tx(&full[s], C::kStage);
 #pragma unroll
-      for (int jj = 0; jj < kVec; ++jj) sVt[(c + jj) * LDV + r] = ve[jj];
+    for (int h = 0; h < C::kHalves; ++h)
+#pragma unroll
+      for (int bx = 0; bx < C::kBoxes; ++bx) {
+        const int off = h * C::kRows + bx * kBox;
+        tma_load_3d(kt + off, &tm_k, &full[s], bx * 64, j * BK + h * 64,
+                    plane_kv);
+        tma_load_3d(kt + C::kTile + off, &tm_v, &full[s], bx * 64,
+                    j * BK + h * 64, plane_kv);
+      }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], blockDim.x);
     }
-    __syncthreads();
-    if (j < n_free) {
-      kv_step<D, BK, false>(qf, sK, sVt, stash, lane, o, m_run, l_run, g, t,
-                            0, 0);
-    } else if constexpr (SCHED == kInline) {
-      // The diagonal tile: local row against local column, for every qi.
-      kv_step<D, BK, true>(qf, sK, sVt, stash, lane, o, m_run, l_run, g, t,
-                           lrow, 0);
-    } else {
-      kv_step<D, BK, true>(qf, sK, sVt, stash, lane, o, m_run, l_run, g, t,
-                           grow, j * BK);
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, rows / 64 * C::kRows);
+    for (int w = 0; w < nwg; ++w)
+#pragma unroll
+      for (int bx = 0; bx < C::kBoxes; ++bx)
+        tma_load_3d(smem + w * C::kRows + bx * kBox, &tm_q, qbar, bx * 64,
+                    m0 + (w % blocks) * 64, bh0 + w / blocks);
+    for (int j = 0; j < min(C::kStages, n_end); ++j) load_tile(j);
+  }
+  __syncwarp();
+
+  // ---- warpgroup wg owns rows r0 .. r0 + 63 of head `head` of the pack ----
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int head = wg / blocks;
+  const int r0 = m0 + (wg % blocks) * 64;
+  const int row0 = r0 + warp * 16 + g;  // this thread's two q rows
+  const int row1 = row0 + 8;
+  // kv tiles this warpgroup computes: up to the one holding its last row.
+  const int nkt_wg = causal ? min((r0 + 64 + BK - 1) / BK, n_end) : n_end;
+
+  // qs = bf16(q * scale * log2 e) in place over this warpgroup's q rows.
+  unsigned char* qrows = smem + wg * C::kRows;
+  mbar_wait(qbar, 0);
+  for (int i = tid & 127; i < C::kRows / 16; i += 128) {
+    uint4 raw = reinterpret_cast<const uint4*>(qrows)[i];
+    uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = unpack_bf16(w[e]);
+      w[e] = pack_bf16(f.x * scale2, f.y * scale2);
     }
+    reinterpret_cast<uint4*>(qrows)[i] = raw;
+  }
+  fence_proxy_async();  // the generic writes, before wgmma reads them
+  named_barrier_sync(1 + wg, 128);
+  const uint32_t qaddr = smem_u32(qrows);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float sc[C::kHalves][32];
+#pragma unroll
+  for (int h = 0; h < C::kHalves; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[h][i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_end; ++j) {
+    const int s = j % C::kStages;
+    mbar_wait(&full[s], (j / C::kStages) & 1);
+    if (j < nkt_wg) {
+      const int n0 = j * BK;
+      const bool masked = j >= n_free;
+      const uint32_t kaddr = smem_u32(stages + s * C::kStage);
+      const uint32_t vaddr = kaddr + C::kTile;
+
+      // s = qs . K^T: 64 q rows x block_k kv columns, 64 at a time.
+#pragma unroll
+      for (int h = 0; h < C::kHalves; ++h) fence_regs(sc[h]);
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < C::kHalves; ++h)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+          wgmma_m64n64k16_ss<0>(
+              sc[h], wgmma_desc(qaddr + off, 16, 1024),
+              wgmma_desc(kaddr + h * C::kRows + off, 16, 1024), kk > 0);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < C::kHalves; ++h) fence_regs(sc[h]);
+
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int h = 0; h < C::kHalves; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          if (masked) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = n0 + h * 64 + nt * 8 + 2 * t + (e & 1);
+              if (col > (e < 2 ? row0 : row1)) sc[h][4 * nt + e] = kNegInf;
+            }
+          }
+          mx0 = fmaxf(mx0, fmaxf(sc[h][4 * nt], sc[h][4 * nt + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[h][4 * nt + 2], sc[h][4 * nt + 3]));
+        }
+      const float mn0 = fmaxf(m_run[0], quad_max(mx0));
+      const float mn1 = fmaxf(m_run[1], quad_max(mx1));
+      const float alpha0 = exp2f(m_run[0] - mn0);
+      const float alpha1 = exp2f(m_run[1] - mn1);
+      m_run[0] = mn0;
+      m_run[1] = mn1;
+
+      // p in bf16; l sums exactly the rounded values that multiply v.
+      uint32_t pa[BK / 16][4];
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int h = 0; h < C::kHalves; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const uint32_t lo = pack_bf16(exp2f(sc[h][4 * nt] - mn0),
+                                        exp2f(sc[h][4 * nt + 1] - mn0));
+          const uint32_t hi = pack_bf16(exp2f(sc[h][4 * nt + 2] - mn1),
+                                        exp2f(sc[h][4 * nt + 3] - mn1));
+          const float2 a = unpack_bf16(lo), c = unpack_bf16(hi);
+          sum0 += a.x + a.y;
+          sum1 += c.x + c.y;
+          pa[h * 4 + nt / 2][(nt & 1) * 2] = lo;
+          pa[h * 4 + nt / 2][(nt & 1) * 2 + 1] = hi;
+        }
+      l_run[0] = l_run[0] * alpha0 + quad_sum(sum0);
+      l_run[1] = l_run[1] * alpha1 + quad_sum(sum1);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        o[4 * dt] *= alpha0;
+        o[4 * dt + 1] *= alpha0;
+        o[4 * dt + 2] *= alpha1;
+        o[4 * dt + 3] *= alpha1;
+      }
+
+      // o += p16 . V, V read MN-major: kv rows 16 kk .. 16 kk + 15, in row
+      // block kk / 4 of the tile.
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t desc =
+            wgmma_desc(vaddr + (kk / 4) * C::kRows + (kk % 4) * 2048, kBox,
+                       1024);
+        if constexpr (D == 64)
+          wgmma_m64n64k16_rs<1>(o, pa[kk], desc, 1);
+        else
+          wgmma_m64n128k16_rs<1>(o, pa[kk], desc, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    mbar_arrive(&empty[s]);
+    if (tid == 0 && j + C::kStages < n_end) {
+      // Every consumer has released tile j's stage: tile j + kStages in.
+      mbar_wait(&empty[s], (j / C::kStages) & 1);
+      load_tile(j + C::kStages);
+    }
+    __syncwarp();
   }
 
   const float l0 = fmaxf(l_run[0], 1e-30f);
   const float l1 = fmaxf(l_run[1], 1e-30f);
-  const size_t row_base = (size_t)(bh0 + head) * S + grow;
+  const size_t q_base = (size_t)(bh0 + head) * S * D;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(out + row_base * D + col) =
-        pack_bf16(o[dt][0] / l0, o[dt][1] / l0);
-    *reinterpret_cast<uint32_t*>(out + (row_base + 8) * D + col) =
-        pack_bf16(o[dt][2] / l1, o[dt][3] / l1);
+    *reinterpret_cast<uint32_t*>(out + q_base + (size_t)row0 * D + col) =
+        pack_bf16(o[4 * dt] / l0, o[4 * dt + 1] / l0);
+    *reinterpret_cast<uint32_t*>(out + q_base + (size_t)row1 * D + col) =
+        pack_bf16(o[4 * dt + 2] / l1, o[4 * dt + 3] / l1);
   }
   if (t == 0) {
-    lse[row_base] = (m_run[0] + log2f(l0)) * kLn2;
-    lse[row_base + 8] = (m_run[1] + log2f(l1)) * kLn2;
+    float* lse_row = lse + (size_t)(bh0 + head) * S;
+    lse_row[row0] = (m_run[0] + log2f(l0)) * kLn2;
+    lse_row[row1] = (m_run[1] + log2f(l1)) * kLn2;
   }
 }
 
 template <int D, int BK, int SCHED, bool WIDE>
-cudaError_t launch_kernel(const void* q, const void* k, const void* v,
-                          void* out, float* lse, int B, int H, int Hkv, int S,
-                          int pack, int block_q, float scale2, int causal,
-                          cudaStream_t stream) {
+int launch_kernel(const CUtensorMap& tq, const CUtensorMap& tk,
+                  const CUtensorMap& tv, void* out, float* lse, int B, int H,
+                  int Hkv, int S, int pack, int block_q, float scale2,
+                  int causal, cudaStream_t stream) {
+  using C = Cfg<D, BK>;
   static bool smem_set = false;  // once per process, before any capture
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         packed_fwd_kernel<D, BK, SCHED, WIDE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes<D, BK>(WIDE ? kMaxRows : kNarrowRows));
+        C::smem(WIDE ? kMaxRows : kNarrowRows));
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
   const int rows = pack * block_q;
   const int grid = (S / block_q) * (B * H / pack);
-  packed_fwd_kernel<D, BK, SCHED, WIDE><<<grid, rows / 16 * 32,
-                                          smem_bytes<D, BK>(rows), stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      lse, H, H / Hkv, S, pack, block_q, scale2, causal);
+  packed_fwd_kernel<D, BK, SCHED, WIDE><<<grid, rows * 2, C::smem(rows),
+                                          stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, H, H / Hkv, S, pack,
+      block_q, scale2, causal);
   return cudaGetLastError();
 }
 
 template <int D, int BK, int SCHED>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int H, int Hkv, int S, int pack,
-                   int block_q, float scale2, int causal,
-                   cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int H, int Hkv, int S, int pack, int block_q, float scale2,
+           int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = rtt_make_tile_map(&tq, q, B * H, S, D);
+  if (err == 0) err = rtt_make_tile_map(&tk, k, B * Hkv, S, D);
+  if (err == 0) err = rtt_make_tile_map(&tv, v, B * Hkv, S, D);
+  if (err) return err == -2 ? kErrNoEncoder : kErrMap;
   if constexpr (D == 64) {
     if (pack * block_q > kNarrowRows)
-      return launch_kernel<D, BK, SCHED, true>(q, k, v, out, lse, B, H, Hkv,
-                                               S, pack, block_q, scale2,
+      return launch_kernel<D, BK, SCHED, true>(tq, tk, tv, out, lse, B, H,
+                                               Hkv, S, pack, block_q, scale2,
                                                causal, stream);
   }
-  return launch_kernel<D, BK, SCHED, false>(q, k, v, out, lse, B, H, Hkv, S,
-                                            pack, block_q, scale2, causal,
+  return launch_kernel<D, BK, SCHED, false>(tq, tk, tv, out, lse, B, H, Hkv,
+                                            S, pack, block_q, scale2, causal,
                                             stream);
 }
 
@@ -511,10 +471,10 @@ extern "C" int rtt_packed_fwd_inl(const void* q, const void* k, const void* v,
 // Dynamic shared memory of a CTA of pack * block_q rows, or -1 for a
 // head_dim or block_k the kernels do not take.
 extern "C" int rtt_flash_packed_fwd_smem_bytes(int D, int block_k, int rows) {
-  if (D == 64) return block_k == 64 ? smem_bytes<64, 64>(rows)
-                    : block_k == 128 ? smem_bytes<64, 128>(rows) : -1;
-  if (D == 128) return block_k == 64 ? smem_bytes<128, 64>(rows)
-                     : block_k == 128 ? smem_bytes<128, 128>(rows) : -1;
+  if (D == 64) return block_k == 64 ? Cfg<64, 64>::smem(rows)
+                    : block_k == 128 ? Cfg<64, 128>::smem(rows) : -1;
+  if (D == 128) return block_k == 64 ? Cfg<128, 64>::smem(rows)
+                     : block_k == 128 ? Cfg<128, 128>::smem(rows) : -1;
   return -1;
 }
 
@@ -528,6 +488,9 @@ extern "C" const char* rtt_flash_packed_fwd_error_string(int code) {
     case kErrRagged: return "S must be a multiple of block_q and block_k";
     case kErrInline: return "the inline-diagonal kernel needs block_q == block_k";
     case kErrGrid: return "S / block_q * B * H / pack above INT_MAX";
+    case kErrNoEncoder:
+      return "cuTensorMapEncodeTiled not found: no TMA tensor maps";
+    case kErrMap: return "cuTensorMapEncodeTiled refused a tensor map";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash forward and fused
 // backward (flash_fwd.cu, flash_bwd.cu), the ring-attention chunk kernels
-// (flash_chunk_fwd.cu, flash_chunk_bwd.cu) and the split backward
-// (flash_bwd_dq.cu, flash_bwd_dkv.cu): bf16 packing, quad reductions over
+// (flash_chunk_fwd.cu, flash_chunk_bwd.cu), the split backward
+// (flash_bwd_dq.cu, flash_bwd_dkv.cu) and the head-packed forward
+// (flash_packed_fwd.cu): bf16 packing, quad reductions over
 // an mma/wgmma accumulator row, mbarriers, TMA tile loads, cp.async,
 // ldmatrix, mma.sync, proxy fences and named barriers, and wgmma (A from
 // registers or from shared memory, A K-major or MN-major) with its

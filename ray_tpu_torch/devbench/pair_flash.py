@@ -60,38 +60,49 @@ ROWS_SHAPES = (("B8 S1024 causal", 8, 1024, True),
                ("B1 S16384 causal", 1, 16384, True))
 
 
-def _build(jobs: dict) -> dict:
+def _compile(jobs: dict) -> dict:
     """Build each job's (source directory, kernel name) with this tree's
-    nvcc flags, all at once, and load its rtt_<name> entry."""
+    nvcc flags, all at once, and load each library."""
     from ray_tpu_torch._native import build
-    from ray_tpu_torch.ops.attention import _ARGTYPES
 
     procs = {key: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
          os.path.join(d, f"lib{n}.so"), os.path.join(d, f"{n}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for key, (d, n) in jobs.items()}
-    fns = {}
+    libs = {}
     for key, proc in procs.items():
         out, _ = proc.communicate()
         d, n = jobs[key]
         if proc.returncode:
             raise RuntimeError(f"nvcc build of {d}/{n}.cu failed:\n{out}")
-        fn = getattr(ctypes.CDLL(os.path.join(d, f"lib{n}.so")), f"rtt_{n}")
+        libs[key] = ctypes.CDLL(os.path.join(d, f"lib{n}.so"))
+    return libs
+
+
+def _build(jobs: dict) -> dict:
+    """``_compile`` the jobs and bind each library's rtt_<name> entry."""
+    from ray_tpu_torch.ops.attention import _ARGTYPES
+
+    fns = {}
+    for key, lib in _compile(jobs).items():
+        n = jobs[key][1]
+        fn = getattr(lib, f"rtt_{n}")
         fn.argtypes = _ARGTYPES[n]
         fn.restype = ctypes.c_int
         fns[key] = fn
     return fns
 
 
-def _ablation_dirs() -> dict:
+def _ablation_dirs(ablations: dict = ABLATIONS,
+                   sub: str = "ablation") -> dict:
     """Each ablation's sources, this tree's with its one edit, in a
-    directory of its own under the build directory."""
+    directory of its own under the build directory's ``sub``."""
     from ray_tpu_torch._native import build
 
     jobs = {}
-    for i, (label, (name, old, new)) in enumerate(ABLATIONS.items()):
-        d = os.path.join(build.BUILD_DIR, "ablation", str(i))
+    for i, (label, (name, old, new)) in enumerate(ablations.items()):
+        d = os.path.join(build.BUILD_DIR, sub, str(i))
         os.makedirs(d, exist_ok=True)
         shutil.copy(os.path.join(build.SRC_DIR, "hopper.cuh"), d)
         with open(os.path.join(build.SRC_DIR, f"{name}.cu")) as f:

@@ -5,9 +5,10 @@ Port of devbench/prof_flash_pack.py. On the TPU, packing put the q heads
 that share a GQA kv head into one kernel invocation (a [pack*block_q, D]
 tile), and three mask schedules tested how much of the causal mask's cost
 the fully visible kv blocks could shed; the winner became K2. Here
-(csrc/flash_packed_fwd.cu) one CTA owns one q tile of ``pack`` q heads of
-one kv head and stages each K/V tile once for all of them, where K2 stages
-it once per q head.
+(csrc/flash_packed_fwd.cu, K2's Hopper machinery: a TMA ring of K/V tiles
+and ``wgmma`` for both products) one CTA owns one q tile of ``pack`` q
+heads of one kv head, one warpgroup per 64 rows of one head, and stages
+each K/V tile once for all of them, where K2 stages it once per q head.
 
 - ``packed_fwd`` (K10): every kv tile up to the causal bound masked by
   global positions;
@@ -60,8 +61,9 @@ CHECK_SHAPE = dict(b=1, h=8, hkv=2, s=1024, d=64)
 L1, L2 = 8, 56  # calls in the short and the long chain
 BLOCKS = (64, 128)
 PACKS = (1, 2, 4)
-# head_dim -> the most rows (pack * block_q) a CTA takes: 16 warps of 16
-# rows at D 64, 8 at D 128 (the register file; csrc/flash_packed_fwd.cu).
+# head_dim -> the most rows (pack * block_q) a CTA takes: four warpgroups
+# of 64 rows at D 64, two at D 128 (the register file;
+# csrc/flash_packed_fwd.cu).
 MAX_ROWS = {64: 256, 128: 128}
 # --check: out within this share of the reference's largest value. The
 # reference runs in f32 on the bf16 inputs; the kernels round p and out to
@@ -163,21 +165,26 @@ def packed_fwd_inl_plain(q, k, v, causal: bool, sm_scale: float,
                   block_q if block_k is None else block_k)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a build of csrc/flash_packed_fwd.cu (this
+    tree's, or an earlier one with the same interface) and returns it."""
+    for entry in _ENTRY.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [_P] * 5 + [_I] * 8 + [_F, _I, _P]
+        fn.restype = _I
+    lib.rtt_flash_packed_fwd_error_string.argtypes = [_I]
+    lib.rtt_flash_packed_fwd_error_string.restype = ctypes.c_char_p
+    lib.rtt_flash_packed_fwd_smem_bytes.argtypes = [_I] * 3
+    lib.rtt_flash_packed_fwd_smem_bytes.restype = _I
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     lib = _LIBS.get("lib")
     if lib is None:
         from ray_tpu_torch._native.build import load_library
 
-        lib = load_library("flash_packed_fwd")
-        for entry in _ENTRY.values():
-            fn = getattr(lib, entry)
-            fn.argtypes = [_P] * 5 + [_I] * 8 + [_F, _I, _P]
-            fn.restype = _I
-        lib.rtt_flash_packed_fwd_error_string.argtypes = [_I]
-        lib.rtt_flash_packed_fwd_error_string.restype = ctypes.c_char_p
-        lib.rtt_flash_packed_fwd_smem_bytes.argtypes = [_I] * 3
-        lib.rtt_flash_packed_fwd_smem_bytes.restype = _I
-        _LIBS["lib"] = lib
+        lib = _LIBS["lib"] = bind(load_library("flash_packed_fwd"))
     return lib
 
 
@@ -187,13 +194,16 @@ def smem_bytes(head_dim: int, block_k: int, rows: int) -> int:
     return _library().rtt_flash_packed_fwd_smem_bytes(head_dim, block_k, rows)
 
 
-def _launch(kind, q, k, v, causal, sm_scale, pack, block_q, block_k):
+def _launch(kind, q, k, v, causal, sm_scale, pack, block_q, block_k,
+            lib=None):
+    """One launch of ``lib`` (default: this tree's build) on CUDA tensors:
+    (out, lse). Raises with the kernel's message if it refuses."""
     att._check_cuda(q, k, v)
     q, k, v = att._dense(q), att._dense(k), att._dense(v)
     b, h, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _library()
+    lib = _library() if lib is None else lib
     with torch.cuda.device(q.device):
         err = getattr(lib, _ENTRY[kind])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -713,19 +713,87 @@ def test_packed_kernels_match_plain_twins_on_card(cuda_device, kind, causal,
     assert (lse - p_lse).abs().max().item() < 2e-3
 
 
+def _packed_tiles(kind, rep, d, s, block_k=None):
+    """(pack, block_q, block_k) that kernel ``kind`` takes at GQA rep,
+    head_dim d and length s (block_k alone when given)."""
+    from ray_tpu_torch.devbench import prof_flash_pack as pfp
+
+    return [(p, bq, bk) for p in pfp.PACKS if rep % p == 0
+            for bq in pfp.BLOCKS for bk in pfp.BLOCKS
+            if p * bq <= pfp.MAX_ROWS[d] and (kind != "inl" or bq == bk)
+            and s % bq == 0 and s % bk == 0
+            and block_k in (None, bk)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-def test_packed_kernels_agree_with_k2_at_block_k_64_on_card(cuda_device,
+@pytest.mark.parametrize("d", [64, 128])
+def test_packed_kernels_agree_with_k2_at_block_k_64_on_card(cuda_device, d,
                                                             causal):
-    """The same arithmetic over the same 64-wide kv tiles as K2: within
-    the flash tolerance (bit-identity is printed by chip_smoke.py)."""
-    q, k, v, _ = _flash_inputs(cuda_device, 4, 64, 1024, seed=64)
-    out, lse = att.flash_fwd_cuda(q, k, v, causal, 0.125)
+    """The same arithmetic over the same 64-wide kv tiles as K2, on the
+    same wgmma products: out and lse are K2's bits, for every pack and
+    block_q each kernel takes."""
+    q, k, v, _ = _flash_inputs(cuda_device, 4, d, 1024, seed=64 + d)
+    scale = d ** -0.5
+    out, lse = att.flash_fwd_cuda(q, k, v, causal, scale)
     for kind in ("masked", "epi", "inl"):
-        got, got_lse = _packed(kind)[0](q, k, v, causal, 0.125, 4, 64, 64)
-        torch.cuda.synchronize()
-        assert _rel(got, out) < 1e-2, kind
-        assert (got_lse - lse).abs().max().item() < 2e-3, kind
+        for pack, bq, bk in _packed_tiles(kind, 4, d, 1024, block_k=64):
+            got, got_lse = _packed(kind)[0](q, k, v, causal, scale, pack, bq,
+                                            bk)
+            torch.cuda.synchronize()
+            assert torch.equal(got, out), (kind, pack, bq)
+            assert torch.equal(got_lse, lse), (kind, pack, bq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bk", [64, 128])
+def test_packed_kernels_give_one_block_ks_bits_at_every_pack_on_card(
+        cuda_device, bk, d, causal):
+    """For one block_k, the three schedules at every pack and block_q give
+    the same out and lse bits (they differ only in masks that hide nothing
+    or tiles that add nothing), and a second launch repeats them."""
+    q, k, v, _ = _flash_inputs(cuda_device, 4, d, 768, seed=70 + d + bk)
+    scale = d ** -0.5
+    first = None
+    for kind in ("masked", "epi", "inl"):
+        fn = _packed(kind)[0]
+        for pack, bq, _ in _packed_tiles(kind, 4, d, 768, block_k=bk):
+            got = fn(q, k, v, causal, scale, pack, bq, bk)
+            again = fn(q, k, v, causal, scale, pack, bq, bk)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], again[0]), (kind, pack, bq)
+            assert torch.equal(got[1], again[1]), (kind, pack, bq)
+            if first is None:
+                first = got
+            assert torch.equal(got[0], first[0]), (kind, pack, bq)
+            assert torch.equal(got[1], first[1]), (kind, pack, bq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 384, 640])
+def test_packed_kernels_at_one_tile_and_odd_tile_counts_on_card(
+        cuda_device, s, d, causal):
+    """S 64 (one kv tile), and S 384 and 640: kv-tile counts (3, 5, 6 and
+    10) that are no multiple of the ring's stages (3 at D 64, 2 at D 128)
+    at some block_k. Every kernel at every tile it takes, against its
+    twin; causal S 64's rows see few keys (FEW_KEYS_LSE_TOL)."""
+    q, k, v, _ = _flash_inputs(cuda_device, 4, d, s, seed=s + d)
+    scale = d ** -0.5
+    lse_tol = FEW_KEYS_LSE_TOL if causal and s == 64 else 2e-3
+    for kind in ("masked", "epi", "inl"):
+        fn, twin = _packed(kind)
+        for pack, bq, bk in _packed_tiles(kind, 4, d, s):
+            out, lse = fn(q, k, v, causal, scale, pack, bq, bk)
+            p_out, p_lse = twin(q, k, v, causal, scale, pack, bq, bk)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all(), (kind, pack, bq, bk)
+            assert _rel(out, p_out) < 1e-2, (kind, pack, bq, bk)
+            assert (lse - p_lse).abs().max().item() < lse_tol, (kind, pack,
+                                                                bq, bk)
 
 
 @pytest.mark.cuda
@@ -891,16 +959,27 @@ def test_attention_kernels_take_a_batch_of_65536_on_card(cuda_device,
 @pytest.mark.cuda
 def test_packed_kernel_takes_more_than_65535_head_packs_on_card(cuda_device):
     """B * H / pack = 65536 (B 65536, H 2, Hkv 1, pack 2, S 64, D 64): more
-    packs of heads than a grid's y dimension holds; K10 keeps them on a
-    linear grid and matches its twin."""
+    packs of heads than a grid's y dimension holds; K8, K9 and K10 keep
+    them on a linear grid and match their twin."""
     q, k, v, _ = _flash_inputs(cuda_device, 2, 64, 64, seed=53, b=65536,
                                h=2)
-    fn, twin = _packed("masked")
-    out, lse = fn(q, k, v, True, 0.125, 2, 64, 64)
-    p_out, p_lse = twin(q, k, v, True, 0.125, 2, 64, 64)
-    torch.cuda.synchronize()
-    assert _rel(out, p_out) < 1e-2
-    assert (lse - p_lse).abs().max().item() < FEW_KEYS_LSE_TOL
+    p_out, p_lse = _packed("masked")[1](q, k, v, True, 0.125, 2, 64, 64)
+    for kind in ("masked", "epi", "inl"):
+        out, lse = _packed(kind)[0](q, k, v, True, 0.125, 2, 64, 64)
+        torch.cuda.synchronize()
+        assert _rel(out, p_out) < 1e-2, kind
+        assert (lse - p_lse).abs().max().item() < FEW_KEYS_LSE_TOL, kind
+
+
+def test_pair_packed_refuses_to_time_without_a_card(tmp_path):
+    """The paired K8-K10 reading measures only on a card: exit 2 here,
+    before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the script would time")
+    from ray_tpu_torch.devbench import pair_packed
+
+    assert pair_packed.main(["--other", str(tmp_path)]) == 2
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_pair_flash_refuses_to_time_without_a_card(tmp_path):
