@@ -115,9 +115,30 @@ failure raises and the script exits non-zero without a result line:
    non-causal SDPA;
 10. with two or more cards visible, the ring over ranks, one card each
    (NCCL; the largest power of two of them): ring attention at S16384
-   against one card's flash_fwd/flash_bwd, and the phase-9 model's
-   forward + backward with all-reduced gradients against one card's
-   sp_axis=None, then timed; with one card it prints that it skipped;
+   against one card's flash_fwd/flash_bwd, then the phase-9 model through
+   make_llama_train_step over build_mesh(MeshSpec(sp=world)) (the ring
+   over the mesh's sp group, gradients averaged by the step): the final
+   hidden states and the first step's loss and grad norm against one
+   card's sp_axis=None, then timed steps with their updates; with one
+   card it prints that it skipped;
+13. data-parallel training at Llama-3-8B width (vocab 128256, hidden
+   4096, MLP 14336, 32/8 heads of 128, untied; depth cut to 8 of 32
+   layers, 2.80B params), b4 s2048, bf16, remat attn+, adamw_lowmem,
+   seeded weights and tokens, through the step factory in five modes from
+   one param tree: (a) mesh=None, (b) flat over a one-rank NCCL mesh, (c)
+   zero1, (d) zero1 + grad_accum 2 + grad_norm_every 2, (e)
+   hybrid_mesh(dp=1, dcn dp) + zero1 + int8 gradients; 2 warm-up and 3
+   timed steps each: step ms, tokens/s, MFU, peak memory, moments, launches
+   per step as predicted; (b)/(c) against (a)'s losses (first bit-equal),
+   (d) and (e) within their limits, (e) off (a) at step 2; a profiler
+   split of one (c) step;
+13b. with two or more cards, one card a rank (NCCL): phase 13's model at
+   its global b4 s2048 under flat, zero1 and a two-slice hybrid mesh
+   (dcn dp, zero1, int8), losses against phase 13's (a), per-rank peak
+   memory and moments (1/world under zero1); then Llama-3-8B at full
+   depth (16 layers below four cards) under zero1 at b1 s2048 a rank:
+   tokens/s per card, MFU, per-rank peak memory; with one card it prints
+   that it skipped;
 11. cross-device: f32 engines at tiny width (d=64) and at 1B width with
    two layers (d=2048), CUDA (kernel) vs CPU (plain) greedy token streams
    must be equal; a bf16 trainer at small width, 3 steps on the card
@@ -1737,6 +1758,7 @@ def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel name from the profiler."""
     low = name.lower()
     for cat, keys in (("flash", ("flash_",)), ("rms_norm", ("rms_norm",)),
+                      ("nccl", ("nccl",)),
                       ("gemm", ("nvjet", "gemm", "cutlass", "cublas")),
                       ("copy/cast", ("copy", "cat_", "catarray")),
                       ("reduction", ("reduce", "softmax", "logsumexp")),
@@ -2142,42 +2164,33 @@ CP_GRAD_TOL = 5e-2
 
 
 def cp_loss_and_grads(cfg, params, tokens, group):
-    """One context-parallel forward + backward of this rank's shard of the
-    (1, S) batch ``tokens`` (targets: the tokens shifted by one) at its
-    global positions, the loss and the gradients averaged over ``group``
-    (equal shards). Returns (loss, grads); the leaves' .grad is left
-    None."""
+    """One context-parallel forward + backward of the (1, S) batch
+    ``tokens`` (targets: the tokens shifted by one) over the one-rank
+    group ``group``: the ring's single step, whose gradients are the whole
+    sequence's. Several ranks train through the step factory instead
+    (phase 10), which averages the gradients itself. Returns (loss,
+    grads); the leaves' .grad is left None."""
     import torch
     import torch.distributed as dist
     from ray_tpu_torch._device import tree_leaves
     from ray_tpu_torch.models.llama import loss_fn
 
-    n, r = dist.get_world_size(group), dist.get_rank(group)
-    c = tokens.shape[1] // n
-    pos = torch.arange(r * c, (r + 1) * c, device=tokens.device)
-    tgt = torch.roll(tokens, -1, dims=1)
-    loss = loss_fn(cfg, params, tokens[:, pos], tgt[:, pos], positions=pos,
-                   sp_axis=group, remat="attn+")
-    loss.backward()
-    grads = []
-    for p in tree_leaves(params):
-        dist.all_reduce(p.grad, group=group)
-        grads.append(p.grad.div_(n))
-        p.grad = None
-    loss = loss.detach()
-    dist.all_reduce(loss, group=group)
-    return float(loss) / n, grads
+    if dist.get_world_size(group) != 1:
+        raise ValueError("cp_loss_and_grads takes a one-rank group")
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    return _loss_grads(lambda: loss_fn(
+        cfg, params, tokens, torch.roll(tokens, -1, dims=1), positions=pos,
+        sp_axis=group, remat="attn+"), tree_leaves(params))
 
 
-def cp_against_plain(cfg, params, tokens, group) -> dict:
-    """``cp_loss_and_grads`` and this rank's shard of the final hidden
-    states against sp_axis=None (K2/K3) on the whole sequence, from the
-    same params (leaves that require grad). Returns the readings that
-    ``check_cp`` holds to their limits."""
+def cp_hidden_err(cfg, params, tokens, group) -> float:
+    """This rank's shard of the final hidden states with sp_axis=``group``
+    (the ring over its ranks, each on its consecutive shard) against the
+    same rows of sp_axis=None on the whole sequence: the worst row's error
+    over its norm (row_rel_err)."""
     import torch
     import torch.distributed as dist
-    from ray_tpu_torch._device import tree_leaves
-    from ray_tpu_torch.models.llama import forward_hidden, loss_fn
+    from ray_tpu_torch.models.llama import forward_hidden
 
     n, r = dist.get_world_size(group), dist.get_rank(group)
     c = tokens.shape[1] // n
@@ -2186,8 +2199,26 @@ def cp_against_plain(cfg, params, tokens, group) -> dict:
         want = forward_hidden(cfg, params, tokens, remat="attn+")[:, pos]
         got = forward_hidden(cfg, params, tokens[:, pos], positions=pos,
                              sp_axis=group, remat="attn+")
-        hidden = row_rel_err(got, want)
-        del want, got
+        return row_rel_err(got, want)
+
+
+def _grad_norm(grads) -> float:
+    import torch
+
+    return float(torch.stack([g.float().square().sum()
+                              for g in grads]).sum().sqrt())
+
+
+def cp_against_plain(cfg, params, tokens, group) -> dict:
+    """``cp_loss_and_grads`` over a one-rank group and the final hidden
+    states against sp_axis=None (K2/K3) on the whole sequence, from the
+    same params (leaves that require grad). Returns the readings that
+    ``check_cp`` holds to their limits."""
+    import torch
+    from ray_tpu_torch._device import tree_leaves
+    from ray_tpu_torch.models.llama import loss_fn
+
+    hidden = cp_hidden_err(cfg, params, tokens, group)
     leaves, names = tree_leaves(params), list(_leaf_names(params))
 
     def plain():  # sp_axis=None's loss and gradients
@@ -2202,11 +2233,8 @@ def cp_against_plain(cfg, params, tokens, group) -> dict:
     loss, grads = cp_loss_and_grads(cfg, params, tokens, group)
     return {"loss": loss, "ref_loss": ref_loss, "hidden_row_err": hidden,
             "grad_errs": _grad_errs(names, grads, ref_grads),
-            "plain_grad_errs": floor,
-            "grad_norm": float(torch.stack(
-                [g.float().square().sum() for g in grads]).sum().sqrt()),
-            "ref_grad_norm": float(torch.stack(
-                [g.float().square().sum() for g in ref_grads]).sum().sqrt())}
+            "plain_grad_errs": floor, "grad_norm": _grad_norm(grads),
+            "ref_grad_norm": _grad_norm(ref_grads)}
 
 
 def _leaf_names(tree, prefix: str = ""):
@@ -2717,7 +2745,380 @@ def phase_cross_device_train():
           f"{worst:.3e} of the largest value off the CPU's (< 5e-2)")
 
 
+# Phase 13: data-parallel training at Llama-3-8B width on one card, through
+# the step factory's multi-rank paths over a one-rank NCCL mesh.
+P13_LAYERS = 8          # depth cut: 32 layers need ~80 GB of moments alone
+P13_BATCH, P13_SEQ = 4, 2048
+P13_WARMUP, P13_STEPS = 2, 3
+P13_MODES = {  # label -> (what, mesh kind, step options)
+    "a": ("mesh=None", None, {}),
+    "b": ("flat over a one-rank NCCL mesh", "build", {}),
+    "c": ("zero1", "build", {"zero1": True}),
+    "d": ("zero1 + grad_accum=2 + grad_norm_every=2", "build",
+          {"zero1": True, "grad_accum": 2, "grad_norm_every": 2}),
+    "e": ("hybrid_mesh(dp=1, dcn dp) + zero1 + int8", "hybrid",
+          {"zero1": True, "dcn_axes": ("dp",), "dcn_quant": "int8"}),
+}
+# Limits on each loss against run (a)'s, absolute (the losses run 9-12).
+# (b) and (c) do (a)'s arithmetic (a one-rank reduce is a copy; the
+# optimizer is elementwise), but K3 sums dq across CTAs in no fixed order,
+# so from the first update on two runs of one mode differ: (a) run twice
+# differs by up to 3.6e-3 by step 3 (this trajectory, from seeded random
+# weights at lr 3e-4, climbs back at step 3 and amplifies any difference).
+# Under the split backward (K4 + K5, the same bits on every run) (b) and
+# (c) must give (a)'s losses bit for bit, P13_DET_STEPS steps each. (d)
+# sums two microbatches' bf16 gradients (other GEMM shapes, another
+# rounding). (e) rounds every gradient to int8 per 256 elements: an element
+# far below its bucket's largest moves by up to half a step of that scale,
+# and adam, which normalizes each element, turns that into a different
+# update for it (JAX documents a ~1e-2 drift on its tiny model; here 4.4e-2
+# by step 3 in the first run). The first loss, before any update, must be
+# bit-equal in every mode but (d).
+P13_SAME_TOL = 1e-2
+P13_ACCUM_TOL = 2e-2
+P13_QUANT_TOL = 1e-1
+P13_DET_STEPS = 3
+# DDP rules: params replicated on every axis (the step refuses FSDP/TP).
+DDP_RULES = dict(vocab=None, embed=None, mlp=None, heads=None,
+                 kv_heads=None)
+
+
+def cfg_8b(layers: int):
+    """Llama-3-8B's published geometry (vocab 128256, hidden 4096, MLP
+    14336, 32/8 heads of 128, untied, rope theta 500000), depth cut to
+    ``layers``."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    return replace(LlamaConfig.llama3_8b(), num_layers=layers,
+                   max_seq_len=P13_SEQ)
+
+
+def _opt_bytes(state) -> int:
+    from ray_tpu_torch._device import tree_leaves
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(state.opt_state)
+               if hasattr(t, "element_size"))
+
+
+def train_run(cfg, mesh, params, tokens, opts: dict, warmup: int,
+              steps: int, counters=None, profile: bool = False) -> dict:
+    """``warmup`` + ``steps`` steps of make_llama_train_step (bf16, remat
+    attn+, adamw_lowmem) from a copy of ``params`` over ``mesh`` on the
+    global batch ``tokens``; counts reset right before the first step and
+    read right after the last. Returns the losses, grad norms, step times,
+    peak memory and moments' bytes on this rank (and a profiler split of
+    one more step with ``profile``)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+    from ray_tpu_torch.train import adamw_lowmem, make_llama_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, init, shard = make_llama_train_step(
+        cfg, mesh, rules=ShardingRules().override(**DDP_RULES),
+        optimizer=adamw_lowmem(3e-4, weight_decay=0.1), attn_impl="flash",
+        remat="attn+", seed=SEED,
+        device=torch.device("cuda", torch.cuda.current_device()), **opts)
+    state = init(params)
+    tok, tgt = shard(tokens), shard(np.roll(tokens, -1, axis=1))
+    for c in (counters or {}).values():
+        c.launches = 0
+    losses, norms = [], []
+    for _ in range(warmup):
+        state, m = step(state, tok, tgt)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    gc.collect()
+    gc.freeze()
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(steps):
+        state, m = step(state, tok, tgt)
+        marks[i + 1].record()
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    out = {"losses": [float(x) for x in losses],
+           "norms": [float(x) for x in norms], "step_ms": step_s * 1e3,
+           "step_ms_events": [a.elapsed_time(b)
+                              for a, b in zip(marks, marks[1:])],
+           "launches": {k: c.launches for k, c in (counters or {}).items()},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2.0 ** 30,
+           "moments_gib": _opt_bytes(state) / 2.0 ** 30,
+           "rows": int(tok.shape[0])}
+    if profile:
+        state, out["profile"] = profile_steps(step, state, tok, tgt, 1,
+                                              step_s, counters)
+    gc.unfreeze()
+    del state, step, init, shard
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rates(cfg, rows: int, step_ms: float) -> tuple[float, float]:
+    """(tokens/s, MFU) of one card taking ``rows`` rows of P13_SEQ tokens a
+    step."""
+    import torch
+    from ray_tpu_torch.accelerators.flops import (
+        generation_of,
+        llama_train_flops,
+        peak_flops,
+    )
+
+    rate = peak_flops(generation_of(torch.cuda.get_device_name(0)) or "")
+    if not rate:
+        raise AssertionError("no peak rate for this card in "
+                             "ray_tpu_torch/accelerators/flops.py")
+    s = step_ms / 1e3
+    return rows * P13_SEQ / s, llama_train_flops(cfg, rows, P13_SEQ) / s / rate
+
+
+def _check_losses(label: str, got: list, want: list, tol: float,
+                  first_equal: bool) -> None:
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    if not all(math.isfinite(x) for x in got) or diff > tol or (
+            first_equal and got[0] != want[0]):
+        raise AssertionError(f"{label}: losses {got} against {want}: worst "
+                             f"{diff:.3e} (limit {tol}), first bit-equal "
+                             f"required: {first_equal}")
+
+
+def phase_train_8b() -> dict:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh, hybrid_mesh
+    from ray_tpu_torch.train.backend import free_port, init_distributed
+
+    _phase(f"data-parallel train at Llama-3-8B width ({P13_LAYERS} of 32 "
+           f"layers), b{P13_BATCH} s{P13_SEQ}, bf16, remat attn+, "
+           f"adamw_lowmem: five modes of the step factory, one rank")
+    cfg = cfg_8b(P13_LAYERS)
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        meshes = {"build": build_mesh(MeshSpec()),
+                  "hybrid": hybrid_mesh(MeshSpec(dp=1, dcn_axes=("dp",)),
+                                        1, 1)}
+        params = init_params(cfg, generator=SEED, device="cuda")
+        tokens = np.random.default_rng(SEED + 5).integers(
+            0, cfg.vocab_size, (P13_BATCH, P13_SEQ), dtype=np.int32)
+        print(f"{cfg.num_params() / 1e9:.3f}B params (vocab "
+              f"{cfg.vocab_size}, hidden {cfg.hidden_size}, MLP "
+              f"{cfg.intermediate_size}, heads {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} of {cfg.head_dim}, untied, rope theta "
+              f"{cfg.rope_theta:g}); the process group: NCCL, world "
+              f"{dist.get_world_size()}")
+        counters = _counters()
+        runs = {}
+        for key, (what, kind, opts) in P13_MODES.items():
+            runs[key] = train_run(cfg, meshes[kind] if kind else None,
+                                  params, tokens, opts, P13_WARMUP,
+                                  P13_STEPS, counters, profile=key == "c")
+            r = runs[key]
+            accum = opts.get("grad_accum", 1)
+            want = {k: float(v * accum) for k, v in predicted_launches(
+                "attn+", cfg.num_layers).items()}
+            per_step = {k: n / (P13_WARMUP + P13_STEPS)
+                        for k, n in r["launches"].items()}
+            if per_step != want:
+                raise AssertionError(f"({key}) launches per step {per_step}"
+                                     f" != the prediction {want}")
+            r["tokens_per_s"], r["mfu"] = _rates(cfg, P13_BATCH,
+                                                 r["step_ms"])
+            print(f"({key}) {what}: {r['step_ms']:.2f} ms a step "
+                  f"({_spread(r['step_ms_events'])} between CUDA events), "
+                  f"{r['tokens_per_s']:.1f} tokens/s, MFU "
+                  f"{100 * r['mfu']:.2f}%, peak {r['peak_gib']:.3f} GiB, "
+                  f"moments {r['moments_gib']:.3f} GiB; loss "
+                  + " ".join(f"{x:.6f}" for x in r["losses"])
+                  + "; grad_norm " + " ".join(f"{x:.4f}" for x in r["norms"])
+                  + "; launches per step " + ", ".join(
+                      f"{k} {v:g}" for k, v in per_step.items() if v))
+        a = runs["a"]["losses"]
+        # (a) again: what K3's dq sum order alone does to the losses.
+        runs["a2"] = train_run(cfg, None, params, tokens, {}, P13_WARMUP,
+                               P13_STEPS)
+        for key in ("a2", "b", "c"):
+            got = runs[key]["losses"]
+            runs[key]["bit_equal"] = [x == y for x, y in zip(got, a)]
+            print(f"({key}) against (a): losses bit-equal step by step "
+                  f"{runs[key]['bit_equal']}, worst "
+                  f"{max(abs(x - y) for x, y in zip(got, a)):.3e}"
+                  + (" ((a) run again)" if key == "a2" else ""))
+            _check_losses(f"({key})", got, a, P13_SAME_TOL, True)
+        # Under the split backward every run repeats bit for bit, so (b)
+        # and (c) must be (a) exactly: the one-rank collectives and the
+        # 1-D pieces change no bit.
+        det = {}
+        with backward_choice(False):
+            for key in "abc":
+                det[key] = train_run(
+                    cfg, meshes[P13_MODES[key][1]] if P13_MODES[key][1]
+                    else None, params, tokens, P13_MODES[key][2], 0,
+                    P13_DET_STEPS)["losses"]
+        print(f"split backward, {P13_DET_STEPS} steps: (a) "
+              + " ".join(f"{x:.6f}" for x in det["a"])
+              + f"; (b) bit-equal {det['b'] == det['a']}, (c) bit-equal "
+              f"{det['c'] == det['a']}")
+        if not det["a"] == det["b"] == det["c"]:
+            raise AssertionError(f"under the split backward (b)/(c) are not "
+                                 f"(a) bit for bit: {det}")
+        _check_losses("(d)", runs["d"]["losses"], a, P13_ACCUM_TOL, False)
+        norms = runs["d"]["norms"]
+        if norms[1::2] != [-1.0] * len(norms[1::2]) or min(norms[::2]) <= 0:
+            raise AssertionError(f"(d) grad_norm_every=2: norms {norms}")
+        _check_losses("(e)", runs["e"]["losses"], a, P13_QUANT_TOL, True)
+        if runs["e"]["losses"][1] == a[1]:
+            raise AssertionError("(e): int8 gradients left step 2's loss "
+                                 "bit-equal to (a)'s")
+        for key in "bcde":
+            runs[key]["overhead"] = runs[key]["step_ms"] / runs["a"][
+                "step_ms"] - 1
+        print("step time against (a): " + ", ".join(
+            f"({k}) {100 * runs[k]['overhead']:+.2f}%" for k in "bcde"))
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"layers": cfg.num_layers, "params": cfg.num_params(),
+            "runs": runs, "split_backward_losses": det}
+
+
+# The ranks' losses against phase 13's (a), absolute: flat and zero1 sum
+# each rank's bf16 gradients (another rounding than one card's whole-batch
+# gradient); the int8 mode takes P13_QUANT_TOL, as (e) does.
+P13B_TOL = 2e-2
+TRAIN_RANKS_TIMEOUT_S = 900
+
+
+def _rank_train(rank: int, world: int, store: str, out_path: str,
+                port: int) -> None:
+    """One rank of ``phase_train_ranks`` on card ``rank``; rank 0 writes
+    the readings (each rank's peak memory and moments included)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh, hybrid_mesh
+    from ray_tpu_torch.train.backend import init_distributed
+
+    init_distributed(f"127.0.0.1:{port}", world, rank, device="cuda")
+    counters = _counters()
+    res = {}
+    cfg = cfg_8b(P13_LAYERS)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (P13_BATCH, P13_SEQ), dtype=np.int32)
+    params = init_params(cfg, generator=SEED, device="cuda")
+    hybrid = MeshSpec(dp=2, fsdp=world // 2, dcn_axes=("dp",))
+    modes = {"flat": (build_mesh(MeshSpec(dp=world)), {}),
+             "zero1": (build_mesh(MeshSpec(dp=world)), {"zero1": True}),
+             "hybrid_zero1_int8": (hybrid_mesh(hybrid, 2, world // 2),
+                                   {"zero1": True, "dcn_axes": ("dp",),
+                                    "dcn_quant": "int8"})}
+    for name, (mesh, opts) in modes.items():
+        r = train_run(cfg, mesh, params, tokens, opts, P13_WARMUP,
+                      P13_STEPS, counters)
+        peaks = [None] * world
+        dist.all_gather_object(peaks, (r["peak_gib"], r["moments_gib"]))
+        r["per_rank_peak_gib"] = [p for p, _ in peaks]
+        r["per_rank_moments_gib"] = [m for _, m in peaks]
+        res[name] = r
+    del params
+    torch.cuda.empty_cache()
+    # The full model where it fits (see phase_train_ranks).
+    layers = 32 if world >= 4 else 16
+    cfg = cfg_8b(layers)
+    tokens = np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, (world, P13_SEQ), dtype=np.int32)
+    r = train_run(cfg, build_mesh(MeshSpec(dp=world)), None, tokens,
+                  {"zero1": True}, P13_WARMUP, P13_STEPS, counters)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, (r["peak_gib"], r["moments_gib"]))
+    r["per_rank_peak_gib"] = [p for p, _ in peaks]
+    r["per_rank_moments_gib"] = [m for _, m in peaks]
+    r["layers"], r["params"] = layers, cfg.num_params()
+    res["full"] = r
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_train_ranks(world: int, one_card: dict) -> dict:
+    """Phase 13b: the step factory over ``world`` NCCL ranks, one card
+    each: phase 13's 8-layer model at its global b4 s2048 under flat,
+    zero1 and a two-slice hybrid mesh (dcn dp, zero1, int8), losses against
+    phase 13's one-card (a); then Llama-3-8B at full depth under zero1 at
+    b1 s2048 a rank (16 layers below four cards: 32 would not fit)."""
+    import tempfile
+
+    from ray_tpu_torch._spawn import run_ranks
+    from ray_tpu_torch.train.backend import free_port
+
+    _phase(f"data-parallel train over {world} ranks, one card each")
+    a = one_card["runs"]["a"]["losses"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "rank0.json")
+        run_ranks(_rank_train, world, tmp,
+                  (out_path, free_port()), TRAIN_RANKS_TIMEOUT_S)
+        with open(out_path) as f:
+            res = json.load(f)
+    for name, r in res.items():
+        cfg = cfg_8b(r.get("layers", P13_LAYERS))
+        r["tokens_per_s_per_card"], r["mfu"] = _rates(cfg, r["rows"],
+                                                      r["step_ms"])
+        print(f"{name} ({cfg.num_layers} layers, {r['rows']} rows a rank): "
+              f"{r['step_ms']:.2f} ms a step on rank 0's host clock, "
+              f"{r['tokens_per_s_per_card']:.1f} tokens/s per card, MFU "
+              f"{100 * r['mfu']:.2f}%; peak GiB per rank "
+              f"{[round(p, 3) for p in r['per_rank_peak_gib']]}, moments "
+              f"GiB per rank {[round(m, 3) for m in r['per_rank_moments_gib']]}"
+              f"; loss " + " ".join(f"{x:.6f}" for x in r["losses"]))
+        if name == "full":
+            if not all(math.isfinite(x) for x in r["losses"]):
+                raise AssertionError(f"full model losses {r['losses']}")
+            continue
+        _check_losses(f"{name} over {world} ranks", r["losses"], a,
+                      P13_QUANT_TOL if "int8" in name else P13B_TOL, False)
+    flat_m = res["flat"]["per_rank_moments_gib"][0]
+    for name in ("zero1", "hybrid_zero1_int8"):
+        m = max(res[name]["per_rank_moments_gib"])
+        if not m <= flat_m / world * 1.01:
+            raise AssertionError(f"{name}: moments {m} GiB a rank, flat "
+                                 f"{flat_m} over {world} ranks")
+    return res
+
+
 RANKS_TIMEOUT_S = 600
+# Limit on the CP losses after each update against one card's mesh=None
+# run from the same params and batch, absolute: the ranks' bf16 partial
+# gradients round before the sum, and K3's dq order differs run to run
+# (P13B_TOL's reasoning; the first loss keeps CP_LOSS_TOL).
+CP_STEPS_TOL = 2e-2
+
+
+def _first_grads(opt, seen: list):
+    """``opt`` that keeps, in ``seen``, a copy of the gradient leaves its
+    first update is handed: the step's averaged gradients."""
+    from ray_tpu_torch._device import tree_leaves
+    from ray_tpu_torch.train.optim import GradientTransformation
+
+    def update(grads, state, params=None):
+        if not seen:
+            seen.extend(g.detach().clone() for g in tree_leaves(grads))
+        return opt.update(grads, state, params)
+
+    return GradientTransformation(opt.init, update)
 
 
 def _rank_main(rank: int, world: int, store: str, out_path: str) -> None:
@@ -2727,12 +3128,14 @@ def _rank_main(rank: int, world: int, store: str, out_path: str) -> None:
     import torch
     import torch.distributed as dist
     from ray_tpu_torch._device import tree_leaves
-    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
     from ray_tpu_torch.ops import attention as att
     from ray_tpu_torch.ops.ring_attention import (
         ring_attention_local,
         ring_attention_sharded,
     )
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.train import adamw_lowmem, make_llama_train_step
 
     dev = torch.device("cuda", rank)
     torch.cuda.set_device(dev)
@@ -2759,9 +3162,15 @@ def _rank_main(rank: int, world: int, store: str, out_path: str) -> None:
     # Each rank takes 1/world of the global loss; all_gather's backward
     # sums the ranks' cotangents.
     ((out.float() * do.float()).sum() / world).backward()
-    grads = [t.grad for t in (q, k, v)]
-    for g in grads:
-        dist.all_reduce(g)  # each rank holds its own shard's rows
+    # Each rank's gradients are its own shard's rows (zero elsewhere):
+    # gather the shards into the whole sequence's.
+    rows = slice(rank * m["s"] // world, (rank + 1) * m["s"] // world)
+    grads = []
+    for t in (q, k, v):
+        own = t.grad[:, :, rows].contiguous()
+        parts = [torch.empty_like(own) for _ in range(world)]
+        dist.all_gather(parts, own)
+        grads.append(torch.cat(parts, dim=2))
     sync()
     res["ring_launches"] = {k_: c.launches for k_, c in counters.items()}
     if rank == 0:
@@ -2773,7 +3182,6 @@ def _rank_main(rank: int, world: int, store: str, out_path: str) -> None:
         del ref, want
     # The ring alone on this rank's shard, forward + backward, timed on
     # the host clock around a barrier (the shifts wait on peers).
-    rows = slice(rank * m["s"] // world, (rank + 1) * m["s"] // world)
     ql, kl, vl = (t.detach()[:, :, rows].clone().requires_grad_()
                   for t in (q, k, v))
 
@@ -2791,25 +3199,77 @@ def _rank_main(rank: int, world: int, store: str, out_path: str) -> None:
     del q, k, v, do, out, grads, ql, kl, vl
     torch.cuda.empty_cache()
 
-    # 2. The context-parallel Llama forward + backward, gradients
-    # all-reduced, against one card's sp_axis=None; then timed.
+    # 2. The context-parallel Llama through the step factory over an sp
+    # mesh (the ring over its sp group, gradients averaged by the step),
+    # against one card's mesh=None factory on rank 0 from the same params
+    # and batch: the first step's loss, grad norm and averaged gradients,
+    # leaf by leaf, as each optimizer is handed them, then the losses
+    # after each update.
     cfg = LlamaConfig(**BENCH_GEOMETRY, max_seq_len=CP_SEQ)
     params = init_params(cfg, generator=SEED, device=dev)
-    for p in tree_leaves(params):
-        p.requires_grad_()
-    tokens = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
-        0, cfg.vocab_size, (1, CP_SEQ))).to(dev)
-    torch.cuda.reset_peak_memory_stats()
-    res["check"] = cp_against_plain(cfg, params, tokens, dist.group.WORLD)
+    names = list(_leaf_names(params))
+    tokens_np = np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab_size, (1, CP_SEQ), dtype=np.int32)
+    tokens = torch.from_numpy(tokens_np).to(dev)
+    targets_np = np.roll(tokens_np, -1, axis=1)
+    opt = adamw_lowmem(3e-4, weight_decay=0.1)
+    mesh = build_mesh(MeshSpec(sp=world))
+    res["hidden_row_err"] = cp_hidden_err(cfg, params, tokens,
+                                          mesh.get_group("sp"))
+    if rank == 0:
+        ref_grads = []
+        step, init, shard = make_llama_train_step(
+            cfg, None, optimizer=_first_grads(opt, ref_grads),
+            remat="attn+", seed=SEED, device=dev)
+        state = init(params)
+        tok, tgt = shard(tokens_np), shard(targets_np)
+        res["ref_losses"] = []
+        for _ in range(CP_STEPS + 1):
+            state, met = step(state, tok, tgt)
+            res["ref_losses"].append(float(met["loss"]))
+            res.setdefault("ref_grad_norm", float(met["grad_norm"]))
+        res["ref_loss"] = res["ref_losses"][0]
+        del state, step, init, shard, tok, tgt
+        # sp_axis=None's backward once more: what K3's dq atomics make of
+        # the same gradients, the floor of the CP reading.
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_()
+        _, again = _loss_grads(lambda: loss_fn(
+            cfg, params, tokens, torch.roll(tokens, -1, dims=1),
+            remat="attn+"), leaves)
+        res["plain_grad_errs"] = _grad_errs(names, again, ref_grads)
+        del again, leaves
+    del tokens
+    seen = []
+    step, init, shard = make_llama_train_step(
+        cfg, mesh, optimizer=_first_grads(opt, seen) if rank == 0 else opt,
+        remat="attn+", seed=SEED, device=dev)
+    state = init(params)
+    del params
+    torch.cuda.empty_cache()
+    tok, tgt = shard(tokens_np), shard(targets_np)
     for c in counters.values():
         c.launches = 0
+    state, met = step(state, tok, tgt)
+    res["loss"], res["grad_norm"] = float(met["loss"]), float(
+        met["grad_norm"])
+    if rank == 0:
+        res["grad_errs"] = _grad_errs(names, seen, ref_grads)
+        del seen, ref_grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [res["loss"]]
     sync()
     t0 = time.perf_counter()
-    for _ in range(3):
-        cp_loss_and_grads(cfg, params, tokens, dist.group.WORLD)
+    for _ in range(CP_STEPS):
+        state, met = step(state, tok, tgt)
+        losses.append(met["loss"])
     sync()
-    res["cp_step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
-    res["cp_launches"] = {k_: c.launches / 3 for k_, c in counters.items()}
+    res["cp_step_ms"] = (time.perf_counter() - t0) / CP_STEPS * 1e3
+    res["losses"] = [float(x) for x in losses]
+    res["cp_launches"] = {k_: c.launches / (CP_STEPS + 1)
+                          for k_, c in counters.items()}
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2.0 ** 30
     if rank == 0:
         with open(out_path, "w") as f:
@@ -2821,9 +3281,12 @@ def phase_ranks(world: int) -> dict:
     """The ring over ``world`` ranks, one card each (NCCL): ring attention
     at B1 H32 Hkv8 S16384 D64 against flash_fwd/flash_bwd on rank 0's card
     (RING_CHUNK_TOL), and the context-parallel Llama at the 1.1B geometry, b1
-    s16384 (s16384 / world tokens a rank), forward + backward with
-    all-reduced gradients, against one card's sp_axis=None (check_cp),
-    then timed."""
+    s16384 (s16384 / world tokens a rank) through
+    make_llama_train_step over build_mesh(MeshSpec(sp=world)): the final
+    hidden states, and the first step's loss, grad norm and each leaf's
+    averaged gradient against one card's mesh=None step from the same
+    params and batch (check_cp's limits); then timed steps with their
+    updates, whose losses hold to CP_STEPS_TOL of one card's."""
     import tempfile
 
     from ray_tpu_torch._spawn import run_ranks
@@ -2853,17 +3316,34 @@ def phase_ranks(world: int) -> dict:
         raise AssertionError(f"ring launches {res['ring_launches']}, want "
                              f"{want} a rank")
     check_ring_errors(errs, f"ring over {world} ranks")
-    check_cp(res["check"], f"CP forward + backward over {world} ranks")
+    label = (f"context-parallel Llama over {world} ranks through the step "
+             f"factory (sp={world} mesh), first step")
+    check_cp(res, label)
+    norm_rel = abs(res["grad_norm"] - res["ref_grad_norm"]) / \
+        res["ref_grad_norm"]
+    if not norm_rel < CP_GRAD_TOL:
+        raise AssertionError(f"{label}: grad norm {norm_rel:.3e} relative "
+                             f"off one card's (limit {CP_GRAD_TOL})")
+    diff = max(abs(a - b) for a, b in zip(res["losses"], res["ref_losses"]))
+    print(f"losses after each update against one card's mesh=None: "
+          + " ".join(f"{a:.6f}/{b:.6f}" for a, b in
+                     zip(res["losses"], res["ref_losses"]))
+          + f"; worst {diff:.3e} (limit {CP_STEPS_TOL})")
+    _check_losses(f"CP over {world} ranks", res["losses"],
+                  res["ref_losses"], CP_STEPS_TOL, False)
     toks = CP_SEQ / (res["cp_step_ms"] / 1e3)
     want = {k: float(n) for k, n in
             predicted_launches("attn+", BENCH_GEOMETRY["num_layers"],
                                ring=world).items()}
-    print(f"context-parallel Llama over {world} ranks, forward + backward + "
-          f"gradient all-reduce (no optimizer): "
-          f"{res['cp_step_ms']:.2f} ms a step on rank 0's host clock = "
-          f"{toks:.1f} tokens/s; launches a step on rank 0 "
+    print(f"context-parallel Llama over {world} ranks, whole steps (forward "
+          f"+ backward, gradients averaged over the sp group, adamw_lowmem "
+          f"update): {res['cp_step_ms']:.2f} ms a step on rank 0's host "
+          f"clock = {toks:.1f} tokens/s; losses "
+          + " ".join(f"{x:.4f}" for x in res["losses"])
+          + "; launches a step on rank 0 "
           + ", ".join(f"{k} {n:g}" for k, n in res["cp_launches"].items())
-          + f"; peak device memory {res['peak_gib']:.3f} GiB on rank 0; "
+          + f"; peak device memory over the timed steps "
+          f"{res['peak_gib']:.3f} GiB on rank 0; "
           f"phase wall {wall:.1f} s")
     if res["cp_launches"] != want:
         raise AssertionError(f"CP launches a step on rank 0 "
@@ -2897,15 +3377,18 @@ def main() -> int:
     train_split = phase_train_split(train)
     cp = phase_cp_train()
     vit = phase_vit()
+    train8b = phase_train_8b()
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
     if world >= 2:
         torch.cuda.empty_cache()
         ranks = phase_ranks(world)
+        train_ranks = phase_train_ranks(world, train8b)
     else:
         _phase("ring over ranks: skipped (one card visible)")
-        ranks = None
+        _phase("data-parallel train over ranks: skipped (one card visible)")
+        ranks = train_ranks = None
     phase_cross_device()
     phase_cross_device_train()
     phase_cross_device_vit()
@@ -2924,7 +3407,10 @@ def main() -> int:
                              "vit_fused":
                                  vit["fused"]["launches"]["rms_norm"],
                              "vit_split":
-                                 vit["split"]["launches"]["rms_norm"]},
+                                 vit["split"]["launches"]["rms_norm"],
+                             "train_8b": {
+                                 k_: train8b["runs"][k_]["launches"][
+                                     "rms_norm"] for k_ in P13_MODES}},
         "max_abs_err": max_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -2950,7 +3436,9 @@ def main() -> int:
                 "train": train["launches"][name],
                 "train_split": train_split["launches"][name],
                 "vit_fused": vit["fused"]["launches"][name],
-                "vit_split": vit["split"]["launches"][name]},
+                "vit_split": vit["split"]["launches"][name],
+                "train_8b": {k_: train8b["runs"][k_]["launches"][name]
+                             for k_ in P13_MODES}},
             "max_abs_err": max(row["max_abs_err"],
                                vit["attention"][name]["max_abs_err"]),
             "ms": row["ms"],
@@ -3046,7 +3534,8 @@ def main() -> int:
     print(json.dumps({"card": smi, "engine": summary, "train": train,
                       "train_split": train_split, "ring_schedule": ring,
                       "cp_train": cp, "vit": vit_summary,
-                      "prof_flash_pack": sweep, "ranks": ranks}))
+                      "prof_flash_pack": sweep, "ranks": ranks,
+                      "train_8b": train8b, "train_ranks": train_ranks}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,10 +2,11 @@
 training forward with rematerialisation.
 
 Port of ray_tpu/models/llama.py: ``LlamaConfig`` (same fields and presets),
-``init_params``, ``params_from_jax``, and ``forward_hidden``/``forward``/
-``loss_fn`` with the remat policies ``none``, ``full``, ``attn`` and
-``attn+``. The param tree keeps the JAX layout exactly: a dict with layer
-weights stacked on a leading ``[L, ...]`` axis and matmuls written
+``param_logical_axes``, ``init_params``, ``params_from_jax``, and
+``forward_hidden``/``forward``/``loss_fn`` with the remat policies
+``none``, ``full``, ``attn`` and ``attn+``. The param tree keeps the JAX
+layout exactly: a dict with layer weights stacked on a leading ``[L, ...]``
+axis and matmuls written
 ``x @ W[in, out]``, so a tree made by the JAX package's ``init_params``
 converts leaf by leaf with no transposes.
 
@@ -100,6 +101,30 @@ class LlamaConfig:
         mlp = 3 * h * i
         embed = v * h * (1 if self.tie_embeddings else 2)
         return embed + L * (qkv + o + mlp + 2 * h) + h
+
+
+def param_logical_axes(cfg: LlamaConfig) -> dict:
+    """Logical-axis names per param leaf (the rule table in
+    ``ray_tpu_torch.parallel.sharding`` maps them onto mesh axes). A copy
+    of the JAX package's table."""
+    axes = {
+        "embed_tokens": ("vocab", "embed"),
+        "final_norm": ("embed",),
+        "layers": {
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+            "attn_norm": ("layers", "embed"),
+            "mlp_norm": ("layers", "embed"),
+        },
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 def init_params(cfg: LlamaConfig,

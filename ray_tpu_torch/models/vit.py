@@ -1,8 +1,9 @@
 """ViT: the vision-transformer classifier family for the PyTorch port.
 
 Port of ray_tpu/models/vit.py: ``ViTConfig`` (same fields and presets),
-``init_params``, ``params_from_jax`` (the same stacked layout, so a JAX
-tree converts leaf by leaf with no transposes), ``patchify`` and
+``param_logical_axes``, ``init_params``, ``params_from_jax`` (the same
+stacked layout, so a JAX tree converts leaf by leaf with no transposes),
+``patchify`` and
 ``forward``/``loss_fn``. Patchify is a reshape plus a permute, then one
 matmul (what a stride-p convolution is, minus the convolution). Each layer
 is pre-norm: rms_norm (K1 on the card), q/k/v projections, non-causal
@@ -34,8 +35,8 @@ from ray_tpu_torch.models.llama import params_from_jax
 from ray_tpu_torch.ops.attention import blockwise_attention, flash_attention
 from ray_tpu_torch.ops.norms import rms_norm
 
-__all__ = ["ViTConfig", "init_params", "params_from_jax", "patchify",
-           "forward", "loss_fn"]
+__all__ = ["ViTConfig", "param_logical_axes", "init_params",
+           "params_from_jax", "patchify", "forward", "loss_fn"]
 
 
 @dataclass(frozen=True)
@@ -79,6 +80,29 @@ class ViTConfig:
         per_layer = 4 * h * h + 2 * h * i + 2 * h
         return (patch_in * h + (self.num_patches + 1) * h + h
                 + L * per_layer + h + h * self.num_classes)
+
+
+def param_logical_axes(cfg: ViTConfig) -> dict:
+    """Logical-axis names per param leaf (see
+    ``ray_tpu_torch.parallel.sharding``); a copy of the JAX package's
+    table."""
+    return {
+        "patch_embed": ("patch_in", "embed"),
+        "pos_embed": (None, "embed"),
+        "cls_token": ("embed",),
+        "final_norm": ("embed",),
+        "head": ("embed", "classes"),
+        "layers": {
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "heads"),
+            "wv": ("layers", "embed", "heads"),
+            "wo": ("layers", "heads", "embed"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+            "attn_norm": ("layers", "embed"),
+            "mlp_norm": ("layers", "embed"),
+        },
+    }
 
 
 def init_params(cfg: ViTConfig,

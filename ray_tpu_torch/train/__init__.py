@@ -1,6 +1,6 @@
-"""ray_tpu_torch.train: the single-card training steps for Llama and ViT
-(port of the single-device subset of ray_tpu.train.spmd) and their
-optimizers."""
+"""ray_tpu_torch.train: the training steps for Llama and ViT on one device
+or over a mesh of ranks (port of ray_tpu.train.spmd), their optimizers,
+process-group bring-up (``backend``) and checkpointing (``checkpoint``)."""
 
 from ray_tpu_torch.train.optim import adamw, adamw_lowmem
 from ray_tpu_torch.train.spmd import (

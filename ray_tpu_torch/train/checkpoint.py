@@ -1,0 +1,325 @@
+"""Checkpointing: trees of tensors through ``torch.distributed.checkpoint``
+(DCP), plus write-behind saving and a top-K retention manager.
+
+Port of ray_tpu/train/checkpoint.py (``Checkpoint``, ``save_pytree``,
+``restore_pytree``, ``AsyncCheckpointWriter``, ``CheckpointManager``), with
+DCP in place of orbax:
+
+- a tree is a nest of dicts, tuples, lists and NamedTuples whose leaves
+  are tensors, :class:`FlatShard` pieces or picklable objects; it is saved
+  under flat keys (the path joined by "."). Tensors are replicated (DCP
+  writes one copy); a ``FlatShard`` is one rank's contiguous piece of a
+  flat tensor, and every rank writes its own pieces (a ShardedTensor
+  whose shards are the ranks' pieces);
+- ``restore_pytree(directory, template)`` loads into the template's
+  tensors in place; the template's pieces may cut the flat tensors at
+  other offsets than the saved ones (another world size), since DCP reads
+  whatever saved chunks overlap each piece. Without a template it returns
+  nested dicts of whole CPU tensors.
+
+``TrainState.checkpoint_tree()`` (train/spmd.py) gives a step's state in
+this form: a ZeRO-1 state saved at 4 ranks restores at 2 or 1.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+KEY_SEP = "."
+
+
+@dataclass
+class FlatShard:
+    """This rank's piece ``local[:length]`` of a flat tensor of ``numel``
+    elements, at ``offset``. ``local`` may run past ``length`` (padding,
+    not saved). ``replicas``: a process group whose ranks hold the same
+    piece, where only the ``owner`` writes it and a restore broadcasts it
+    from the group's rank 0 to the others."""
+    local: torch.Tensor
+    numel: int
+    offset: int
+    length: int
+    replicas: Any = None
+    owner: bool = True
+
+
+@dataclass
+class Checkpoint:
+    path: str
+
+    def metadata(self) -> dict:
+        meta_path = os.path.join(self.path, "rtpu_meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                return json.load(f)
+        return {}
+
+
+def tree_items(tree, path=()):
+    """(key, leaf) pairs of a tree, in a fixed order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, path + (str(k),))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from tree_items(v, path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, path + (str(i),))
+    else:
+        yield KEY_SEP.join(path), tree
+
+
+def tree_rebuild(tree, leaves):
+    """``tree`` with its leaves replaced, in ``tree_items``'s order."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(v) for v in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(v) for v in t)
+        return next(it)
+
+    return walk(tree)
+
+
+def _distributed() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _sharded(piece: FlatShard, coordinated: bool):
+    """A FlatShard as DCP takes it: whole (one process) or, when the ranks
+    save together, a ShardedTensor over the world whose shards are the
+    ranks' pieces. Collective then: every rank calls it for the same keys,
+    in one order."""
+    if not coordinated:
+        if piece.offset or piece.length != piece.numel:
+            raise ValueError("a FlatShard that is not the whole tensor needs "
+                             "the ranks to save together (save_pytree "
+                             "under a process group)")
+        return piece.local[:piece.length]
+    import torch.distributed as dist
+    from torch.distributed._shard.sharded_tensor import (
+        Shard,
+        ShardMetadata,
+        init_from_local_shards,
+    )
+
+    shards = []
+    if piece.length > 0 and piece.owner:
+        t = piece.local[:piece.length]
+        shards.append(Shard(t, ShardMetadata(
+            shard_offsets=[piece.offset], shard_sizes=[piece.length],
+            placement=f"rank:{dist.get_rank()}/{t.device}")))
+    return init_from_local_shards(shards, piece.numel)
+
+
+def _state_dict(flat, coordinated: bool):
+    return {k: (_sharded(v, coordinated) if isinstance(v, FlatShard) else v)
+            for k, v in flat}
+
+
+def _write(tree: Any, directory: str, step: int | None,
+           coordinated: bool) -> str:
+    """Write ``tree`` under ``directory``: every rank together
+    (``coordinated``: barriers and DCP's plan exchange on the default
+    group), or this process alone, with no collective."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    directory = os.path.abspath(directory)
+    target = os.path.join(directory, "state")
+    lead = not coordinated or dist.get_rank() == 0
+    if lead:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(target):
+            shutil.rmtree(target)
+    if coordinated:
+        dist.barrier()
+    dcp.save(_state_dict(tree_items(tree), coordinated),
+             checkpoint_id=target, no_dist=not coordinated)
+    if lead:  # last: a directory without it is a partial write
+        with open(os.path.join(directory, "rtpu_meta.json"), "w") as f:
+            json.dump({"step": step, "time": time.time()}, f)
+    if coordinated:
+        dist.barrier()
+    return directory
+
+
+def save_pytree(tree: Any, directory: str, step: int | None = None) -> str:
+    """Write a tree checkpoint under ``directory``; with a process group,
+    every rank calls it and writes its own pieces."""
+    return _write(tree, directory, step, _distributed())
+
+
+def restore_pytree(directory: str, template: Any = None) -> Any:
+    """Restore a tree. With ``template`` (the same structure; tensors and
+    FlatShard pieces on their devices), its tensors are filled in place and
+    the template comes back with any non-tensor leaves replaced; without,
+    nested dicts of whole CPU tensors."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    target = os.path.join(os.path.abspath(directory), "state")
+    if template is None:
+        from torch.distributed.checkpoint.metadata import (
+            TensorStorageMetadata,
+        )
+
+        meta = dcp.FileSystemReader(target).read_metadata()
+        sd = {k: (torch.empty(m.size, dtype=m.properties.dtype)
+                  if isinstance(m, TensorStorageMetadata) else None)
+              for k, m in meta.state_dict_metadata.items()}
+        dcp.load(sd, checkpoint_id=target)
+        out: dict = {}
+        for k, v in sd.items():
+            node = out
+            *head, last = k.split(KEY_SEP)
+            for part in head:
+                node = node.setdefault(part, {})
+            node[last] = v
+        return out
+    flat = list(tree_items(template))
+    sd = _state_dict(flat, _distributed())
+    dcp.load(sd, checkpoint_id=target)
+    leaves = []
+    for k, v in flat:
+        if isinstance(v, FlatShard):
+            if v.replicas is not None:
+                dist.broadcast(v.local, src=dist.get_global_rank(
+                    v.replicas, 0), group=v.replicas)
+            leaves.append(v.local)
+        elif isinstance(v, torch.Tensor):
+            leaves.append(v)
+        else:
+            leaves.append(sd[k])
+    return tree_rebuild(template, leaves)
+
+
+def _host_snapshot(tree):
+    def one(x):
+        if isinstance(x, FlatShard):
+            return FlatShard(x.local.detach().cpu().clone(), x.numel,
+                             x.offset, x.length, x.replicas, x.owner)
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        return x
+
+    return tree_rebuild(tree, [one(v) for _, v in tree_items(tree)])
+
+
+class AsyncCheckpointWriter:
+    """Write-behind checkpointing: ``save()`` snapshots the tree to host
+    memory inline (the step may overwrite its tensors right after) and runs
+    the write on a background thread. The next ``save()`` (or ``wait()``)
+    barriers on the previous write, re-raising its error, so writes stay
+    ordered and at most one checkpoint is in flight. ``completed()`` gives
+    the directories whose writes finished: report those, not the one just
+    queued. For one process's tree: the write runs no collective (one
+    from this thread would race the training thread's on the same
+    communicator), so under a process group of more than one rank
+    ``save()`` raises, and a multi-rank state keeps the synchronous
+    ``save_pytree``."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._exc: BaseException | None = None
+        self._done: list[str] = []
+        self._lock = threading.Lock()
+
+    def save(self, tree: Any, directory: str, step: int | None = None) -> str:
+        import torch.distributed as dist
+
+        if _distributed() and dist.get_world_size() > 1:
+            raise RuntimeError(
+                f"AsyncCheckpointWriter writes one process's tree, and this "
+                f"process is one of {dist.get_world_size()} ranks: save a "
+                f"multi-rank state with save_pytree on every rank")
+        self.wait()  # barrier on (and surface errors from) the last write
+        host_tree = _host_snapshot(tree)
+
+        def work():
+            try:
+                _write(host_tree, directory, step, coordinated=False)
+                with self._lock:
+                    self._done.append(directory)
+            except BaseException as e:  # noqa: BLE001 - re-raised at wait
+                with self._lock:
+                    self._exc = e
+
+        self._thread = threading.Thread(target=work, daemon=True,
+                                        name="ckpt-write-behind")
+        self._thread.start()
+        return directory
+
+    def wait(self, timeout: float | None = None) -> None:
+        """Barrier on the in-flight write; re-raises its error, if any."""
+        t = self._thread
+        if t is not None:
+            t.join(timeout)
+            if not t.is_alive():
+                self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+    def completed(self) -> list[str]:
+        """Directories whose writes finished since the last call, in write
+        order."""
+        with self._lock:
+            out, self._done = self._done, []
+        return out
+
+
+class CheckpointManager:
+    """Tracks reported checkpoints, retains the last K, exposes the latest
+    and the best by a metric."""
+
+    def __init__(self, storage_path: str, num_to_keep: int | None = None):
+        self.storage_path = os.path.abspath(storage_path)
+        os.makedirs(self.storage_path, exist_ok=True)
+        self.num_to_keep = num_to_keep
+        self._checkpoints: list[tuple[float, Checkpoint, dict]] = []
+
+    def register(self, checkpoint_dir: str,
+                 metrics: dict | None = None) -> Checkpoint:
+        ckpt = Checkpoint(checkpoint_dir)
+        self._checkpoints.append((time.time(), ckpt, metrics or {}))
+        self._enforce_retention()
+        return ckpt
+
+    def latest(self) -> Checkpoint | None:
+        return self._checkpoints[-1][1] if self._checkpoints else None
+
+    def best(self, metric: str, mode: str = "min") -> Checkpoint | None:
+        scored = [(m.get(metric), c) for _, c, m in self._checkpoints
+                  if m.get(metric) is not None]
+        if not scored:
+            return self.latest()
+        scored.sort(key=lambda t: t[0], reverse=(mode == "max"))
+        return scored[0][1]
+
+    def next_checkpoint_dir(self, step: int) -> str:
+        return os.path.join(self.storage_path, f"checkpoint_{step:08d}")
+
+    def _enforce_retention(self):
+        if self.num_to_keep is None:
+            return
+        while len(self._checkpoints) > self.num_to_keep:
+            _, old, _ = self._checkpoints.pop(0)
+            if os.path.isdir(old.path) and \
+                    old.path.startswith(self.storage_path):
+                shutil.rmtree(old.path, ignore_errors=True)

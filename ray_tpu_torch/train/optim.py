@@ -189,11 +189,27 @@ def adamw_lowmem(learning_rate: float = 3e-4, b1: float = 0.9,
     return chain(*tx)
 
 
-def optimizer_state_bytes(optimizer: GradientTransformation,
-                          params: dict) -> int:
-    """Bytes of optimizer state for ``params`` (unsharded), from an init on
-    the meta device, so no state is allocated."""
+def optimizer_state_bytes(optimizer: GradientTransformation, params: dict,
+                          shardings=None) -> int:
+    """Bytes of optimizer state for ``params`` on one rank, from an init on
+    the meta device, so no state is allocated. Without ``shardings``, the
+    replicated footprint. With ``shardings``, the footprint ZeRO-1 leaves
+    on each rank: an int n (every state leaf of one dim or more split n
+    ways, ceil(numel / n) elements a rank, as the step's padded 1-D
+    pieces; scalars whole), or a tree of the state's structure whose
+    leaves are shard counts (None: replicated)."""
     meta = tree_map(lambda p: torch.empty_like(p, device="meta"), params)
-    return sum(t.numel() * t.element_size()
-               for t in tree_leaves(optimizer.init(meta))
-               if isinstance(t, torch.Tensor))
+    leaves = [t for t in tree_leaves(optimizer.init(meta))
+              if isinstance(t, torch.Tensor)]
+    if shardings is None:
+        counts = [1] * len(leaves)
+    elif isinstance(shardings, int):
+        counts = [shardings if t.dim() else 1 for t in leaves]
+    else:
+        counts = tree_leaves(shardings)
+        if len(counts) != len(leaves):
+            raise ValueError(
+                f"shardings tree has {len(counts)} leaves, optimizer state "
+                f"has {len(leaves)}")
+    return sum(-(-t.numel() // max(n or 1, 1)) * t.element_size()
+               for t, n in zip(leaves, counts))

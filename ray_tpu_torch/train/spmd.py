@@ -1,41 +1,99 @@
-"""Train-step factory: loss + init + optimizer -> one training step.
+"""Train-step factory: loss + init + optimizer (+ a mesh) -> one training
+step.
 
-Port of the single-device subset of ray_tpu/train/spmd.py (the generic
-factory and its Llama and ViT specializations). The JAX factory
-jits one step over a mesh and donates the state; here the step runs
-eagerly on one device and updates the state in place (params, moments and
-the step counter are overwritten, as donated JAX buffers are). The
-multi-device options (``zero1``, ``grad_accum > 1``, ``dcn_axes``,
-``dcn_quant``) raise ``NotImplementedError``: they need torch.distributed.
+Port of ray_tpu/train/spmd.py. The JAX factory jits one step over a mesh
+and lets XLA insert the collectives its shardings imply; here the step runs
+eagerly and calls ``torch.distributed`` itself, once per leaf, at the
+gradient boundary. The state is updated in place (params, moments and the
+step counter are overwritten, as donated JAX buffers are).
+
+``mesh=None`` trains on one device with no process group. With a mesh
+(``ray_tpu_torch.parallel.mesh``, over NCCL on the card or gloo on the
+CPU) every rank calls the step on its own rows of the global batch
+(``data_sharder``) and the step returns the global batch's loss and
+gradient norm, the same on every rank:
+
+- gradients average over the data-parallel domain: the batch axes of
+  ``rules`` (default ``("dp", "fsdp")``) and ``sp``. A sum in the
+  gradients' own dtype, then a division. With ``sp`` > 1 the Llama step
+  gives each sp rank its chunk of the sequence and the ring runs over the
+  sp group, so the loss is the whole sequence's;
+- replicated update (default): one ``all_reduce`` per leaf, then the
+  optimizer on the whole tree on every rank;
+- ``zero1``: each leaf's gradient is reduce-scattered so each rank holds
+  its piece of the leaf's padded 1-D view, the optimizer runs on that
+  piece only (1/world of the moments on each rank), and the new params
+  all-gather back into the params' own storage. JAX shards single-slice
+  ZeRO-1 on a leaf dim (``zero1_spec``) and multi-slice on padded 1-D
+  views; the port uses the padded 1-D views for both (the same numbers);
+- ``dcn_axes`` (the batch axes that cross slices): the JAX hierarchy. A
+  reduce-scatter within the slice (the ici group) to shard-sized pieces,
+  then the cross-slice (dcn) stage on those pieces only: an all-reduce, or
+  with ``zero1`` a reduce-scatter made of a destination-chunked
+  ``all_to_all`` and a local sum; params gather dcn first, then ici.
+  Without ``zero1`` the update shards over the ici group;
+- ``dcn_quant``: the dcn stage moves bf16 rows ("bf16") or int8 values
+  with one f32 scale per ``dcn_quant_bucket`` elements ("int8"), and sums
+  them in f32 after the move. Each leaf pads to ``dcn_n * ici_n *
+  bucket`` elements, so buckets fall at JAX's flat offsets;
+- ``grad_accum=N``: N microbatches of forward + backward accumulate into
+  ``.grad``, scaled by 1/N; one gradient sync and one update at the end;
+- ``grad_norm_every=N``: the norm is computed on steps whose counter is a
+  multiple of N, -1 on the others.
+
+A one-rank mesh runs every collective of its mode on one-rank groups. A
+rule table that shards a param over a mesh axis of size > 1 (FSDP or TP
+param sharding) raises ``NotImplementedError``.
 
 Returns (step_fn, init_state, data_sharder), as the JAX factory does:
 
 - ``init_state(params=None)`` -> TrainState: params from ``init_fn(seed)``,
   or a copy of the given tree (e.g. ``params_from_jax`` of a JAX tree) on
-  the step's device;
+  the step's device; every rank must start from the same params;
 - ``step_fn(state, tokens, targets)`` -> (state, {"loss", "grad_norm"}),
-  metrics as device scalars (no host sync); grad_norm is the global L2
-  norm of the gradients (``optax.global_norm``), summed in f32;
-- ``data_sharder(host_array)`` -> a tensor on the step's device.
+  metrics as device scalars; grad_norm is the global L2 norm of the
+  averaged gradients (``optax.global_norm``), summed in f32;
+- ``data_sharder(global_array)`` -> this rank's rows over the batch axes,
+  on the step's device (every rank passes the same global array).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from functools import partial
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device, tree_leaves, tree_map
+from ray_tpu_torch.collective.quant import (
+    dequantize_int8_buckets,
+    quantize_int8_bucketed,
+)
 from ray_tpu_torch.models import vit
-from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+from ray_tpu_torch.models.llama import (
+    LlamaConfig,
+    init_params,
+    loss_fn,
+    param_logical_axes,
+)
+from ray_tpu_torch.parallel.sharding import (
+    ShardingRules,
+    axis_sizes,
+    batch_axes,
+    entry_axes,
+    tree_specs,
+)
 from ray_tpu_torch.train.optim import (
     GradientTransformation,
     adamw,
     apply_updates,
 )
+
+DCN_QUANT_BUCKET = 256  # elements per int8 scale (JAX's config default)
 
 
 @dataclass
@@ -43,36 +101,344 @@ class TrainState:
     params: Any
     opt_state: Any
     step: torch.Tensor  # int32 scalar on the device
+    # The step counter's host copy, so grad_norm_every reads no device
+    # value; None makes the next step read ``step`` once.
+    host_step: int | None = field(default=None, repr=False, compare=False)
+    # Per param leaf path: the _Piece of its flat view this rank's moments
+    # hold (see checkpoint_tree).
+    layout: dict | None = field(default=None, repr=False, compare=False)
+
+    def checkpoint_tree(self) -> dict:
+        """The state as ``train.checkpoint.save_pytree`` writes it and
+        ``restore_pytree`` fills it in place: params leaf-shaped, each
+        moment as the flat view of its param ([numel]; under ``zero1`` or
+        ``dcn_axes`` this rank's piece of it, so a state saved at one world
+        size restores at another). Clears ``host_step``, since a restore
+        into it may follow."""
+        from ray_tpu_torch.train.checkpoint import FlatShard
+
+        self.host_step = None
+        layout = self.layout or {}
+
+        def moment(t, piece):
+            if piece.sharded:
+                return FlatShard(t, piece.numel, piece.offset, piece.length,
+                                 piece.replicas, piece.owner)
+            return t.view(-1)
+
+        def walk(t):
+            # A subtree with the params' leaf paths mirrors them (the
+            # optimizer built it from the params or their pieces).
+            if isinstance(t, dict) and list(_leaf_paths(t)) == list(layout):
+                it = iter(layout.values())
+                return tree_map(lambda x: moment(x, next(it)), t)
+            if isinstance(t, dict):
+                return {k: walk(v) for k, v in t.items()}
+            if isinstance(t, tuple) and hasattr(t, "_fields"):
+                return type(t)(*(walk(v) for v in t))
+            if isinstance(t, (tuple, list)):
+                return type(t)(walk(v) for v in t)
+            return t
+
+        return {"params": self.params, "opt_state": walk(self.opt_state),
+                "step": self.step}
 
 
-def _not_ported(**opts) -> None:
-    on = [k for k, v in opts.items() if v]
-    if on:
+class _Piece(NamedTuple):
+    """A param leaf's update piece on this rank: the elements at ``offset``
+    of its padded flat view, of which ``length`` fall inside its
+    ``numel``; ``replicas`` is the group of ranks holding the same
+    piece (None: this rank alone), ``owner`` whether this rank writes it
+    to a checkpoint."""
+    numel: int
+    offset: int
+    length: int
+    sharded: bool
+    replicas: Any = None
+    owner: bool = True
+
+
+def _leaf_paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, path + (k,))
+    else:
+        yield path
+
+
+def _axes_group(mesh, axes: tuple[str, ...]):
+    """The process group of this rank's ranks along ``axes`` of the mesh
+    (all of them at once): the mesh's own group for one axis, else one
+    ``new_group`` per subgroup, created on every rank in the same order
+    and kept on the mesh, so step factories over one mesh share them."""
+    import torch.distributed as dist
+
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault("_axes_groups", {})
+    if axes in cache:
+        return cache[axes]
+    names = list(mesh.mesh_dim_names)
+    layout = mesh.mesh.cpu().numpy()
+    free = [names.index(a) for a in axes]
+    rest = [i for i in range(layout.ndim) if i not in free]
+    n = math.prod(layout.shape[i] for i in free)
+    me, mine = dist.get_rank(), None
+    for ranks in layout.transpose(rest + free).reshape(-1, n):
+        group = dist.new_group(sorted(int(r) for r in ranks))
+        if me in ranks:
+            mine = group
+    cache[axes] = mine
+    return mine
+
+
+class _Plan:
+    """The collectives of one step factory's mode over a mesh: its process
+    groups (built once, here), this rank's rows, and the per-leaf layout
+    of the sharded update."""
+
+    def __init__(self, mesh, dev, data_axes, dcn_data, ici_data, zero1,
+                 explicit_hier, dcn_quant, bucket):
+        import torch.distributed as dist
+
+        from ray_tpu_torch.parallel.mesh import mesh_coords
+
+        try:
+            mesh.get_group(mesh.mesh_dim_names[0])
+        except RuntimeError as e:
+            raise ValueError(
+                "the mesh has no process groups (single_device_mesh()); "
+                "pass mesh=None to train on one device, or build the mesh "
+                "after train.backend.init_distributed") from e
+        if mesh.device_type != dev.type:
+            raise ValueError(f"mesh of {mesh.device_type} ranks, step on "
+                             f"{dev}")
+        sizes = axis_sizes(mesh)
+        coords = mesh_coords(mesh)
+        if coords is None:
+            raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
+        self.dist = dist
+        sp = ("sp",) if "sp" in sizes else ()
+        self.avg_axes = data_axes + sp
+        self.n_avg = math.prod(sizes[a] for a in self.avg_axes)
+        self.data_n = math.prod(sizes[a] for a in data_axes)
+        self.data_index = int(np.ravel_multi_index(
+            [coords[a] for a in data_axes],
+            [sizes[a] for a in data_axes])) if data_axes else 0
+        self.zero1, self.quant = zero1, dcn_quant
+        self.two_level = explicit_hier
+        self.sharded = zero1 or explicit_hier
+        # Groups, in one order on every rank.
+        self.avg = _axes_group(mesh, self.avg_axes)
+        if self.two_level:
+            self.ici_axes = ici_data + sp
+            self.ici = _axes_group(mesh, self.ici_axes)
+            self.dcn = _axes_group(mesh, dcn_data)
+            self.ici_n = math.prod(sizes[a] for a in self.ici_axes)
+            self.dcn_n = math.prod(sizes[a] for a in dcn_data)
+            self.ici_rank = dist.get_rank(self.ici)
+            self.dcn_rank = dist.get_rank(self.dcn)
+            self.upd = self.avg if zero1 else self.ici
+            world = self.ici_n * self.dcn_n
+        else:
+            self.upd = self.avg
+            world = self.n_avg
+        self.unit = world * (bucket if dcn_quant == "int8" else 1)
+        self.bucket = bucket
+
+    # -- the sharded update's layout ---------------------------------------
+
+    def piece(self, numel: int) -> tuple[int, int, int]:
+        """(padded numel, this rank's offset in the padded flat view, its
+        length) of a leaf's update piece."""
+        npad = numel + (-numel) % self.unit
+        if not self.two_level:
+            c = npad // self.n_avg
+            return npad, self.dist.get_rank(self.avg) * c, c
+        blk = npad // self.ici_n
+        if not self.zero1:
+            return npad, self.ici_rank * blk, blk
+        c = blk // self.dcn_n
+        return npad, self.ici_rank * blk + self.dcn_rank * c, c
+
+    def owner(self) -> bool:
+        """Whether this rank writes its piece to a checkpoint: without
+        zero1 the dcn slices hold the same pieces, and slice 0 writes."""
+        return not self.two_level or self.zero1 or self.dcn_rank == 0
+
+    # -- collectives -------------------------------------------------------
+
+    def all_reduce_mean(self, t: torch.Tensor) -> torch.Tensor:
+        self.dist.all_reduce(t, group=self.avg)
+        return t.div_(self.n_avg)
+
+    def reduce_grad(self, g: torch.Tensor, npad: int) -> torch.Tensor:
+        """A leaf's local gradient -> this rank's piece of the averaged
+        gradient's padded flat view, in the gradient's dtype."""
+        dist = self.dist
+        flat = g.view(-1)
+        if npad > flat.numel():
+            flat = F.pad(flat, (0, npad - flat.numel()))
+        if not self.two_level:
+            out = flat.new_empty(npad // self.n_avg)
+            dist.reduce_scatter_tensor(out, flat, group=self.avg)
+            return out.div_(self.n_avg)
+        blk = flat.new_empty(npad // self.ici_n)
+        dist.reduce_scatter_tensor(blk, flat, group=self.ici)
+        del flat
+        blk.div_(self.ici_n)  # this slice's mean, as JAX's per-slice grads
+        return self._dcn_stage(blk)
+
+    def _dcn_stage(self, blk: torch.Tensor) -> torch.Tensor:
+        """The cross-slice stage on a shard-sized piece."""
+        dist, n, dt = self.dist, self.dcn_n, blk.dtype
+        if self.quant is None:
+            if not self.zero1:
+                dist.all_reduce(blk, group=self.dcn)
+                return blk.div_(n)
+            out = torch.empty_like(blk)
+            dist.all_to_all_single(out, blk, group=self.dcn)
+            return out.view(n, -1).sum(0).div_(n)
+        if self.quant == "bf16":
+            x16 = blk.to(torch.bfloat16)
+            if self.zero1:
+                out = torch.empty_like(x16)
+                dist.all_to_all_single(out, x16, group=self.dcn)
+            else:
+                out = x16.new_empty(n * x16.numel())
+                dist.all_gather_into_tensor(out, x16, group=self.dcn)
+            g = out.view(n, -1).float().sum(0)
+        else:  # int8 values + one f32 scale per bucket
+            q, sc = quantize_int8_bucketed(blk.view(-1, self.bucket))
+            if self.zero1:
+                qo, so = torch.empty_like(q), torch.empty_like(sc)
+                dist.all_to_all_single(qo, q, group=self.dcn)
+                dist.all_to_all_single(so, sc, group=self.dcn)
+            else:
+                qo = q.new_empty((n * q.shape[0], self.bucket))
+                so = sc.new_empty((n * sc.shape[0], 1))
+                dist.all_gather_into_tensor(qo, q, group=self.dcn)
+                dist.all_gather_into_tensor(so, sc, group=self.dcn)
+            g = dequantize_int8_buckets(qo, so).view(n, -1).sum(0)
+        return (g / n).to(dt)
+
+    def gather_params(self, flat: torch.Tensor, off: int, c: int) -> None:
+        """All-gather every rank's updated piece into ``flat`` (the param's
+        own storage, or its padded copy), in place: dcn first, then ici."""
+        dist = self.dist
+        if not self.two_level:
+            dist.all_gather_into_tensor(flat, flat[off:off + c],
+                                        group=self.avg)
+            return
+        blk = flat.numel() // self.ici_n
+        start = self.ici_rank * blk
+        if self.zero1:
+            dist.all_gather_into_tensor(flat[start:start + blk],
+                                        flat[off:off + c], group=self.dcn)
+        dist.all_gather_into_tensor(flat, flat[start:start + blk],
+                                    group=self.ici)
+
+
+def _check_param_sharding(sizes: dict, logical_axes, rules) -> None:
+    """Params shard only over mesh axes of size 1: FSDP/TP param sharding
+    is a later slice of the port."""
+    specs = tree_specs(logical_axes, rules)
+    bad = {}
+
+    def walk(s, path):
+        if isinstance(s, dict):
+            for k, v in s.items():
+                walk(v, path + (k,))
+            return
+        axes = [a for e in s for a in entry_axes(e) if sizes.get(a, 1) > 1]
+        if axes:
+            bad["/".join(path)] = axes
+
+    walk(specs, ())
+    if bad:
         raise NotImplementedError(
-            f"{', '.join(on)}: multi-device training is not ported yet "
-            f"(it needs torch.distributed); the port trains on one device")
+            f"the rule table shards params over mesh axes of size > 1 "
+            f"({bad}): FSDP/TP param sharding is not ported yet (a later "
+            f"slice); pass rules that replicate params, e.g. "
+            f"ShardingRules().override(vocab=None, embed=None, mlp=None, "
+            f"heads=None, kv_heads=None)")
 
 
 def make_train_step(
+    mesh=None,
     *,
     loss: Callable,          # loss(params, tokens, targets) -> scalar
     init_fn: Callable,       # init_fn(seed) -> params tree
+    logical_axes: Any = None,
+    rules: ShardingRules | None = None,
     optimizer: GradientTransformation | None = None,
     seed: int = 0,
-    device: torch.device | str = "cuda",
     zero1: bool = False,
     grad_accum: int = 1,
+    grad_norm_every: int | None = None,
     dcn_axes: tuple[str, ...] = (),
     dcn_quant: str | None = None,
+    dcn_quant_bucket: int | None = None,
+    device: torch.device | str = "cuda",
 ) -> tuple[Callable, Callable, Callable]:
-    """Model-agnostic single-device step factory (see the module
-    docstring)."""
-    _not_ported(zero1=zero1, grad_accum=int(grad_accum) > 1,
-                dcn_axes=tuple(dcn_axes),
-                dcn_quant=dcn_quant not in (None, "", "none"))
+    """Model-agnostic step factory (see the module docstring)."""
     dev = resolve_device(device)
+    rules = rules or ShardingRules()
     optimizer = optimizer or adamw(3e-4, weight_decay=0.1,
                                    mu_dtype=torch.bfloat16)
+    grad_norm_every = max(1, int(1 if grad_norm_every is None
+                                 else grad_norm_every))
+    grad_accum = max(1, int(grad_accum))
+    bucket = int(dcn_quant_bucket or DCN_QUANT_BUCKET)
+
+    # -- the data-parallel domain: intra-slice (ici) vs cross-slice (dcn) --
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+    names = tuple(sizes)
+    dcn_axes = tuple(dcn_axes)
+    unknown = [a for a in dcn_axes if a not in names]
+    if unknown:
+        raise ValueError(f"dcn_axes {unknown} not in mesh {names}")
+    data_axes = tuple(a for a in batch_axes(rules) if a in names)
+    dcn_data = tuple(a for a in data_axes if a in dcn_axes)
+    ici_data = tuple(a for a in data_axes if a not in dcn_axes)
+    if dcn_axes and not dcn_data:
+        raise ValueError(
+            f"dcn_axes {dcn_axes} must name batch (data-parallel) axes; "
+            f"the batch shards over {data_axes}")
+    if dcn_quant in ("", "none"):
+        dcn_quant = None
+    if dcn_quant and not dcn_data:
+        raise ValueError("dcn_quant requires dcn_axes naming a batch axis")
+    if dcn_quant not in (None, "bf16", "int8"):
+        raise ValueError(f"unknown dcn_quant {dcn_quant!r}")
+    update_axes = (ici_data + dcn_data) if zero1 else \
+        (ici_data if dcn_axes else ())
+    explicit_hier = bool(dcn_data) and bool(update_axes or dcn_quant)
+    n_slices = math.prod(sizes[a] for a in dcn_data) if dcn_data else 1
+
+    plan = None
+    if mesh is not None:
+        if logical_axes is not None:
+            _check_param_sharding(sizes, logical_axes, rules)
+        plan = _Plan(mesh, dev, data_axes, dcn_data, ici_data, bool(zero1),
+                     explicit_hier, dcn_quant, bucket)
+    sharded = plan is not None and plan.sharded
+
+    def _pieces(params):
+        """Per leaf (in tree order): the padded flat view (the leaf's own
+        storage when no padding is needed), this rank's offset, length."""
+        out = []
+        for p in tree_leaves(params):
+            npad, off, c = plan.piece(p.numel())
+            flat = p.detach().view(-1)
+            if npad > flat.numel():
+                flat = F.pad(flat, (0, npad - flat.numel()))
+            out.append((flat, off, c))
+        return out
+
+    def _unflat(params, leaves):
+        it = iter(leaves)
+        return tree_map(lambda _: next(it), params)
 
     def init_state(params: dict | None = None) -> TrainState:
         if params is None:
@@ -80,29 +446,130 @@ def make_train_step(
         params = tree_map(
             lambda t: t.detach().to(dev, copy=True).requires_grad_(True),
             params)
+        layout = {}
         with torch.no_grad():
-            opt_state = optimizer.init(params)
+            if sharded:
+                pieces = _pieces(params)
+                opt_state = optimizer.init(_unflat(
+                    params, [f[off:off + c] for f, off, c in pieces]))
+                replicas = plan.dcn if plan.two_level and not plan.zero1 \
+                    else None
+                for path, p, (_, off, c) in zip(_leaf_paths(params),
+                                                tree_leaves(params), pieces):
+                    n = p.numel()
+                    layout[path] = _Piece(n, off, max(0, min(n, off + c) - off),
+                                          True, replicas, plan.owner())
+            else:
+                opt_state = optimizer.init(params)
+                for path, p in zip(_leaf_paths(params), tree_leaves(params)):
+                    layout[path] = _Piece(p.numel(), 0, p.numel(), False)
         return TrainState(params=params, opt_state=opt_state,
                           step=torch.zeros((), dtype=torch.int32,
-                                           device=dev))
+                                           device=dev),
+                          host_step=0, layout=layout)
+
+    def _check_batch(local_b: int) -> None:
+        b = local_b * (plan.data_n if plan is not None else 1)
+        if explicit_hier and b % (n_slices * grad_accum):
+            raise ValueError(
+                f"batch {b} not divisible by {n_slices} slices x "
+                f"grad_accum={grad_accum}")
+        if b % grad_accum:
+            raise ValueError(
+                f"batch {b} not divisible by grad_accum={grad_accum}")
+        if local_b % grad_accum:
+            raise ValueError(
+                f"this rank's {local_b} rows not divisible by "
+                f"grad_accum={grad_accum}")
+
+    def _loss_and_grads(params, tokens, targets):
+        """Forward + backward of this rank's rows; the gradients land in
+        each leaf's .grad (summed over microbatches, then scaled by 1/N)."""
+        if grad_accum == 1:
+            loss_val = loss(params, tokens, targets)
+            loss_val.backward()
+            return loss_val.detach()
+        mb = tokens.shape[0] // grad_accum
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(grad_accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            lv = loss(params, tokens[rows], targets[rows])
+            lv.backward()
+            total += lv.detach()
+        inv = 1.0 / grad_accum
+        for p in tree_leaves(params):
+            p.grad.mul_(inv)
+        return total * inv
+
+    def _norm_due(state: TrainState) -> bool:
+        if grad_norm_every == 1:
+            return True
+        if state.host_step is None:
+            state.host_step = int(state.step)
+        return state.host_step % grad_norm_every == 0
 
     def step_fn(state: TrainState, tokens, targets):
         params = state.params
         leaves = tree_leaves(params)
-        loss_val = loss(params, tokens, targets)
-        loss_val.backward()
+        if explicit_hier or grad_accum > 1:
+            _check_batch(tokens.shape[0])
+        loss_val = _loss_and_grads(params, tokens, targets)
+        due = _norm_due(state)
         with torch.no_grad():
-            grads = tree_map(lambda p: p.grad, params)
-            gnorm = torch.stack([p.grad.float().square().sum()
-                                 for p in leaves]).sum().sqrt()
-            updates, _ = optimizer.update(grads, state.opt_state, params)
-            apply_updates(params, updates)
+            if plan is not None:
+                loss_val = plan.all_reduce_mean(loss_val.clone())
+            if not sharded:
+                if plan is not None:
+                    for p in leaves:
+                        plan.all_reduce_mean(p.grad)
+                grads = tree_map(lambda p: p.grad, params)
+                if due:
+                    gnorm = torch.stack([p.grad.float().square().sum()
+                                         for p in leaves]).sum().sqrt()
+                updates, _ = optimizer.update(grads, state.opt_state, params)
+                apply_updates(params, updates)
+            else:
+                pieces = _pieces(params)
+                shards = []
+                for p, (flat, _, _) in zip(leaves, pieces):
+                    g, p.grad = p.grad, None
+                    shards.append(plan.reduce_grad(g, flat.numel()))
+                    del g
+                if due:
+                    sq = torch.stack([s.float().square().sum()
+                                      for s in shards]).sum()
+                    plan.dist.all_reduce(sq, group=plan.upd)
+                    gnorm = sq.sqrt()
+                p_pieces = _unflat(params,
+                                   [f[off:off + c] for f, off, c in pieces])
+                updates, _ = optimizer.update(_unflat(params, shards),
+                                              state.opt_state, p_pieces)
+                del shards
+                apply_updates(p_pieces, updates)
+                del updates
+                for p, (flat, off, c) in zip(leaves, pieces):
+                    plan.gather_params(flat, off, c)
+                    if flat.numel() > p.numel():
+                        p.detach().view(-1).copy_(flat[:p.numel()])
+            if not due:
+                gnorm = torch.full((), -1.0, dtype=torch.float32,
+                                   device=dev)
             state.step.add_(1)
+        if state.host_step is not None:
+            state.host_step += 1
         for p in leaves:
             p.grad = None
-        return state, {"loss": loss_val.detach(), "grad_norm": gnorm}
+        return state, {"loss": loss_val, "grad_norm": gnorm}
 
     def data_sharder(arr) -> torch.Tensor:
+        if plan is not None:
+            b = arr.shape[0]
+            if b % plan.data_n:
+                raise ValueError(
+                    f"batch {b} not divisible by the {plan.data_n} ranks of "
+                    f"the batch axes {data_axes}")
+            rows = b // plan.data_n
+            arr = arr[plan.data_index * rows:(plan.data_index + 1) * rows]
         if isinstance(arr, torch.Tensor):
             return arr.to(dev)
         return torch.as_tensor(np.asarray(arr), device=dev)
@@ -110,8 +577,36 @@ def make_train_step(
     return step_fn, init_state, data_sharder
 
 
+def _sp_loss(mesh, loss_of):
+    """``loss_of(tokens, targets, positions, sp_axis)`` -> a loss over
+    tokens [B, S]: with an sp axis of size > 1 in the mesh, this rank's
+    chunk of the sequence at its global positions, the ring over the sp
+    group; else the whole sequence."""
+    sp = axis_sizes(mesh).get("sp", 1) if mesh is not None else 1
+    if sp == 1:
+        return lambda p, tokens, targets: loss_of(p, tokens, targets, None,
+                                                  None)
+    import torch.distributed as dist
+
+    group = mesh.get_group("sp")
+    r = dist.get_rank(group)
+
+    def loss(p, tokens, targets):
+        s = tokens.shape[1]
+        if s % sp:
+            raise ValueError(f"sequence {s} not divisible by sp={sp}")
+        c = s // sp
+        cols = slice(r * c, (r + 1) * c)
+        pos = torch.arange(r * c, (r + 1) * c, device=tokens.device)
+        return loss_of(p, tokens[:, cols], targets[:, cols], pos, group)
+
+    return loss
+
+
 def make_llama_train_step(
     cfg: LlamaConfig,
+    mesh=None,
+    rules: ShardingRules | None = None,
     optimizer: GradientTransformation | None = None,
     attn_impl: str = "flash",
     remat: bool | str | tuple = True,
@@ -121,18 +616,26 @@ def make_llama_train_step(
 ) -> tuple[Callable, Callable, Callable]:
     """Llama specialization of :func:`make_train_step`. ``remat`` takes a
     single policy or a per-layer spec (models/llama.normalize_remat);
-    ``step_options`` forwards the multi-device options (which raise)."""
+    ``step_options`` forwards ``zero1``, ``grad_accum``,
+    ``grad_norm_every``, ``dcn_axes``, ``dcn_quant`` and
+    ``dcn_quant_bucket``. A mesh with sp > 1 runs the ring over its sp
+    group (context parallel), each sp rank on its chunk of the sequence."""
     dev = resolve_device(device)
     return make_train_step(
-        loss=lambda p, tokens, targets: loss_fn(
-            cfg, p, tokens, targets, attn_impl=attn_impl, remat=remat),
+        mesh,
+        loss=_sp_loss(mesh, lambda p, tokens, targets, pos, sp: loss_fn(
+            cfg, p, tokens, targets, positions=pos, sp_axis=sp,
+            attn_impl=attn_impl, remat=remat)),
         init_fn=partial(init_params, cfg, device=dev),
+        logical_axes=param_logical_axes(cfg), rules=rules,
         optimizer=optimizer, seed=seed, device=dev, **step_options,
     )
 
 
 def make_vit_train_step(
     cfg: vit.ViTConfig,
+    mesh=None,
+    rules: ShardingRules | None = None,
     optimizer: GradientTransformation | None = None,
     attn_impl: str = "flash",
     remat: bool | str = False,
@@ -142,12 +645,13 @@ def make_vit_train_step(
 ) -> tuple[Callable, Callable, Callable]:
     """ViT specialization of :func:`make_train_step`: the step takes
     ``(state, images, labels)``, images [B, H, W, C] floats in [0, 1] and
-    labels [B] ints. ``step_options`` forwards the multi-device options
-    (which raise)."""
+    labels [B] ints; the batch shards over the batch axes."""
     dev = resolve_device(device)
     return make_train_step(
+        mesh,
         loss=lambda p, images, labels: vit.loss_fn(
             cfg, p, images, labels, attn_impl=attn_impl, remat=remat),
         init_fn=partial(vit.init_params, cfg, device=dev),
+        logical_axes=vit.param_logical_axes(cfg), rules=rules,
         optimizer=optimizer, seed=seed, device=dev, **step_options,
     )

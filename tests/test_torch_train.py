@@ -222,17 +222,85 @@ def test_training_entry_points_need_a_card_unless_asked_for_cpu():
     spmd.make_llama_train_step(CFG, device="cpu")
 
 
-@pytest.mark.parametrize("opt", [{"zero1": True}, {"grad_accum": 2},
-                                 {"dcn_axes": ("dcn",)},
-                                 {"dcn_quant": "int8"}])
-def test_multi_device_options_raise(opt):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        spmd.make_llama_train_step(CFG, device="cpu", **opt)
+def _layout_mesh(**sizes):
+    """A DeviceMesh of these axis sizes that needs no process group: the
+    factory's checks read only its names and sizes."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    shape = [sizes.get(a, 1) for a in AXIS_ORDER]
+    return DeviceMesh("cpu", torch.arange(int(np.prod(shape))).reshape(
+        shape), mesh_dim_names=AXIS_ORDER, _init_backend=False, _rank=0)
+
+
+_DDP = dict(vocab=None, embed=None, mlp=None, heads=None, kv_heads=None)
+STILL_RAISE = {
+    # FSDP/TP param sharding: the default rules shard "embed" over fsdp.
+    "params_over_fsdp": (dict(fsdp=2), {}, {}, NotImplementedError),
+    "params_over_tp": (dict(tp=2), {"embed": None}, {}, NotImplementedError),
+    # The JAX factory's ValueErrors (tests compare the message with it).
+    "dcn_not_in_mesh": (dict(dp=2), _DDP, {"dcn_axes": ("dcn",)},
+                        ValueError),
+    "dcn_not_a_batch_axis": (dict(dp=2), _DDP, {"dcn_axes": ("tp",)},
+                             ValueError),
+    "quant_without_dcn": (dict(dp=2), _DDP, {"dcn_quant": "int8"},
+                          ValueError),
+    "unknown_quant": (dict(dp=2), _DDP, {"dcn_axes": ("dp",),
+                                         "dcn_quant": "fp8"}, ValueError),
+}
+
+
+@pytest.mark.parametrize("case", list(STILL_RAISE))
+def test_multi_device_options_raise(case):
+    """What still raises: params sharded over a mesh axis of size > 1, and
+    the JAX factory's ValueErrors on the same inputs and with its
+    messages."""
+    from ray_tpu.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu.parallel.sharding import ShardingRules as JaxRules
+    from ray_tpu.train.spmd import make_llama_train_step as jax_make
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+
+    sizes, over, opts, exc = STILL_RAISE[case]
+    with pytest.raises(exc) as got:
+        spmd.make_llama_train_step(CFG, _layout_mesh(**sizes),
+                                   rules=ShardingRules().override(**over),
+                                   device="cpu", **opts)
+    if exc is NotImplementedError:
+        assert "FSDP/TP param sharding" in str(got.value)
+        return
+    n = int(np.prod(list(sizes.values())))
+    with pytest.raises(ValueError) as want:
+        jax_make(JCFG, build_mesh(MeshSpec(**sizes), jax.devices("cpu")[:n]),
+                 rules=JaxRules().override(**over), **opts)
+    assert str(got.value) == str(want.value)
+
+
+def test_grad_accum_batch_error_matches_jax():
+    """mesh=None: a batch that grad_accum does not divide raises JAX's
+    ValueError at the step; a divisible one trains."""
+    from ray_tpu.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu.train.spmd import make_llama_train_step as jax_make
+
+    tokens, targets = _tokens(b=4, s=16)
+    jstep, jinit, jshard = jax_make(
+        JCFG, build_mesh(MeshSpec(), jax.devices("cpu")[:1]), grad_accum=3,
+        attn_impl="blockwise", remat=False)
+    with pytest.raises(ValueError) as want:
+        jstep(jinit(), jshard(tokens), jshard(targets))
+    step, init, shard = spmd.make_llama_train_step(
+        CFG, device="cpu", grad_accum=3, attn_impl="blockwise", remat=False)
+    with pytest.raises(ValueError) as got:
+        step(init(), shard(tokens), shard(targets))
+    assert str(got.value) == str(want.value)
 
 
 def test_train_package_imports_no_jax():
     code = ("import sys; import ray_tpu_torch.train, "
-            "ray_tpu_torch.accelerators.flops, ray_tpu_torch.ops.loss; "
+            "ray_tpu_torch.accelerators.flops, ray_tpu_torch.ops.loss, "
+            "ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding, "
+            "ray_tpu_torch.collective.quant, ray_tpu_torch.train.backend, "
+            "ray_tpu_torch.train.checkpoint; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'ray_tpu.')) or m == 'ray_tpu']; "
             "assert not bad, bad")

@@ -257,8 +257,19 @@ def test_vit_step_needs_a_card_unless_asked_for_cpu():
 
 
 def test_vit_step_multi_device_options_raise():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        make_vit_train_step(vit.ViTConfig.tiny(), device="cpu", zero1=True)
+    """What still raises for ViT: the default rules shard params over fsdp,
+    and a mesh with fsdp > 1 asks for FSDP param sharding."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    shape = [2 if a == "fsdp" else 1 for a in AXIS_ORDER]
+    mesh = DeviceMesh("cpu", torch.arange(2).reshape(shape),
+                      mesh_dim_names=AXIS_ORDER, _init_backend=False,
+                      _rank=0)
+    with pytest.raises(NotImplementedError, match="FSDP/TP param sharding"):
+        make_vit_train_step(vit.ViTConfig.tiny(), mesh, device="cpu",
+                            zero1=True)
 
 
 def test_vit_and_train_modules_import_no_jax():
