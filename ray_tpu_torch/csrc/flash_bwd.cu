@@ -11,15 +11,17 @@
 // head and, within each, the 64-row q tiles that can see its rows, and
 // keeps dk and dv in f32 registers across all of them (the GQA sum costs
 // nothing and is rounded once). dq of a (q tile, kv tile) pair is summed
-// into a zeroed f32 buffer [B,H,Sq,D] across CTAs; the caller casts it. The
-// order of dq's sums therefore changes from run to run (f32 rounding only);
-// dk/dv are the same bits on every run.
+// into an f32 buffer [B,H,Sq,D] across CTAs in ascending kv-tile order (an
+// ordered reduction, as FlashAttention-3's deterministic backward does);
+// the caller casts it. dq, dk and dv are the same bits on every run, as the
+// TPU kernel's are.
 //
 // Bound: operations. Five products per kept (q, k) pair, 10 * D FLOPs: ~172
 // GFLOP at the training shape (B4 H32 Hkv8 S2048 D64 causal), ~174 us at
 // 989 TFLOP/s, against ~168 MB of HBM traffic; dq's sums across CTAs add
 // ~0.57 GB of f32 reductions into L2 there (272 kept (64-row q tile,
-// 128-row kv tile) pairs per (batch, q head), 16 KB each). What the design
+// 128-row kv tile) pairs per (batch, q head), 16 KB each), and each tile's
+// turn (a poll, a fence) sits on its CTA's critical path. What the design
 // does about it:
 // - 128 kv rows per CTA, two consumer warpgroups of 64 kv rows; no producer
 //   warp (with 8 warps a thread may hold 255 registers; 9 would cap it at
@@ -45,16 +47,24 @@
 //   and dq = bf16(ds) . k_sc reads it back as an MN-major (transposed) A,
 //   M = 64 q rows, K = the CTA's 128 kv rows; the two warpgroups split
 //   dq's columns (N = D / 2 each), so neither idles.
-// - dq across CTAs: float4 reductions (red.global.add) from registers into
-//   the f32 buffer, right after each tile's dq product (lanes t and t ^ 1
-//   trade halves first, so one float4 goes where two float2 did). Each
-//   warpgroup's 64 x 32 f32 part written to shared memory and added by
-//   one TMA reduce-add (cp.reduce.async.bulk.tensor .add) timed slower at
-//   D 64 (at D 128 two stages, K, V, k_sc and ds^T leave no room for an
-//   f32 tile), and so did holding the reductions back to run behind the
-//   next tile's s^T/dp^T products (PERF.md).
-//   dv/dk's products of a tile run on while ds^T is shared and dq is
-//   issued.
+// - dq across CTAs, in a fixed order: each warp owns 16 q rows x D / 2
+//   columns of a q tile's dq and one turn counter for them (dq_sem, [B, H,
+//   q tiles, 8 warps] int32, zeroed by the wrapper with the f32 buffer).
+//   The CTA of kv tile j waits until the counter reads j (the poll runs
+//   while the tile's dq product does), adds its part by float4 reductions
+//   (red.global.add; lanes t and t ^ 1 trade halves first, so one float4
+//   goes where two float2 did), fences until they have landed and passes
+//   the turn. Every CTA of kv tile j visits every q tile that kv tiles 0
+//   .. j - 1 visit (causal: q tile m is visited by kv tiles 0 .. m / 2;
+//   non-causal: by all), so turn j follows exactly j earlier turns and
+//   none is skipped. No deadlock: a CTA waits only on CTAs of the same
+//   plane with lower kv tiles, whose linear block indices are lower;
+//   blocks are dispatched in ascending linear order, so those are running
+//   or done whenever this one runs, and the lowest unfinished one waits on
+//   nothing. The f32 atomics this replaced summed in arrival order
+//   (run-to-run noise in dq's last bits); the designs tried on the way and
+//   their times are in PERF.md. dv/dk's products of a tile run on while
+//   ds^T is shared and dq is issued.
 // - The grid is linear over (kv tile, batch * kv head), the first kv tiles
 //   (the longest under causal) first, so B * Hkv has no 65535 limit.
 //   Grouping a few planes' CTAs together, so that those in flight share
@@ -80,13 +90,14 @@
 // matmul, so the result is held to the twin's tolerances, not its bits.
 //
 // C interface (called through ctypes by ray_tpu_torch/ops/attention.py):
-//   int rtt_flash_bwd(q, k, v, dout, lse, out, dq_acc, dk, dv,
+//   int rtt_flash_bwd(q, k, v, dout, lse, out, dq_acc, dq_sem, dk, dv,
 //                     B, H, Hkv, Sq, Skv, D, scale, scale_log2, causal,
 //                     stream)
 // q/dout/out [B,H,Sq,D], k/v/dk/dv [B,Hkv,Skv,D] bf16 contiguous and
-// 16-byte aligned; lse [B,H,Sq] f32; dq_acc [B,H,Sq,D] f32, zeroed by the
-// caller. D is 64 or 128; any Sq, Skv >= 1; H % Hkv == 0. Returns a
-// cudaError_t (0 = launched), -1 for an unsupported D, -2/-3
+// 16-byte aligned; lse [B,H,Sq] f32; dq_acc [B,H,Sq,D] f32 and dq_sem
+// int32 [B * H * ceil(Sq / 64) * 8], both zeroed by the caller. D is 64 or
+// 128; any Sq, Skv >= 1; H % Hkv == 0. Returns a cudaError_t (0 =
+// launched), -1 for an unsupported D, -2/-3
 // when the tensor maps cannot be made.
 
 #include <limits.h>
@@ -102,6 +113,7 @@ constexpr int kWG = 2;                      // consumer warpgroups
 constexpr int kBlockN = 64 * kWG;           // kv rows per CTA
 constexpr int kBlockM = 64;                 // q rows per staged tile
 constexpr int kThreads = 128 * kWG;
+constexpr int kDqTurns = 4 * kWG;           // dq turn counters a q tile
 constexpr int kBox = 64 * 64 * 2;           // one 64 x 64 bf16 TMA box
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -137,7 +149,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const __grid_constant__ CUtensorMap tm_v,
                      const __grid_constant__ CUtensorMap tm_o,
                      const float* __restrict__ lse,
-                     float* __restrict__ dq_acc,
+                     float* __restrict__ dq_acc, int* __restrict__ dq_sem,
                      __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int BHkv, int H,
                      int Hkv, int Sq, int Skv, float scale, float scale2,
@@ -236,6 +248,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float dqa[D / 4];  // dq: 64 q rows x this warpgroup's D / 2 columns
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) dqa[i] = 0.f;
+  const int kt = n0 / kBlockN;  // this CTA's turn on every q tile it visits
 
   // k_sc = bf16(k * scale) beside K, once, 16 bytes a thread.
   mbar_wait(kvbar, 0);
@@ -430,6 +443,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     wgmma_commit();
+    int* turn = dq_sem + ((size_t)plane_of(it) * nqt + m0 / kBlockM) *
+                             kDqTurns + wg * 4 + warp;
+    turn_wait(turn, kt);  // polled while the product runs
     wgmma_wait<0>();  // dq, and dv/dk of the last part
     fence_regs(dqa);
     fence_regs(dva);
@@ -437,9 +453,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(pa);
     fence_regs(da_);
 
-    // dq's f32 sum across CTAs. Lanes t and t ^ 1 trade halves, so that
-    // each holds 4 adjacent columns of one row (row g for even t, g + 8 for
-    // odd): one float4 reduction where there were two float2 ones.
+    // dq's f32 sum across CTAs, in kv-tile order: this warp's turn on its
+    // 16 rows x D / 2 columns is the CTA's kv tile. Lanes t and t ^ 1 trade
+    // halves, so that each holds 4 adjacent columns of one row (row g for
+    // even t, g + 8 for odd): one float4 where there were two float2.
     float* base = dq_acc + (size_t)plane_of(it) * Sq * D + wg * (D / 2);
     const bool odd = t & 1;
     const int row = m0 + warp * 16 + g + (odd ? 8 : 0);
@@ -457,6 +474,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                             4 * (t >> 1)),
                   val);
     }
+    turn_pass(turn);
   }
 
   // dk and dv of the kv head: f32 over every q head, rounded once.
@@ -479,9 +497,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const void* out, float* dq_acc, void* dk,
-           void* dv, int B, int H, int Hkv, int Sq, int Skv, float scale,
-           float scale2, int causal, cudaStream_t stream) {
+           const float* lse, const void* out, float* dq_acc, int* dq_sem,
+           void* dk, void* dv, int B, int H, int Hkv, int Sq, int Skv,
+           float scale, float scale2, int causal, cudaStream_t stream) {
   constexpr int smem = Cfg<D>::kSmem;
   static bool smem_set = false;  // once per process, before any capture
   if (!smem_set) {
@@ -500,7 +518,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   if (err) return err;
   const int grid = ((Skv + kBlockN - 1) / kBlockN) * B * Hkv;
   flash_bwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tq, tdo, tk, tv, to, lse, dq_acc, static_cast<__nv_bfloat16*>(dk),
+      tq, tdo, tk, tv, to, lse, dq_acc, dq_sem,
+      static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), B * Hkv, H, Hkv, Sq, Skv, scale,
       scale2, causal);
   return cudaGetLastError();
@@ -510,10 +529,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" int rtt_flash_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
-                             const void* out, void* dq_acc, void* dk,
-                             void* dv, int B, int H, int Hkv, int Sq, int Skv,
-                             int D, float scale, float scale2, int causal,
-                             void* stream) {
+                             const void* out, void* dq_acc, void* dq_sem,
+                             void* dk, void* dv, int B, int H, int Hkv,
+                             int Sq, int Skv, int D, float scale,
+                             float scale2, int causal, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0 ||
       (long long)((Skv + kBlockN - 1) / kBlockN) * B * Hkv > INT_MAX ||
       (long long)B * H > INT_MAX)
@@ -521,14 +540,17 @@ extern "C" int rtt_flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* acc = static_cast<float*>(dq_acc);
+  int* sem = static_cast<int*>(dq_sem);
   if (D == 64)
-    return launch<64>(q, k, v, dout, l, out, acc, dk, dv, B, H, Hkv, Sq, Skv,
-                      scale, scale2, causal, s);
+    return launch<64>(q, k, v, dout, l, out, acc, sem, dk, dv, B, H, Hkv, Sq,
+                      Skv, scale, scale2, causal, s);
   if (D == 128)
-    return launch<128>(q, k, v, dout, l, out, acc, dk, dv, B, H, Hkv, Sq, Skv,
-                       scale, scale2, causal, s);
+    return launch<128>(q, k, v, dout, l, out, acc, sem, dk, dv, B, H, Hkv, Sq,
+                       Skv, scale, scale2, causal, s);
   return -1;
 }
+
+extern "C" int rtt_flash_bwd_dq_turns(void) { return kDqTurns; }
 
 extern "C" int rtt_flash_bwd_smem_bytes(int D) {
   return D == 64 ? Cfg<64>::kSmem : D == 128 ? Cfg<128>::kSmem : -1;

@@ -11,8 +11,10 @@
 // (batch, kv head, 128-row kv tile) loops over the rep q heads of that kv
 // head and over the 64-row q tiles it needs, keeps dk/dv for its tile in
 // f32 registers (each warp owns 16 kv rows), so the GQA fold costs
-// nothing, and adds each q tile's dq contribution into a zeroed f32 buffer
-// with float2 atomicAdd. The caller casts that buffer. The TPU kernel
+// nothing, and adds each q tile's dq contribution into an f32 buffer in
+// ascending kv-tile order (below), so that dq, dk and dv are the same bits
+// on every run, as the TPU kernel's are. The caller casts that buffer. The
+// TPU kernel
 // rounds each q head's dk/dv to bf16 before the wrapper's f32 fold; this
 // kernel folds in f32 and rounds once (the twin does the same).
 //
@@ -39,9 +41,23 @@
 //   product is split over the 8 warps (16 q rows x D/2 columns each). At D
 //   128 a warp takes the q tile in two halves of 32 columns, so that s, dp,
 //   dk and dv fit in its registers without a spill.
+// - dq across CTAs, in a fixed order, as K3 (flash_bwd.cu) sums it: each
+//   warp owns 16 q rows x D / 2 columns of a q tile's dq and one turn
+//   counter for them (dq_sem, [B, H, q tiles, 8 warps] int32, zeroed by
+//   the wrapper with the f32 buffer). A CTA's turn on a q tile is the
+//   number of lower kv tiles that visit it, counted from the pre-pass's
+//   bounds with the same test the visit takes (a warp ballot over 32 kv
+//   tiles at a time), so a skipped pair holds no turn and the waiter
+//   never waits for it. The CTA waits until the counter reads its turn,
+//   adds its part by float2 reductions (red.global.add), fences until they
+//   have landed and passes the turn. No deadlock: a CTA waits only on CTAs
+//   of lower kv tiles (blockIdx.z), whose linear block indices are lower;
+//   blocks are dispatched in ascending linear order. The f32 atomics this
+//   replaced summed in arrival order; the designs tried on the way and
+//   their times are in PERF.md.
 // Products by mma.sync m16n8k16 (bf16 in, f32 accumulate). Not yet: wgmma
 // (the register budget of dk, dv, s and dp at D 128 needs warp
-// specialisation with setmaxnreg), TMA, a deterministic dq pass.
+// specialisation with setmaxnreg), TMA.
 //
 // Arithmetic, kept identical to the TPU kernel and to the plain twin
 // flash_chunk_bwd_plain in ray_tpu_torch/ops/attention.py:
@@ -63,12 +79,13 @@
 //
 // C interface (called through ctypes by ray_tpu_torch/ops/attention.py):
 //   int rtt_flash_chunk_bwd(q, k, v, qpos, kpos, bounds, dout, lse, delta,
-//                           glse, dq_acc, dk, dv, B, H, Hkv, Sq, Skv, D,
-//                           scale, scale_log2, causal, stream)
+//                           glse, dq_acc, dq_sem, dk, dv, B, H, Hkv, Sq,
+//                           Skv, D, scale, scale_log2, causal, stream)
 // q/dout [B,H,Sq,D], k/v/dk/dv [B,Hkv,Skv,D] bf16 contiguous and 16-byte
 // aligned; qpos [Sq], kpos [Skv] int32; bounds the pre-pass's int32
-// output; lse/delta/glse [B,H,Sq] f32; dq_acc [B,H,Sq,D] f32, zeroed by the
-// caller. D is 64 or 128. Returns a cudaError_t or -1 for an unsupported D.
+// output; lse/delta/glse [B,H,Sq] f32; dq_acc [B,H,Sq,D] f32 and dq_sem
+// int32 [B * H * ceil(Sq / 64) * 8], both zeroed by the caller. D is 64 or
+// 128. Returns a cudaError_t or -1 for an unsupported D.
 
 #include <math.h>
 
@@ -82,6 +99,7 @@ constexpr int kBlockM = 64;   // q rows per staged tile
 constexpr int kBlockN = 128;  // kv rows per CTA, 16 per warp
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kDqTurns = kWarps;  // dq turn counters a q tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -119,6 +137,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const float* __restrict__ delta,
                            const float* __restrict__ glse,
                            float* __restrict__ dq_acc,
+                           int* __restrict__ dq_sem,
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int H, int Hkv,
                            int Sq, int Skv, float scale, float scale2,
@@ -169,6 +188,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (!causal) return true;
     const int2 x = qb[mt];
     return x.y >= ck.x || x.x < cmin;
+  };
+  // This CTA's turn on q tile mt: the lower kv tiles that visit it (the
+  // test of visits(), for each of them), counted by the whole warp.
+  const int kt = n0 / kBlockN;
+  auto turn_of = [&](int mt) {
+    const int2 x = qb[mt];
+    if (!causal || x.x < cmin) return kt;
+    int n = 0;
+    for (int j0 = 0; j0 < kt; j0 += 32) {
+      const int j = j0 + (threadIdx.x & 31);
+      bool lower = false;
+      if (j < kt) {
+        int kmin = kb[2 * j].x;
+        if (2 * j + 1 < nk64) kmin = min(kmin, kb[2 * j + 1].x);
+        lower = x.y >= kmin;
+      }
+      n += __popc(__ballot_sync(0xffffffffu, lower));
+    }
+    return n;
   };
   auto next_tile = [&](int mt) {
     do ++mt;
@@ -399,7 +437,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           mma16816(dq[2 * dp + 1], a, bk[2], bk[3]);
         }
       }
+      // This warp's turn on its 16 rows x D / 2 columns of the q tile.
       const int q0 = m0 + mq + g;
+      int* turn = dq_sem + (((size_t)b * H + h) * nqt + mt) * kDqTurns + warp;
+      turn_wait(turn, turn_of(mt));
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) {
         const int col = dh + c * 8 + 2 * t;
@@ -411,6 +452,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               reinterpret_cast<float2*>(dq_acc + (row_base + q0 + 8) * D + col),
               make_float2(dq[c][2], dq[c][3]));
       }
+      turn_pass(turn);
     }
     r = nr;
     mt = nmt;
@@ -440,7 +482,8 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* qpos, const int* kpos, const int* bounds,
                    const void* dout, const float* lse, const float* delta,
-                   const float* glse, float* dq_acc, void* dk, void* dv, int B,
+                   const float* glse, float* dq_acc, int* dq_sem, void* dk,
+                   void* dv, int B,
                    int H, int Hkv, int Sq, int Skv, float scale, float scale2,
                    int causal, cudaStream_t stream) {
   constexpr int smem = Smem<D>::BYTES;
@@ -457,8 +500,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), qpos, kpos, bounds,
       static_cast<const __nv_bfloat16*>(dout), lse, delta, glse, dq_acc,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
-      Hkv, Sq, Skv, scale, scale2, causal);
+      dq_sem, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Hkv, Sq, Skv, scale, scale2,
+      causal);
   return cudaGetLastError();
 }
 
@@ -468,10 +512,11 @@ extern "C" int rtt_flash_chunk_bwd(const void* q, const void* k, const void* v,
                                    const void* qpos, const void* kpos,
                                    const void* bounds, const void* dout,
                                    const void* lse, const void* delta,
-                                   const void* glse, void* dq_acc, void* dk,
-                                   void* dv, int B, int H, int Hkv, int Sq,
-                                   int Skv, int D, float scale, float scale2,
-                                   int causal, void* stream) {
+                                   const void* glse, void* dq_acc,
+                                   void* dq_sem, void* dk, void* dv, int B,
+                                   int H, int Hkv, int Sq, int Skv, int D,
+                                   float scale, float scale2, int causal,
+                                   void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0 ||
       Hkv > 65535 || (Skv + kBlockN - 1) / kBlockN > 65535)
     return cudaErrorInvalidValue;
@@ -483,17 +528,20 @@ extern "C" int rtt_flash_chunk_bwd(const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(delta);
   const float* gl = static_cast<const float*>(glse);
   float* acc = static_cast<float*>(dq_acc);
+  int* sem = static_cast<int*>(dq_sem);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, qp, kp, bd, dout, l, dl, gl, acc, dk, dv, B,
-                        H, Hkv, Sq, Skv, scale, scale2, causal, s);
+      return launch<64>(q, k, v, qp, kp, bd, dout, l, dl, gl, acc, sem, dk,
+                        dv, B, H, Hkv, Sq, Skv, scale, scale2, causal, s);
     case 128:
-      return launch<128>(q, k, v, qp, kp, bd, dout, l, dl, gl, acc, dk, dv, B,
-                         H, Hkv, Sq, Skv, scale, scale2, causal, s);
+      return launch<128>(q, k, v, qp, kp, bd, dout, l, dl, gl, acc, sem, dk,
+                         dv, B, H, Hkv, Sq, Skv, scale, scale2, causal, s);
     default:
       return -1;
   }
 }
+
+extern "C" int rtt_flash_chunk_bwd_dq_turns(void) { return kDqTurns; }
 
 extern "C" int rtt_flash_chunk_bwd_smem_bytes(int D) {
   return D == 64 ? Smem<64>::BYTES : D == 128 ? Smem<128>::BYTES : -1;

@@ -4,7 +4,8 @@
 // (flash_bwd_dq.cu, flash_bwd_dkv.cu) and the head-packed forward
 // (flash_packed_fwd.cu): bf16 packing, quad reductions over
 // an mma/wgmma accumulator row, mbarriers, TMA tile loads, cp.async,
-// ldmatrix, mma.sync, proxy fences and named barriers, and wgmma (A from
+// ldmatrix, mma.sync, proxy fences and named barriers, turn counters for
+// sums in a fixed order across CTAs, and wgmma (A from
 // registers or from shared memory, A K-major or MN-major) with its
 // shared-memory descriptors. Header only; each kernel library compiles its
 // own copy.
@@ -189,6 +190,39 @@ __device__ __forceinline__ void wgmma_wait() {
 // async proxy (wgmma operand reads, TMA), ahead of a barrier.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- ordered sums across CTAs --------------------------------------------
+// A turn counter per output region (an int in global memory, zeroed before
+// the launch): the CTA whose turn is n waits until the counter reads n,
+// adds its part with reductions (red.global.add), and passes the turn on
+// once those are performed. Each warp waits and passes for its own
+// region. Every lane spins on the acquire load (one request a
+// warp), so each lane's later loads see what the earlier turns wrote. A
+// wait that outlasts 2^28 polls (seconds; a turn takes microseconds) can
+// only be a fault in the turn counting: it traps, and the launch fails
+// instead of holding the card.
+__device__ __forceinline__ void turn_wait(const int* turn, int n) {
+  int v;
+  for (unsigned polls = 0;; ++polls) {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(turn)
+                 : "memory");
+    if (v == n) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// After every lane of the warp has issued its part: each lane's fence
+// waits until its reductions are performed at gpu scope, the warp meets,
+// and lane 0 adds one to the counter.
+__device__ __forceinline__ void turn_pass(int* turn) {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0)
+    asm volatile("red.relaxed.gpu.global.add.s32 [%0], 1;\n" ::"l"(turn)
+                 : "memory");
 }
 
 // Named barrier `id` (1..15; 0 is __syncthreads) over `count` threads.

@@ -6,11 +6,14 @@ shape and at the sp = 4 ring's 4096 past and diagonal chunks.
     git show <commit>:ray_tpu_torch/csrc/flash_chunk_bwd.cu > DIR/flash_chunk_bwd.cu
     python3 -m ray_tpu_torch.devbench.pair_chunk --other DIR
 
-DIR's sources may have either C interface: before the tile bounds
-(commits up to 7e022cd, no ``bounds`` pointer) or with them (later
-commits, whose launches then take this tree's pre-pass output too). Both
-builds get the same inputs; this tree's launches include its tile-bounds
-pre-pass, and K7's include zeroing the dq buffer on both sides. Prints
+DIR's sources may have any of three C interfaces: before the tile bounds
+(commits up to 7e022cd, no ``bounds`` pointer), with them (later
+commits, whose launches then take this tree's pre-pass output too), and
+K7 with dq's turn counters too (this tree's: dq summed in a fixed
+order, where earlier K7s used atomics). Both builds get the same inputs;
+each side's launches include the tile-bounds pre-pass where it takes
+one, and K7's the zeroing its wrapper does (the dq buffer, and the
+ordered one's turn counters). Prints
 each build's worst difference from the other (out, lse, dq, dk, dv), the
 times in ms (CUDA events), the card's name and power limit, and a JSON
 line last. Exits 2 without a card.
@@ -37,6 +40,8 @@ def _other_libs(src_dir: str):
 
     with open(os.path.join(src_dir, "flash_chunk_fwd.cu")) as f:
         bounds = "const void* bounds" in f.read()
+    with open(os.path.join(src_dir, "flash_chunk_bwd.cu")) as f:
+        turns = "void* dq_sem" in f.read()
 
     procs = {n: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
@@ -53,10 +58,11 @@ def _other_libs(src_dir: str):
         fn = getattr(lib, f"rtt_{n}")
         fn.argtypes = ([p_] * (7 + bounds) + [i_] * 6 + [f_, i_, p_]
                        if n.endswith("fwd")
-                       else [p_] * (12 + bounds) + [i_] * 6 + [f_, f_, i_, p_])
+                       else [p_] * (12 + bounds + turns) + [i_] * 6
+                       + [f_, f_, i_, p_])
         fn.restype = i_
         libs[n] = fn
-    return libs, bounds
+    return libs, bounds, turns
 
 
 def _events_ms(fn, iters: int) -> float:
@@ -79,7 +85,7 @@ def pair(src_dir: str, h: int = 32, hkv: int = 8, d: int = 64) -> list:
 
     from ray_tpu_torch.ops import attention as att
 
-    other, other_bounds = _other_libs(src_dir)
+    other, other_bounds, other_turns = _other_libs(src_dir)
     this_fwd = att._library("flash_chunk_fwd").rtt_flash_chunk_fwd
     this_bwd = att._library("flash_chunk_bwd").rtt_flash_chunk_bwd
     gen = torch.Generator(device="cuda")
@@ -125,20 +131,22 @@ def pair(src_dir: str, h: int = 32, hkv: int = 8, d: int = 64) -> list:
         delta = (g_out * out).sum(-1)
         do = g_out.bfloat16()
 
+        def turns():  # zeroed dq turn counters, 8 a 64-row q tile
+            return [torch.zeros(h * -(-s // 64) * 8, dtype=torch.int32,
+                                device="cuda")]
+
         def bwd(who):
             b = bufs[who]
-            b["dq"].zero_()
             stream = torch.cuda.current_stream().cuda_stream
             bounds = att.chunk_tile_bounds_cuda(qpos, kpos)
-            if who == "other":
-                return other["flash_chunk_bwd"](
-                    *ptrs(q, k, v, qpos, kpos,
-                          *([bounds] if other_bounds else []), do, lse, delta,
-                          g_lse, b["dq"], b["dk"], b["dv"]), 1, h, hkv, s, s,
-                    d, scale, scale * att.LOG2E, 1, stream)
-            return this_bwd(*ptrs(q, k, v, qpos, kpos, bounds, do, lse, delta,
-                                  g_lse, b["dq"], b["dk"], b["dv"]), 1, h, hkv,
-                            s, s, d, scale, scale * att.LOG2E, 1, stream)
+            b["dq"].zero_()
+            ordered = who == "this" or other_turns
+            fn = this_bwd if who == "this" else other["flash_chunk_bwd"]
+            return fn(*ptrs(q, k, v, qpos, kpos,
+                            *([bounds] if who == "this" or other_bounds
+                              else []), do, lse, delta, g_lse, b["dq"],
+                            *(turns() if ordered else []), b["dk"], b["dv"]),
+                      1, h, hkv, s, s, d, scale, scale * att.LOG2E, 1, stream)
 
         for who in ("other", "this"):
             if bwd(who):

@@ -1,12 +1,14 @@
 """The flash forward K2 and the fused flash backward K3 of this tree against
 an earlier build of them, in turns on one card (other, this, this, other),
 at the training shape (B4 H32 Hkv8 S2048 D64, causal) and at ViT-B/16's
-attention (B128 H12 S197 D64, non-causal); then two ablations of this
+attention (B128 H12 S197 D64, non-causal); then three ablations of this
 tree's design, each built from this tree's source with one edit and timed
 in turns against the kernel as it stands (default, variant, variant,
 default): K2 at 192 q rows a CTA (three consumer warpgroups, also at S
-1024 to 16384, B1-8 H32 Hkv8), and K3 with no dq sum across its CTAs
-(what that sum costs); and the PyTorch delta that K3 makes inside itself.
+1024 to 16384, B1-8 H32 Hkv8), K3 with no dq sum across its CTAs (what
+that sum costs), and K3 with no wait for dq's turn (what the fixed order
+costs; its dq is then racy); and the PyTorch delta that K3 makes inside
+itself.
 
     DIR=ray_tpu_torch/_native/_build/parent; mkdir -p $DIR
     git show <commit>:ray_tpu_torch/csrc/flash_fwd.cu > $DIR/flash_fwd.cu
@@ -14,16 +16,17 @@ default): K2 at 192 q rows a CTA (three consumer warpgroups, also at S
     git show <commit>:ray_tpu_torch/csrc/hopper.cuh > $DIR/hopper.cuh
     python3 -m ray_tpu_torch.devbench.pair_flash --other $DIR
 
-DIR's sources keep the C interface of rtt_flash_fwd and rtt_flash_bwd,
-with delta = rowsum(dO * O) f32 [B,H,Sq] in the pointer slot where this
-tree's K3 takes O (the builds before K3 made delta itself). Both builds
-get the same inputs; K3 runs on this tree's forward residuals on both
-sides, and each side's backward is timed as its wrapper runs it (the
-other's delta in PyTorch, the zeroed f32 dq buffer, the kernel, the
-cast). Prints each build's worst difference from the other (out, lse, dq,
-dk, dv, over the largest value), the times in ms (CUDA events), the
-card's name and power limit, and a JSON line last. Exits 2 without a
-card.
+DIR's K3 may take any of three C interfaces, read from its source: delta
+= rowsum(dO * O) f32 [B,H,Sq] in the pointer slot where later K3s take O
+(builds before 4ff303a), O with no dq turn counters (dq summed by
+atomics, up to e3857e2), or this tree's (dq's turn counters). Both
+builds get the same inputs; K3 runs on this tree's forward residuals on
+both sides, and each side's backward is timed as its wrapper runs it
+(the other's delta in PyTorch, the zeroed f32 dq buffer and, for this
+tree's, the zeroed turn counters, the kernel, the cast). Prints each
+build's worst difference from the other (out, lse, dq, dk, dv, over the
+largest value), the times in ms (CUDA events), the card's name and power
+limit, and a JSON line last. Exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ ABLATIONS = {
     "K3 with no dq sum": ("flash_bwd",
                           "      if (row < Sq)\n        atomicAdd(",
                           "      if (false)\n        atomicAdd("),
+    "K3 with no turn wait": ("flash_bwd", "    turn_wait(turn, kt);",
+                             "    (void)turn;"),
 }
 # K2's rows a CTA beyond the two shapes: label, B, S, causal (H32 Hkv8).
 ROWS_SHAPES = (("B8 S1024 causal", 8, 1024, True),
@@ -80,15 +85,26 @@ def _compile(jobs: dict) -> dict:
     return libs
 
 
+def k3_interface(src_dir: str) -> tuple[bool, bool]:
+    """(takes O, takes dq turn counters) of the K3 source in ``src_dir``."""
+    with open(os.path.join(src_dir, "flash_bwd.cu")) as f:
+        src = f.read()
+    return "const void* out" in src, "void* dq_sem" in src
+
+
 def _build(jobs: dict) -> dict:
-    """``_compile`` the jobs and bind each library's rtt_<name> entry."""
+    """``_compile`` the jobs and bind each library's rtt_<name> entry (a
+    K3 without turn counters takes one pointer less)."""
     from ray_tpu_torch.ops.attention import _ARGTYPES
 
     fns = {}
     for key, lib in _compile(jobs).items():
-        n = jobs[key][1]
+        d, n = jobs[key]
         fn = getattr(lib, f"rtt_{n}")
-        fn.argtypes = _ARGTYPES[n]
+        argtypes = list(_ARGTYPES[n])
+        if n == "flash_bwd" and not k3_interface(d)[1]:
+            del argtypes[7]  # no turn counters
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[key] = fn
     return fns
@@ -134,6 +150,7 @@ def pair(src_dir: str, d: int = 64) -> list:
     from ray_tpu_torch.ops import attention as att
 
     libs = _build({**{n: (src_dir, n) for n in NAMES}, **_ablation_dirs()})
+    other_takes_out, other_turns = k3_interface(src_dir)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     scale = d ** -0.5
@@ -164,16 +181,20 @@ def pair(src_dir: str, d: int = 64) -> list:
 
         out, lse = this_fwd()
 
-        def bwd_of(key, takes_out):  # a built K3, as its wrapper runs it
+        def bwd_of(key, takes_out, turns):
+            """A built K3, as its wrapper runs it."""
             def run():
                 sixth = (out if takes_out
                          else (do.float() * out.float()).sum(-1))
                 dq = torch.zeros((b, h, s, d), dtype=torch.float32,
                                  device="cuda")
+                sem = [torch.zeros(b * h * -(-s // 64) * 8,
+                                   dtype=torch.int32,
+                                   device="cuda").data_ptr()] if turns else []
                 dk, dv = torch.empty_like(k), torch.empty_like(v)
                 err = libs[key](
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), sixth.data_ptr(), dq.data_ptr(),
+                    lse.data_ptr(), sixth.data_ptr(), dq.data_ptr(), *sem,
                     dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, s, d, scale,
                     scale * att.LOG2E, int(causal),
                     torch.cuda.current_stream().cuda_stream)
@@ -185,7 +206,8 @@ def pair(src_dir: str, d: int = 64) -> list:
         def this_bwd():
             return att.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
 
-        other_fwd, other_bwd = fwd_of("flash_fwd"), bwd_of("flash_bwd", False)
+        other_fwd = fwd_of("flash_fwd")
+        other_bwd = bwd_of("flash_bwd", other_takes_out, other_turns)
         got = {"other": (*other_fwd(), *other_bwd()),
                "this": (out, lse, *this_bwd())}
         torch.cuda.synchronize()
@@ -211,17 +233,18 @@ def pair(src_dir: str, d: int = 64) -> list:
               f"{row['delta in PyTorch ms']:.4f} ms")
 
         # The ablations, each in turns against this tree's kernel; K2 at
-        # 192 rows gives the same bits, K3 with no dq sum the same dk, dv.
+        # 192 rows gives the same bits, each K3 variant the same dk, dv.
         k2_192 = fwd_of("K2 at 192 rows a CTA")
-        k3_nosum = bwd_of("K3 with no dq sum", True)
+        k3_variants = {n: bwd_of(n, True, True)
+                       for n in ("K3 with no dq sum", "K3 with no turn wait")}
         same = {"K2 at 192 rows a CTA": all(
                     torch.equal(x, y) for x, y in zip(k2_192(), this_fwd())),
-                "K3 with no dq sum": all(
-                    torch.equal(x, y)
-                    for x, y in zip(k3_nosum()[1:], this_bwd()[1:]))}
+                **{n: all(torch.equal(x, y)
+                          for x, y in zip(fn()[1:], this_bwd()[1:]))
+                   for n, fn in k3_variants.items()}}
         row["ablations"] = {}
         for name, variant in (("K2 at 192 rows a CTA", k2_192),
-                              ("K3 with no dq sum", k3_nosum)):
+                              *k3_variants.items()):
             r = _turns(*((this_fwd, variant) if name.startswith("K2")
                          else (this_bwd, variant)), iters)
             r["same_bits"] = same[name]

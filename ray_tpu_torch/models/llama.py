@@ -32,6 +32,16 @@ layer, in place of JAX's name-based save policies (``_remat_wrap``):
 Under ``attn``/``attn+`` ring attention (``sp_axis`` set) sits outside
 every segment too, so neither K6 nor the ring's shifts re-run in the
 backward; ``full`` recomputes the ring, shifts included.
+
+Param sharding (``param_shard``, a ``parallel.param_shard.ParamShard``):
+``params`` holds this rank's blocks of each leaf. Each segment gathers the
+layer leaves it uses over fsdp inside itself, so a recompute gathers
+again and a layer's whole weights live only while it runs; under tp
+q/k/v/gate/up are column-parallel (the local H / tp and Hkv / tp heads go
+through the flash kernels as they are), wo/w_down row-parallel followed by
+the tp all-reduce, each norm's output passes the identity-forward,
+all-reduce-backward conjugate, and the embedding and the head are
+vocabulary-parallel (``fused_cross_entropy`` over the tp group).
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from ray_tpu_torch.ops.loss import fused_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.ring_attention import ring_attention_local
 from ray_tpu_torch.ops.rope import apply_rope_cs, rope_cos_sin, rope_frequencies
+from ray_tpu_torch.parallel.param_shard import layer_weights
 
 
 @dataclass(frozen=True)
@@ -212,56 +223,72 @@ def _attention(cfg: LlamaConfig, q, k, v, attn_impl: str, sp_axis):
     return blockwise_attention(q, k, v, causal=True)
 
 
-def _attn_inputs(cfg: LlamaConfig, x, lp, cos, sin):
+def _tp_in(ps, xn):
+    """A norm's output entering column-parallel products (the conjugate
+    whose backward sums its gradient over tp)."""
+    return xn if ps is None else ps.copy_to_tp(xn)
+
+
+def _tp_out(ps, y):
+    """A row-parallel product's partial sums, summed over tp."""
+    return y if ps is None else ps.reduce_from_tp(y)
+
+
+def _attn_inputs(cfg: LlamaConfig, x, lp, cos, sin, ps=None):
     b, s, _ = x.shape
-    xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (xn @ lp["wq"]).view(b, s, cfg.num_heads, cfg.head_dim)
-    k = (xn @ lp["wk"]).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (xn @ lp["wv"]).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    norm, wq, wk, wv = layer_weights(ps, lp, "attn_norm", "wq", "wk", "wv")
+    xn = _tp_in(ps, rms_norm(x, norm, cfg.norm_eps))
+    q = (xn @ wq).view(b, s, -1, cfg.head_dim)
+    k = (xn @ wk).view(b, s, -1, cfg.head_dim)
+    v = (xn @ wv).view(b, s, -1, cfg.head_dim)
     q = apply_rope_cs(q.transpose(1, 2), cos, sin)
     k = apply_rope_cs(k.transpose(1, 2), cos, sin)
     return q, k, v.transpose(1, 2)
 
 
-def _attn_out(cfg: LlamaConfig, x, o, wo):
+def _attn_out(cfg: LlamaConfig, x, o, wo, ps=None):
     b, s, _ = x.shape
-    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return x + (o @ wo).to(x.dtype)
+    if ps is not None:
+        wo = ps.layer("wo", wo)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    return x + _tp_out(ps, o @ wo).to(x.dtype)
 
 
-def _mlp_norm_gate(cfg: LlamaConfig, x, lp):
-    xn = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return xn, F.silu((xn @ lp["w_gate"]).float()).to(x.dtype)
+def _mlp_norm_gate(cfg: LlamaConfig, x, lp, ps=None):
+    norm, w_gate = layer_weights(ps, lp, "mlp_norm", "w_gate")
+    xn = _tp_in(ps, rms_norm(x, norm, cfg.norm_eps))
+    return xn, F.silu((xn @ w_gate).float()).to(x.dtype)
 
 
-def _mlp_rest(x, xn, gate, lp):
-    up = xn @ lp["w_up"]
-    return x + ((gate * up) @ lp["w_down"]).to(x.dtype)
+def _mlp_rest(x, xn, gate, lp, ps=None):
+    w_up, w_down = layer_weights(ps, lp, "w_up", "w_down")
+    up = xn @ w_up
+    return x + _tp_out(ps, (gate * up) @ w_down).to(x.dtype)
 
 
-def _mlp(cfg: LlamaConfig, x, lp):
-    xn, gate = _mlp_norm_gate(cfg, x, lp)
-    return _mlp_rest(x, xn, gate, lp)
+def _mlp(cfg: LlamaConfig, x, lp, ps=None):
+    xn, gate = _mlp_norm_gate(cfg, x, lp, ps)
+    return _mlp_rest(x, xn, gate, lp, ps)
 
 
 def _layer(cfg: LlamaConfig, x, layer_params, cos, sin, attn_impl: str,
-           sp_axis, policy: str = "none"):
+           sp_axis, policy: str = "none", ps=None):
     """One transformer block, x: [B, S, H]. ``policy`` is "none" (plain
     autograd), "attn" or "attn+" (checkpointed segments, see the module
-    docstring)."""
+    docstring); ``ps`` the param sharding (None: whole params)."""
     lp = layer_params
     if policy == "none":
-        q, k, v = _attn_inputs(cfg, x, lp, cos, sin)
+        q, k, v = _attn_inputs(cfg, x, lp, cos, sin, ps)
         o = _attention(cfg, q, k, v, attn_impl, sp_axis)
-        x = _attn_out(cfg, x, o, lp["wo"])
-        return _mlp(cfg, x, lp)
-    q, k, v = ckpt(partial(_attn_inputs, cfg), x, lp, cos, sin)
+        x = _attn_out(cfg, x, o, lp["wo"], ps)
+        return _mlp(cfg, x, lp, ps)
+    q, k, v = ckpt(partial(_attn_inputs, cfg, ps=ps), x, lp, cos, sin)
     o = _attention(cfg, q, k, v, attn_impl, sp_axis)
-    x = ckpt(partial(_attn_out, cfg), x, o, lp["wo"])
+    x = ckpt(partial(_attn_out, cfg, ps=ps), x, o, lp["wo"])
     if policy == "attn":
-        return ckpt(partial(_mlp, cfg), x, lp)
-    xn, gate = ckpt(partial(_mlp_norm_gate, cfg), x, lp)
-    return ckpt(_mlp_rest, x, xn, gate, lp)
+        return ckpt(partial(_mlp, cfg, ps=ps), x, lp)
+    xn, gate = ckpt(partial(_mlp_norm_gate, cfg, ps=ps), x, lp)
+    return ckpt(partial(_mlp_rest, ps=ps), x, xn, gate, lp)
 
 
 def normalize_remat(remat, num_layers: int):
@@ -324,9 +351,13 @@ def _remat_wrap(layer_fn, remat):
 def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
                    positions: torch.Tensor | None = None,
                    attn_impl: str = "flash", sp_axis=None,
-                   remat: bool | str | tuple = True) -> torch.Tensor:
+                   remat: bool | str | tuple = True,
+                   param_shard=None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, H]. ``remat`` is a
     single policy or a per-layer spec (see :func:`normalize_remat`).
+    ``param_shard``: ``params`` are this rank's blocks (see the module
+    docstring); the result is then the conjugate's input to a
+    tp-sharded head.
 
     Context parallel: with ``sp_axis`` a ``torch.distributed`` process
     group, ``tokens`` is this rank's shard of the sequence (the ranks hold
@@ -335,14 +366,21 @@ def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     (``ring_attention_local``) and ``attn_impl`` is not read."""
     s = tokens.shape[1]
     dev = tokens.device
+    ps = param_shard
     if positions is None:
         positions = torch.arange(s, device=dev)
-    x = F.embedding(tokens, params["embed_tokens"])
+    if ps is None:
+        x = F.embedding(tokens, params["embed_tokens"])
+    else:
+        ps.local(cfg.num_heads, "q heads")
+        ps.local(cfg.num_kv_heads, "kv heads")
+        x = ps.vocab_embed(tokens, ps.full(("embed_tokens",),
+                                           params["embed_tokens"]))
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 cfg.rope_scaling, device=dev)
     cos, sin = rope_cos_sin(positions, inv_freq)
     base_fn = partial(_layer, cfg, cos=cos, sin=sin, attn_impl=attn_impl,
-                      sp_axis=sp_axis)
+                      sp_axis=sp_axis, ps=ps)
     remat = normalize_remat(remat, cfg.num_layers)
     runs = (_remat_runs(remat) if isinstance(remat, tuple)
             else [(remat, 0, cfg.num_layers)])
@@ -351,13 +389,23 @@ def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
         layer_fn = _remat_wrap(base_fn, policy)
         for lp in layers[start:end]:
             x = layer_fn(x, lp)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if ps is None:
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    norm = ps.full(("final_norm",), params["final_norm"])
+    return _tp_in(ps, rms_norm(x, norm, cfg.norm_eps))
 
 
-def unembed_weights(cfg: LlamaConfig, params: dict) -> torch.Tensor:
-    """[H, V] head matrix (a transposed view of tied embeddings)."""
-    return params["embed_tokens"].t() if cfg.tie_embeddings \
-        else params["lm_head"]
+def unembed_weights(cfg: LlamaConfig, params: dict,
+                    param_shard=None) -> torch.Tensor:
+    """[H, V] head matrix (a transposed view of tied embeddings); with
+    ``param_shard``, this tp rank's [H, V / tp] columns, gathered over
+    fsdp."""
+    ps = param_shard
+    if cfg.tie_embeddings:
+        w = params["embed_tokens"]
+        return (w if ps is None else ps.full(("embed_tokens",), w)).t()
+    w = params["lm_head"]
+    return w if ps is None else ps.full(("lm_head",), w)
 
 
 def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
@@ -375,11 +423,21 @@ def loss_fn(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
             fused_ce: bool = True, **fwd_kwargs) -> torch.Tensor:
     """Mean next-token cross-entropy over unmasked positions. The fused
     loss runs 512-token chunks (the JAX package's default; its
-    RTPU_CE_CHUNK override is not ported)."""
+    RTPU_CE_CHUNK override is not ported); under ``param_shard`` it is
+    vocabulary-parallel over the tp group."""
+    ps = fwd_kwargs.get("param_shard")
     if fused_ce:
         x = forward_hidden(cfg, params, tokens, **fwd_kwargs)
-        return fused_cross_entropy(x, unembed_weights(cfg, params), targets,
-                                   mask)
+        head = unembed_weights(cfg, params, ps)
+        if ps is None:
+            return fused_cross_entropy(x, head, targets, mask)
+        return fused_cross_entropy(x, head, targets, mask, tp_group=ps.tp,
+                                   vocab_start=ps.tp_rank * head.shape[1])
+    if ps is not None:
+        raise NotImplementedError(
+            "loss_fn(fused_ce=False) under param sharding: the whole "
+            "[B, S, V] logits of a tp-sharded head are not gathered; use "
+            "the fused loss")
     logits = forward(cfg, params, tokens, **fwd_kwargs)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]

@@ -18,6 +18,15 @@ in the backward (a ``torch.utils.checkpoint`` segment, K2 re-run
 included). The JAX package's name-based policies ("attn", "attn+",
 "dots", "dots+") save residuals that the ViT layer does not name apart
 from flash's; they raise ``NotImplementedError`` here.
+
+Param sharding (``param_shard``, as in ``models.llama``): each layer
+gathers its leaves over fsdp inside itself (inside its remat segment
+under "full"); under tp q/k/v and ``w_up`` are column-parallel (the local
+heads and MLP columns), ``wo`` and ``w_down`` row-parallel followed by
+the tp all-reduce, each norm's output passes the conjugate whose
+backward sums over tp. ``patch_embed``, ``pos_embed``, ``cls_token``,
+the final norm and ``head`` are gathered whole (their ``classes`` and
+``patch_in`` dims stay replicated under the rules).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from ray_tpu_torch.models._common import ckpt, layer_params
 from ray_tpu_torch.models.llama import params_from_jax
 from ray_tpu_torch.ops.attention import blockwise_attention, flash_attention
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.parallel.param_shard import layer_weights
 
 __all__ = ["ViTConfig", "param_logical_axes", "init_params",
            "params_from_jax", "patchify", "forward", "loss_fn"]
@@ -156,19 +166,24 @@ def patchify(cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, (hh // p) * (ww // p), p * p * c)
 
 
-def _layer(cfg: ViTConfig, x, lp, attn_impl: str):
+def _layer(cfg: ViTConfig, x, lp, attn_impl: str, ps=None):
     b, s, _ = x.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
-    xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = ((xn @ lp[w]).view(b, s, nh, hd).transpose(1, 2)
-               for w in ("wq", "wk", "wv"))
+    hd = cfg.head_dim
+    (attn_norm, wq, wk, wv, wo, mlp_norm, w_up,
+     w_down) = layer_weights(ps, lp, "attn_norm", "wq", "wk", "wv", "wo",
+                             "mlp_norm", "w_up", "w_down")
+    tp_in = (lambda t: t) if ps is None else ps.copy_to_tp
+    tp_out = (lambda t: t) if ps is None else ps.reduce_from_tp
+    xn = tp_in(rms_norm(x, attn_norm, cfg.norm_eps))
+    q, k, v = ((xn @ w).view(b, s, -1, hd).transpose(1, 2)
+               for w in (wq, wk, wv))
     if attn_impl == "flash":
         attn = flash_attention(q, k, v, False)  # bidirectional
     else:
         attn = blockwise_attention(q, k, v, causal=False)
-    x = x + attn.transpose(1, 2).reshape(b, s, nh * hd) @ lp["wo"]
-    xn = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + F.gelu(xn @ lp["w_up"], approximate="tanh") @ lp["w_down"]
+    x = x + tp_out(attn.transpose(1, 2).reshape(b, s, -1) @ wo)
+    xn = tp_in(rms_norm(x, mlp_norm, cfg.norm_eps))
+    return x + tp_out(F.gelu(xn @ w_up, approximate="tanh") @ w_down)
 
 
 def _remat_wrap(layer_fn, remat):
@@ -182,25 +197,36 @@ def _remat_wrap(layer_fn, remat):
 
 
 def forward(cfg: ViTConfig, params: dict, images: torch.Tensor,
-            attn_impl: str = "flash", remat: bool | str = False
-            ) -> torch.Tensor:
+            attn_impl: str = "flash", remat: bool | str = False,
+            param_shard=None) -> torch.Tensor:
     """[B, H, W, C] images (float in [0, 1]) -> [B, num_classes] f32
     logits. ``attn_impl`` "flash" runs ``flash_attention``, anything else
-    ``blockwise_attention`` (JAX's ``use_pallas=False``)."""
-    x = patchify(cfg, images.to(cfg.torch_dtype)) @ params["patch_embed"]
-    cls = params["cls_token"].expand(x.shape[0], 1, cfg.hidden_size)
-    x = torch.cat([cls, x], dim=1) + params["pos_embed"][None]
-    layer_fn = _remat_wrap(partial(_layer, cfg, attn_impl=attn_impl), remat)
+    ``blockwise_attention`` (JAX's ``use_pallas=False``). With
+    ``param_shard``, ``params`` are this rank's blocks (see the module
+    docstring)."""
+    ps = param_shard
+    if ps is None:
+        top = params
+    else:
+        ps.local(cfg.num_heads, "heads")
+        top = {k: ps.full((k,), v) for k, v in params.items()
+               if k != "layers"}
+    x = patchify(cfg, images.to(cfg.torch_dtype)) @ top["patch_embed"]
+    cls = top["cls_token"].expand(x.shape[0], 1, cfg.hidden_size)
+    x = torch.cat([cls, x], dim=1) + top["pos_embed"][None]
+    layer_fn = _remat_wrap(partial(_layer, cfg, attn_impl=attn_impl, ps=ps),
+                           remat)
     for lp in layer_params(params):
         x = layer_fn(x, lp)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x[:, 0, :] @ params["head"]).float()  # the class token
+    x = rms_norm(x, top["final_norm"], cfg.norm_eps)
+    return (x[:, 0, :] @ top["head"]).float()  # the class token
 
 
 def loss_fn(cfg: ViTConfig, params: dict, images: torch.Tensor,
             labels: torch.Tensor, attn_impl: str = "flash",
-            remat: bool | str = False) -> torch.Tensor:
+            remat: bool | str = False, param_shard=None) -> torch.Tensor:
     """Mean negative log-likelihood of ``labels`` [B] (f32 log_softmax)."""
-    logits = forward(cfg, params, images, attn_impl=attn_impl, remat=remat)
+    logits = forward(cfg, params, images, attn_impl=attn_impl, remat=remat,
+                     param_shard=param_shard)
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, labels.long()[:, None]).mean()

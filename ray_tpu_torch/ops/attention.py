@@ -389,11 +389,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # B, H, Hkv, Sq, Skv, D, then the scales, causal and the stream.
 _ARGTYPES = {
     "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
-    "flash_bwd": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
+    "flash_bwd": [_P] * 10 + [_I] * 6 + [_F, _F, _I, _P],
     "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _P],
     "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
     "flash_chunk_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
-    "flash_chunk_bwd": [_P] * 13 + [_I] * 6 + [_F, _F, _I, _P],
+    "flash_chunk_bwd": [_P] * 14 + [_I] * 6 + [_F, _F, _I, _P],
     # the chunk kernels' pre-pass: qpos, kpos, out, Sq, Skv, stream
     "chunk_tile_bounds": [_P] * 3 + [_I] * 2 + [_P],
 }
@@ -414,6 +414,8 @@ def _library(name: str) -> ctypes.CDLL:
         smem_fn = getattr(lib, f"rtt_{name}_smem_bytes")
         smem_fn.argtypes = [_I]
         smem_fn.restype = _I
+        if name in ("flash_bwd", "flash_chunk_bwd"):  # dq's turn counters
+            getattr(lib, f"rtt_{name}_dq_turns").restype = _I
         if name == "flash_bwd_dkv":  # its f32 fold scratch at D 128
             lib.rtt_flash_bwd_dkv_fold_floats.argtypes = [_I] * 4
             lib.rtt_flash_bwd_dkv_fold_floats.restype = ctypes.c_longlong
@@ -445,6 +447,18 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and 16-byte aligned (the kernels' vector loads)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _dq_buffers(lib, name: str, q):
+    """K3's and K7's dq outputs, zeroed: the f32 buffer [B,H,Sq,D] and its
+    turn counters, one per warp's share of each 64-row q tile (the order
+    of dq's sum across CTAs)."""
+    b, h, sq, d = q.shape
+    turns = getattr(lib, f"rtt_{name}_dq_turns")()
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    sem = torch.zeros(b * h * -(-sq // 64) * turns, dtype=torch.int32,
+                      device=q.device)
+    return acc, sem
 
 
 def _raise_on(lib, name: str, err: int, shape) -> None:
@@ -480,7 +494,8 @@ def flash_bwd_cuda(q, k, v, out, lse, g, causal: bool, sm_scale: float):
     """Launch K3: (dq [B,H,Sq,D], dk, dv [B,Hkv,Skv,D]), all bf16. The
     kernel makes delta = rowsum(dO*O) in f32 itself, from dO = g in q's
     dtype and the forward's out (the JAX wrapper leaves delta to XLA), and
-    sums dq across its CTAs into a zeroed f32 buffer, cast here."""
+    sums dq across its CTAs in ascending kv-tile order into an f32 buffer,
+    cast here: the same bits on every run."""
     _check_cuda(q, k, v)
     if out.shape != q.shape or g.shape != q.shape:
         raise ValueError(f"flash_bwd_cuda: out {tuple(out.shape)} and g "
@@ -492,16 +507,16 @@ def flash_bwd_cuda(q, k, v, out, lse, g, causal: bool, sm_scale: float):
     lse = _dense(lse.float())
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _library("flash_bwd")
+    dq_acc, dq_sem = _dq_buffers(lib, "flash_bwd", q)
     with torch.cuda.device(q.device):
         err = lib.rtt_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), out.data_ptr(), dq_acc.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, d, sm_scale,
-            sm_scale * LOG2E, int(causal),
+            dq_sem.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq,
+            skv, d, sm_scale, sm_scale * LOG2E, int(causal),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "flash_bwd", err, q.shape)
     flash_bwd_cuda.launches += 1
@@ -643,7 +658,8 @@ def flash_chunk_bwd_cuda(q, k, v, qpos, kpos, out, lse, g_out, g_lse,
     """Launch K7: (dq [B,H,Sq,D], dk, dv [B,Hkv,Skv,D]), all bf16, from the
     f32 cotangents of out and lse. delta = rowsum(g_out*out) in f32 and
     dO = g_out in q's dtype are computed here, as the JAX wrapper leaves
-    them to XLA; dq is summed in an f32 buffer by the kernel's atomics."""
+    them to XLA; dq is summed in an f32 buffer in ascending kv-tile order
+    (the same bits on every run)."""
     _check_cuda(q, k, v)
     delta = _dense((g_out.float() * out.float()).sum(-1))
     do = _dense(g_out.to(q.dtype))
@@ -653,17 +669,17 @@ def flash_chunk_bwd_cuda(q, k, v, qpos, kpos, out, lse, g_out, g_lse,
     g_lse = _dense(g_lse.float())
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _library("flash_chunk_bwd")
+    dq_acc, dq_sem = _dq_buffers(lib, "flash_chunk_bwd", q)
     with torch.cuda.device(q.device):
         err = lib.rtt_flash_chunk_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
             kpos.data_ptr(), bounds.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), g_lse.data_ptr(), dq_acc.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, d, sm_scale,
-            sm_scale * LOG2E, int(causal),
+            dq_sem.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq,
+            skv, d, sm_scale, sm_scale * LOG2E, int(causal),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "flash_chunk_bwd", err, q.shape)
     flash_chunk_bwd_cuda.launches += 1

@@ -9,6 +9,15 @@ accumulates dx and dhead. The products are plain matrix products, as the
 JAX package leaves them to XLA: bf16 inputs with f32 outputs
 (``torch.mm(..., out_dtype=torch.float32)`` on the card, f32 products of
 the exactly widened inputs on the CPU).
+
+Vocabulary-parallel (``tp_group``): the head holds this rank's
+``V / tp`` columns, from ``vocab_start``. Each chunk's logsumexp is
+taken over the local columns, and the ranks' logsumexps are gathered and
+combined (a logsumexp of tp values, exact for one); the target logit is
+the one rank's that holds the target, all-reduced. The backward returns
+this rank's part of dx (the caller's tp conjugate sums it) and the local
+columns' dhead. With a one-rank group the arithmetic is the function's
+without one, bit for bit.
 """
 
 from __future__ import annotations
@@ -29,31 +38,48 @@ def _chunk(s: int, chunk: int) -> int:
     return chunk if s % chunk == 0 else s  # one chunk when ragged
 
 
+def _local_targets(targets, v0: int, v: int):
+    """Targets as local columns of a head holding ``v`` columns from
+    ``v0`` (clamped), and where they fall inside it."""
+    local = targets - v0
+    inside = (local >= 0) & (local < v)
+    return local.clamp(0, v - 1), inside
+
+
 class _FusedCrossEntropy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, head_w, targets, mask, chunk):
+    def forward(ctx, x, head_w, targets, mask, chunk, group, v0):
+        import torch.distributed as dist
+
         b, s, h = x.shape
         c = _chunk(s, chunk)
         lse = torch.empty((b, s), dtype=torch.float32, device=x.device)
         tgt = torch.empty_like(lse)
+        cols, inside = _local_targets(targets, v0, head_w.shape[1])
         for s0 in range(0, s, c):
             logits = _mm_f32(x[:, s0:s0 + c].reshape(-1, h), head_w)
             lse[:, s0:s0 + c] = torch.logsumexp(logits, dim=-1).view(b, c)
             tgt[:, s0:s0 + c] = logits.gather(
-                1, targets[:, s0:s0 + c].reshape(-1, 1)).view(b, c)
+                1, cols[:, s0:s0 + c].reshape(-1, 1)).view(b, c)
+        if group is not None:  # the ranks' columns: one logsumexp, one
+            parts = lse.new_empty((dist.get_world_size(group) * b, s))
+            dist.all_gather_into_tensor(parts, lse, group=group)
+            lse = torch.logsumexp(parts.view(-1, b, s), dim=0)
+            tgt = torch.where(inside, tgt, tgt.new_zeros(()))
+            dist.all_reduce(tgt, group=group)  # target logit
         if mask is None:
             mask_f = torch.ones((b, s), dtype=torch.float32, device=x.device)
         else:
             mask_f = mask.float()
         denom = torch.clamp(mask_f.sum(), min=1.0)
         nll = ((lse - tgt) * mask_f).sum() / denom
-        ctx.save_for_backward(x, head_w, targets, lse, mask_f, denom)
+        ctx.save_for_backward(x, head_w, cols, inside, lse, mask_f, denom)
         ctx.chunk = c
         return nll
 
     @staticmethod
     def backward(ctx, g):
-        x, head_w, targets, lse, mask_f, denom = ctx.saved_tensors
+        x, head_w, cols, inside, lse, mask_f, denom = ctx.saved_tensors
         b, s, h = x.shape
         c = ctx.chunk
         w = (mask_f * (g / denom)).to(torch.float32)
@@ -65,23 +91,27 @@ class _FusedCrossEntropy(torch.autograd.Function):
             xb = x[:, s0:s0 + c].reshape(-1, h)
             logits = _mm_f32(xb, head_w)
             p = torch.exp(logits - lse[:, s0:s0 + c].reshape(-1, 1))
-            p.scatter_add_(1, targets[:, s0:s0 + c].reshape(-1, 1),
-                           torch.full((b * c, 1), -1.0, device=x.device))
+            p.scatter_add_(1, cols[:, s0:s0 + c].reshape(-1, 1),
+                           torch.where(inside[:, s0:s0 + c].reshape(-1, 1),
+                                       -1.0, 0.0))
             dlogits = p * w[:, s0:s0 + c].reshape(-1, 1)
             dx[:, s0:s0 + c] = _mm_f32(dlogits.to(head_w.dtype),
                                        head_t).view(b, c, h).to(x.dtype)
             dhead += _mm_f32(xb.t(), dlogits.to(x.dtype))
-        return dx, dhead.to(head_w.dtype), None, None, None
+        return (dx, dhead.to(head_w.dtype), None, None, None, None, None)
 
 
 def fused_cross_entropy(x: torch.Tensor, head_w: torch.Tensor,
                         targets: torch.Tensor,
                         mask: torch.Tensor | None = None,
-                        chunk: int = 512) -> torch.Tensor:
+                        chunk: int = 512, tp_group=None,
+                        vocab_start: int = 0) -> torch.Tensor:
     """Mean next-token NLL over unmasked positions without [B, S, V]
     logits. x [B, S, H] final hidden states; head_w [H, V]; targets [B, S]
     integer ids; mask [B, S] weights (None = all ones). ``chunk`` is the
     sequence chunk; when it does not divide S the whole sequence is one
-    chunk, as in the JAX op."""
+    chunk, as in the JAX op. With ``tp_group``, head_w is this rank's
+    columns ``vocab_start`` .. ``+ head_w.shape[1]`` of the whole head
+    (see the module docstring)."""
     return _FusedCrossEntropy.apply(x, head_w, targets.long(), mask,
-                                    int(chunk))
+                                    int(chunk), tp_group, int(vocab_start))

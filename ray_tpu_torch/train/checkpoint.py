@@ -6,19 +6,24 @@ Port of ray_tpu/train/checkpoint.py (``Checkpoint``, ``save_pytree``,
 DCP in place of orbax:
 
 - a tree is a nest of dicts, tuples, lists and NamedTuples whose leaves
-  are tensors, :class:`FlatShard` pieces or picklable objects; it is saved
-  under flat keys (the path joined by "."). Tensors are replicated (DCP
-  writes one copy); a ``FlatShard`` is one rank's contiguous piece of a
-  flat tensor, and every rank writes its own pieces (a ShardedTensor
-  whose shards are the ranks' pieces);
+  are tensors, :class:`FlatShard` or :class:`BlockShard` pieces or
+  picklable objects; it is saved under flat keys (the path joined by
+  "."). Tensors are replicated (DCP writes one copy); a ``FlatShard`` is
+  one rank's contiguous piece of a flat tensor, a ``BlockShard`` one
+  rank's block of a tensor (a param split over fsdp and tp, say), and
+  every rank writes its own pieces (a ShardedTensor whose shards are the
+  ranks' pieces);
 - ``restore_pytree(directory, template)`` loads into the template's
-  tensors in place; the template's pieces may cut the flat tensors at
-  other offsets than the saved ones (another world size), since DCP reads
-  whatever saved chunks overlap each piece. Without a template it returns
-  nested dicts of whole CPU tensors.
+  tensors in place; the template's pieces may cut the tensors at other
+  offsets than the saved ones (another world size or mesh), since DCP
+  reads whatever saved chunks overlap each piece, and a whole tensor
+  saved in another shape of the same size (a moment saved leaf-shaped,
+  restored as a flat view) loads through a view. Without a template it
+  returns nested dicts of whole CPU tensors.
 
 ``TrainState.checkpoint_tree()`` (train/spmd.py) gives a step's state in
-this form: a ZeRO-1 state saved at 4 ranks restores at 2 or 1.
+this form: a ZeRO-1 state saved at 4 ranks restores at 2 or 1, an FSDP/TP
+state saved at fsdp2 x tp2 restores at dp=2 or with no mesh.
 """
 
 from __future__ import annotations
@@ -49,6 +54,30 @@ class FlatShard:
     length: int
     replicas: Any = None
     owner: bool = True
+
+
+@dataclass
+class BlockShard:
+    """This rank's block ``local`` of a tensor of ``shape``, at
+    ``offsets`` (one a dim). ``replicas``/``owner`` as FlatShard's."""
+    local: torch.Tensor
+    shape: tuple
+    offsets: tuple
+    replicas: Any = None
+    owner: bool = True
+
+    @property
+    def whole(self) -> bool:
+        return tuple(self.local.shape) == tuple(self.shape)
+
+
+_PIECES = (FlatShard, BlockShard)
+
+
+def _is_whole(piece) -> bool:
+    if isinstance(piece, BlockShard):
+        return piece.whole
+    return piece.offset == 0 and piece.length == piece.numel
 
 
 @dataclass
@@ -100,17 +129,19 @@ def _distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def _sharded(piece: FlatShard, coordinated: bool):
-    """A FlatShard as DCP takes it: whole (one process) or, when the ranks
-    save together, a ShardedTensor over the world whose shards are the
-    ranks' pieces. Collective then: every rank calls it for the same keys,
-    in one order."""
+def _sharded(piece, coordinated: bool):
+    """A FlatShard or BlockShard as DCP takes it: whole (one process) or,
+    when the ranks save together, a ShardedTensor over the world whose
+    shards are the ranks' pieces. Collective then: every rank calls it for
+    the same keys, in one order."""
+    block = isinstance(piece, BlockShard)
     if not coordinated:
-        if piece.offset or piece.length != piece.numel:
-            raise ValueError("a FlatShard that is not the whole tensor needs "
-                             "the ranks to save together (save_pytree "
-                             "under a process group)")
-        return piece.local[:piece.length]
+        if not _is_whole(piece):
+            raise ValueError(f"a {type(piece).__name__} that is not the "
+                             f"whole tensor needs the ranks to save "
+                             f"together (save_pytree under a process "
+                             f"group)")
+        return piece.local if block else piece.local[:piece.length]
     import torch.distributed as dist
     from torch.distributed._shard.sharded_tensor import (
         Shard,
@@ -118,17 +149,22 @@ def _sharded(piece: FlatShard, coordinated: bool):
         init_from_local_shards,
     )
 
+    if block:
+        t, offsets, size = piece.local, list(piece.offsets), piece.shape
+        keep = t.numel() > 0 and piece.owner
+    else:
+        t, offsets = piece.local[:piece.length], [piece.offset]
+        size, keep = (piece.numel,), piece.length > 0 and piece.owner
     shards = []
-    if piece.length > 0 and piece.owner:
-        t = piece.local[:piece.length]
+    if keep:
         shards.append(Shard(t, ShardMetadata(
-            shard_offsets=[piece.offset], shard_sizes=[piece.length],
+            shard_offsets=offsets, shard_sizes=list(t.shape),
             placement=f"rank:{dist.get_rank()}/{t.device}")))
-    return init_from_local_shards(shards, piece.numel)
+    return init_from_local_shards(shards, *size)
 
 
 def _state_dict(flat, coordinated: bool):
-    return {k: (_sharded(v, coordinated) if isinstance(v, FlatShard) else v)
+    return {k: (_sharded(v, coordinated) if isinstance(v, _PIECES) else v)
             for k, v in flat}
 
 
@@ -194,10 +230,17 @@ def restore_pytree(directory: str, template: Any = None) -> Any:
         return out
     flat = list(tree_items(template))
     sd = _state_dict(flat, _distributed())
+    saved = dcp.FileSystemReader(target).read_metadata().state_dict_metadata
+    for k, v in flat:  # a whole tensor saved in another shape
+        m = saved.get(k)
+        if type(v) is torch.Tensor and getattr(m, "size", None) is not None \
+                and tuple(m.size) != tuple(v.shape) and \
+                m.size.numel() == v.numel():
+            sd[k] = v.view(tuple(m.size))
     dcp.load(sd, checkpoint_id=target)
     leaves = []
     for k, v in flat:
-        if isinstance(v, FlatShard):
+        if isinstance(v, _PIECES):
             if v.replicas is not None:
                 dist.broadcast(v.local, src=dist.get_global_rank(
                     v.replicas, 0), group=v.replicas)
@@ -211,6 +254,9 @@ def restore_pytree(directory: str, template: Any = None) -> Any:
 
 def _host_snapshot(tree):
     def one(x):
+        if isinstance(x, BlockShard):
+            return BlockShard(x.local.detach().cpu().clone(), x.shape,
+                              x.offsets, x.replicas, x.owner)
         if isinstance(x, FlatShard):
             return FlatShard(x.local.detach().cpu().clone(), x.numel,
                              x.offset, x.length, x.replicas, x.owner)
@@ -228,11 +274,15 @@ class AsyncCheckpointWriter:
     barriers on the previous write, re-raising its error, so writes stay
     ordered and at most one checkpoint is in flight. ``completed()`` gives
     the directories whose writes finished: report those, not the one just
-    queued. For one process's tree: the write runs no collective (one
-    from this thread would race the training thread's on the same
-    communicator), so under a process group of more than one rank
-    ``save()`` raises, and a multi-rank state keeps the synchronous
-    ``save_pytree``."""
+    queued. The write runs no collective (one from this thread would race
+    the training thread's on the same communicator), so it writes one
+    process's tree: under a process group of more than one rank, a tree
+    whose every leaf is whole on every rank (a flat data-parallel state:
+    its layout holds no pieces) is written by rank 0 alone, and the other
+    ranks return the directory without writing (only rank 0 lists it in
+    ``completed()``); a tree that holds pieces (ZeRO-1 or hierarchical
+    moments, params split over fsdp or tp) raises, and keeps the
+    synchronous ``save_pytree`` on every rank."""
 
     def __init__(self):
         self._thread: threading.Thread | None = None
@@ -244,10 +294,17 @@ class AsyncCheckpointWriter:
         import torch.distributed as dist
 
         if _distributed() and dist.get_world_size() > 1:
-            raise RuntimeError(
-                f"AsyncCheckpointWriter writes one process's tree, and this "
-                f"process is one of {dist.get_world_size()} ranks: save a "
-                f"multi-rank state with save_pytree on every rank")
+            pieces = [k for k, v in tree_items(tree)
+                      if isinstance(v, _PIECES) and not _is_whole(v)]
+            if pieces:
+                raise RuntimeError(
+                    f"AsyncCheckpointWriter writes one process's tree, and "
+                    f"this state holds this rank's pieces of "
+                    f"{len(pieces)} tensors (e.g. {pieces[0]}) of a group "
+                    f"of {dist.get_world_size()} ranks: save it with "
+                    f"save_pytree on every rank")
+            if dist.get_rank() != 0:
+                return directory  # rank 0 writes the replicated state
         self.wait()  # barrier on (and surface errors from) the last write
         host_tree = _host_snapshot(tree)
 

@@ -41,15 +41,42 @@ gradient norm, the same on every rank:
 - ``grad_norm_every=N``: the norm is computed on steps whose counter is a
   multiple of N, -1 on the others.
 
-A one-rank mesh runs every collective of its mode on one-rank groups. A
-rule table that shards a param over a mesh axis of size > 1 (FSDP or TP
-param sharding) raises ``NotImplementedError``.
+A one-rank mesh runs every collective of its mode on one-rank groups.
+
+Param sharding (FSDP and TP): whenever the rules map a param dim onto a
+mesh axis (JAX's default table: ``embed`` on fsdp, ``heads``/
+``kv_heads``/``mlp``/``vocab`` on tp; size-1 axes count), each rank's
+``state.params`` holds its block of each leaf, as
+``NamedSharding(mesh, rules.spec(*logical))`` lays it out, and the step
+calls ``loss(params, tokens, targets, param_shard=...)``, whose model
+gathers each layer over fsdp inside its remat segment and computes its
+local heads, MLP columns and vocabulary rows under tp
+(``parallel.param_shard``). A gather's backward reduce-scatters, so a
+leaf's gradient arrives summed over the data axes that split it; the
+step then averages it over the data axes that do not (dp, sp), dividing
+by the whole data-parallel size, and never over tp. Every mode above
+applies to the local blocks: ``zero1`` takes pieces of each block's
+padded flat view over the data axes that do not split the leaf. Under
+``dcn_axes`` (the explicit hierarchy) the gradient and the update run on
+each whole leaf's padded flat view, as JAX's do, so that pieces and int8
+buckets fall at JAX's flat offsets: a leaf's block gradient is placed in
+a zeroed whole leaf (its tp blocks gathered first) and the reduce-scatter
+over the slice sums the ranks' blocks, and the updated whole leaf is cut
+back to the block; one whole leaf at a time is alive, and each step moves
+fsdp times a block's gradient bytes where a reshard would move them once
+(ROADMAP Queue A item 1). The gradient norm
+is the whole gradient's: square sums all-reduced over the axes that
+split each leaf, a leaf replicated over tp counted once. Not done
+(``NotImplementedError``): sp > 1 with a param split over an axis of
+size > 1; checkpointing a param-sharded state under ``zero1`` or
+``dcn_axes``; the layouts ``ParamShard`` refuses.
 
 Returns (step_fn, init_state, data_sharder), as the JAX factory does:
 
 - ``init_state(params=None)`` -> TrainState: params from ``init_fn(seed)``,
   or a copy of the given tree (e.g. ``params_from_jax`` of a JAX tree) on
-  the step's device; every rank must start from the same params;
+  the step's device, cut to this rank's blocks under param sharding;
+  every rank must start from the same (whole) params;
 - ``step_fn(state, tokens, targets)`` -> (state, {"loss", "grad_norm"}),
   metrics as device scalars; grad_norm is the global L2 norm of the
   averaged gradients (``optax.global_norm``), summed in f32;
@@ -59,6 +86,7 @@ Returns (step_fn, init_state, data_sharder), as the JAX factory does:
 
 from __future__ import annotations
 
+import inspect
 import math
 from dataclasses import dataclass, field
 from functools import partial
@@ -80,11 +108,16 @@ from ray_tpu_torch.models.llama import (
     loss_fn,
     param_logical_axes,
 )
+from ray_tpu_torch.parallel.mesh import AXIS_ORDER, mesh_coords
+from ray_tpu_torch.parallel.param_shard import ParamShard, check_layout
 from ray_tpu_torch.parallel.sharding import (
     ShardingRules,
+    at_path,
+    axes_group,
     axis_sizes,
     batch_axes,
-    entry_axes,
+    shard_params,
+    tree_paths,
     tree_specs,
 )
 from ray_tpu_torch.train.optim import (
@@ -105,7 +138,7 @@ class TrainState:
     # value; None makes the next step read ``step`` once.
     host_step: int | None = field(default=None, repr=False, compare=False)
     # Per param leaf path: the _Piece of its flat view this rank's moments
-    # hold (see checkpoint_tree).
+    # hold, and its param block (see checkpoint_tree).
     layout: dict | None = field(default=None, repr=False, compare=False)
 
     def checkpoint_tree(self) -> dict:
@@ -113,14 +146,28 @@ class TrainState:
         ``restore_pytree`` fills it in place: params leaf-shaped, each
         moment as the flat view of its param ([numel]; under ``zero1`` or
         ``dcn_axes`` this rank's piece of it, so a state saved at one world
-        size restores at another). Clears ``host_step``, since a restore
-        into it may follow."""
-        from ray_tpu_torch.train.checkpoint import FlatShard
+        size restores at another). Under param sharding each param and
+        (flat mode) each moment is this rank's ``BlockShard`` of the whole
+        leaf, so the state restores at another mesh or with none. Clears
+        ``host_step``, since a restore into it may follow."""
+        from ray_tpu_torch.train.checkpoint import BlockShard, FlatShard
 
         self.host_step = None
         layout = self.layout or {}
 
+        def block(t, piece):
+            b = piece.block
+            return BlockShard(t, b.shape, b.offsets, b.replicas, b.owner)
+
         def moment(t, piece):
+            if piece.block is not None:
+                if piece.sharded:
+                    raise NotImplementedError(
+                        "checkpointing a state whose params are sharded "
+                        "(FSDP/TP) under zero1 or dcn_axes: its moments "
+                        "are pieces of each block's flat view (not "
+                        "ported yet)")
+                return block(t, piece)
             if piece.sharded:
                 return FlatShard(t, piece.numel, piece.offset, piece.length,
                                  piece.replicas, piece.owner)
@@ -129,7 +176,8 @@ class TrainState:
         def walk(t):
             # A subtree with the params' leaf paths mirrors them (the
             # optimizer built it from the params or their pieces).
-            if isinstance(t, dict) and list(_leaf_paths(t)) == list(layout):
+            if isinstance(t, dict) and \
+                    [p for p, _ in tree_paths(t)] == list(layout):
                 it = iter(layout.values())
                 return tree_map(lambda x: moment(x, next(it)), t)
             if isinstance(t, dict):
@@ -140,56 +188,37 @@ class TrainState:
                 return type(t)(walk(v) for v in t)
             return t
 
-        return {"params": self.params, "opt_state": walk(self.opt_state),
+        params = self.params
+        if any(p.block is not None for p in layout.values()):
+            it = iter(layout.values())
+            params = tree_map(lambda t: block(t, next(it)), params)
+        return {"params": params, "opt_state": walk(self.opt_state),
                 "step": self.step}
+
+
+class _Block(NamedTuple):
+    """A param leaf's block on this rank under param sharding: the whole
+    leaf's ``shape``, the block's ``offsets``, the ranks holding the same
+    block (``replicas``) and whether this one writes it."""
+    shape: tuple
+    offsets: tuple
+    replicas: Any
+    owner: bool
 
 
 class _Piece(NamedTuple):
     """A param leaf's update piece on this rank: the elements at ``offset``
-    of its padded flat view, of which ``length`` fall inside its
+    of its (block's) padded flat view, of which ``length`` fall inside its
     ``numel``; ``replicas`` is the group of ranks holding the same
     piece (None: this rank alone), ``owner`` whether this rank writes it
-    to a checkpoint."""
+    to a checkpoint; ``block`` the leaf's param block (None: whole)."""
     numel: int
     offset: int
     length: int
     sharded: bool
     replicas: Any = None
     owner: bool = True
-
-
-def _leaf_paths(tree, path=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaf_paths(v, path + (k,))
-    else:
-        yield path
-
-
-def _axes_group(mesh, axes: tuple[str, ...]):
-    """The process group of this rank's ranks along ``axes`` of the mesh
-    (all of them at once): the mesh's own group for one axis, else one
-    ``new_group`` per subgroup, created on every rank in the same order
-    and kept on the mesh, so step factories over one mesh share them."""
-    import torch.distributed as dist
-
-    if len(axes) == 1:
-        return mesh.get_group(axes[0])
-    cache = mesh.__dict__.setdefault("_axes_groups", {})
-    if axes in cache:
-        return cache[axes]
-    names = list(mesh.mesh_dim_names)
-    layout = mesh.mesh.cpu().numpy()
-    free = [names.index(a) for a in axes]
-    rest = [i for i in range(layout.ndim) if i not in free]
-    n = math.prod(layout.shape[i] for i in free)
-    me, mine = dist.get_rank(), None
-    for ranks in layout.transpose(rest + free).reshape(-1, n):
-        group = dist.new_group(sorted(int(r) for r in ranks))
-        if me in ranks:
-            mine = group
-    cache[axes] = mine
-    return mine
+    block: Any = None
 
 
 class _Plan:
@@ -229,11 +258,11 @@ class _Plan:
         self.two_level = explicit_hier
         self.sharded = zero1 or explicit_hier
         # Groups, in one order on every rank.
-        self.avg = _axes_group(mesh, self.avg_axes)
+        self.avg = axes_group(mesh, self.avg_axes)
         if self.two_level:
             self.ici_axes = ici_data + sp
-            self.ici = _axes_group(mesh, self.ici_axes)
-            self.dcn = _axes_group(mesh, dcn_data)
+            self.ici = axes_group(mesh, self.ici_axes)
+            self.dcn = axes_group(mesh, dcn_data)
             self.ici_n = math.prod(sizes[a] for a in self.ici_axes)
             self.dcn_n = math.prod(sizes[a] for a in dcn_data)
             self.ici_rank = dist.get_rank(self.ici)
@@ -339,29 +368,71 @@ class _Plan:
                                     group=self.ici)
 
 
-def _check_param_sharding(sizes: dict, logical_axes, rules) -> None:
-    """Params shard only over mesh axes of size 1: FSDP/TP param sharding
-    is a later slice of the port."""
-    specs = tree_specs(logical_axes, rules)
-    bad = {}
+class _LeafSync(NamedTuple):
+    """How one param leaf's gradient is synchronised under param
+    sharding: the plan over the data axes that do not split it, the
+    divisor of its gathers' sums (the data axes that split it), and the
+    group over the axes that split it (its norm's square sums)."""
+    plan: Any
+    divisor: int
+    shard_axes: tuple
+    shard_group: Any
 
-    def walk(s, path):
-        if isinstance(s, dict):
-            for k, v in s.items():
-                walk(v, path + (k,))
-            return
-        axes = [a for e in s for a in entry_axes(e) if sizes.get(a, 1) > 1]
-        if axes:
-            bad["/".join(path)] = axes
 
-    walk(specs, ())
-    if bad:
-        raise NotImplementedError(
-            f"the rule table shards params over mesh axes of size > 1 "
-            f"({bad}): FSDP/TP param sharding is not ported yet (a later "
-            f"slice); pass rules that replicate params, e.g. "
-            f"ShardingRules().override(vocab=None, embed=None, mlp=None, "
-            f"heads=None, kv_heads=None)")
+def _leaf_syncs(mesh, dev, ps: ParamShard, data_axes,
+                zero1) -> dict[tuple, _LeafSync]:
+    """Per param leaf path: its gradient's plan over the data axes that do
+    not split it (one ``_Plan`` per distinct set, groups built once, in
+    one order on every rank). Only for the one-level sync: under the
+    explicit hierarchy the step runs on whole leaves."""
+    sizes = axis_sizes(mesh)
+    plans: dict = {}
+    out = {}
+    for path, axes in ps.shard_axes.items():
+        axes = tuple(a for a in AXIS_ORDER if a in axes)
+        keep = tuple(a for a in data_axes if a not in axes)
+        if keep not in plans:
+            plans[keep] = _Plan(mesh, dev, keep, (), (), zero1, False, None,
+                                DCN_QUANT_BUCKET)
+        divisor = math.prod(sizes[a] for a in axes if a in data_axes)
+        out[path] = _LeafSync(plans[keep], divisor, axes,
+                              axes_group(mesh, axes))
+    return out
+
+
+def _block_index(blk: _Block, shape) -> tuple:
+    """The slices of the whole leaf a block of ``shape`` at ``blk``'s
+    offsets covers (dims gathered whole, such as tp's, start at 0)."""
+    return tuple(slice(o if n != w else 0, (o if n != w else 0) + n)
+                 for o, n, w in zip(blk.offsets, shape, blk.shape))
+
+
+def _block_of(path, shape, spec, mesh) -> _Block:
+    """A param leaf's block on this rank (its offsets in the whole leaf of
+    ``shape``) and the group of ranks holding the same block, whose
+    lowest rank (coordinate 0 on every other axis) writes it."""
+    from ray_tpu_torch.parallel.sharding import leaf_dim_shards
+
+    sizes, coords = axis_sizes(mesh), mesh_coords(mesh)
+    offsets = [0] * len(shape)
+    used = set()
+    for d in leaf_dim_shards(spec, shape, sizes, coords, "/".join(path)):
+        offsets[d.dim] = d.index * (shape[d.dim] // d.n)
+        used.update(d.axes)
+    rest = tuple(a for a in AXIS_ORDER if a not in used)
+    return _Block(tuple(shape), tuple(offsets),
+                  axes_group(mesh, rest) if rest else None,
+                  all(coords[a] == 0 for a in rest))
+
+
+def _takes_param_shard(loss: Callable) -> bool:
+    """Whether ``loss`` accepts the keyword ``param_shard``."""
+    try:
+        ps = inspect.signature(loss).parameters.values()
+    except (TypeError, ValueError):
+        return False
+    return any(p.name == "param_shard" and p.kind != p.POSITIONAL_ONLY
+               or p.kind == p.VAR_KEYWORD for p in ps)
 
 
 def make_train_step(
@@ -381,7 +452,9 @@ def make_train_step(
     dcn_quant_bucket: int | None = None,
     device: torch.device | str = "cuda",
 ) -> tuple[Callable, Callable, Callable]:
-    """Model-agnostic step factory (see the module docstring)."""
+    """Model-agnostic step factory (see the module docstring). When the
+    rules shard params, ``loss`` must take ``param_shard`` (a keyword) and
+    compute on this rank's param blocks."""
     dev = resolve_device(device)
     rules = rules or ShardingRules()
     optimizer = optimizer or adamw(3e-4, weight_decay=0.1,
@@ -416,20 +489,62 @@ def make_train_step(
     explicit_hier = bool(dcn_data) and bool(update_axes or dcn_quant)
     n_slices = math.prod(sizes[a] for a in dcn_data) if dcn_data else 1
 
-    plan = None
+    plan = ps = None
+    leaf_sync: list[_LeafSync] = []  # in the params' leaf order
+    syncs: dict[tuple, _LeafSync] = {}
+    # Per param leaf path, the mesh axes the rules split it over (a layout
+    # the models cannot compute on raises here, before any group exists).
+    layout = check_layout(sizes, logical_axes, rules, data_axes + (
+        ("sp",) if "sp" in sizes else ())) \
+        if mesh is not None and logical_axes is not None else {}
+    split = {p: tuple(a for _, axes in dims for a in axes)
+             for p, dims in layout.items()}
+    if any(split.values()):
+        sharding_axes = sorted({a for v in split.values() for a in v})
+        if sizes.get("sp", 1) > 1 and any(sizes[a] > 1
+                                           for a in sharding_axes):
+            raise NotImplementedError(
+                "sp > 1 together with params split over an axis of size > "
+                "1 (context parallel under FSDP/TP) is not ported; pass "
+                "rules that replicate params on this mesh")
+        if not _takes_param_shard(loss):
+            raise NotImplementedError(
+                f"the rules shard params over {sharding_axes} (FSDP/TP), "
+                f"and this loss takes whole params: pass a "
+                f"loss(params, tokens, targets, param_shard=...) whose "
+                f"model gathers and computes on this rank's blocks (as "
+                f"make_llama_train_step and make_vit_train_step do), or "
+                f"rules that replicate params")
     if mesh is not None:
-        if logical_axes is not None:
-            _check_param_sharding(sizes, logical_axes, rules)
         plan = _Plan(mesh, dev, data_axes, dcn_data, ici_data, bool(zero1),
                      explicit_hier, dcn_quant, bucket)
+        if any(split.values()):
+            ps = ParamShard(mesh, logical_axes, rules, plan.avg_axes)
+            if explicit_hier:
+                dcn_split = {"/".join(p): a for p, a in split.items()
+                             if any(x in dcn_data and sizes[x] > 1
+                                    for x in a)}
+                if dcn_split:
+                    raise NotImplementedError(
+                        f"params split over the cross-slice axes "
+                        f"{dcn_data} under the explicit hierarchy "
+                        f"(dcn_axes): {dcn_split}")
+            else:
+                syncs = _leaf_syncs(mesh, dev, ps, data_axes, bool(zero1))
     sharded = plan is not None and plan.sharded
+    whole_leaf = ps is not None and explicit_hier  # see the docstring
+    if ps is not None:
+        loss = partial(loss, param_shard=ps)
+
+    def _plan_of(i: int):
+        return leaf_sync[i].plan if leaf_sync else plan
 
     def _pieces(params):
         """Per leaf (in tree order): the padded flat view (the leaf's own
         storage when no padding is needed), this rank's offset, length."""
         out = []
-        for p in tree_leaves(params):
-            npad, off, c = plan.piece(p.numel())
+        for i, p in enumerate(tree_leaves(params)):
+            npad, off, c = _plan_of(i).piece(p.numel())
             flat = p.detach().view(-1)
             if npad > flat.numel():
                 flat = F.pad(flat, (0, npad - flat.numel()))
@@ -443,6 +558,23 @@ def make_train_step(
     def init_state(params: dict | None = None) -> TrainState:
         if params is None:
             params = init_fn(seed)
+        blocks = [None] * len(tree_leaves(params))
+        whole_pieces = None
+        if ps is not None:
+            specs = tree_specs(logical_axes, rules)
+            if whole_leaf:
+                with torch.no_grad():
+                    whole_pieces = [
+                        f[off:off + c].to(dev, copy=True)
+                        for f, off, c in _pieces(tree_map(
+                            lambda t: t.detach(), params))]
+            else:
+                leaf_sync[:] = [syncs[p] for p, _ in tree_paths(params)]
+            blocks = [_block_of(path, t.shape, at_path(specs, path), mesh)
+                      for path, t in tree_paths(params)]
+            with torch.no_grad():
+                params = shard_params(tree_map(lambda t: t.detach(), params),
+                                      mesh, logical_axes, rules)
         params = tree_map(
             lambda t: t.detach().to(dev, copy=True).requires_grad_(True),
             params)
@@ -450,19 +582,26 @@ def make_train_step(
         with torch.no_grad():
             if sharded:
                 pieces = _pieces(params)
-                opt_state = optimizer.init(_unflat(
-                    params, [f[off:off + c] for f, off, c in pieces]))
-                replicas = plan.dcn if plan.two_level and not plan.zero1 \
-                    else None
-                for path, p, (_, off, c) in zip(_leaf_paths(params),
-                                                tree_leaves(params), pieces):
-                    n = p.numel()
+                opt_state = optimizer.init(_unflat(params, whole_pieces or [
+                    f[off:off + c] for f, off, c in pieces]))
+                if whole_leaf:  # the whole leaves' pieces
+                    pieces = [(None, *plan.piece(math.prod(b.shape))[1:])
+                              for b in blocks]
+                for i, ((path, p), (_, off, c)) in enumerate(zip(
+                        tree_paths(params), pieces)):
+                    lp = _plan_of(i)
+                    replicas = lp.dcn if lp.two_level and not lp.zero1 \
+                        else None
+                    n = math.prod(blocks[i].shape) if whole_leaf \
+                        else p.numel()
                     layout[path] = _Piece(n, off, max(0, min(n, off + c) - off),
-                                          True, replicas, plan.owner())
+                                          True, replicas, lp.owner(),
+                                          blocks[i])
             else:
                 opt_state = optimizer.init(params)
-                for path, p in zip(_leaf_paths(params), tree_leaves(params)):
-                    layout[path] = _Piece(p.numel(), 0, p.numel(), False)
+                for (path, p), blk in zip(tree_paths(params), blocks):
+                    layout[path] = _Piece(p.numel(), 0, p.numel(), False,
+                                          block=blk)
         return TrainState(params=params, opt_state=opt_state,
                           step=torch.zeros((), dtype=torch.int32,
                                            device=dev),
@@ -508,6 +647,67 @@ def make_train_step(
             state.host_step = int(state.step)
         return state.host_step % grad_norm_every == 0
 
+    def _norm(sqs: list) -> torch.Tensor:
+        """The whole gradient's norm from each leaf's square sum (over its
+        block, or its update piece when ``sharded``): summed per group of
+        leaves that share a reduction, all-reduced over the update group
+        (pieces) and over the axes that split the leaves (blocks)."""
+        if not leaf_sync:
+            sq = torch.stack(sqs).sum()
+            if sharded:
+                plan.dist.all_reduce(sq, group=plan.upd)
+            return sq.sqrt()
+        keys: dict = {}
+        for s, ls in zip(sqs, leaf_sync):
+            key = (id(ls.plan), ls.shard_axes)
+            keys.setdefault(key, (ls, []))[1].append(s)
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for _, (ls, parts) in sorted(keys.items(), key=lambda kv: (
+                kv[1][0].plan.avg_axes, kv[0][1])):
+            sq = torch.stack(parts).sum()
+            if sharded:
+                plan.dist.all_reduce(sq, group=ls.plan.upd)
+            plan.dist.all_reduce(sq, group=ls.shard_group)
+            total += sq
+        return total.sqrt()
+
+    def _whole_leaf_update(state, params, leaves, due):
+        """The explicit hierarchy under param sharding (see the module
+        docstring): each leaf's gradient and update on its whole padded
+        flat view, one whole leaf alive at a time."""
+        blocks = [p.block for p in state.layout.values()]
+        shards, p_pieces = [], []
+        for (path, p), blk in zip(tree_paths(params), blocks):
+            g, p.grad = p.grad, None
+            g = ps.tp_full(path, g)
+            whole = g.new_zeros(blk.shape)
+            whole[_block_index(blk, g.shape)] = g
+            del g
+            npad, off, c = plan.piece(whole.numel())
+            shards.append(plan.reduce_grad(whole, npad))
+            w = ps.whole(path, p.detach()).reshape(-1)
+            p_pieces.append(F.pad(w, (0, npad - w.numel()))[off:off + c]
+                            .clone())
+            del whole, w
+        gnorm = _norm([s.float().square().sum() for s in shards]) \
+            if due else None
+        updates, _ = optimizer.update(_unflat(params, shards),
+                                      state.opt_state,
+                                      _unflat(params, p_pieces))
+        del shards
+        apply_updates(_unflat(params, p_pieces), updates)
+        del updates
+        for p, blk, piece in zip(leaves, blocks, p_pieces):
+            numel = math.prod(blk.shape)
+            npad, off, c = plan.piece(numel)
+            flat = piece.new_empty(npad)
+            flat[off:off + c] = piece
+            plan.gather_params(flat, off, c)
+            p.detach().copy_(flat[:numel].view(blk.shape)[
+                _block_index(blk, p.shape)])
+            del flat
+        return gnorm
+
     def step_fn(state: TrainState, tokens, targets):
         params = state.params
         leaves = tree_leaves(params)
@@ -519,27 +719,32 @@ def make_train_step(
             if plan is not None:
                 loss_val = plan.all_reduce_mean(loss_val.clone())
             if not sharded:
-                if plan is not None:
+                if leaf_sync:  # the rest of the data-parallel mean
+                    for p, ls in zip(leaves, leaf_sync):
+                        plan.dist.all_reduce(p.grad, group=ls.plan.avg)
+                        p.grad.div_(plan.n_avg)
+                elif plan is not None:
                     for p in leaves:
                         plan.all_reduce_mean(p.grad)
                 grads = tree_map(lambda p: p.grad, params)
                 if due:
-                    gnorm = torch.stack([p.grad.float().square().sum()
-                                         for p in leaves]).sum().sqrt()
+                    gnorm = _norm([p.grad.float().square().sum()
+                                   for p in leaves])
                 updates, _ = optimizer.update(grads, state.opt_state, params)
                 apply_updates(params, updates)
+            elif whole_leaf:
+                gnorm = _whole_leaf_update(state, params, leaves, due)
             else:
                 pieces = _pieces(params)
                 shards = []
-                for p, (flat, _, _) in zip(leaves, pieces):
+                for i, (p, (flat, _, _)) in enumerate(zip(leaves, pieces)):
                     g, p.grad = p.grad, None
-                    shards.append(plan.reduce_grad(g, flat.numel()))
+                    if leaf_sync and leaf_sync[i].divisor > 1:
+                        g.div_(leaf_sync[i].divisor)
+                    shards.append(_plan_of(i).reduce_grad(g, flat.numel()))
                     del g
                 if due:
-                    sq = torch.stack([s.float().square().sum()
-                                      for s in shards]).sum()
-                    plan.dist.all_reduce(sq, group=plan.upd)
-                    gnorm = sq.sqrt()
+                    gnorm = _norm([s.float().square().sum() for s in shards])
                 p_pieces = _unflat(params,
                                    [f[off:off + c] for f, off, c in pieces])
                 updates, _ = optimizer.update(_unflat(params, shards),
@@ -547,8 +752,9 @@ def make_train_step(
                 del shards
                 apply_updates(p_pieces, updates)
                 del updates
-                for p, (flat, off, c) in zip(leaves, pieces):
-                    plan.gather_params(flat, off, c)
+                for i, (p, (flat, off, c)) in enumerate(zip(leaves,
+                                                            pieces)):
+                    _plan_of(i).gather_params(flat, off, c)
                     if flat.numel() > p.numel():
                         p.detach().view(-1).copy_(flat[:p.numel()])
             if not due:
@@ -578,27 +784,28 @@ def make_train_step(
 
 
 def _sp_loss(mesh, loss_of):
-    """``loss_of(tokens, targets, positions, sp_axis)`` -> a loss over
-    tokens [B, S]: with an sp axis of size > 1 in the mesh, this rank's
-    chunk of the sequence at its global positions, the ring over the sp
-    group; else the whole sequence."""
+    """``loss_of(p, tokens, targets, positions, sp_axis, **kw)`` -> a loss
+    over tokens [B, S] (keywords, such as ``param_shard``, passed on): with
+    an sp axis of size > 1 in the mesh, this rank's chunk of the sequence
+    at its global positions, the ring over the sp group; else the whole
+    sequence."""
     sp = axis_sizes(mesh).get("sp", 1) if mesh is not None else 1
     if sp == 1:
-        return lambda p, tokens, targets: loss_of(p, tokens, targets, None,
-                                                  None)
+        return lambda p, tokens, targets, **kw: loss_of(p, tokens, targets,
+                                                        None, None, **kw)
     import torch.distributed as dist
 
-    group = mesh.get_group("sp")
-    r = dist.get_rank(group)
-
-    def loss(p, tokens, targets):
+    def loss(p, tokens, targets, **kw):
+        group = mesh.get_group("sp")  # at the step: the factory checks first
+        r = dist.get_rank(group)
         s = tokens.shape[1]
         if s % sp:
             raise ValueError(f"sequence {s} not divisible by sp={sp}")
         c = s // sp
         cols = slice(r * c, (r + 1) * c)
         pos = torch.arange(r * c, (r + 1) * c, device=tokens.device)
-        return loss_of(p, tokens[:, cols], targets[:, cols], pos, group)
+        return loss_of(p, tokens[:, cols], targets[:, cols], pos, group,
+                       **kw)
 
     return loss
 
@@ -619,13 +826,15 @@ def make_llama_train_step(
     ``step_options`` forwards ``zero1``, ``grad_accum``,
     ``grad_norm_every``, ``dcn_axes``, ``dcn_quant`` and
     ``dcn_quant_bucket``. A mesh with sp > 1 runs the ring over its sp
-    group (context parallel), each sp rank on its chunk of the sequence."""
+    group (context parallel), each sp rank on its chunk of the sequence.
+    Rules that shard params (the default table) run the model on this
+    rank's blocks (FSDP gathers, tp-local heads, MLP and vocabulary)."""
     dev = resolve_device(device)
+    loss = _sp_loss(mesh, lambda p, tokens, targets, pos, sp, **kw: loss_fn(
+        cfg, p, tokens, targets, positions=pos, sp_axis=sp,
+        attn_impl=attn_impl, remat=remat, **kw))
     return make_train_step(
-        mesh,
-        loss=_sp_loss(mesh, lambda p, tokens, targets, pos, sp: loss_fn(
-            cfg, p, tokens, targets, positions=pos, sp_axis=sp,
-            attn_impl=attn_impl, remat=remat)),
+        mesh, loss=loss,
         init_fn=partial(init_params, cfg, device=dev),
         logical_axes=param_logical_axes(cfg), rules=rules,
         optimizer=optimizer, seed=seed, device=dev, **step_options,
@@ -649,8 +858,9 @@ def make_vit_train_step(
     dev = resolve_device(device)
     return make_train_step(
         mesh,
-        loss=lambda p, images, labels: vit.loss_fn(
-            cfg, p, images, labels, attn_impl=attn_impl, remat=remat),
+        loss=lambda p, images, labels, param_shard=None: vit.loss_fn(
+            cfg, p, images, labels, attn_impl=attn_impl, remat=remat,
+            param_shard=param_shard),
         init_fn=partial(vit.init_params, cfg, device=dev),
         logical_axes=vit.param_logical_axes(cfg), rules=rules,
         optimizer=optimizer, seed=seed, device=dev, **step_options,

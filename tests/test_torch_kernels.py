@@ -12,7 +12,9 @@ within one bf16 ulp of the plain version (rtol 8e-3, atol 1e-2), f32
 streams (tiny width and 1B width) must be equal on the card and on the
 CPU. Flash kernels against their plain twins (bf16): out, dq, dk, dv
 within 1e-2 of the largest value (one bf16 ulp where sums in another
-order round a value apart; dq's f32 atomics add in no fixed order), lse
+order round a value apart; K3 and K7 sum dq across CTAs in ascending
+kv-tile order, not the twin's), and K3's and K7's dq, dk, dv the same
+bits on a second launch; lse
 within 2e-3 (f32 sums of the same bf16 p in another order); the chunk
 kernels K6/K7 alike (K6's out is f32), and the split backward K4/K5
 (dq, and dk/dv folded to the kv heads inside K5, against ``fold_heads``
@@ -395,7 +397,8 @@ def test_flash_chunk_kernels_tile_classes_on_card(cuda_device, where, d, rep,
                                                   causal):
     """K6 and K7 against their twins where they skip, mask or take whole
     tiles, at the twins' tolerances; rows that see no key finite with lse
-    < -1e29; K7's dk/dv the same bits on a second launch."""
+    < -1e29; K7's dq, dk and dv the same bits on a second launch (dq's
+    turns count only the kv tiles that visit a q tile)."""
     qpos, kpos = _tile_positions(cuda_device, where)
     h, sq, skv = 8, qpos.numel(), kpos.numel()
     g = torch.Generator(device=cuda_device).manual_seed(d + rep)
@@ -427,7 +430,8 @@ def test_flash_chunk_kernels_tile_classes_on_card(cuda_device, where, d, rep,
     for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
         assert torch.isfinite(got.float()).all(), name
         assert _rel(got, want) < 1e-2, name
-    assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
+    for got, rerun in zip(grads, again):
+        assert torch.equal(got, rerun)
 
 
 def test_pair_chunk_refuses_to_time_without_a_card(tmp_path):
@@ -884,17 +888,74 @@ def test_flash_kernels_take_sq_unlike_skv_on_card(cuda_device, causal, d, sq,
 @pytest.mark.parametrize("d", [64, 128])
 def test_fused_backward_repeats_dk_dv_bit_for_bit_on_card(cuda_device,
                                                           causal, d):
-    """K3 sums dk/dv of a kv head in one CTA's registers: the same bits on
-    every run. dq is summed across CTAs in no fixed order: two runs agree
-    within 1e-2 of the largest value."""
+    """K3 sums dk/dv of a kv head in one CTA's registers and dq across
+    CTAs in ascending kv-tile order: dq, dk and dv the same bits on every
+    run."""
     q, k, v, do = _flash_inputs(cuda_device, 4, d, 1000, seed=31 + d)
     scale = d ** -0.5
     out, lse = att.flash_fwd_cuda(q, k, v, causal, scale)
     first = att.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
     again = att.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
     torch.cuda.synchronize()
-    assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
-    assert _rel(first[0], again[0]) < 1e-2
+    for got, rerun in zip(first, again):
+        assert torch.equal(got, rerun)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h,hkv,s", [(4, 32, 8, 2048), (8, 12, 12, 197)])
+def test_fused_backward_repeats_dq_bit_for_bit_on_card(cuda_device, causal,
+                                                       d, b, h, hkv, s):
+    """K3 at the training shape's heads and at ViT-B/16's (non-causal S
+    197: every kv tile takes a turn on every q tile): two launches, the
+    same dq, dk and dv bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(s + d + causal)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g,
+                           device=cuda_device).to(torch.bfloat16)
+
+    q, k, v, do = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d), \
+        rnd(b, h, s, d)
+    scale = d ** -0.5
+    out, lse = att.flash_fwd_cuda(q, k, v, causal, scale)
+    runs = [att.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for got, rerun in zip(*runs):
+        assert torch.equal(got, rerun)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["long causal", "mixed", "shuffled"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_chunk_backward_repeats_bit_for_bit_on_card(cuda_device, where,
+                                                    causal, d):
+    """K7 twice on one seeded input: the same dq, dk and dv bits, with
+    skipped tiles (causal "long causal", "shuffled") and without
+    (non-causal; "mixed", whose rows that see no key make every kv tile
+    visit their q tiles), GQA rep 4."""
+    qpos, kpos = _tile_positions(cuda_device, where)
+    h, sq, skv = 8, qpos.numel(), kpos.numel()
+    g = torch.Generator(device=cuda_device).manual_seed(d + sq + causal)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    q, k, v = rnd(1, h, sq, d), rnd(1, 2, skv, d), rnd(1, 2, skv, d)
+    g_out, g_lse = rnd(1, h, sq, d, dtype=torch.float32), rnd(
+        1, h, sq, dtype=torch.float32)
+    scale = d ** -0.5
+    out, lse = att.flash_chunk_fwd_cuda(q, k, v, qpos, kpos, causal, scale)
+    runs = [att.flash_chunk_bwd_cuda(q, k, v, qpos, kpos, out, lse, g_out,
+                                     g_lse, causal, scale)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for got, rerun in zip(*runs):
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got, rerun)
 
 
 @pytest.mark.cuda

@@ -21,7 +21,9 @@ one group, each within ``RANK_TIMEOUT_S``:
 - 2 ranks: Llama tiny at ``sp=2`` (the ring over the sp group) against
   JAX's one-device step on the whole sequence; ViT tiny at ``dp=2``
   against JAX's on a 2-device mesh; the 4-rank checkpoint restored under
-  zero1 at ``dp=2`` and stepped once.
+  zero1 at ``dp=2`` and stepped once; the write-behind writer on a flat
+  data-parallel state (rank 0 writes it, both ranks restore it) and on
+  the zero1 state (refused).
 
 The test process restores the same checkpoint at one rank (``mesh=None``)
 and steps once.
@@ -280,12 +282,21 @@ def _rank_two(rank, world, store, tmp, port):
     init = _load_tree(os.path.join(tmp, "llama.npz"))
     res = {}
 
+    from ray_tpu_torch.models import llama
+
     step, init_state, shard = make_llama_train_step(
         cfg, build_mesh(MeshSpec(sp=2)), optimizer=optim.adamw(1e-2),
         attn_impl="blockwise", remat=False, device="cpu")
-    _, res["sp_losses"], res["sp_norms"] = _run(
-        step, init_state(params_from_jax(init, "cpu")), shard, seq,
-        np.roll(seq, -1, axis=1), 2)
+    ring, rings = llama.ring_attention_local, []
+    llama.ring_attention_local = lambda *a, **kw: rings.append(1) or ring(
+        *a, **kw)
+    try:
+        _, res["sp_losses"], res["sp_norms"] = _run(
+            step, init_state(params_from_jax(init, "cpu")), shard, seq,
+            np.roll(seq, -1, axis=1), 2)
+    finally:
+        llama.ring_attention_local = ring
+    res["sp_ring_calls"] = len(rings)
 
     vcfg = vit.ViTConfig.tiny()
     step, init_state, shard = make_vit_train_step(
@@ -307,7 +318,8 @@ def _rank_two(rank, world, store, tmp, port):
     res["restored_step"] = int(state.step)
     if rank == 0:
         _save_tree(os.path.join(tmp, "restored2.npz"), state.params)
-    # The write-behind writer refuses a rank of a multi-rank group.
+    # The write-behind writer refuses a state that holds pieces (zero1's
+    # moments) ...
     try:
         AsyncCheckpointWriter().save(state.checkpoint_tree(),
                                      os.path.join(tmp, f"async{rank}"))
@@ -315,6 +327,30 @@ def _rank_two(rank, world, store, tmp, port):
     except RuntimeError as e:
         res["async_refused"] = str(e)
     res["async_wrote"] = os.path.exists(os.path.join(tmp, f"async{rank}"))
+    # ... and writes a replicated one (flat data parallel) from rank 0.
+    step, init_state, shard = make_llama_train_step(
+        cfg, build_mesh(MeshSpec(dp=2)),
+        rules=ShardingRules().override(**DDP), optimizer=optim.adamw(1e-2),
+        attn_impl="blockwise", remat=False, device="cpu")
+    flat, _, _ = _run(step, init_state(params_from_jax(init, "cpu")), shard,
+                      tokens, np.roll(tokens, -1, axis=1), 1)
+    writer = AsyncCheckpointWriter()
+    where = os.path.join(tmp, "async_flat")
+    res["async_flat_returned"] = writer.save(flat.checkpoint_tree(), where,
+                                             step=1) == where
+    writer.wait()
+    res["async_flat_completed"] = writer.completed()
+    dist.barrier()
+    fresh = init_state(params_from_jax(init, "cpu"))
+    restore_pytree(where, fresh.checkpoint_tree())
+    res["async_flat_restored"] = int(fresh.step) == 1 and all(
+        torch.equal(a, b) for a, b in zip(
+            _leaves(fresh.params) + _leaves(fresh.opt_state),
+            _leaves(flat.params) + _leaves(flat.opt_state)))
+    gathered = [None] * world
+    dist.all_gather_object(gathered, [res["async_flat_restored"],
+                                      res["async_flat_completed"]])
+    res["async_flat_by_rank"] = gathered
     res["jax_loaded"] = [m for m in sys.modules
                          if m == "jax" or m.startswith("jax.")]
     if rank == 0:
@@ -508,6 +544,13 @@ def test_sp_mesh_gives_the_whole_sequence_loss(runs):
                                rtol=F32_TOL, atol=F32_TOL)
 
 
+def test_sp_mesh_runs_the_ring_under_the_default_rules(runs):
+    """The default rules take the param-shard path (size-1 fsdp and tp
+    groups); the sp = 2 step must still give each rank its chunk and run
+    the ring, once a layer a step (2 layers, 2 steps)."""
+    assert runs["two"]["sp_ring_calls"] == 2 * 2
+
+
 def test_vit_data_parallel_matches_jax(runs):
     two, want = runs["two"], runs["want"]
     np.testing.assert_allclose(two["vit_losses"], want["vit_losses"],
@@ -521,9 +564,24 @@ def test_hier_checkpoint_restores_pieces_held_by_both_slices(runs):
 
 
 def test_async_writer_refuses_a_multi_rank_save(runs):
+    """A multi-rank state that holds pieces (zero1's moments) is refused:
+    the writer runs no collective."""
     two = runs["two"]
-    assert "one of 2 ranks" in (two["async_refused"] or "")
+    assert "pieces" in (two["async_refused"] or "")
+    assert "group of 2 ranks" in two["async_refused"]
     assert not two["async_wrote"]
+
+
+def test_async_writer_writes_a_replicated_multi_rank_state_from_rank_0(
+        runs):
+    """A flat data-parallel 2-rank state (every leaf whole on every rank)
+    is written behind the step by rank 0 alone, and both ranks restore
+    the same params, moments and step from it."""
+    two = runs["two"]
+    assert two["async_flat_returned"]
+    (ok0, done0), (ok1, done1) = two["async_flat_by_rank"]
+    assert ok0 and ok1
+    assert len(done0) == 1 and done1 == []
 
 
 @pytest.mark.parametrize("world", [2, 1])

@@ -257,18 +257,21 @@ def test_vit_step_needs_a_card_unless_asked_for_cpu():
 
 
 def test_vit_step_multi_device_options_raise():
-    """What still raises for ViT: the default rules shard params over fsdp,
-    and a mesh with fsdp > 1 asks for FSDP param sharding."""
+    """What still raises for ViT under param sharding: tp on the head's
+    classes, a dim the model does not compute locally (the default rules
+    train over fsdp and tp: tests/test_torch_param_shard.py)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+    from ray_tpu_torch.parallel.sharding import ShardingRules
 
-    shape = [2 if a == "fsdp" else 1 for a in AXIS_ORDER]
+    shape = [2 if a == "tp" else 1 for a in AXIS_ORDER]
     mesh = DeviceMesh("cpu", torch.arange(2).reshape(shape),
                       mesh_dim_names=AXIS_ORDER, _init_backend=False,
                       _rank=0)
-    with pytest.raises(NotImplementedError, match="FSDP/TP param sharding"):
+    with pytest.raises(NotImplementedError, match="head: tp on dim 1"):
         make_vit_train_step(vit.ViTConfig.tiny(), mesh, device="cpu",
+                            rules=ShardingRules().override(classes="tp"),
                             zero1=True)
 
 
