@@ -139,6 +139,40 @@ failure raises and the script exits non-zero without a result line:
    depth (16 layers below four cards) under zero1 at b1 s2048 a rank:
    tokens/s per card, MFU, per-rank peak memory; with one card it prints
    that it skipped;
+14. pipeline (GPipe) training at phase 13's Llama-3-8B width and depth
+   cut (8 of 32 layers), b4 s2048, 4 microbatches of one row, bf16, no
+   remat, JAX's default adamw (moments in the params' bf16), through
+   parallel.pipeline.make_pp_train_step on a one-rank NCCL mesh (pp=1:
+   the microbatch loop, the per-microbatch backward, the shared params'
+   reductions): the first loss against make_llama_train_step(mesh=None,
+   remat="none")'s with the unfused head (loss_fn(fused_ce=False)) on the
+   same params and batch, 1 warm-up and 3 timed steps, the loss falling,
+   launches per step as predicted (K1, K2, K3 at head_dim 128, per
+   microbatch), step ms, tokens/s, MFU, peak memory, the bubble share
+   (P - 1) / (M + P - 1) and a profiler split of one step;
+14b. with two or more cards, one card a rank (NCCL, at most four): pp2
+   (4 layers a stage) on two cards, pp2 x dp2 (two microbatches a rank)
+   and pp4 on four, each rank's losses step by step against phase 14's;
+   with one card it prints that it skipped;
+15. Mixtral training at 8x7B's published widths (vocab 32000, hidden
+   4096, MLP 14336, 32/8 heads of 128, 8 experts, top-2, capacity factor
+   1.25, rope theta 1e6), depth cut to 2 of 32 layers (3.165B params),
+   b4 s2048 (T 8192, capacity 2560), bf16, remat full, the step factory's
+   default adamw (bf16 moments), through make_mixtral_train_step: (a)
+   mesh=None and (b) the default rules on a one-rank NCCL mesh (expert
+   leaves over ep, the routing's claim gather and the ep conjugates on
+   one-rank groups), 1 warm-up and 3 timed steps each: step ms, tokens/s,
+   MFU over the active params, peak memory, launches per step as
+   predicted, (b)'s losses bit-equal to (a)'s, a profiler split of one
+   (a) step; the claims dropped past capacity at the seeded params, and
+   the one-hot dispatch/combine products timed at the step's shapes with
+   their share of the step;
+15b. with two or more cards (at most four): Mixtral at 4 layers under
+   ep = cards (each rank its experts, every rank the whole batch) and, on
+   four cards, dp2 x ep2: the first loss against one card's mesh=None
+   loss at that depth and layer 0's claims per expert against one card's
+   (equal under ep alone), step ms, tokens/s per card, MFU, per-rank
+   peak; with one card it prints that it skipped;
 11. cross-device: f32 engines at tiny width (d=64) and at 1B width with
    two layers (d=2048), CUDA (kernel) vs CPU (plain) greedy token streams
    must be equal; a bf16 trainer at small width, 3 steps on the card
@@ -2860,8 +2894,6 @@ def train_run(cfg, mesh, params, tokens, opts: dict, warmup: int,
     step times, peak memory over the steps (from the built state on) and
     moments' bytes on this rank (and a profiler split of one more step
     with ``profile``)."""
-    import gc
-
     import numpy as np
     import torch
     from ray_tpu_torch.parallel.sharding import ShardingRules
@@ -2875,10 +2907,24 @@ def train_run(cfg, mesh, params, tokens, opts: dict, warmup: int,
         optimizer=adamw_lowmem(3e-4, weight_decay=0.1), attn_impl="flash",
         remat="attn+", seed=SEED,
         device=torch.device("cuda", torch.cuda.current_device()), **opts)
+    return timed_steps(step, init, params, shard(tokens),
+                       shard(np.roll(tokens, -1, axis=1)), warmup, steps,
+                       counters, profile)
+
+
+def timed_steps(step, init, params, tok, tgt, warmup: int, steps: int,
+                counters=None, profile: bool = False) -> dict:
+    """``init(params)``, then ``warmup`` + ``steps`` steps of ``step`` on
+    (``tok``, ``tgt``), the counts reset right before the first step and
+    read right after the last; ``train_run``'s readings (and a profiler
+    split of one more step with ``profile``). The state dies here."""
+    import gc
+
+    import torch
+
     state = init(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tok, tgt = shard(tokens), shard(np.roll(tokens, -1, axis=1))
     for c in (counters or {}).values():
         c.launches = 0
     losses, norms = [], []
@@ -2911,7 +2957,7 @@ def train_run(cfg, mesh, params, tokens, opts: dict, warmup: int,
         state, out["profile"] = profile_steps(step, state, tok, tgt, 1,
                                               step_s, counters)
     gc.unfreeze()
-    del state, step, init, shard
+    del state
     torch.cuda.empty_cache()
     return out
 
@@ -3179,6 +3225,481 @@ def phase_train_ranks(world: int, one_card: dict) -> dict:
         if not m <= flat_m / world * 1.01:
             raise AssertionError(f"{name}: moments {m} GiB a rank, flat "
                                  f"{flat_m} over {world} ranks")
+    return res
+
+
+# Phase 14: GPipe pipeline training at phase 13's Llama-3-8B width and
+# depth cut, through parallel.pipeline.make_pp_train_step.
+P14_MICRO = 4  # microbatches of the global b4, one row each
+P14_WARMUP, P14_STEPS = 1, 3
+# The first loss against make_llama_train_step(mesh=None, remat="none")'s
+# on the same params and batch with the unfused head (loss_fn(fused_ce=
+# False)), absolute (the loss runs ~12): the pipeline's products take one
+# row at a time, so its bf16 activations round at other GEMM shapes than
+# the whole batch's, and its head accumulates the bf16 products in f32
+# where the reference multiplies the widened inputs in f32.
+P14_REF_TOL = 2e-2
+# The ranks' losses, step by step, against one card's pipeline, absolute:
+# the stages' bf16 activations cross NCCL unchanged, but the dp ranks'
+# bf16 gradients are summed (another rounding), and pp2 x dp2 runs two
+# microbatches a rank.
+P14B_TOL = 2e-2
+PIPELINE_TIMEOUT_S = 600
+
+
+def pipeline_run(cfg, mesh, params, tokens, micro: int, warmup: int,
+                 steps: int, counters=None, profile: bool = False) -> dict:
+    """``timed_steps`` of make_pp_train_step (flash attention, JAX's
+    default adamw) over ``mesh`` with ``micro`` microbatches a rank."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+
+    torch.cuda.empty_cache()
+    step, init, shard = make_pp_train_step(
+        cfg, mesh, micro, attn_impl="flash", seed=SEED,
+        device=torch.device("cuda", torch.cuda.current_device()))
+    return timed_steps(step, init, params, shard(tokens),
+                       shard(np.roll(tokens, -1, axis=1)), warmup, steps,
+                       counters, profile)
+
+
+def bubble_share(pp: int, micro: int) -> float:
+    """GPipe's idle share of a stage: (P - 1) / (M + P - 1)."""
+    return (pp - 1) / (micro + pp - 1)
+
+
+def phase_pipeline() -> dict:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.llama import init_params, loss_fn
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.train.backend import free_port, init_distributed
+
+    _phase(f"pipeline (GPipe) train at Llama-3-8B width ({P13_LAYERS} of 32 "
+           f"layers), b{P13_BATCH} s{P13_SEQ}, {P14_MICRO} microbatches, "
+           f"bf16, no remat, JAX's default adamw: pp=1 on a one-rank NCCL "
+           f"mesh")
+    cfg = cfg_8b(P13_LAYERS)
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        params = init_params(cfg, generator=SEED, device="cuda")
+        tokens = np.random.default_rng(SEED + 5).integers(
+            0, cfg.vocab_size, (P13_BATCH, P13_SEQ), dtype=np.int32)
+        tok = torch.as_tensor(tokens, device="cuda").long()
+        with torch.no_grad():
+            ref = float(loss_fn(cfg, params, tok, tok.roll(-1, 1),
+                                attn_impl="flash", remat="none",
+                                fused_ce=False))
+        del tok
+        torch.cuda.empty_cache()
+        counters = _counters()
+        r = pipeline_run(cfg, build_mesh(MeshSpec()), params, tokens,
+                         P14_MICRO, P14_WARMUP, P14_STEPS, counters,
+                         profile=True)
+        want = {k: float(v * P14_MICRO) for k, v in predicted_launches(
+            "none", cfg.num_layers).items()}
+        per_step = {k: n / (P14_WARMUP + P14_STEPS)
+                    for k, n in r["launches"].items()}
+        if per_step != want:
+            raise AssertionError(f"pipeline launches per step {per_step} "
+                                 f"!= the prediction {want}")
+        r["tokens_per_s"], r["mfu"] = _rates(cfg, P13_BATCH, r["step_ms"])
+        r["bubble"] = bubble_share(1, P14_MICRO)
+        diff = abs(r["losses"][0] - ref)
+        print(f"pp=1, {P14_MICRO} microbatches: {r['step_ms']:.2f} ms a step "
+              f"({_spread(r['step_ms_events'])} between CUDA events), "
+              f"{r['tokens_per_s']:.1f} tokens/s, MFU {100 * r['mfu']:.2f}%, "
+              f"peak {r['peak_gib']:.3f} GiB, moments "
+              f"{r['moments_gib']:.3f} GiB, bubble {r['bubble']:.3f}; loss "
+              + " ".join(f"{x:.6f}" for x in r["losses"])
+              + "; grad_norm " + " ".join(f"{x:.4f}" for x in r["norms"])
+              + "; launches per step " + ", ".join(
+                  f"{k} {v:g}" for k, v in per_step.items() if v))
+        print(f"first loss {r['losses'][0]:.6f} against mesh=None remat none "
+              f"with the unfused head {ref:.6f}: {diff:.3e} (limit "
+              f"{P14_REF_TOL})")
+        if not all(math.isfinite(x) for x in r["losses"]) or \
+                diff > P14_REF_TOL or not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"pipeline losses {r['losses']} against "
+                                 f"the reference's first {ref}")
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"layers": cfg.num_layers, "ref_loss": ref, "run": r}
+
+
+def _rank_pipeline(rank: int, world: int, store: str, out_path: str,
+                   port: int) -> None:
+    """One rank of ``phase_pipeline_ranks`` on card ``rank``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.train.backend import init_distributed
+
+    init_distributed(f"127.0.0.1:{port}", world, rank, device="cuda")
+    counters = _counters()
+    cfg = cfg_8b(P13_LAYERS)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (P13_BATCH, P13_SEQ), dtype=np.int32)
+    params = init_params(cfg, generator=SEED, device="cuda")
+    # name -> (mesh, microbatches a rank: one row each)
+    modes = {"pp2": (MeshSpec(pp=2), P14_MICRO)} if world == 2 else {
+        "pp2dp2": (MeshSpec(pp=2, dp=2), P14_MICRO // 2),
+        "pp4": (MeshSpec(pp=4), P14_MICRO)}
+    res = {}
+    for name, (spec, micro) in modes.items():
+        r = pipeline_run(cfg, build_mesh(spec), params, tokens, micro,
+                         P14_WARMUP, P14_STEPS, counters)
+        peaks = [None] * world
+        dist.all_gather_object(peaks, r["peak_gib"])
+        r.update(per_rank_peak_gib=peaks, pp=spec.pp, dp=spec.dp,
+                 micro=micro)
+        res[name] = r
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_pipeline_ranks(world: int, one_card: dict) -> dict:
+    """Phase 14b: the pipeline over ``world`` NCCL ranks (2 or 4), one
+    card each, at phase 14's model and global batch: pp2 on two cards
+    (4 layers a stage); pp2 x dp2 and pp4 on four. Losses step by step
+    against phase 14's one card."""
+    import tempfile
+
+    from ray_tpu_torch._spawn import run_ranks
+    from ray_tpu_torch.train.backend import free_port
+
+    _phase(f"pipeline train over {world} ranks, one card each")
+    cfg = cfg_8b(P13_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "rank0.json")
+        run_ranks(_rank_pipeline, world, tmp, (out_path, free_port()),
+                  PIPELINE_TIMEOUT_S)
+        with open(out_path) as f:
+            res = json.load(f)
+    for name, r in res.items():
+        r["bubble"] = bubble_share(r["pp"], r["micro"])
+        r["tokens_per_s_per_card"], r["mfu"] = _rates(
+            cfg, P13_BATCH / world, r["step_ms"])
+        print(f"{name} ({cfg.num_layers // r['pp']} layers a stage, "
+              f"{r['micro']} microbatches a rank, bubble "
+              f"{r['bubble']:.3f}): {r['step_ms']:.2f} ms a step on rank 0's "
+              f"host clock, {r['tokens_per_s_per_card']:.1f} tokens/s per "
+              f"card, MFU {100 * r['mfu']:.2f}%; peak GiB per rank "
+              f"{[round(p, 3) for p in r['per_rank_peak_gib']]}; loss "
+              + " ".join(f"{x:.6f}" for x in r["losses"])
+              + "; rank 0's launches " + ", ".join(
+                  f"{k} {v}" for k, v in r["launches"].items() if v))
+        _check_losses(f"{name} over {world} ranks", r["losses"],
+                      one_card["run"]["losses"], P14B_TOL, False)
+    return res
+
+
+# Phase 15: Mixtral-8x7B's published widths, depth cut, through
+# make_mixtral_train_step (one-hot dispatch, capacity routing).
+P15_LAYERS = 2  # ~3.16B params: params, gradients and moments ~25 GB
+P15_BATCH, P15_SEQ = 4, 2048  # T = 8192 tokens, capacity C = 2560
+P15_WARMUP, P15_STEPS = 1, 3
+P15_MODES = {  # label -> (what, on a one-rank mesh)
+    "a": ("mesh=None", False),
+    "b": ("default rules on a one-rank mesh: expert leaves over ep, FSDP "
+          "gathers, tp conjugates, global routing's claim gather and the "
+          "ep conjugates on one-rank groups", True),
+}
+# (b) does (a)'s arithmetic (every collective on a one-rank group is a
+# copy), and K3 repeats bit for bit: (a)'s losses exactly, step by step.
+P15_SAME_TOL = 0.0
+P15B_LAYERS = 4
+# The ranks' first loss against one card's mesh=None loss at the same
+# depth, absolute: the ep ranks' bf16 partial combines are summed over ep
+# (another rounding of each layer's output from layer 0's on).
+P15B_TOL = 2e-2
+# dp2 x ep2: layer 0's claims per expert against one card's, relative (its
+# attention runs two rows a rank: other GEMM shapes may move a router
+# logit's last bit, and a near-tie its top-2); ep alone: equal.
+P15B_CLAIMS_TOL = 1e-2
+MIXTRAL_TIMEOUT_S = 600
+
+
+def cfg_mixtral(layers: int):
+    """Mixtral-8x7B's published geometry (vocab 32000, hidden 4096, MLP
+    14336, 32/8 heads of 128, 8 experts, top-2, capacity factor 1.25, rope
+    theta 1e6), depth cut to ``layers``."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.mixtral import MixtralConfig
+
+    return replace(MixtralConfig.mixtral_8x7b(), num_layers=layers,
+                   max_seq_len=P15_SEQ)
+
+
+def _mixtral_rates(cfg, rows: float, step_ms: float) -> tuple:
+    """(tokens/s, MFU over the active top-2 params) of a card taking
+    ``rows`` rows of P15_SEQ tokens a step."""
+    import torch
+    from ray_tpu_torch.accelerators.flops import (
+        generation_of,
+        mixtral_train_flops,
+        peak_flops,
+    )
+
+    rate = peak_flops(generation_of(torch.cuda.get_device_name(0)) or "")
+    s = step_ms / 1e3
+    return rows * P15_SEQ / s, \
+        mixtral_train_flops(cfg, rows, P15_SEQ) / s / rate
+
+
+def drop_rates(cfg, claims: list, tokens: int) -> list:
+    """Each layer's share of claims past its expert's capacity."""
+    c = cfg.capacity(tokens)
+    return [1.0 - float(x.clamp(max=c).sum()) / float(x.sum())
+            for x in claims]
+
+
+def onehot_product_ms(cfg, tokens: int) -> dict:
+    """Device ms a call (CUDA events) of the three forms of the one-hot
+    products at a step's shapes ([T, E, C] against [T, H] or [E, C, H],
+    bf16): the dispatch form (forward, and the combine's gradient into
+    the expert outputs), the combine form (forward, and the dispatch's
+    gradient into the tokens) and the combine weights' gradient."""
+    import torch
+
+    e, c, h = cfg.num_experts, cfg.capacity(tokens), cfg.hidden_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    onehot, x, y, dy = rnd(tokens, e, c), rnd(tokens, h), rnd(e, c, h), \
+        rnd(tokens, h)
+    forms = {"dispatch": lambda: torch.einsum("tec,th->ech", onehot, x),
+             "combine": lambda: torch.einsum("tec,ech->th", onehot, y),
+             "combine_grad": lambda: torch.einsum("th,ech->tec", dy, y)}
+    return {k: events_ms(f, 10) for k, f in forms.items()}
+
+
+def phase_mixtral() -> dict:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.train import make_mixtral_train_step
+    from ray_tpu_torch.train.backend import free_port, init_distributed
+
+    cfg = cfg_mixtral(P15_LAYERS)
+    t = P15_BATCH * P15_SEQ
+    _phase(f"Mixtral train at 8x7B width ({P15_LAYERS} of 32 layers), "
+           f"b{P15_BATCH} s{P15_SEQ} (T {t}, capacity {cfg.capacity(t)}), "
+           f"bf16, remat full, the step factory's default adamw (bf16 "
+           f"moments): mesh=None and the default rules on a one-rank mesh")
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        params = mixtral.init_params(cfg, generator=SEED, device="cuda")
+        tokens = np.random.default_rng(SEED + 7).integers(
+            0, cfg.vocab_size, (P15_BATCH, P15_SEQ), dtype=np.int32)
+        claims = []
+        with torch.no_grad():
+            mixtral.forward_hidden(
+                cfg, params, torch.as_tensor(tokens, device="cuda").long(),
+                attn_impl="flash", remat=False, route_stats=claims)
+        drops = drop_rates(cfg, claims, t)
+        print(f"{cfg.num_params() / 1e9:.3f}B params "
+              f"({cfg.num_params(active=True) / 1e9:.3f}B active: top-"
+              f"{cfg.top_k} of {cfg.num_experts} experts); claims dropped "
+              f"past capacity by layer at the first step's params: "
+              + ", ".join(f"{100 * d:.2f}%" for d in drops)
+              + "; claims per expert, layer 0: " + str(claims[0].tolist()))
+        counters = _counters()
+        runs = {}
+        for key, (what, on_mesh) in P15_MODES.items():
+            torch.cuda.empty_cache()
+            step, init, shard = make_mixtral_train_step(
+                cfg, build_mesh(MeshSpec()) if on_mesh else None,
+                attn_impl="flash", remat=True, seed=SEED,
+                device=torch.device("cuda", torch.cuda.current_device()))
+            r = runs[key] = timed_steps(
+                step, init, params, shard(tokens),
+                shard(np.roll(tokens, -1, axis=1)), P15_WARMUP, P15_STEPS,
+                counters, profile=key == "a")
+            del step, init, shard
+            want = {k: float(v) for k, v in predicted_launches(
+                "full", cfg.num_layers).items()}
+            per_step = {k: n / (P15_WARMUP + P15_STEPS)
+                        for k, n in r["launches"].items()}
+            if per_step != want:
+                raise AssertionError(f"({key}) Mixtral launches per step "
+                                     f"{per_step} != the prediction {want}")
+            r["tokens_per_s"], r["mfu"] = _mixtral_rates(cfg, P15_BATCH,
+                                                         r["step_ms"])
+            print(f"({key}) {what}: {r['step_ms']:.2f} ms a step "
+                  f"({_spread(r['step_ms_events'])} between CUDA events), "
+                  f"{r['tokens_per_s']:.1f} tokens/s, MFU "
+                  f"{100 * r['mfu']:.2f}% (active params), peak "
+                  f"{r['peak_gib']:.3f} GiB, moments {r['moments_gib']:.3f} "
+                  f"GiB; loss " + " ".join(f"{x:.6f}" for x in r["losses"])
+                  + "; grad_norm " + " ".join(f"{x:.4f}" for x in r["norms"])
+                  + "; launches per step " + ", ".join(
+                      f"{k} {v:g}" for k, v in per_step.items() if v))
+        a = runs["a"]["losses"]
+        if not a[-1] < a[0]:
+            raise AssertionError(f"(a) Mixtral losses do not fall: {a}")
+        _check_losses("(b)", runs["b"]["losses"], a, P15_SAME_TOL, True)
+        print(f"(b) against (a): losses bit-equal step by step "
+              f"{[x == y for x, y in zip(runs['b']['losses'], a)]}")
+        prod = onehot_product_ms(cfg, t)
+        # A layer's forward runs the dispatch and combine forms once, the
+        # full remat's recompute again, its backward the combine form
+        # (into the tokens), the dispatch form (into the expert outputs)
+        # and the combine weights' gradient.
+        onehot_ms = cfg.num_layers * (3 * prod["dispatch"]
+                                      + 3 * prod["combine"]
+                                      + prod["combine_grad"])
+        share = onehot_ms / runs["a"]["step_ms"]
+        flop = 2.0 * t * cfg.num_experts * cfg.capacity(t) * cfg.hidden_size
+        print(f"one-hot products at T {t}, E {cfg.num_experts}, C "
+              f"{cfg.capacity(t)}, H {cfg.hidden_size} ({flop / 1e12:.3f} "
+              f"TFLOP each): dispatch {prod['dispatch']:.3f} ms, combine "
+              f"{prod['combine']:.3f} ms, combine weights' gradient "
+              f"{prod['combine_grad']:.3f} ms; 7 a layer a step = "
+              f"{onehot_ms:.2f} ms = {100 * share:.1f}% of (a)'s step "
+              f"(event-timed products x their count, not a profiler "
+              f"attribution)")
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"layers": cfg.num_layers, "params": cfg.num_params(),
+            "active_params": cfg.num_params(active=True),
+            "capacity": cfg.capacity(t), "drop_rate": drops,
+            "claims_layer0": claims[0].tolist(), "runs": runs,
+            "onehot_ms": prod, "onehot_ms_per_step": onehot_ms,
+            "onehot_share": share}
+
+
+def _rank_mixtral(rank: int, world: int, store: str, out_path: str,
+                  port: int) -> None:
+    """One rank of ``phase_mixtral_ranks`` on card ``rank``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.param_shard import ParamShard
+    from ray_tpu_torch.parallel.sharding import ShardingRules, shard_params
+    from ray_tpu_torch.train import make_mixtral_train_step
+    from ray_tpu_torch.train.backend import init_distributed
+
+    init_distributed(f"127.0.0.1:{port}", world, rank, device="cuda")
+    counters = _counters()
+    cfg = cfg_mixtral(P15B_LAYERS)
+    t = P15_BATCH * P15_SEQ
+    tokens = np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (P15_BATCH, P15_SEQ), dtype=np.int32)
+    params = mixtral.init_params(cfg, generator=SEED, device="cuda")
+    res = {}
+    if rank == 0:  # one card's loss and routing at this depth
+        claims = []
+        tok = torch.as_tensor(tokens, device="cuda").long()
+        with torch.no_grad():
+            loss = mixtral.loss_fn(cfg, params, tok, tok.roll(-1, 1),
+                                   attn_impl="flash", remat=False,
+                                   route_stats=claims)
+        res["one_card"] = {"loss": float(loss),
+                           "claims": [c.tolist() for c in claims]}
+        del tok, loss
+        torch.cuda.empty_cache()
+    dist.barrier()
+    logical = mixtral.param_logical_axes(cfg)
+    modes = {f"ep{world}": MeshSpec(ep=world)}
+    if world == 4:
+        modes["dp2ep2"] = MeshSpec(dp=2, ep=2)
+    for name, spec in modes.items():
+        mesh = build_mesh(spec)
+        step, init, shard = make_mixtral_train_step(
+            cfg, mesh, attn_impl="flash", remat=True, seed=SEED,
+            device=torch.device("cuda", rank))
+        tok, tgt = shard(tokens), shard(np.roll(tokens, -1, axis=1))
+        # The routing of the first step's params through the step's model.
+        ps = ParamShard(mesh, logical, ShardingRules(), ("dp", "fsdp", "sp"))
+        routing = mixtral.RoutingGroup.of_mesh(mesh, ("dp", "fsdp"))
+        claims = []
+        with torch.no_grad():
+            mixtral.forward_hidden(
+                cfg, shard_params(params, mesh, logical), tok.long(),
+                attn_impl="flash", remat=False, param_shard=ps,
+                routing=routing, route_stats=claims)
+        torch.cuda.empty_cache()
+        r = timed_steps(step, init, params, tok, tgt, P15_WARMUP, P15_STEPS,
+                        counters)
+        del step, init, shard
+        peaks = [None] * world
+        dist.all_gather_object(peaks, r["peak_gib"])
+        r.update(per_rank_peak_gib=peaks, dp=spec.dp, ep=spec.ep,
+                 claims=[c.tolist() for c in claims],
+                 drop_rate=drop_rates(cfg, claims, t))
+        res[name] = r
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_mixtral_ranks(world: int) -> dict:
+    """Phase 15b: Mixtral at 8x7B width, P15B_LAYERS layers, over
+    ``world`` NCCL ranks (2 or 4), one card each: ep = world (each rank 8
+    / world experts, every rank on the whole batch), and on four cards dp2
+    x ep2; the first loss against one card's mesh=None loss at the same
+    depth, layer 0's claims per expert against one card's."""
+    import tempfile
+
+    from ray_tpu_torch._spawn import run_ranks
+    from ray_tpu_torch.train.backend import free_port
+
+    _phase(f"Mixtral train over {world} ranks, one card each "
+           f"({P15B_LAYERS} layers)")
+    cfg = cfg_mixtral(P15B_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "rank0.json")
+        run_ranks(_rank_mixtral, world, tmp, (out_path, free_port()),
+                  MIXTRAL_TIMEOUT_S)
+        with open(out_path) as f:
+            res = json.load(f)
+    one = res.pop("one_card")
+    print(f"one card, mesh=None, no grad: loss {one['loss']:.6f}; layer 0's "
+          f"claims per expert {one['claims'][0]}")
+    for name, r in res.items():
+        rows = P15_BATCH / world  # a card's share of the global batch
+        r["tokens_per_s_per_card"], r["mfu"] = _mixtral_rates(
+            cfg, rows, r["step_ms"])
+        diff = abs(r["losses"][0] - one["loss"])
+        got, want = r["claims"][0], one["claims"][0]
+        worst = max(abs(g - w) / w for g, w in zip(got, want))
+        print(f"{name}: {r['step_ms']:.2f} ms a step on rank 0's host "
+              f"clock, {r['tokens_per_s_per_card']:.1f} tokens/s per card, "
+              f"MFU {100 * r['mfu']:.2f}%; peak GiB per rank "
+              f"{[round(p, 3) for p in r['per_rank_peak_gib']]}; loss "
+              + " ".join(f"{x:.6f}" for x in r["losses"])
+              + f"; first loss off one card's by {diff:.3e} (limit "
+              f"{P15B_TOL}); layer 0's claims {got} (worst {worst:.2e} "
+              f"off one card's); drops by layer "
+              + ", ".join(f"{100 * d:.2f}%" for d in r["drop_rate"]))
+        limit = P15B_CLAIMS_TOL if r["dp"] > 1 else 0.0
+        if not all(math.isfinite(x) for x in r["losses"]) or \
+                diff > P15B_TOL or worst > limit:
+            raise AssertionError(f"{name} over {world} ranks: first loss "
+                                 f"{r['losses'][0]} vs {one['loss']}, "
+                                 f"layer 0 claims {got} vs {want}")
+    res["one_card"] = one
     return res
 
 
@@ -3461,6 +3982,8 @@ def main() -> int:
     cp = phase_cp_train()
     vit = phase_vit()
     train8b = phase_train_8b()
+    pipe = phase_pipeline()
+    moe = phase_mixtral()
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -3468,10 +3991,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         ranks = phase_ranks(world)
         train_ranks = phase_train_ranks(world, train8b)
+        pipe_ranks = phase_pipeline_ranks(min(world, 4), pipe)
+        moe_ranks = phase_mixtral_ranks(min(world, 4))
     else:
         _phase("ring over ranks: skipped (one card visible)")
         _phase("data-parallel train over ranks: skipped (one card visible)")
-        ranks = train_ranks = None
+        _phase("pipeline train over ranks: skipped (one card visible)")
+        _phase("Mixtral train over ranks: skipped (one card visible)")
+        ranks = train_ranks = pipe_ranks = moe_ranks = None
     phase_cross_device()
     phase_cross_device_train()
     phase_cross_device_vit()
@@ -3493,7 +4020,11 @@ def main() -> int:
                                  vit["split"]["launches"]["rms_norm"],
                              "train_8b": {
                                  k_: train8b["runs"][k_]["launches"][
-                                     "rms_norm"] for k_ in P13_MODES}},
+                                     "rms_norm"] for k_ in P13_MODES},
+                             "pipeline": pipe["run"]["launches"]["rms_norm"],
+                             "mixtral": {
+                                 k_: moe["runs"][k_]["launches"]["rms_norm"]
+                                 for k_ in P15_MODES}},
         "max_abs_err": max_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -3521,7 +4052,10 @@ def main() -> int:
                 "vit_fused": vit["fused"]["launches"][name],
                 "vit_split": vit["split"]["launches"][name],
                 "train_8b": {k_: train8b["runs"][k_]["launches"][name]
-                             for k_ in P13_MODES}},
+                             for k_ in P13_MODES},
+                "pipeline": pipe["run"]["launches"][name],
+                "mixtral": {k_: moe["runs"][k_]["launches"][name]
+                            for k_ in P15_MODES}},
             "max_abs_err": max(row["max_abs_err"],
                                vit["attention"][name]["max_abs_err"]),
             "ms": row["ms"],
@@ -3618,7 +4152,9 @@ def main() -> int:
                       "train_split": train_split, "ring_schedule": ring,
                       "cp_train": cp, "vit": vit_summary,
                       "prof_flash_pack": sweep, "ranks": ranks,
-                      "train_8b": train8b, "train_ranks": train_ranks}))
+                      "train_8b": train8b, "train_ranks": train_ranks,
+                      "pipeline": pipe, "pipeline_ranks": pipe_ranks,
+                      "mixtral": moe, "mixtral_ranks": moe_ranks}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

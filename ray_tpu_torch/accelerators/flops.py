@@ -3,7 +3,8 @@
 The JAX package's table (ray_tpu/accelerators/flops.py) lists TPU
 generations only. This one lists the NVIDIA card the port runs on, from
 its data sheet (H100 SXM, dense, at the full 700 W power limit), and
-counts a Llama and a ViT training step's FLOPs from their shapes.
+counts a Llama, a Mixtral and a ViT training step's FLOPs from their
+shapes.
 """
 
 from __future__ import annotations
@@ -40,6 +41,19 @@ def llama_train_flops(cfg, batch: int, seq: int) -> float:
     ``num_params`` counts it), plus 3x each layer's causal attention
     forward. Remat's recomputation is not counted (MFU convention)."""
     dense = 6.0 * cfg.num_params() * batch * seq
+    attn = 3.0 * cfg.num_layers * attention_flops(
+        batch, cfg.num_heads, seq, cfg.head_dim, causal=True)
+    return dense + attn
+
+
+def mixtral_train_flops(cfg, batch: int, seq: int) -> float:
+    """FLOPs of one Mixtral training step: 6 * the active params (each
+    token's top-k experts, ``num_params(active=True)``) * tokens, plus 3x
+    each layer's causal attention forward. The one-hot dispatch and
+    combine products, the capacity's padded slots and remat's
+    recomputation are not counted (MFU convention: the model's work,
+    not this design's)."""
+    dense = 6.0 * cfg.num_params(active=True) * batch * seq
     attn = 3.0 * cfg.num_layers * attention_flops(
         batch, cfg.num_heads, seq, cfg.head_dim, causal=True)
     return dense + attn

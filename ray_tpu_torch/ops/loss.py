@@ -101,6 +101,34 @@ class _FusedCrossEntropy(torch.autograd.Function):
         return (dx, dhead.to(head_w.dtype), None, None, None, None, None)
 
 
+class _LogitsF32(torch.autograd.Function):
+    """x [N, H] @ head [H, V] -> f32 logits; the backward's products
+    round the f32 cotangent to the inputs' dtype first, as the fused
+    loss's backward does."""
+
+    @staticmethod
+    def forward(ctx, x, head_w):
+        ctx.save_for_backward(x, head_w)
+        return _mm_f32(x, head_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head_w = ctx.saved_tensors
+        dx = _mm_f32(g.to(head_w.dtype), head_w.t()).to(x.dtype)
+        dhead = _mm_f32(x.t(), g.to(x.dtype)).to(head_w.dtype)
+        return dx, dhead
+
+
+def logits_f32(x: torch.Tensor, head_w: torch.Tensor) -> torch.Tensor:
+    """x [..., H] @ head_w [H, V] -> f32 logits [..., V], accumulated in
+    f32 from the inputs' own dtype (JAX's ``einsum(...,
+    preferred_element_type=jnp.float32)``): bf16 tensor-core products on
+    the card, not an f32 GEMM of widened inputs."""
+    lead = x.shape[:-1]
+    out = _LogitsF32.apply(x.reshape(-1, x.shape[-1]), head_w)
+    return out.view(*lead, head_w.shape[1])
+
+
 def fused_cross_entropy(x: torch.Tensor, head_w: torch.Tensor,
                         targets: torch.Tensor,
                         mask: torch.Tensor | None = None,

@@ -13,16 +13,19 @@ port calls them itself, from the model's forward:
   backward. The models gather each layer's leaves inside that layer's
   remat segment, so a recompute gathers again and no layer's whole
   weights outlive their use;
-- ``_CopyToTP``: identity forward, all-reduce over tp backward
-  (Megatron's f): on the normed activations before a column-parallel
-  product, so that their gradient, and the norm weight's, is whole and
-  the same on every tp rank;
-- ``_ReduceFromTP``: all-reduce over tp forward, identity backward
-  (Megatron's g): after a row-parallel product, and after the
-  vocab-parallel embedding lookup;
+- ``_CopyTo``: identity forward, all-reduce over a group backward
+  (Megatron's f): over tp on the normed activations before a
+  column-parallel product, so that their gradient, and the norm
+  weight's, is whole and the same on every tp rank; over ep on the
+  inputs of a rank's own experts and on the gate values;
+- ``_ReduceFrom``: all-reduce over a group forward, identity backward
+  (Megatron's g): over tp after a row-parallel product and after the
+  vocab-parallel embedding lookup; over ep after a rank's partial
+  expert combine;
 - ``ParamShard``: per leaf, which dims are gathered and over which groups
-  (every sharded mesh axis but tp), and the tp group the models compute
-  their local heads, MLP columns and vocabulary rows over.
+  (every sharded mesh axis but tp and ep), and the tp and ep groups the
+  models compute their local heads, MLP columns, vocabulary rows and
+  experts over.
 
 Axes of size 1 count: a one-rank mesh runs the same collectives on
 one-rank groups.
@@ -47,6 +50,8 @@ from ray_tpu_torch.parallel.sharding import (
 # Logical dims a model computes on locally under tp (its local heads, MLP
 # columns or vocabulary rows); any other dim on tp is refused.
 TP_LOGICAL = ("heads", "kv_heads", "mlp", "vocab")
+# The one logical dim a model computes on locally under ep (its experts).
+EP_LOGICAL = "expert"
 
 
 def _dist():
@@ -87,8 +92,8 @@ class _Gather(torch.autograd.Function):
         return _reduce_scatter(g, *ctx.meta), None, None, None, None
 
 
-class _CopyToTP(torch.autograd.Function):
-    """Identity forward, all-reduce (sum) over the tp group backward."""
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, all-reduce (sum) over the group backward."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -102,8 +107,8 @@ class _CopyToTP(torch.autograd.Function):
         return g, None
 
 
-class _ReduceFromTP(torch.autograd.Function):
-    """All-reduce (sum) over the tp group forward, identity backward."""
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce (sum) over the group forward, identity backward."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -136,15 +141,29 @@ def check_layout(sizes: dict, logical_axes, rules: ShardingRules,
             if logical[dim] == "layers":
                 raise NotImplementedError(
                     f"{name}: the rules shard the stacked layers dim over "
-                    f"{axes} (pipeline stages are not ported)")
+                    f"{axes}; pipeline stages are "
+                    f"parallel.pipeline.make_pp_train_step's own "
+                    f"placement, not a rule of this step")
             if "tp" in axes and (len(axes) > 1
                                  or logical[dim] not in TP_LOGICAL):
                 raise NotImplementedError(
                     f"{name}: tp on dim {dim} ({logical[dim]!r}, axes "
                     f"{axes}) is not ported: the models compute locally "
                     f"only on {TP_LOGICAL}, each over tp alone")
-            bad = [a for a in axes if a != "tp" and a not in gather_axes
-                   and sizes[a] > 1]
+            if "ep" in axes and (axes != ("ep",)
+                                 or logical[dim] != EP_LOGICAL):
+                raise NotImplementedError(
+                    f"{name}: ep on dim {dim} ({logical[dim]!r}, axes "
+                    f"{axes}) is not ported: a model computes locally "
+                    f"only on {EP_LOGICAL!r}, over ep alone")
+            if axes == ("ep",) and "ep" in gather_axes \
+                    and sizes["ep"] > 1:
+                raise NotImplementedError(
+                    f"{name}: experts over ep while the batch splits over "
+                    f"ep too (an all-to-all dispatch) is not ported: ep "
+                    f"ranks must hold the same tokens")
+            bad = [a for a in axes if a not in ("tp", "ep")
+                   and a not in gather_axes and sizes[a] > 1]
             if bad:
                 raise NotImplementedError(
                     f"{name}: dim {dim} split over {bad}, not a "
@@ -158,11 +177,12 @@ def check_layout(sizes: dict, logical_axes, rules: ShardingRules,
 
 class ParamShard:
     """A model's view of its sharded params over a mesh: per leaf path,
-    the dims its forward gathers (every axis but tp, each in the data
-    axes ``gather_axes`` or of size 1), and the tp group it computes its
-    local shards over. Raises ``NotImplementedError`` for a layout the
-    models cannot compute on: tp on a dim other than :data:`TP_LOGICAL`'s
-    or together with another axis on one dim, the stacked ``layers`` dim
+    the dims its forward gathers (every axis but tp and ep, each in the
+    data axes ``gather_axes`` or of size 1), and the tp and ep groups it
+    computes its local shards over. Raises ``NotImplementedError`` for a
+    layout the models cannot compute on: tp on a dim other than
+    :data:`TP_LOGICAL`'s, ep on another than :data:`EP_LOGICAL`, either
+    together with another axis on one dim, the stacked ``layers`` dim
     sharded, a param dim split over a non-data axis of size > 1."""
 
     def __init__(self, mesh, logical_axes, rules: ShardingRules,
@@ -174,15 +194,20 @@ class ParamShard:
         layout = check_layout(sizes, logical_axes, rules, gather_axes)
         self.tp_n, self.tp_rank = sizes["tp"], coords["tp"]
         self.tp = mesh.get_group("tp")
+        self.ep_n, self.ep_rank = sizes["ep"], coords["ep"]
+        self.ep = mesh.get_group("ep")
         self.gathers: dict[tuple, tuple] = {}
-        self.tp_dims: dict[tuple, int | None] = {}
+        self.local_dims: dict[tuple, tuple] = {}
         self.shard_axes: dict[tuple, tuple[str, ...]] = {}
         for path, dims in layout.items():
-            gathers, used, tp_dim = [], [], None
+            gathers, used, local = [], [], []
             for dim, axes in dims:
                 used.extend(axes)
                 if axes == ("tp",):
-                    tp_dim = dim
+                    local.append((dim, self.tp_n, self.tp))
+                    continue
+                if axes == ("ep",):
+                    local.append((dim, self.ep_n, self.ep))
                     continue
                 n = 1
                 for a in axes:
@@ -194,7 +219,7 @@ class ParamShard:
                     torch.as_tensor(blocks))
                 gathers.append((dim, n, group, order))
             self.gathers[path] = tuple(gathers)
-            self.tp_dims[path] = tp_dim
+            self.local_dims[path] = tuple(local)
             self.shard_axes[path] = tuple(used)
 
     # -- gathers -----------------------------------------------------------
@@ -205,20 +230,19 @@ class ParamShard:
             t = _Gather.apply(t, dim, n, group, order)
         return t
 
-    def tp_full(self, path: tuple, t: torch.Tensor) -> torch.Tensor:
+    def local_full(self, path: tuple, t: torch.Tensor) -> torch.Tensor:
         """``t``, a block of leaf ``path`` or its gradient, gathered over
-        tp on the leaf's tp dim (no gradient)."""
-        dim = self.tp_dims[path]
-        if dim is None:
-            return t
+        tp and ep on the leaf's local dims (no gradient)."""
         with torch.no_grad():
-            return _all_gather(t, dim, self.tp_n, self.tp, None)
+            for dim, n, group in self.local_dims[path]:
+                t = _all_gather(t, dim, n, group, None)
+        return t
 
     def whole(self, path: tuple, t: torch.Tensor) -> torch.Tensor:
-        """Leaf ``path``'s block ``t`` gathered over every axis, tp too
-        (no gradient)."""
+        """Leaf ``path``'s block ``t`` gathered over every axis, tp and ep
+        too (no gradient)."""
         with torch.no_grad():
-            return self.tp_full(path, self.full(path, t))
+            return self.local_full(path, self.full(path, t))
 
     def layer(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """One layer's slice of the stacked leaf ``layers/name``,
@@ -230,10 +254,18 @@ class ParamShard:
     # -- tensor parallel -----------------------------------------------------
 
     def copy_to_tp(self, x: torch.Tensor) -> torch.Tensor:
-        return _CopyToTP.apply(x, self.tp)
+        return _CopyTo.apply(x, self.tp)
 
     def reduce_from_tp(self, x: torch.Tensor) -> torch.Tensor:
-        return _ReduceFromTP.apply(x, self.tp)
+        return _ReduceFrom.apply(x, self.tp)
+
+    # -- expert parallel -----------------------------------------------------
+
+    def copy_to_ep(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyTo.apply(x, self.ep)
+
+    def reduce_from_ep(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceFrom.apply(x, self.ep)
 
     def local(self, n: int, what: str) -> int:
         """This tp rank's share of ``n`` (heads, say); raises where tp

@@ -9,6 +9,7 @@ hosts the ``TCPStore`` the others meet at.
 from __future__ import annotations
 
 import os
+import random
 import socket
 from datetime import timedelta
 
@@ -18,12 +19,37 @@ import torch
 TIMEOUT = timedelta(seconds=300)
 
 
+def _ephemeral_floor() -> int:
+    """The lowest port of the kernel's ephemeral range (Linux's default
+    32768 where it cannot be read)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    """A TCP port on 127.0.0.1 that nothing holds now, drawn at random
+    from below the kernel's ephemeral range. A port the kernel hands out
+    for port 0 comes from that range, which every connection and every
+    gloo listener draws from too, so between this call and the caller's
+    bind another process could take it; below the range only another
+    caller's random pick can. Falls back to a port-0 pick when none is
+    free."""
+    floor = _ephemeral_floor()
+    rng = random.SystemRandom()
+    for _ in range(64):
+        port = rng.randrange(max(1024, floor // 2), floor)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def init_distributed(coordinator_addr: str, num_processes: int,

@@ -10,7 +10,9 @@ ray_tpu/train/spmd.py builds. A ``GradientTransformation`` is an
   promotion gives) -> ``add_decayed_weights`` -> ``scale_by_learning_rate``;
 - ``adamw_lowmem(lr, ...)``: ``scale_by_adam_compact`` (both moments
   stored in ``moment_dtype``, default bf16, all update math in f32) ->
-  decoupled weight decay -> ``-lr`` scale.
+  decoupled weight decay -> ``-lr`` scale;
+- ``sgd(lr)``: optax.sgd without momentum, ``scale_by_learning_rate`` in
+  a chain.
 
 State is updated in place: ``update`` writes the new moments and count
 into the tensors of the state it was given and returns that same state,
@@ -173,6 +175,13 @@ def adamw(learning_rate: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
     return chain(scale_by_adam(b1, b2, eps, mu_dtype),
                  add_decayed_weights(weight_decay),
                  scale_by_learning_rate(learning_rate))
+
+
+def sgd(learning_rate: float) -> GradientTransformation:
+    """optax.sgd(learning_rate) with no momentum: a chain of one
+    ``scale_by_learning_rate``, as optax builds it (its state a tuple of
+    one empty state)."""
+    return chain(scale_by_learning_rate(learning_rate))
 
 
 def adamw_lowmem(learning_rate: float = 3e-4, b1: float = 0.9,

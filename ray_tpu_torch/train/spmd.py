@@ -37,36 +37,42 @@ gradient norm, the same on every rank:
   them in f32 after the move. Each leaf pads to ``dcn_n * ici_n *
   bucket`` elements, so buckets fall at JAX's flat offsets;
 - ``grad_accum=N``: N microbatches of forward + backward accumulate into
-  ``.grad``, scaled by 1/N; one gradient sync and one update at the end;
+  ``.grad``, scaled by 1/N; one gradient sync and one update at the end.
+  Microbatch i is the global batch's rows ``[i B/N, (i+1) B/N)``, as
+  JAX splits it, each rank holding its share of every one (outside the
+  explicit hierarchy, ``data_sharder`` hands a rank those rows, i-major),
+  so a loss that couples a microbatch's rows (Mixtral's routing) sees
+  JAX's microbatches;
 - ``grad_norm_every=N``: the norm is computed on steps whose counter is a
   multiple of N, -1 on the others.
 
 A one-rank mesh runs every collective of its mode on one-rank groups.
 
-Param sharding (FSDP and TP): whenever the rules map a param dim onto a
-mesh axis (JAX's default table: ``embed`` on fsdp, ``heads``/
-``kv_heads``/``mlp``/``vocab`` on tp; size-1 axes count), each rank's
-``state.params`` holds its block of each leaf, as
+Param sharding (FSDP, TP and EP): whenever the rules map a param dim
+onto a mesh axis (JAX's default table: ``embed`` on fsdp, ``heads``/
+``kv_heads``/``mlp``/``vocab`` on tp, ``expert`` on ep; size-1 axes
+count), each rank's ``state.params`` holds its block of each leaf, as
 ``NamedSharding(mesh, rules.spec(*logical))`` lays it out, and the step
 calls ``loss(params, tokens, targets, param_shard=...)``, whose model
 gathers each layer over fsdp inside its remat segment and computes its
-local heads, MLP columns and vocabulary rows under tp
-(``parallel.param_shard``). A gather's backward reduce-scatters, so a
-leaf's gradient arrives summed over the data axes that split it; the
-step then averages it over the data axes that do not (dp, sp), dividing
-by the whole data-parallel size, and never over tp. Every mode above
-applies to the local blocks: ``zero1`` takes pieces of each block's
-padded flat view over the data axes that do not split the leaf. Under
+local heads, MLP columns and vocabulary rows under tp, and its own
+experts under ep (``parallel.param_shard``). A gather's backward
+reduce-scatters, so a leaf's gradient arrives summed over the data axes
+that split it; the step then averages it over the data axes that do not
+(dp, sp), dividing by the whole data-parallel size, and never over tp
+or ep. Every mode above applies to the local blocks: ``zero1`` takes
+pieces of each block's padded flat view over the data axes that do not
+split the leaf. Under
 ``dcn_axes`` (the explicit hierarchy) the gradient and the update run on
 each whole leaf's padded flat view, as JAX's do, so that pieces and int8
 buckets fall at JAX's flat offsets: a leaf's block gradient is placed in
-a zeroed whole leaf (its tp blocks gathered first) and the reduce-scatter
-over the slice sums the ranks' blocks, and the updated whole leaf is cut
-back to the block; one whole leaf at a time is alive, and each step moves
-fsdp times a block's gradient bytes where a reshard would move them once
-(ROADMAP Queue A item 1). The gradient norm
-is the whole gradient's: square sums all-reduced over the axes that
-split each leaf, a leaf replicated over tp counted once. Not done
+a zeroed whole leaf (its tp and ep blocks gathered first) and the
+reduce-scatter over the slice sums the ranks' blocks, and the updated
+whole leaf is cut back to the block; one whole leaf at a time is alive,
+and each step moves fsdp times a block's gradient bytes where a reshard
+would move them once (ROADMAP Queue A item 1). The gradient norm is the
+whole gradient's: square sums all-reduced over the axes that split each
+leaf, a leaf replicated over tp or ep counted once. Not done
 (``NotImplementedError``): sp > 1 with a param split over an axis of
 size > 1; checkpointing a param-sharded state under ``zero1`` or
 ``dcn_axes``; the layouts ``ParamShard`` refuses.
@@ -101,7 +107,7 @@ from ray_tpu_torch.collective.quant import (
     dequantize_int8_buckets,
     quantize_int8_bucketed,
 )
-from ray_tpu_torch.models import vit
+from ray_tpu_torch.models import mixtral, vit
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
     init_params,
@@ -679,7 +685,7 @@ def make_train_step(
         shards, p_pieces = [], []
         for (path, p), blk in zip(tree_paths(params), blocks):
             g, p.grad = p.grad, None
-            g = ps.tp_full(path, g)
+            g = ps.local_full(path, g)
             whole = g.new_zeros(blk.shape)
             whole[_block_index(blk, g.shape)] = g
             del g
@@ -775,7 +781,15 @@ def make_train_step(
                     f"batch {b} not divisible by the {plan.data_n} ranks of "
                     f"the batch axes {data_axes}")
             rows = b // plan.data_n
-            arr = arr[plan.data_index * rows:(plan.data_index + 1) * rows]
+            if grad_accum > 1 and not explicit_hier:
+                _check_batch(rows)  # this rank's share of each microbatch
+                mb = rows // grad_accum
+                arr = arr.reshape(grad_accum, plan.data_n, mb,
+                                  *arr.shape[1:])[:, plan.data_index]
+                arr = arr.reshape(rows, *arr.shape[2:])
+            else:
+                arr = arr[plan.data_index * rows:
+                          (plan.data_index + 1) * rows]
         if isinstance(arr, torch.Tensor):
             return arr.to(dev)
         return torch.as_tensor(np.asarray(arr), device=dev)
@@ -837,6 +851,54 @@ def make_llama_train_step(
         mesh, loss=loss,
         init_fn=partial(init_params, cfg, device=dev),
         logical_axes=param_logical_axes(cfg), rules=rules,
+        optimizer=optimizer, seed=seed, device=dev, **step_options,
+    )
+
+
+def make_mixtral_train_step(
+    cfg,
+    mesh=None,
+    rules: ShardingRules | None = None,
+    optimizer: GradientTransformation | None = None,
+    attn_impl: str = "flash",
+    remat: bool | str = True,
+    seed: int = 0,
+    device: torch.device | str = "cuda",
+    **step_options,
+) -> tuple[Callable, Callable, Callable]:
+    """Mixtral (``models.mixtral``) specialization of
+    :func:`make_train_step`, as JAX's: expert weights shard over ``ep``
+    under the default rules (each ep rank runs its own experts on the
+    same tokens, its partial combine summed over ep). Over a mesh the
+    routing spans the global batch (``mixtral.RoutingGroup`` over the
+    batch axes: the capacity, each claim's slot and the aux's statistics
+    are the global batch's, or the global microbatch's under
+    ``grad_accum``). Not ported (``NotImplementedError``): sp > 1, and
+    ``dcn_axes`` (JAX's hierarchical step routes each slice apart)."""
+    dev = resolve_device(device)
+    routing = None
+    if mesh is not None:
+        sizes = axis_sizes(mesh)
+        if sizes.get("sp", 1) > 1:
+            raise NotImplementedError(
+                "make_mixtral_train_step with sp > 1 (context parallel "
+                "Mixtral) is not ported")
+        if step_options.get("dcn_axes"):
+            raise NotImplementedError(
+                "make_mixtral_train_step with dcn_axes: JAX's hierarchical "
+                "step routes each slice's tokens apart; not ported")
+        data_axes = tuple(a for a in batch_axes(rules) if a in sizes)
+        routing = mixtral.RoutingGroup.of_mesh(mesh, data_axes)
+
+    def loss(p, tokens, targets, param_shard=None):
+        return mixtral.loss_fn(cfg, p, tokens, targets, attn_impl=attn_impl,
+                               remat=remat, param_shard=param_shard,
+                               routing=routing)
+
+    return make_train_step(
+        mesh, loss=loss,
+        init_fn=partial(mixtral.init_params, cfg, device=dev),
+        logical_axes=mixtral.param_logical_axes(cfg), rules=rules,
         optimizer=optimizer, seed=seed, device=dev, **step_options,
     )
 

@@ -245,3 +245,19 @@ def test_parallel_and_collective_import_no_jax():
             "m.startswith(('jax.', 'ray_tpu.')) or m == 'ray_tpu']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_free_port_is_bindable_and_below_the_ephemeral_range():
+    """free_port draws from below the range the kernel hands ports out
+    of (to connections and port-0 listeners, gloo's too), so no other
+    socket is given the port before the caller binds it."""
+    import socket
+
+    from ray_tpu_torch.train import backend
+
+    floor = backend._ephemeral_floor()
+    for _ in range(20):
+        port = backend.free_port()
+        assert 1024 <= port < floor
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", port))
