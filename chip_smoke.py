@@ -173,6 +173,28 @@ failure raises and the script exits non-zero without a result line:
    loss at that depth and layer 0's claims per expert against one card's
    (equal under ep alone), step ms, tokens/s per card, MFU, per-rank
    peak; with one card it prints that it skipped;
+16. RL (ray_tpu_torch.rl): (a) the batched envs VecCartPole, VecCatch and
+   VecGridWorld under AutoResetWrapper, 4096 envs x 200 seeded steps, each
+   step from the card's state on the card and on the CPU with the same
+   fresh episodes: CartPole's obs within 1e-5 and the same dones (one may
+   differ only at a termination threshold), Catch and GridWorld exact;
+   (c) Anakin PPO at Podracer scale (CartPole-v1, 4096 envs x 128 unroll
+   x 8 iterations a call, hidden 64, 4 x 4 minibatches): 1 warm-up and 5
+   timed calls (env-steps/s, ms an iteration, peak memory), one profiled
+   call of one iteration (its kernels, device busy share, device-to-host
+   copies: exactly one), the return over 20 calls rising by more than
+   10, and one iteration split into rollout, GAE and update; (b) GAE,
+   V-trace, ppo_update and Anakin's _update at that batch (524288 rows)
+   and dqn_update, sac_update, impala_update and appo_update at their
+   configs' defaults, each on the card against the CPU on the same
+   inputs; the README's geometry (512 x 64 x 8) timed; (d) the EnvRunner
+   path (PPOConfig's defaults), DQN, SAC (Pendulum), IMPALA and APPO with
+   device "cuda", three steps each: finite losses, env-steps/s;
+16b. with two or more cards, one card a rank (NCCL): one card's Anakin
+   rate, then (c)'s config over the ranks with its 4096 envs split
+   ("strong") and with 4096 envs a rank ("weak"), 1 warm-up and 3 timed
+   calls each: env-steps/s in all and per card, the ranks' params
+   bit-equal after every call; with one card it prints that it skipped;
 11. cross-device: f32 engines at tiny width (d=64) and at 1B width with
    two layers (d=2048), CUDA (kernel) vs CPU (plain) greedy token streams
    must be equal; a bf16 trainer at small width, 3 steps on the card
@@ -3703,6 +3725,582 @@ def phase_mixtral_ranks(world: int) -> dict:
     return res
 
 
+# Phase 16: RL. Anakin at Podracer scale: CartPole-v1, 4096 envs
+# x 128 unroll = 524288 rows an iteration, 8 iterations a call (4.19M env
+# steps), hidden 64, 4 epochs x 4 minibatches.
+RL_ENVS, RL_UNROLL, RL_ITERS, RL_HIDDEN = 4096, 128, 8, 64
+RL_CALLS = 20          # warm-up, timed, profiled and learning calls
+RL_TIMED = 5
+RL_RISE = 10.0         # the return must rise by more than this
+RL_README = dict(num_envs=512, unroll_len=64, iters=8)
+RL_ENV_STEPS = 200     # (a): steps of each env, cuda against cpu
+# (a) CartPole's obs, cuda against cpu from the same state (sin/cos and
+# division round apart by an ulp); a done may differ only where the state
+# lies within this of a termination threshold.
+RL_ENV_TOL = 1e-5
+# (b) GAE and V-trace: 1e-5 of max(1, the largest |output|) (f32 sums of
+# at most 128 steps in the same order; one device may fuse a multiply-add).
+RL_SCAN_TOL = 1e-5
+# (b) The updates, params after all their adam steps and their losses:
+# gradients are means over up to 131072 rows summed in another order
+# (cuBLAS against the CPU's BLAS, ~1e-6 relative); adam moves a param by
+# at most lr a step, and a gradient's relative error moves the step by as
+# much of it, so the params stay within 1e-4 unless a gradient element
+# lies within its rounding error of zero. Losses: 1e-4 relative.
+RL_UPDATE_TOL = 1e-4
+RL_RANKS_TIMEOUT_S = 600
+
+
+def _rl_cfg(**kw):
+    from ray_tpu_torch.rl import PPOConfig
+
+    base = dict(vectorized=True, num_envs=RL_ENVS, unroll_len=RL_UNROLL,
+                hidden=RL_HIDDEN, num_epochs=4, num_minibatches=4,
+                extra={"iters_per_step": RL_ITERS})
+    base.update(kw)
+    return PPOConfig(**base)
+
+
+def _tree_err(got, want) -> float:
+    from ray_tpu_torch._device import tree_leaves
+
+    return max(float((a.detach().cpu() - b.detach()).abs().max())
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().double()
+    return float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def _check(label: str, err: float, tol: float, results: dict) -> None:
+    print(f"  {label}: max err {err:.3e} (limit {tol:.0e})")
+    results[label] = err
+    if not err <= tol:
+        raise AssertionError(f"phase 16 {label}: {err} > {tol}")
+
+
+def rl_env_check() -> dict:
+    """(a) Each batched env under AutoResetWrapper, N = RL_ENVS for
+    RL_ENV_STEPS steps: at every step the card's state steps on the card
+    and on the CPU with the same seeded actions and the same fresh
+    episodes (drawn on the CPU), and the outputs must agree; the card's
+    state goes on."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rl.vec_env import VecCartPole, make_vec_env
+
+    res = {}
+    for name in ("CartPole-v1", "Catch-v0", "GridWorld-v0"):
+        env = make_vec_env(name)
+        cpu_gen = torch.Generator().manual_seed(SEED)
+        rng = np.random.default_rng(SEED)
+        state, obs = env.reset(RL_ENVS, cpu_gen)
+        state = {k: v.cuda() for k, v in state.items()}
+        worst, done_diff, dones = 0.0, 0, 0
+        for _ in range(RL_ENV_STEPS):
+            act = torch.from_numpy(rng.integers(
+                0, env.num_actions, RL_ENVS)).long()
+            fs, fo = env.reset(RL_ENVS, cpu_gen)
+            host = {k: v.cpu() for k, v in state.items()}
+            want = env.step(host, act, fresh=(fs, fo))
+            got = env.step(state, act.cuda(),
+                           fresh=({k: v.cuda() for k, v in fs.items()},
+                                  fo.cuda()))
+            d_got, d_want = got[3].cpu(), want[3]
+            if name == "CartPole-v1":
+                # Where a done differs, the pre-step state must sit at a
+                # threshold: the stepped x or theta within tolerance of it.
+                phys = env.env.step(host, act)[0]["phys"]
+                edge = ((phys[:, 0].abs() - VecCartPole.X_LIMIT).abs()
+                        <= RL_ENV_TOL) | ((phys[:, 2].abs()
+                                           - VecCartPole.THETA_LIMIT).abs()
+                                          <= RL_ENV_TOL)
+                bad = (d_got != d_want) & ~edge
+                done_diff += int((d_got != d_want).sum())
+                same = d_got == d_want
+                worst = max(worst, float(
+                    (got[1].cpu()[same] - want[1][same]).abs().max()))
+                if bool(bad.any()):
+                    raise AssertionError(f"phase 16a {name}: dones differ "
+                                         "away from a threshold")
+            else:
+                if not (torch.equal(d_got, d_want)
+                        and torch.equal(got[1].cpu(), want[1])
+                        and torch.equal(got[2].cpu(), want[2])):
+                    raise AssertionError(f"phase 16a {name}: not exact")
+            dones += int(d_want.sum())
+            state = got[0]
+        tol = RL_ENV_TOL if name == "CartPole-v1" else 0.0
+        print(f"  {name}: {RL_ENVS} envs x {RL_ENV_STEPS} steps, {dones} "
+              f"episode ends, obs max err {worst:.3e} (limit {tol:.0e}), "
+              f"dones differing at a threshold {done_diff}")
+        if not worst <= tol:
+            raise AssertionError(f"phase 16a {name}: obs err {worst}")
+        res[name] = {"max_abs_err": worst, "episode_ends": dones,
+                     "dones_differing_at_threshold": done_diff}
+    return res
+
+
+def rl_learner_check(eng) -> dict:
+    """(b) Each learner function on the card against the CPU on the same
+    inputs: GAE, V-trace, ppo_update and Anakin's _update on one rollout
+    of ``eng`` (RL_ENVS x RL_UNROLL rows), then dqn_update, sac_update,
+    impala_update and appo_update at their configs' defaults."""
+    import torch
+    from ray_tpu_torch.rl import anakin, appo, dqn, impala, ppo, sac
+    from ray_tpu_torch.rl.ppo import init_mlp, init_policy
+    from ray_tpu_torch.train.optim import adam
+
+    res: dict = {}
+    gen = torch.Generator().manual_seed(SEED + 16)
+    (_, obs, _), traj, _ = eng.rollout(eng.params, eng.env_states, eng.obs,
+                                       eng.ep_ret, eng.gen)
+    with torch.no_grad():
+        last = anakin._apply_vf(eng.params, obs)
+    host = {k: v.cpu() for k, v in traj.items()}
+    cfg = eng.cfg
+    args = ("rewards", "values", "dones")
+    adv, ret = ppo.compute_gae(*(traj[k] for k in args), last, cfg.gamma,
+                               cfg.gae_lambda)
+    hadv, hret = ppo.compute_gae(*(host[k] for k in args), last.cpu(),
+                                 cfg.gamma, cfg.gae_lambda)
+    _check("compute_gae", max(_rel_err(adv, hadv), _rel_err(ret, hret)),
+           RL_SCAN_TOL, res)
+    target = traj["logp"].cpu() + 0.1 * torch.randn(
+        traj["logp"].shape, generator=gen)
+    vt = impala.vtrace(traj["logp"], target.cuda(), traj["rewards"],
+                       traj["values"], traj["dones"], last, cfg.gamma)
+    hvt = impala.vtrace(host["logp"], target, host["rewards"],
+                        host["values"], host["dones"], last.cpu(), cfg.gamma)
+    _check("vtrace", max(_rel_err(a, b) for a, b in zip(vt, hvt)),
+           RL_SCAN_TOL, res)
+    flat = lambda x: x.reshape((-1,) + x.shape[2:])
+    batch = {"obs": flat(traj["obs"]), "actions": flat(traj["actions"]),
+             "logp": flat(traj["logp"]), "advantages": flat(adv),
+             "returns": flat(ret)}
+    hbatch = {k: v.cpu() for k, v in batch.items()}
+    B = batch["obs"].shape[0]
+    static = eng.static
+    idxs = ppo.permutation_idxs(B, cfg.num_minibatches, cfg.num_epochs, gen)
+    shifts = torch.randint(0, B, (cfg.num_epochs,), generator=gen)
+    for label, fn, extra in (("ppo_update", ppo.ppo_update, idxs),
+                             ("anakin _update", anakin._update, shifts)):
+        out = {}
+        for dev, b in (("cuda", batch), ("cpu", hbatch)):
+            p = init_policy(torch.Generator().manual_seed(SEED), 4, 2,
+                            RL_HIDDEN, device=dev)
+            opt = adam(cfg.lr)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, _, st = fn(opt, static, p, opt.init(p), b, extra.to(dev))
+            torch.cuda.synchronize()
+            out[dev] = (p, st, (time.perf_counter() - t0) * 1e3)
+        _check(f"{label} params", _tree_err(out["cuda"][0], out["cpu"][0]),
+               RL_UPDATE_TOL, res)
+        _check(f"{label} losses", max(
+            _rel_err(out["cuda"][1][k], out["cpu"][1][k])
+            for k in out["cpu"][1]), RL_UPDATE_TOL, res)
+        res[f"{label} ms"] = {"cuda": out["cuda"][2], "cpu": out["cpu"][2]}
+        print(f"  {label} at {B} rows, {cfg.num_epochs}x"
+              f"{cfg.num_minibatches} minibatches: card {out['cuda'][2]:.2f}"
+              f" ms, CPU {out['cpu'][2]:.2f} ms (host clock)")
+
+    # DQN at DQNConfig's defaults: 32 batches of 128, hidden 64, CartPole.
+    dc = dqn.DQNConfig()
+    K, Bq = dc.train_batches_per_step, dc.batch_size
+    rows = RL_ENVS  # draw from the rollout's own observations
+    pick = torch.randint(0, B - rows, (1,), generator=gen).item()
+    pool = hbatch["obs"][pick:pick + rows]
+    draw = lambda: pool[torch.randint(0, rows, (K, Bq), generator=gen)]
+    qb = {"obs": draw(), "actions": torch.randint(0, 2, (K, Bq),
+                                                  generator=gen),
+          "rewards": torch.ones(K, Bq), "next_obs": draw(),
+          "dones": (torch.rand(K, Bq, generator=gen) < 0.05).float()}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = torch.Generator().manual_seed(SEED)
+        q = init_mlp(g, [4, dc.hidden, dc.hidden, 2], scale_last=1.0,
+                     device=dev)
+        tq = ppo.clone_params(init_mlp(g, [4, dc.hidden, dc.hidden, 2],
+                                       scale_last=1.0, device=dev))
+        opt = adam(dc.lr)
+        q, _, loss, tds = dqn.dqn_update(
+            opt, dc.double_dqn, q, tq, opt.init(q),
+            {k: v.to(dev) for k, v in qb.items()}, dc.gamma)
+        out[dev] = (q, loss, tds)
+    _check("dqn_update params", _tree_err(out["cuda"][0], out["cpu"][0]),
+           RL_UPDATE_TOL, res)
+    _check("dqn_update loss, |td|", max(_rel_err(out["cuda"][1],
+                                                 out["cpu"][1]),
+                                        _rel_err(out["cuda"][2],
+                                                 out["cpu"][2])),
+           RL_UPDATE_TOL, res)
+
+    # SAC at SACConfig's defaults: 16 batches of 256, hidden 128, Pendulum.
+    sc = sac.SACConfig()
+    K, Bs = sc.train_batches_per_step, sc.batch_size
+    th = torch.rand(K, Bs, generator=gen) * 2 * math.pi - math.pi
+    pend = lambda t: torch.stack([t.cos(), t.sin(), torch.rand(
+        K, Bs, generator=gen) * 16 - 8], -1)
+    sb = {"obs": pend(th), "actions": torch.rand(K, Bs, 1, generator=gen)
+          * 4 - 2, "rewards": -th ** 2, "next_obs": pend(th + 0.05),
+          "dones": torch.zeros(K, Bs)}
+    noise = torch.randn(K, 2, Bs, 1, generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = torch.Generator().manual_seed(SEED)
+        qs = [3 + 1, sc.hidden, sc.hidden, 1]
+        p = {"actor": init_mlp(g, [3, sc.hidden, sc.hidden, 2], device=dev),
+             "q": (init_mlp(g, qs, scale_last=1.0, device=dev),
+                   init_mlp(g, qs, scale_last=1.0, device=dev)),
+             "log_alpha": torch.tensor(math.log(sc.init_alpha)).to(
+                 dev).requires_grad_(True)}
+        opts = (adam(sc.actor_lr), adam(sc.critic_lr), adam(sc.alpha_lr))
+        states = {"actor": opts[0].init(p["actor"]),
+                  "q": opts[1].init(p["q"]),
+                  "alpha": opts[2].init(p["log_alpha"])}
+        p, tq, _, ql, al, alpha = sac.sac_update(
+            opts, sc.gamma, -1.0, p, ppo.clone_params(p["q"]), states,
+            {k: v.to(dev) for k, v in sb.items()}, noise.to(dev), 2.0,
+            sc.tau)
+        out[dev] = (p, tq, (ql, al, alpha))
+    _check("sac_update params", max(_tree_err(out["cuda"][0],
+                                              out["cpu"][0]),
+                                    _tree_err(out["cuda"][1],
+                                              out["cpu"][1])),
+           RL_UPDATE_TOL, res)
+    _check("sac_update losses", max(_rel_err(a, b) for a, b in zip(
+        out["cuda"][2], out["cpu"][2])), RL_UPDATE_TOL, res)
+
+    # IMPALA and APPO at ImpalaConfig's defaults: [64, 8] rollouts, 3
+    # updates, from this phase's trajectory.
+    ic = appo.APPOConfig()
+    T, N = min(ic.rollout_len, RL_UNROLL - 1), ic.num_envs_per_runner
+    ib = {k: host[k][:T, :N] for k in ("obs", "actions", "logp", "rewards",
+                                       "dones")}
+    ib["last_obs"] = host["obs"][T, :N]
+    ist = (ic.gamma, ic.rho_clip, ic.c_clip, ic.vf_coef, ic.ent_coef)
+    for label, fn, static in (("impala_update", impala.impala_update, ist),
+                              ("appo_update", appo.appo_update,
+                               ist + (ic.clip_eps,))):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = init_policy(torch.Generator().manual_seed(SEED), 4, 2,
+                            ic.hidden, device=dev)
+            opt = adam(ic.lr)
+            s = opt.init(p)
+            b = {k: v.to(dev) for k, v in ib.items()}
+            for _ in range(3):
+                p, s, st = fn(opt, static, p, s, b)
+            out[dev] = (p, st)
+        _check(f"{label} params", _tree_err(out["cuda"][0], out["cpu"][0]),
+               RL_UPDATE_TOL, res)
+        _check(f"{label} losses", max(
+            _rel_err(out["cuda"][1][k], out["cpu"][1][k])
+            for k in out["cpu"][1]), RL_UPDATE_TOL, res)
+    return res
+
+
+def _profile_call(algo) -> dict:
+    """One train_step of ONE iteration under torch.profiler (device
+    activity only): wall, device busy share, kernels, memcpys (by
+    direction) and memsets. A call of 8 iterations made ~121k device
+    events, which took the profiler ~25 s to stop and read back."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = algo._engine
+    iters, eng.iters_per_step = eng.iters_per_step, 1
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            algo.train_step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        eng.iters_per_step = iters
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    names = [e.name for e in dev]
+    kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+    cats: dict[str, float] = {}
+    for e in dev:
+        c = kernel_category(e.name)
+        cats[c] = cats.get(c, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {"profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms if busy_ms else None,
+            "kernels_per_iter": len(kernels),
+            "dtoh_copies": sum(n.startswith("Memcpy DtoH") for n in names),
+            "htod_copies": sum(n.startswith("Memcpy HtoD") for n in names),
+            "memsets": sum(n.startswith("Memset") for n in names),
+            "category_ms": cats}
+
+
+def rl_anakin_run(cfg, calls: int, timed: int, profile: bool = True) -> dict:
+    """1 warm-up call, ``timed`` timed calls, one profiled call, then the
+    rest of ``calls``; the returns of every call."""
+    import torch
+
+    t_start = time.perf_counter()
+    algo = cfg.build()
+    eng = algo._engine
+    iters = eng.iters_per_step
+    per_call = iters * eng.num_envs * eng.unroll_len
+    returns = [algo.train_step()["episode_return_mean"]]
+    t_warm = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        m = algo.train_step()
+        returns.append(m["episode_return_mean"])
+    dt = time.perf_counter() - t0  # train_step ends in its host copy
+    res = {"envs": eng.num_envs, "unroll": eng.unroll_len, "iters": iters,
+           "env_steps_per_call": per_call,
+           "env_steps_per_s": timed * per_call / dt,
+           "ms_per_iter": dt * 1e3 / (timed * iters),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    t_prof = time.perf_counter()
+    if profile:
+        res["profile"] = _profile_call(algo)
+        returns.append(None)  # the profiled call's is not kept
+    t_rest = time.perf_counter()
+    while len(returns) < calls:
+        returns.append(algo.train_step()["episode_return_mean"])
+    res["returns"] = returns
+    res["seconds"] = {"build_and_warm_up": t_warm - t_start,
+                      "timed": t_prof - t_warm, "profile": t_rest - t_prof,
+                      "rest": time.perf_counter() - t_rest}
+    print("seconds: " + ", ".join(f"{k} {v:.1f}"
+                                  for k, v in res["seconds"].items()))
+    res["algo"] = algo
+    return res
+
+
+def phase_rl() -> dict:
+    """Phase 16: the RL port on the card. (a) the batched envs against the
+    CPU; (b) every learner function against the CPU; (c) Anakin at
+    Podracer scale (and the README's geometry) with its rates, launches,
+    busy share, peak memory and learning; (d) the EnvRunner path and DQN,
+    SAC, IMPALA and APPO, three steps each."""
+    import torch
+    from ray_tpu_torch.rl import (APPOConfig, DQNConfig, ImpalaConfig,
+                                  PPOConfig, SACConfig)
+    from ray_tpu_torch.rl.anakin import _apply_vf
+    from ray_tpu_torch.rl.ppo import compute_gae
+
+    _phase("RL (a): batched envs, cuda against cpu")
+    t_phase = time.perf_counter()
+    out = {"envs": rl_env_check()}
+    out["a_s"] = time.perf_counter() - t_phase
+
+    _phase(f"RL (c): Anakin PPO, CartPole-v1, {RL_ENVS} envs x {RL_UNROLL} "
+           f"unroll x {RL_ITERS} iterations a call, hidden {RL_HIDDEN}")
+    run = rl_anakin_run(_rl_cfg(), RL_CALLS, RL_TIMED)
+    algo = run.pop("algo")
+    prof = run["profile"]
+    # The profiler's own host cost stretches the profiled iteration: the
+    # busy ms over an unprofiled iteration's time too.
+    prof["busy_share_unprofiled"] = prof["busy_ms"] / run["ms_per_iter"]
+    rets = [r for r in run["returns"] if r is not None]
+    rise = max(rets[1:]) - rets[0]
+    print(f"{run['env_steps_per_s']:.1f} env-steps/s, "
+          f"{run['ms_per_iter']:.2f} ms an iteration ({RL_TIMED} timed "
+          f"calls of {run['env_steps_per_call']} env steps, host clock), "
+          f"peak {run['peak_gib']:.3f} GiB")
+    print(f"one profiled call of one iteration: wall "
+          f"{prof['profiled_wall_ms']:.2f} ms, device busy "
+          f"{prof['busy_ms']:.2f} ms = "
+          f"{100 * (prof['busy_share'] or 0):.1f}% of it, "
+          f"{100 * prof['busy_share_unprofiled']:.1f}% of an unprofiled "
+          f"iteration's {run['ms_per_iter']:.2f} ms, "
+          f"{prof['kernels_per_iter']} kernels an iteration, "
+          f"{prof['dtoh_copies']} device-to-host and {prof['htod_copies']} "
+          f"host-to-device copies, {prof['memsets']} memsets; by "
+          "category: " + ", ".join(
+              f"{c} {ms:.2f} ms" for c, ms in sorted(
+                  prof["category_ms"].items(), key=lambda kv: -kv[1])))
+    print("returns by call: " + " ".join(f"{r:.2f}" for r in rets)
+          + f"; rise {rise:.2f} (limit > {RL_RISE})")
+    if prof["busy_ms"] and prof["dtoh_copies"] != 1:
+        raise AssertionError(f"phase 16c: {prof['dtoh_copies']} "
+                             "device-to-host copies in a call, not 1")
+    if not rise > RL_RISE:
+        raise AssertionError(f"phase 16c: the return rose {rise}")
+    out["anakin"] = run
+
+    # Where an iteration's time goes: the rollout, GAE and the update on
+    # CUDA events (device) and the host clock, one iteration.
+    eng = algo._engine
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    e[0].record()
+    (eng.env_states, eng.obs, eng.ep_ret), traj, _ = eng.rollout(
+        eng.params, eng.env_states, eng.obs, eng.ep_ret, eng.gen)
+    e[1].record()
+    h1 = time.perf_counter()
+    with torch.no_grad():
+        last = _apply_vf(eng.params, eng.obs)
+
+    compute_gae(traj["rewards"], traj["values"], traj["dones"], last,
+                eng.cfg.gamma, eng.cfg.gae_lambda)
+    e[2].record()
+    h2 = time.perf_counter()
+    eng.one_iter()
+    e[3].record()
+    h3 = time.perf_counter()
+    torch.cuda.synchronize()
+    split = {"rollout": (e[0].elapsed_time(e[1]), (h1 - h0) * 1e3),
+             "gae": (e[1].elapsed_time(e[2]), (h2 - h1) * 1e3),
+             "whole iteration": (e[2].elapsed_time(e[3]), (h3 - h2) * 1e3)}
+    split["update (whole - rollout - gae)"] = tuple(
+        w - r - g for w, r, g in zip(split["whole iteration"],
+                                     split["rollout"], split["gae"]))
+    print("one iteration, (events ms, host-enqueue ms): " + ", ".join(
+        f"{k} ({a:.2f}, {b:.2f})" for k, (a, b) in split.items()))
+    out["split_ms"] = split
+
+    out["c_s"] = time.perf_counter() - t_phase - out["a_s"]
+    _phase("RL (b): learner functions, cuda against cpu")
+    t_b = time.perf_counter()
+    out["learners"] = rl_learner_check(eng)
+    out["b_s"] = time.perf_counter() - t_b
+    del algo, eng
+
+    g = RL_README
+    readme = rl_anakin_run(_rl_cfg(num_envs=g["num_envs"],
+                                   unroll_len=g["unroll_len"],
+                                   extra={"iters_per_step": g["iters"]}),
+                           4, 3, profile=False)
+    readme.pop("algo")
+    print(f"README geometry ({g['num_envs']} envs x {g['unroll_len']} x "
+          f"{g['iters']}): {readme['env_steps_per_s']:.1f} env-steps/s, "
+          f"{readme['ms_per_iter']:.2f} ms an iteration")
+    out["readme_geometry"] = readme
+
+    _phase("RL (d): the EnvRunner path, DQN, SAC, IMPALA, APPO on the card")
+    out["algos"] = {}
+    # Each algorithm's losses, the first of which must be non-zero (its
+    # update ran: DQN and SAC start learning after 256 env steps).
+    for label, cfg, keys in (
+            ("ppo", PPOConfig(), ("vf_loss", "policy_loss", "entropy")),
+            ("dqn", DQNConfig(learning_starts=256), ("td_loss",)),
+            ("sac", SACConfig(learning_starts=256),
+             ("q_loss", "actor_loss", "alpha")),
+            ("impala", ImpalaConfig(), ("vf_loss", "policy_loss")),
+            ("appo", APPOConfig(), ("vf_loss", "policy_loss"))):
+        algo = cfg.build()
+        t0 = time.perf_counter()
+        ms = [algo.train_step() for _ in range(3)]
+        dt = time.perf_counter() - t0
+        steps = (ms[-1]["num_env_steps_sampled"] if label in ("dqn", "sac")
+                 else sum(m["num_env_steps_sampled"] for m in ms))
+        losses = {k: ms[-1][k] for k in keys}
+        print(f"  {label}: 3 steps, {steps / dt:.1f} env-steps/s (host "
+              f"clock), last " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in losses.items()))
+        if not all(math.isfinite(v) for v in losses.values()) or \
+                losses[keys[0]] == 0.0:
+            raise AssertionError(f"phase 16d {label}: losses {losses}")
+        out["algos"][label] = {"env_steps_per_s": steps / dt, **losses}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 16: {out['phase_s']:.1f} s ((a) {out['a_s']:.1f}, (c) "
+          f"{out['c_s']:.1f}, (b) {out['b_s']:.1f})")
+    return out
+
+
+def _rank_rl(rank: int, world: int, store: str, out_path: str,
+             port: int) -> None:
+    """One rank of ``phase_rl_ranks`` on card ``rank``."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch._device import tree_leaves
+    from ray_tpu_torch.train.backend import init_distributed
+
+    res = {}
+    if rank == 0:  # one card's rate first, in the same call (no group yet)
+        torch.cuda.set_device(0)
+        algo = _rl_cfg().build()
+        algo.train_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            algo.train_step()
+        res["one_card_env_steps_per_s"] = 3 * RL_ITERS * RL_ENVS * \
+            RL_UNROLL / (time.perf_counter() - t0)
+        del algo
+    init_distributed(f"127.0.0.1:{port}", world, rank, device="cuda")
+    for label, envs in (("strong", RL_ENVS), ("weak", RL_ENVS * world)):
+        algo = _rl_cfg(num_envs=envs).build()
+        eng = algo._engine
+        per_call = RL_ITERS * envs * RL_UNROLL
+        equal = []
+
+        def call():
+            m = algo.train_step()
+            flat = torch.cat([t.detach().reshape(-1)
+                              for t in tree_leaves(eng.params)])
+            every = [torch.empty_like(flat) for _ in range(world)]
+            dist.all_gather(every, flat)
+            equal.append(all(torch.equal(every[0], x) for x in every))
+            return m
+
+        call()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        rets = [call()["episode_return_mean"] for _ in range(3)]
+        dt = time.perf_counter() - t0
+        res[label] = {"envs": envs, "envs_per_rank": eng.n_local,
+                      "env_steps_per_s": 3 * per_call / dt,
+                      "env_steps_per_s_per_card": 3 * per_call / dt / world,
+                      "ms_per_iter": dt * 1e3 / (3 * RL_ITERS),
+                      "ranks_bit_equal": equal, "returns": rets}
+        del algo, eng
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_rl_ranks(world: int) -> dict:
+    """Phase 16b: (c)'s Anakin config over ``world`` NCCL ranks, one card
+    each: its 4096 envs split over the ranks ("strong"), then 4096 envs a
+    rank ("weak"); 1 warm-up and 3 timed calls each. The ranks' params
+    must be bit-equal after every call."""
+    import tempfile
+
+    from ray_tpu_torch._spawn import run_ranks
+    from ray_tpu_torch.train.backend import free_port
+
+    _phase(f"RL over {world} ranks, one card each: Anakin PPO")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "rank0.json")
+        run_ranks(_rank_rl, world, tmp, (out_path, free_port()),
+                  RL_RANKS_TIMEOUT_S)
+        with open(out_path) as f:
+            res = json.load(f)
+    one = res["one_card_env_steps_per_s"]
+    print(f"one card, before the group: {one:.1f} env-steps/s")
+    for label in ("strong", "weak"):
+        r = res[label]
+        r["over_one_card"] = r["env_steps_per_s"] / one
+        print(f"{label}: {r['envs']} envs ({r['envs_per_rank']} a rank): "
+              f"{r['env_steps_per_s']:.1f} env-steps/s in all "
+              f"({r['over_one_card']:.3f}x one card), "
+              f"{r['env_steps_per_s_per_card']:.1f} per card, "
+              f"{r['ms_per_iter']:.2f} ms an iteration; params bit-equal "
+              f"after every call: {r['ranks_bit_equal']}")
+        if not all(r["ranks_bit_equal"]):
+            raise AssertionError(f"phase 16b {label}: ranks' params differ")
+    return res
+
+
 RANKS_TIMEOUT_S = 600
 # Limit on the CP losses after each update against one card's mesh=None
 # run from the same params and batch, absolute: the ranks' bf16 partial
@@ -3984,6 +4582,7 @@ def main() -> int:
     train8b = phase_train_8b()
     pipe = phase_pipeline()
     moe = phase_mixtral()
+    rl = phase_rl()
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -3993,12 +4592,14 @@ def main() -> int:
         train_ranks = phase_train_ranks(world, train8b)
         pipe_ranks = phase_pipeline_ranks(min(world, 4), pipe)
         moe_ranks = phase_mixtral_ranks(min(world, 4))
+        rl_ranks = phase_rl_ranks(world)
     else:
         _phase("ring over ranks: skipped (one card visible)")
         _phase("data-parallel train over ranks: skipped (one card visible)")
         _phase("pipeline train over ranks: skipped (one card visible)")
         _phase("Mixtral train over ranks: skipped (one card visible)")
-        ranks = train_ranks = pipe_ranks = moe_ranks = None
+        _phase("RL over ranks: skipped (one card visible)")
+        ranks = train_ranks = pipe_ranks = moe_ranks = rl_ranks = None
     phase_cross_device()
     phase_cross_device_train()
     phase_cross_device_vit()
@@ -4154,7 +4755,8 @@ def main() -> int:
                       "prof_flash_pack": sweep, "ranks": ranks,
                       "train_8b": train8b, "train_ranks": train_ranks,
                       "pipeline": pipe, "pipeline_ranks": pipe_ranks,
-                      "mixtral": moe, "mixtral_ranks": moe_ranks}))
+                      "mixtral": moe, "mixtral_ranks": moe_ranks,
+                      "rl": rl, "rl_ranks": rl_ranks}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,13 +2,20 @@
 
 A package beside ``ray_tpu`` that imports ``torch`` and nothing of JAX or
 of ``ray_tpu``. Ported so far: the LLM serving engine (``ray_tpu_torch.llm``)
-and prefix hashing (``serve.prefix``); the single-card training step
-(``train``: ``make_llama_train_step``, ``adamw``, ``adamw_lowmem``); the
-Llama model with its training forward, remat and context parallelism
-(``models``); ops (``ops``: the CUDA RMSNorm, flash-attention
-forward/backward and ring-step chunk kernels, ring attention over a
-``torch.distributed`` group, RoPE, the fused cross-entropy); peak rates
-for MFU (``accelerators``).
+and prefix hashing (``serve.prefix``); the training steps (``train``:
+``make_train_step`` and its Llama, ViT and Mixtral factories on one card
+or over a mesh of ranks with data parallelism, ZeRO-1, FSDP/TP and
+expert parallelism; the optimizers ``adamw``, ``adamw_lowmem``, ``sgd``,
+``adam``; process-group bring-up; checkpoints); the GPipe pipeline and
+the mesh and sharding rules (``parallel``); the Llama, ViT and Mixtral
+models with remat and context parallelism (``models``); ops (``ops``: the
+CUDA RMSNorm, flash-attention forward/backward and ring-step chunk
+kernels, ring attention over a ``torch.distributed`` group, RoPE, the
+fused cross-entropy); the int8 gradient format (``collective``); the RL
+library (``rl``: batched torch envs, PPO with the fused Anakin loop, DQN,
+SAC, IMPALA, APPO) on the ``Trainable`` of ``tune``; peak rates for MFU
+(``accelerators``); the head-packing profiler and paired timings
+(``devbench``).
 Importing the package is cheap: CUDA kernels are built from ``csrc/`` at
 their first launch.
 """

@@ -24,11 +24,17 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
 
 
 def tree_map(fn, tree, *rest):
-    """Apply ``fn`` to every leaf of a nested dict of tensors/arrays; with
-    ``rest``, to the matching leaves of dicts of the same structure."""
+    """Apply ``fn`` to every leaf of nested dicts, lists and tuples of
+    tensors/arrays; with ``rest``, to the matching leaves of trees of the
+    same structure. Each container keeps its type (a named tuple too)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
     return fn(tree, *rest)
 
 

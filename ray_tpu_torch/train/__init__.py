@@ -4,7 +4,7 @@ optimizers, process-group bring-up (``backend``) and checkpointing
 (``checkpoint``); the pipeline step is ``ray_tpu_torch.parallel.pipeline``.
 """
 
-from ray_tpu_torch.train.optim import adamw, adamw_lowmem, sgd
+from ray_tpu_torch.train.optim import adam, adamw, adamw_lowmem, sgd
 from ray_tpu_torch.train.spmd import (
     TrainState,
     make_llama_train_step,
@@ -15,4 +15,4 @@ from ray_tpu_torch.train.spmd import (
 
 __all__ = ["TrainState", "make_train_step", "make_llama_train_step",
            "make_vit_train_step", "make_mixtral_train_step", "adamw",
-           "adamw_lowmem", "sgd"]
+           "adamw_lowmem", "sgd", "adam"]

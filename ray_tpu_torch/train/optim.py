@@ -11,6 +11,8 @@ ray_tpu/train/spmd.py builds. A ``GradientTransformation`` is an
 - ``adamw_lowmem(lr, ...)``: ``scale_by_adam_compact`` (both moments
   stored in ``moment_dtype``, default bf16, all update math in f32) ->
   decoupled weight decay -> ``-lr`` scale;
+- ``adam(lr, b1, b2, eps)``: optax.adam, ``scale_by_adam`` ->
+  ``scale_by_learning_rate`` (the RL learners' optimizer);
 - ``sgd(lr)``: optax.sgd without momentum, ``scale_by_learning_rate`` in
   a chain.
 
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ray_tpu_torch._device import tree_leaves, tree_map
@@ -57,16 +60,25 @@ def _count_like(params) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=dev)
 
 
+_NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64,
+             torch.float16: np.float16}
+
+
 def _weak(c: float, t: torch.Tensor) -> float:
     """A Python scalar as JAX applies it to ``t``: rounded to t's dtype
-    first (a weakly typed scalar takes the array's dtype)."""
+    first (a weakly typed scalar takes the array's dtype). Rounds on the
+    host without making a tensor where numpy has the dtype."""
+    if t.dtype in _NP_FLOAT:
+        return float(_NP_FLOAT[t.dtype](c))
     return float(torch.tensor(c, dtype=t.dtype))
 
 
 def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
-    """1 - decay**count in f32 (optax computes it in f32 before any cast)."""
-    return 1.0 - torch.pow(torch.tensor(decay, dtype=torch.float32,
-                                        device=count.device), count.float())
+    """1 - decay**count in f32 (optax computes it in f32 before any cast).
+    The base is filled on count's device: a tensor copied from the host
+    there would wait for the device."""
+    return 1.0 - torch.pow(torch.full((), decay, dtype=torch.float32,
+                                      device=count.device), count.float())
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -174,6 +186,13 @@ def adamw(learning_rate: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
     """optax.adamw: scale_by_adam -> add_decayed_weights -> -lr."""
     return chain(scale_by_adam(b1, b2, eps, mu_dtype),
                  add_decayed_weights(weight_decay),
+                 scale_by_learning_rate(learning_rate))
+
+
+def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> GradientTransformation:
+    """optax.adam: scale_by_adam -> -lr."""
+    return chain(scale_by_adam(b1, b2, eps),
                  scale_by_learning_rate(learning_rate))
 
 
