@@ -195,6 +195,25 @@ failure raises and the script exits non-zero without a result line:
    ("strong") and with 4096 envs a rank ("weak"), 1 warm-up and 3 timed
    calls each: env-steps/s in all and per card, the ranks' params
    bit-equal after every call; with one card it prints that it skipped;
+17. the rest of serving at Llama-3.2-1B width (seeded random weights;
+   rms_norm's launch count reset right before and read right after):
+   (a) in f32 at 2 layers, phase 7's 16 prompts through the dense engine
+   and the block pool (16 slots, 512 blocks of 16: phase 7's 8192 tokens
+   of KV) and through a 160-block pool that must preempt, every greedy
+   stream equal; in bf16 at full depth phase 7's wave dense at
+   concurrency 8 against blocked at 16, in turns (tok/s, TTFT p50, their
+   spread, preemptions, the pool's bytes), a block prefix adoption, and
+   decode_burst_blocked against decode_burst (wall, and device busy by
+   the profiler); (b) speculative decoding (k 4) with a perfect and a
+   seeded 2-layer draft: in f32 every stream equal to plain greedy, the
+   perfect draft's acceptance above 0.9; in bf16 a stream may differ only
+   at a near-tie (SPEC_TIE_ULPS); a tick's draft_propose and
+   spec_verify_step against five decode steps; (c) the P/D hand-off
+   between two bf16 engines on one param tree at 128 and 700 prompt
+   tokens, bit for bit against one engine's greedy tokens, the prompt
+   retired, export and import ms; (d) in f32 an HF-named state dict
+   through convert_hf_llama and a save_pytree directory through
+   checkpoint_path, each giving the original params' tokens;
 11. cross-device: f32 engines at tiny width (d=64) and at 1B width with
    two layers (d=2048), CUDA (kernel) vs CPU (plain) greedy token streams
    must be equal; a bf16 trainer at small width, 3 steps on the card
@@ -518,9 +537,7 @@ def phase_engine(rms_host_us: float):
           f", vocab {mc.vocab_size}")
     rng = np.random.default_rng(SEED)
     greedy64 = SamplingParams(max_tokens=64, temperature=0.0)
-    short = [int(t) for t in rng.integers(0, 256, 12)]  # < PREFIX_COPY_MIN
-    wave = [[int(t) for t in rng.integers(0, 256, int(n))]
-            for n in rng.integers(32, 201, 15)] + [short]
+    short, wave = _wave_prompts(rng)  # short: < PREFIX_COPY_MIN tokens
     long_prompt = [int(t) for t in rng.integers(0, 256, 700)]
     prefix = [int(t) for t in rng.integers(0, 256, 128)]
     shared = [prefix + [int(t) for t in rng.integers(0, 256, 20)]
@@ -4554,6 +4571,654 @@ def phase_ranks(world: int) -> dict:
     return res
 
 
+# Phase 17: the serving engine's block pool, speculative decoding, P/D
+# hand-off and checkpoint loading at Llama-3.2-1B width.
+#
+# A bf16 speculative stream may leave plain greedy's only at a near-tie:
+# at its first differing position the plain stream, teacher-forced through
+# prefill (f32 logits), must score the two tokens within SPEC_TIE_ULPS
+# bf16 steps (2^-8 relative) of the row's largest |logit|. Set before the
+# first run: one path's bf16 roundings against another's move a logit by
+# about one such step at 16 layers; a wrong token (stale KV, a bad
+# acceptance) misses by the logits' spread, ~0.9 at this init.
+SPEC_TIE_ULPS = 4
+REST_BLOCK = 16          # kv_block_size
+REST_BLOCKS = 512        # 8192 tokens: phase 7's 8 dense slots x 1024
+REST_SLOTS = 16          # twice phase 7's slots on the same KV bytes
+REST_SPEC_K = 4
+REST_SMALL_POOL = 160    # blocks: fewer than the f32 wave needs at 16 slots
+REST_PD_LENGTHS = (128, 700)
+REST_DEVICE = "cuda"
+
+
+def _wave_prompts(rng):
+    """Phase 7's prompts: 15 of 32-200 random tokens and a 12-token one."""
+    short = [int(t) for t in rng.integers(0, 256, 12)]
+    wave = [[int(t) for t in rng.integers(0, 256, int(n))]
+            for n in rng.integers(32, 201, 15)] + [short]
+    return short, wave
+
+
+def _f32_1b():
+    """The exact gates' model: Llama-3.2-1B's widths and vocabulary, two
+    layers, f32 (TF32 is off: phase_device)."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+    return replace(LlamaConfig.llama3_1b(), num_layers=2, dtype="float32")
+
+
+def _bf16_1b():
+    """The timed runs' model: Llama-3.2-1B's geometry, bf16, full depth."""
+    from ray_tpu_torch.llm import LLMConfig
+    return LLMConfig(model="llama3_1b", dtype="bfloat16").model_config()
+
+
+def _streams(done) -> dict:
+    return {i: list(req.out_tokens) for i, req in done}
+
+
+def _engine(cfg, params, **kw):
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine
+
+    base = dict(model=cfg, max_num_seqs=8, max_seq_len=1024,
+                decode_burst=16, seed=SEED)
+    base.update(kw)
+    return LLMEngine(LLMConfig(**base), params=params, device=REST_DEVICE)
+
+
+def _first_diff(a: list, b: list):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def spec_tie_check(mc, weights, prompt, plain, spec) -> dict:
+    """Where a speculative stream first leaves the plain one: the two
+    tokens' f32 logits under the plain stream teacher-forced through
+    prefill, against SPEC_TIE_ULPS bf16 steps at the row's scale."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.llm.engine import init_kv_cache, prefill
+
+    i = _first_diff(plain, spec)
+    if i is None:
+        return {"differs": False}
+    if i >= min(len(plain), len(spec)):
+        raise AssertionError(f"speculative stream ended apart from plain "
+                             f"at {i} ({len(spec)} vs {len(plain)})")
+    seq = list(prompt) + list(plain[:i])
+    s = -(-len(seq) // 64) * 64
+    toks = np.zeros((s,), np.int64)
+    toks[:len(seq)] = seq
+    cache = init_kv_cache(mc, 1, s, REST_DEVICE)
+    _, logits = prefill(mc, weights, cache, toks, len(seq), 0)
+    la, lb = float(logits[plain[i]]), float(logits[spec[i]])
+    scale = float(logits.abs().max())
+    margin = SPEC_TIE_ULPS * 2.0 ** -8 * scale
+    out = {"differs": True, "at": i, "gap": abs(la - lb),
+           "margin": margin, "top": int(torch.argmax(logits))}
+    if abs(la - lb) > margin:
+        raise AssertionError(f"speculative token {spec[i]} at {i} is not "
+                             f"a near-tie of plain {plain[i]}: {out}")
+    return out
+
+
+def _busy_ms(fn):
+    """(device ms, {kernel: ms}) of one call of ``fn`` under the
+    profiler: the sum of its CUDA kernels' durations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    return sum(by_name.values()), by_name
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    import torch
+
+    fn()
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def rest_blocked_gates(prompts, greedy64) -> dict:
+    """(a) f32 gates: dense vs blocked greedy on phase 7's prompts, then a
+    pool too small for the wave (preemption) against the same tokens."""
+    from ray_tpu_torch.models.llama import init_params
+
+    mc = _f32_1b()
+    params = init_params(mc, generator=SEED, device=REST_DEVICE)
+    out = {}
+    dense = _engine(mc, params)
+    try:
+        done, _, _, _ = run_wave(dense, prompts, greedy64, concurrency=8)
+        want = _streams(done)
+    finally:
+        dense.shutdown()
+        del dense
+    for label, blocks in (("blocked", REST_BLOCKS),
+                          ("small_pool", REST_SMALL_POOL)):
+        eng = _engine(mc, params, max_num_seqs=REST_SLOTS,
+                      kv_block_size=REST_BLOCK, kv_num_blocks=blocks)
+        try:
+            done, _, _, _ = run_wave(eng, prompts, greedy64,
+                                     concurrency=REST_SLOTS)
+            got = _streams(done)
+            st = eng.stats()
+        finally:
+            eng.shutdown()
+            del eng
+        bad = [i for i in want if got[i] != want[i]]
+        if bad:
+            raise AssertionError(f"{label}: prompts {bad} differ from the "
+                                 f"dense engine's greedy tokens")
+        if label == "small_pool" and st["preemptions"] < 1:
+            raise AssertionError(f"{blocks} blocks never preempted")
+        out[label] = {"preemptions": st["preemptions"],
+                      "blocks": blocks, "tokens": sum(map(len, got.values()))}
+        print(f"{label} ({blocks} blocks of {REST_BLOCK}, {REST_SLOTS} "
+              f"slots, f32 2-layer): {len(prompts)} greedy streams equal "
+              f"the dense engine's; preemptions {st['preemptions']}")
+    return out
+
+
+def rest_blocked_timed(mc, params, prompts, greedy64, rng) -> dict:
+    """(a) bf16 at full depth: phase 7's wave on the dense engine at
+    concurrency 8 and on the blocked one at 16, in turns; block prefix
+    adoption; decode_burst_blocked against decode_burst."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.llm.engine import (decode_burst, decode_burst_blocked,
+                                          init_kv_cache,
+                                          init_kv_cache_blocked)
+
+    dense = _engine(mc, params)
+    blocked = _engine(mc, params, max_num_seqs=REST_SLOTS,
+                      kv_block_size=REST_BLOCK, kv_num_blocks=REST_BLOCKS)
+    w = dense._weights
+    out = {}
+    try:
+        pool = sum(t.numel() * t.element_size()
+                   for t in blocked.cache.values())
+        dense_kv = sum(t.numel() * t.element_size()
+                       for t in dense.cache.values())
+        print(f"KV bytes: blocked pool {pool / 2 ** 20:.1f} MiB "
+              f"({REST_BLOCKS} x {REST_BLOCK} tokens, {REST_SLOTS} slots), "
+              f"dense {dense_kv / 2 ** 20:.1f} MiB (8 slots x 1024)")
+        runs = {"dense": (dense, 8), "blocked": (blocked, REST_SLOTS)}
+        for eng, conc in runs.values():  # warm-up
+            run_wave(eng, prompts, greedy64, concurrency=conc)
+        rates = {k: [] for k in runs}
+        p50s = {k: [] for k in runs}
+        order = ["dense", "blocked", "blocked", "dense"] * 2 + \
+            ["dense", "blocked"]
+        for name in order:
+            eng, conc = runs[name]
+            fresh = [[int(t) for t in rng.integers(0, 256, len(p))]
+                     for p in prompts]
+            _, wave_s, ttft, toks = run_wave(eng, fresh, greedy64,
+                                             concurrency=conc)
+            rates[name].append(toks / wave_s)
+            p50s[name].append(statistics.median(ttft) * 1e3)
+        for name, (eng, conc) in runs.items():
+            st = eng.stats()
+            out[name] = {"concurrency": conc,
+                         "tok_per_s": statistics.median(rates[name]),
+                         "tok_per_s_min": min(rates[name]),
+                         "tok_per_s_max": max(rates[name]),
+                         "ttft_p50_ms": statistics.median(p50s[name]),
+                         "ttft_p50_ms_min": min(p50s[name]),
+                         "ttft_p50_ms_max": max(p50s[name]),
+                         "preemptions": st.get("preemptions")}
+            print(f"{name} at concurrency {conc} ({len(rates[name])} waves "
+                  f"in turns): tok/s {_spread(rates[name])}; TTFT p50 ms "
+                  f"{_spread(p50s[name])}; preemptions "
+                  f"{st.get('preemptions')}")
+        out["pool_bytes"] = pool
+        out["dense_kv_bytes"] = dense_kv
+
+        prefix = [int(t) for t in rng.integers(0, 256, 128)]
+        shared = [prefix + [int(t) for t in rng.integers(0, 256, 20)]
+                  for _ in range(2)]
+        from ray_tpu_torch.llm import SamplingParams
+        hits0 = blocked.stats()["prefix_hits"]
+        donor = blocked.submit(shared[0], SamplingParams(max_tokens=256))
+        deadline = time.time() + 120
+        while not blocked._prefix_live and time.time() < deadline:
+            time.sleep(0.002)
+        blocked.generate(shared[1], greedy64)
+        if not donor.done.wait(300) or donor.error:
+            raise AssertionError(f"prefix donor: {donor.error}")
+        st = blocked.stats()
+        hits = st["prefix_hits"] - hits0
+        if hits < 1:
+            raise AssertionError("blocked prefix adoption: no hit")
+        out["prefix_hits"] = hits
+        out["prefix_tokens_saved"] = st["prefix_tokens_saved"]
+        print(f"blocked prefix adoption through copy_blocks: {hits} hit, "
+              f"{st['prefix_tokens_saved']} tokens reused")
+    finally:
+        dense.shutdown()
+        blocked.shutdown()
+        del dense, blocked
+
+    # The gather's cost: one 16-step burst, 8 slots at position 600.
+    b, pos = 8, 600
+    tokens = np.arange(b, dtype=np.int64)
+    posv = np.full(b, pos, np.int64)
+    write = np.ones(b, bool)
+    temps, top_ps = np.zeros(b, np.float32), np.ones(b, np.float32)
+    gen = torch.Generator(device=REST_DEVICE)
+    gen.manual_seed(SEED)
+    cache = init_kv_cache(mc, b, 1024, REST_DEVICE)
+    pool = init_kv_cache_blocked(mc, REST_BLOCKS, REST_BLOCK, REST_DEVICE)
+    mb = 1024 // REST_BLOCK
+    tables = np.arange(b * mb, dtype=np.int32).reshape(b, mb)
+
+    def dense_burst():
+        decode_burst(mc, w, cache, tokens, posv, write, temps, top_ps, gen,
+                     16, False)
+
+    def blocked_burst():
+        decode_burst_blocked(mc, w, pool, tables, tokens, posv, write, temps,
+                             top_ps, gen, 16, False)
+
+    # The burst is host-bound (its wall is the eager loop's enqueue), so
+    # the gathers' cost is read as device time: the kernels' sum in a
+    # profiled burst, each side profiled twice in turns.
+    walls = {"dense": [], "blocked": []}
+    busy = {"dense": [], "blocked": []}
+    kern = {}
+    for name in ("dense", "blocked", "blocked", "dense"):
+        fn = dense_burst if name == "dense" else blocked_burst
+        walls[name].append(events_ms(fn, 3))
+        ms, by_name = _busy_ms(fn)
+        busy[name].append(ms)
+        kern[name] = by_name
+    d_ms, b_ms = (statistics.mean(walls[k]) for k in ("dense", "blocked"))
+    d_busy, b_busy = (statistics.mean(busy[k]) for k in ("dense", "blocked"))
+    # What the gathers move: each layer and step reads the 8 slots'
+    # 1024-position K and V lines from the pool and writes them once.
+    gather_bytes = 2 * 2 * mc.num_layers * b * 1024 * mc.num_kv_heads * \
+        mc.head_dim * 2 * 16
+    out["burst_ms"] = {"dense_wall": d_ms, "blocked_wall": b_ms,
+                       "dense_busy": d_busy or None,
+                       "blocked_busy": b_busy or None,
+                       "gather_busy_ms": (b_busy - d_busy) if d_busy
+                       else None,
+                       "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3}
+    print(f"16-step burst, 8 slots at {pos}, in turns: wall (CUDA events) "
+          f"decode_burst {d_ms:.3f} ms, decode_burst_blocked {b_ms:.3f} ms; "
+          f"the gathers move {gather_bytes / 2 ** 30:.2f} GiB = "
+          f"{out['burst_ms']['gather_bound_ms']:.3f} ms at HBM rate")
+    if d_busy and b_busy:
+        print(f"  device busy (profiler) dense {d_busy:.3f} ms, blocked "
+              f"{b_busy:.3f} ms: the gathers +{b_busy - d_busy:.3f} ms "
+              f"({100 * (b_busy / d_busy - 1):.1f}% of the dense busy, "
+              f"{100 * (b_busy - d_busy) / b_ms:.1f}% of the blocked wall)")
+        extra = {k: v - kern["dense"].get(k, 0.0)
+                 for k, v in kern["blocked"].items()}
+        for k, v in sorted(extra.items(), key=lambda kv: -kv[1])[:4]:
+            print(f"    +{v:8.3f} ms  {k[:90]}")
+    else:
+        print("  device busy: not measured (profiler saw no kernels)")
+    del cache, pool
+    return out
+
+
+def rest_spec(prompts, mc16, params16) -> dict:
+    """(b) speculative decoding: f32 gates with a perfect and a seeded
+    2-layer draft; bf16 at full depth with the near-tie rule; the tick's
+    split and a K+1 verify against K+1 decode steps."""
+    from dataclasses import replace
+
+    import numpy as np
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.engine import (decode_step, draft_propose,
+                                          init_kv_cache, spec_verify_step)
+    from ray_tpu_torch.models.llama import init_params
+
+    greedy = SamplingParams(max_tokens=64, temperature=0.0)
+    some = prompts[:4]
+    out = {"f32": {}, "bf16": {}}
+    mc = _f32_1b()
+    params = init_params(mc, generator=SEED, device=REST_DEVICE)
+    plain = _engine(mc, params)
+    try:
+        want = [plain.generate(p, greedy).token_ids for p in some]
+    finally:
+        plain.shutdown()
+        del plain
+    for draft in ("perfect", "seeded"):
+        eng = _engine(mc, params, speculative_model=mc,
+                      speculative_tokens=REST_SPEC_K)
+        try:
+            if draft == "perfect":
+                eng.draft_params = params
+            got = [eng.generate(p, greedy).token_ids for p in some]
+            st = eng.stats()
+        finally:
+            eng.shutdown()
+            del eng
+        if got != want:
+            raise AssertionError(f"f32 speculative ({draft} draft) tokens "
+                                 f"differ from plain greedy")
+        if draft == "perfect" and st["spec_acceptance"] <= 0.9:
+            raise AssertionError(f"perfect draft accepted only "
+                                 f"{st['spec_acceptance']}")
+        out["f32"][draft] = {"acceptance": st["spec_acceptance"],
+                             "ticks": st["spec_ticks"]}
+        print(f"f32 2-layer, {draft} draft: {len(some)} streams equal plain "
+              f"greedy; acceptance {st['spec_acceptance']} over "
+              f"{st['spec_ticks']} ticks")
+    del params
+
+    # bf16, full depth: the 16-layer target; drafts: itself and a seeded
+    # 2-layer model at its widths and vocabulary.
+    draft_cfg = replace(mc16, num_layers=2)
+    plain = _engine(mc16, params16)
+    try:
+        t0 = time.perf_counter()
+        want = [plain.generate(p, greedy).token_ids for p in some]
+        plain_s = time.perf_counter() - t0
+        w16 = plain._weights
+    finally:
+        plain.shutdown()
+        del plain
+    out["bf16"]["plain_tok_per_s"] = sum(map(len, want)) / plain_s
+    for draft in ("perfect", "seeded"):
+        eng = _engine(mc16, params16,
+                      speculative_model=mc16 if draft == "perfect"
+                      else draft_cfg, speculative_tokens=REST_SPEC_K)
+        try:
+            if draft == "perfect":
+                eng.draft_params = params16
+            t0 = time.perf_counter()
+            got = [eng.generate(p, greedy).token_ids for p in some]
+            spec_s = time.perf_counter() - t0
+            st = eng.stats()
+            dw = eng._draft_weights
+            dcfg = eng.draft_cfg
+        finally:
+            eng.shutdown()
+            del eng
+        ties = [spec_tie_check(mc16, w16, p, a, b)
+                for p, a, b in zip(some, want, got)]
+        out["bf16"][draft] = {
+            "acceptance": st["spec_acceptance"], "ticks": st["spec_ticks"],
+            "tok_per_s": sum(map(len, got)) / spec_s, "ties": ties}
+        print(f"bf16 16-layer, {draft} draft: acceptance "
+              f"{st['spec_acceptance']} over {st['spec_ticks']} ticks, "
+              f"{out['bf16'][draft]['tok_per_s']:.1f} tok/s sequential vs "
+              f"plain {out['bf16']['plain_tok_per_s']:.1f} (random weights:"
+              f" acceptance and gain mean nothing); streams differing at a "
+              f"near-tie {sum(t['differs'] for t in ties)}/{len(ties)}: "
+              f"{[t for t in ties if t['differs']]}")
+        if draft == "seeded":
+            seeded_w, seeded_cfg = dw, dcfg
+
+    # The tick's split, 8 slots at 600: draft_propose (seeded 2-layer
+    # draft, k + 1 steps), spec_verify_step (K + 1 = 5 tokens), and five
+    # single decode steps of the target.
+    b, pos, k = 8, 600, REST_SPEC_K
+    tok0 = np.arange(b, dtype=np.int64)
+    posv = np.full(b, pos, np.int64)
+    write = np.ones(b, bool)
+    cache = init_kv_cache(mc16, b, 1024, REST_DEVICE)
+    dcache = init_kv_cache(seeded_cfg, b, 1024, REST_DEVICE)
+    verify = np.tile(np.arange(k + 1, dtype=np.int64), (b, 1))
+
+    def propose():
+        draft_propose(seeded_cfg, seeded_w, dcache, tok0, posv, k, write)
+
+    def verify_step():
+        spec_verify_step(mc16, w16, cache, verify, posv, write)
+
+    def steps():
+        for j in range(k + 1):
+            decode_step(mc16, w16, cache, tok0, posv + j, write)
+
+    t = {"propose": [], "verify": [], "steps": []}
+    for name in ("propose", "verify", "steps", "steps", "verify", "propose"):
+        t[name].append(events_ms({"propose": propose, "verify": verify_step,
+                                  "steps": steps}[name], 5))
+    ms = {n: statistics.mean(v) for n, v in t.items()}
+    out["tick_ms"] = {"draft_propose": ms["propose"],
+                      "spec_verify_step": ms["verify"],
+                      "decode_steps_5": ms["steps"],
+                      "verify_over_steps": ms["verify"] / ms["steps"]}
+    print(f"speculative tick, 8 slots at {pos} (CUDA events, in turns): "
+          f"draft_propose (2-layer draft, {k + 1} steps) "
+          f"{ms['propose']:.3f} ms + spec_verify_step ({k + 1} tokens) "
+          f"{ms['verify']:.3f} ms; {k + 1} single decode steps "
+          f"{ms['steps']:.3f} ms (verify / steps "
+          f"{ms['verify'] / ms['steps']:.3f})")
+    return out
+
+
+def rest_pd(mc, params, rng, greedy64) -> dict:
+    """(c) the P/D hand-off between two engines on one param tree (bf16,
+    full depth): the continuation equals one engine's greedy tokens bit
+    for bit; the prefill engine retires the prompt; export and import ms."""
+    import torch
+    from ray_tpu_torch.llm.engine import _HostFetch, init_kv_cache
+    from ray_tpu_torch.serve.prefix import block_hashes
+
+    pre, dec = _engine(mc, params), _engine(mc, params)
+    out = {}
+    try:
+        for n in REST_PD_LENGTHS:
+            prompt = [int(t) for t in rng.integers(0, 256, n)]
+            want = dec.generate(prompt, greedy64).token_ids
+            payload = pre.prefill_only(prompt)
+            req = dec.submit_prefilled(payload, greedy64)
+            if not req.done.wait(300) or req.error:
+                raise AssertionError(f"P/D decode at {n}: {req.error}")
+            got = dec._result(req).token_ids
+            if got != want:
+                raise AssertionError(f"P/D continuation at {n} tokens "
+                                     f"differs from one engine's greedy")
+            deadline = time.time() + 10
+            hashes = set(block_hashes(prompt, pre.prefix_block))
+            while not hashes <= set(pre.prefix_block_hashes()):
+                if time.time() > deadline:
+                    raise AssertionError("release_slot did not retire "
+                                         "the exported prompt")
+                time.sleep(0.005)
+            kv = (payload["kv_k"], payload["kv_v"])
+            nbytes = sum(t.numel() * t.element_size() for t in kv)
+            # The engine's copies, on a line of their own.
+            line = init_kv_cache(mc, 1, 1024, REST_DEVICE)
+
+            def export():
+                fs = [_HostFetch(line[c][:, 0, :, :n]) for c in ("k", "v")]
+                [f.tensor() for f in fs]
+
+            def imp(src):
+                def run():
+                    for c, t in zip(("k", "v"), src):
+                        line[c][:, 0, :, :n] = t.pin_memory().to(
+                            REST_DEVICE, non_blocking=True)
+                return run
+
+            # The export hands out pinned tensors (pin_memory() is then
+            # free); a payload that crossed a process is pageable and is
+            # pinned by a host copy first.
+            pageable = [t.clone() for t in kv]
+            ex_ms = _host_ms(export)
+            im_ms, im_pg_ms = _host_ms(imp(kv)), _host_ms(imp(pageable))
+            out[n] = {"bytes": nbytes, "export_ms": ex_ms,
+                      "import_ms": im_ms, "import_pageable_ms": im_pg_ms,
+                      "tokens": len(got)}
+            print(f"P/D at {n} prompt tokens: {len(got)} tokens equal one "
+                  f"engine's greedy (bf16, bit for bit); prompt retired; "
+                  f"payload {nbytes / 2 ** 20:.2f} MiB, export (device to "
+                  f"host) {ex_ms:.3f} ms, import (host to device) "
+                  f"{im_ms:.3f} ms from the exported (pinned) payload, "
+                  f"{im_pg_ms:.3f} ms from a pageable copy (host clock, "
+                  f"synchronized)")
+    finally:
+        pre.shutdown()
+        dec.shutdown()
+        del pre, dec
+    torch.cuda.synchronize()
+    return out
+
+
+def _hf_source(mc, params):
+    """An HF-named state dict built from these params (projections
+    transposed to [out, in]) with a config.to_dict(): what
+    convert_hf_llama reads from an in-memory model."""
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    lay = params["layers"]
+    sd = {"model.embed_tokens.weight": params["embed_tokens"],
+          "model.norm.weight": params["final_norm"]}
+    for i in range(mc.num_layers):
+        for ours, hf in names.items():
+            sd[f"model.layers.{i}.{hf}.weight"] = lay[ours][i].t()
+        sd[f"model.layers.{i}.input_layernorm.weight"] = lay["attn_norm"][i]
+        sd[f"model.layers.{i}.post_attention_layernorm.weight"] = \
+            lay["mlp_norm"][i]
+    hf_cfg = {"vocab_size": mc.vocab_size, "hidden_size": mc.hidden_size,
+              "intermediate_size": mc.intermediate_size,
+              "num_hidden_layers": mc.num_layers,
+              "num_attention_heads": mc.num_heads,
+              "num_key_value_heads": mc.num_kv_heads,
+              "head_dim": mc.head_dim,
+              "max_position_embeddings": mc.max_seq_len,
+              "rope_theta": mc.rope_theta, "rms_norm_eps": mc.norm_eps,
+              "tie_word_embeddings": mc.tie_embeddings}
+
+    class Source:
+        config = type("Config", (), {"to_dict": staticmethod(
+            lambda: dict(hf_cfg))})
+
+        @staticmethod
+        def state_dict():
+            return dict(sd)
+
+    return Source()
+
+
+def rest_checkpoints(prompts, greedy64) -> dict:
+    """(d) f32 2-layer: params through convert_hf_llama and through a
+    save_pytree directory give the original params' greedy tokens."""
+    import tempfile
+
+    import torch
+    from ray_tpu_torch.llm.hf import convert_hf_llama
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.train.checkpoint import save_pytree
+
+    mc = _f32_1b()
+    params = init_params(mc, generator=SEED, device=REST_DEVICE)
+    some = prompts[:3]
+
+    def tokens(params=None, **kw):
+        eng = _engine(mc, params, **kw)
+        try:
+            return [eng.generate(p, greedy64).token_ids for p in some]
+        finally:
+            eng.shutdown()
+
+    want = tokens(params=params)
+    cfg, converted = convert_hf_llama(_hf_source(mc, params),
+                                      dtype="float32")
+    if cfg != mc:
+        raise AssertionError(f"convert_hf_llama geometry {cfg}")
+    if tokens(params=converted) != want:
+        raise AssertionError("HF-converted params' tokens differ")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pytree(params, tmp)
+        got = tokens(checkpoint_path=tmp, dtype="float32")
+    if got != want:
+        raise AssertionError("DCP checkpoint_path tokens differ")
+    del params, converted
+    torch.cuda.synchronize()
+    print(f"checkpoints (f32 2-layer): HF-named state dict through "
+          f"convert_hf_llama and a save_pytree directory through "
+          f"checkpoint_path give the original params' {len(some)} greedy "
+          f"streams")
+    return {"streams": len(some), "tokens": sum(map(len, want))}
+
+
+def phase_serving_rest() -> dict:
+    """Phase 17: the serving engine's remaining surface at Llama-3.2-1B
+    width (seeded random weights): (a) the block pool, (b) speculative
+    decoding, (c) the P/D hand-off, (d) checkpoint loading. rms_norm's
+    launch count is reset right before and read right after."""
+    import gc
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.ops import norms
+
+    torch.cuda.empty_cache()
+    # The host runs the engines (serving is host-bound): keep the earlier
+    # phases' heap out of the garbage collector's passes, as phase 8 does.
+    gc.collect()
+    gc.freeze()
+    rng = np.random.default_rng(SEED)
+    _, prompts = _wave_prompts(rng)
+    greedy64 = SamplingParams(max_tokens=64, temperature=0.0)
+    out = {}
+    t0 = time.perf_counter()
+    norms.rms_norm.launches = 0
+    _phase("serving (a): block pool, f32 gates at 1B width, 2 layers")
+    out["blocked_gates"] = rest_blocked_gates(prompts, greedy64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mc16 = _bf16_1b()
+    params16 = init_params(mc16, generator=SEED, device=REST_DEVICE)
+    _phase("serving (a): block pool, bf16 at full depth")
+    out["blocked"] = rest_blocked_timed(mc16, params16, prompts, greedy64,
+                                        rng)
+    _phase("serving (b): speculative decoding")
+    out["spec"] = rest_spec(prompts, mc16, params16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("serving (c): prefill/decode hand-off, bf16 at full depth")
+    out["pd"] = rest_pd(mc16, params16, rng, greedy64)
+    del params16
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("serving (d): checkpoints")
+    out["checkpoints"] = rest_checkpoints(prompts, greedy64)
+    out["launches"] = norms.rms_norm.launches
+    out["s"] = time.perf_counter() - t0
+    if out["launches"] < 1:
+        raise AssertionError("rms_norm kernel never launched in phase 17")
+    print(f"phase 17: {out['s']:.1f} s; rms_norm kernel launches "
+          f"{out['launches']}")
+    gc.unfreeze()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4583,6 +5248,7 @@ def main() -> int:
     pipe = phase_pipeline()
     moe = phase_mixtral()
     rl = phase_rl()
+    rest = phase_serving_rest()
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -4609,8 +5275,9 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/rms_norm.cu",
         "replaces": "ray_tpu/ops/norms.py:27",
         "tpu": "ray_tpu/ops/norms.py:_rms_kernel", "checked": True,
-        "launches": train["launches"]["rms_norm"],
+        "launches": train["launches"]["rms_norm"] + rest["launches"],
         "launches_by_path": {"engine": eng["launches"],
+                             "serving_rest": rest["launches"],
                              "train": train["launches"]["rms_norm"],
                              "train_split":
                                  train_split["launches"]["rms_norm"],
@@ -4756,7 +5423,9 @@ def main() -> int:
                       "train_8b": train8b, "train_ranks": train_ranks,
                       "pipeline": pipe, "pipeline_ranks": pipe_ranks,
                       "mixtral": moe, "mixtral_ranks": moe_ranks,
-                      "rl": rl, "rl_ranks": rl_ranks}))
+                      "rl": rl, "rl_ranks": rl_ranks,
+                      "serving_rest": {k: v for k, v in rest.items()
+                                       if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,9 @@
 """ray_tpu_torch.llm: the LLM serving engine on PyTorch (port of
-ray_tpu.llm): continuous batching over a dense slot KV cache, chunked
-prefill, burst decode with pipelined chaining, on-device sampling and
-prefix-cache reuse."""
+ray_tpu.llm): continuous batching over a dense slot KV cache or a block
+pool with preemption, chunked prefill, burst decode with pipelined
+chaining, on-device sampling, prefix-cache reuse, speculative decoding,
+the prefill/decode KV hand-off (llm/pd.py) and checkpoint loading
+(llm/hf.py for HF Llama directories)."""
 
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.engine import GenerationResult, LLMEngine

@@ -1,11 +1,9 @@
 """LLM configs for the PyTorch engine.
 
-Port of ray_tpu/llm/config.py. Of the options this port does not serve
-yet (blocked KV, speculative decoding, tensor parallelism, checkpoint
-loading) only the field that switches each on is kept, so that asking for
-it reaches the engine, which raises ``NotImplementedError``; their tuning
-fields and the serve-deployment fields (placement groups, P/D transfer
-mode) come with the code that reads them.
+Port of ray_tpu/llm/config.py. Tensor parallelism is not served yet:
+``tensor_parallel_size > 1`` reaches the engine, which raises
+``NotImplementedError``. The serve-deployment fields (engine kwargs,
+placement groups) come with the serve layer that reads them.
 """
 
 from __future__ import annotations
@@ -31,15 +29,22 @@ class LLMConfig:
     max_num_seqs: int = 8              # continuous-batching slots
     max_seq_len: int | None = None     # default: model.max_seq_len
     dtype: str | None = None           # default: model.dtype
-    tensor_parallel_size: int = 1      # >1 not ported yet
-    checkpoint_path: str | None = None # not ported yet; None → seeded init
+    tensor_parallel_size: int = 1      # >1 not ported yet (raises)
+    # An HF Llama directory (config.json + weights, through llm/hf.py; its
+    # geometry replaces ``model``) or a save_pytree (DCP) directory;
+    # None → seeded random init.
+    checkpoint_path: str | None = None
     seed: int = 0
     prefill_bucket_min: int = 16
     # Chunked prefill: long prompts prefill in chunks of this many tokens so
     # active decodes run between chunks.
     prefill_chunk: int = 512
-    # Speculative decoding (not ported yet).
+    # Speculative decoding: a draft model proposes speculative_tokens
+    # greedily and the target verifies them in one forward. Greedy
+    # (temperature 0) requests only; their output equals plain greedy.
     speculative_model: LlamaConfig | str | None = None
+    speculative_tokens: int = 4
+    speculative_checkpoint_path: str | None = None  # DCP or HF directory
     # Burst decoding: up to this many decode+sample steps per dispatch, the
     # sampled token fed forward on the device; adapts down in powers of two
     # near token budgets. A top-k request falls back to single steps.
@@ -50,14 +55,28 @@ class LLMConfig:
     # Prefill chunks dispatched per scheduler tick (first-token fetches are
     # deferred past the tick's decode dispatch).
     prefill_chunks_per_tick: int = 4
-    # Block-pooled KV cache (not ported yet): 0 = dense slot lines.
+    # Block-pooled KV cache (vLLM PagedAttention's capability): K/V live in
+    # a pool of fixed-size blocks addressed through per-slot block tables,
+    # so the same memory serves ~2x the slots; on pool exhaustion the
+    # newest request is preempted and later re-prefilled. 0 = dense lines.
     kv_block_size: int = 0
+    # Blocks in the pool; 0 = auto (max_num_seqs x max_seq_len / 2 tokens).
+    kv_num_blocks: int = 0
     # Prefix-cache publication granularity (serve/prefix.py chain hashes);
     # 0 disables publication.
     prefix_block_tokens: int = 32
+    # Prefill/decode KV hand-off transport (llm/pd.py): "inline" ships the
+    # KV tensors in the payload; "store" (the JAX package's default, over
+    # its object plane) is not ported and raises NotImplementedError.
+    pd_transfer_mode: str = "store"
 
     def model_config(self) -> LlamaConfig:
         return _resolve_model(self.model, self.dtype)
+
+    def draft_model_config(self) -> LlamaConfig | None:
+        if self.speculative_model is None:
+            return None
+        return _resolve_model(self.speculative_model, self.dtype)
 
 
 def _resolve_model(model: "LlamaConfig | str",

@@ -1,10 +1,16 @@
 """PyTorch LLM inference engine: continuous batching over a slot KV cache.
 
-Port of ray_tpu/llm/engine.py (dense KV layout) to PyTorch on a CUDA card.
-The design is the JAX engine's:
+Port of ray_tpu/llm/engine.py to PyTorch on a CUDA card. The design is the
+JAX engine's:
 
 - The KV cache is a dense [layers, slots, kv_heads, max_seq, head_dim]
-  pool; a sequence owns one slot for its lifetime.
+  pool where a sequence owns one slot's line for its lifetime, or, with
+  ``kv_block_size > 0``, a pool of [layers, blocks, kv_heads, block_size,
+  head_dim] blocks that per-slot block tables map positions onto (reads
+  gather a slot's blocks into a line of max_seq positions, so dense and
+  blocked run the same products on the same shapes); on pool exhaustion
+  the newest of the requests that arrived after the one in need is
+  preempted and later re-prefilled.
 - Continuous batching: every scheduler tick admits waiting requests into
   free slots (chunked, bucketed prefill), then decodes ALL active slots in
   one batched pass; new requests join mid-flight.
@@ -26,8 +32,12 @@ Rounding points follow the JAX code: bf16 score product then f32 scale and
 mask, f32 softmax cast back before the PV product, f32 SiLU, and an
 f32 x f32 lm head (TF32 must stay off, PyTorch's default).
 
-Not ported yet (they raise NotImplementedError): blocked KV, speculative
-decoding, prefill/decode hand-off, tensor parallelism, checkpoint loading.
+Also ported: speculative decoding with a draft model (greedy acceptance,
+output equal to plain greedy), the prefill/decode KV hand-off
+(``prefill_only``, ``submit_prefilled``, ``release_slot``; llm/pd.py
+carries it between engines) and checkpoint loading (an HF Llama directory
+through llm/hf.py, or a DCP directory of train/checkpoint.py in place of
+orbax). Not ported: tensor parallelism (raises NotImplementedError).
 Tracing spans are not recorded (``GenerationRequest.trace_ctx`` is None).
 """
 
@@ -35,18 +45,20 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import queue
 import threading
 import time
 import uuid
-from dataclasses import dataclass, field
+from collections import deque
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch._device import resolve_device, tree_map
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.tokenizer import get_tokenizer
 from ray_tpu_torch.models.llama import LlamaConfig, init_params, params_to
@@ -81,22 +93,27 @@ def _h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class _HostFetch:
-    """Device -> host copy of a small tensor, started now (pinned memory,
-    non-blocking, an event behind it) and waited for in ``numpy()``."""
+    """Device -> host copy of a tensor, started now (pinned memory,
+    non-blocking, an event behind it on the tensor's device's current
+    stream) and waited for in ``numpy()``/``tensor()``. On the CPU it
+    keeps ``t`` itself (callers hand it fresh tensors or clone)."""
 
     def __init__(self, t: torch.Tensor):
         if t.is_cuda:
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(t.device))
         else:
             self._host, self._event = t, None
 
-    def numpy(self) -> np.ndarray:
+    def tensor(self) -> torch.Tensor:
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        return self._host
+
+    def numpy(self) -> np.ndarray:
+        return self.tensor().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +127,32 @@ def init_kv_cache(cfg: LlamaConfig, max_slots: int, max_seq: int,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
+
+
+def init_kv_cache_blocked(cfg: LlamaConfig, num_blocks: int,
+                          block_size: int,
+                          device: torch.device | str = "cuda") -> dict:
+    """The block pool [L, NB, Hkv, bs, D] (ray_tpu/llm/engine.py:383)."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads, block_size,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
+
+
+def _gather_slot_kv(kv_l, table_row):
+    """kv_l [NB, Hkv, bs, D] + table_row [MB] -> the slot's virtual line
+    [1, Hkv, MB*bs, D] (a copy, as JAX's gather is)."""
+    g = kv_l[table_row]  # [MB, Hkv, bs, D]
+    mb, hkv, bs, d = g.shape
+    return g.permute(1, 0, 2, 3).reshape(1, hkv, mb * bs, d)
+
+
+def _gather_batch_kv(kv_l, tables):
+    """kv_l [NB, Hkv, bs, D] + tables [B, MB] -> [B, Hkv, MB*bs, D]."""
+    g = kv_l[tables]  # [B, MB, Hkv, bs, D]
+    b, mb, hkv, bs, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, mb * bs, d)
 
 
 @dataclass
@@ -230,21 +273,14 @@ def prefill(cfg: LlamaConfig, params, cache, tokens, length: int,
     return cache, _lm_head(cfg, w, x[0, last:last + 1])[0]
 
 
-@torch.no_grad()
-def prefill_chunk(cfg: LlamaConfig, params, cache, tokens, kv_len: int,
-                  length: int, slot: int):
-    """Prefill ONE chunk of one sequence (chunked prefill).
-
-    tokens: [C] chunk (padded), kv_len: tokens already cached for this
-    slot, length: true total prompt length. Queries attend to
-    cache[0..kv_len) + the chunk's own causal prefix. Returns (cache,
-    last-token logits [V] f32)."""
-    w = prepare_params(cfg, params)
-    dev = cache["k"].device
-    tokens = _as_tokens(tokens, dev)
+def _prefill_chunk_impl(cfg: LlamaConfig, w: PreparedParams, tokens,
+                        kv_len: int, length: int, max_seq: int, store):
+    """The chunk forward both cache layouts share: queries at kv_len.. attend
+    to the line ``store(l, k, v)`` returns for layer l after writing the
+    chunk's k/v [Hkv, C, D] (a [1, Hkv, max_seq, D] line). Returns the
+    last real token's logits [V] f32."""
+    dev = tokens.device
     c = tokens.shape[0]
-    max_seq = cache["k"].shape[3]
-    _check_window(cache, kv_len, c)
     x = w.embed[tokens][None]  # [1, C, H]
     positions = torch.arange(kv_len, kv_len + c, device=dev)
     cos, sin = rope_cos_sin(positions, w.inv_freq)
@@ -257,26 +293,91 @@ def prefill_chunk(cfg: LlamaConfig, params, cache, tokens, kv_len: int,
         q, k, v = _project_qkv(cfg, lp, xn, 1, c)
         q = apply_rope_cs(q, cos, sin)
         k = apply_rope_cs(k, cos, sin)
-        k_line, v_line = cache["k"][l, slot], cache["v"][l, slot]
-        k_line[:, kv_len:kv_len + c] = k[0]
-        v_line[:, kv_len:kv_len + c] = v[0]
-        x = _attn_out(lp, _attention(cfg, q, k_line[None], v_line[None],
-                                     blocked), x)
+        k_line, v_line = store(l, k[0], v[0])
+        x = _attn_out(lp, _attention(cfg, q, k_line, v_line, blocked), x)
         x = _mlp(cfg, lp, x)
     last = min(max(length - 1 - kv_len, 0), c - 1)
-    return cache, _lm_head(cfg, w, x[0, last:last + 1])[0]
+    return _lm_head(cfg, w, x[0, last:last + 1])[0]
+
+
+@torch.no_grad()
+def prefill_chunk(cfg: LlamaConfig, params, cache, tokens, kv_len: int,
+                  length: int, slot: int):
+    """Prefill ONE chunk of one sequence (chunked prefill).
+
+    tokens: [C] chunk (padded), kv_len: tokens already cached for this
+    slot, length: true total prompt length. Queries attend to
+    cache[0..kv_len) + the chunk's own causal prefix. Returns (cache,
+    last-token logits [V] f32)."""
+    w = prepare_params(cfg, params)
+    tokens = _as_tokens(tokens, cache["k"].device)
+    c = tokens.shape[0]
+    _check_window(cache, kv_len, c)
+
+    def store(l, k, v):
+        k_line, v_line = cache["k"][l, slot], cache["v"][l, slot]
+        k_line[:, kv_len:kv_len + c] = k
+        v_line[:, kv_len:kv_len + c] = v
+        return k_line[None], v_line[None]
+
+    return cache, _prefill_chunk_impl(cfg, w, tokens, kv_len, length,
+                                      cache["k"].shape[3], store)
+
+
+@torch.no_grad()
+def prefill_chunk_blocked(cfg: LlamaConfig, params, cache, table_row,
+                          tokens, kv_len: int, length: int):
+    """Blocked-pool chunked prefill for ONE slot (ray_tpu/llm/engine.py:
+    408). ``table_row`` [MB] is the slot's block table (a host array);
+    kv_len and the chunk are multiples of block_size, so the chunk writes
+    whole blocks: one index_copy_ a layer for K and one for V. Returns
+    (cache, last-token logits [V] f32)."""
+    w = prepare_params(cfg, params)
+    dev = cache["k"].device
+    tokens = _as_tokens(tokens, dev)
+    c = tokens.shape[0]
+    _, nb, _, bs, _ = cache["k"].shape
+    row = np.asarray(table_row, np.int64).reshape(-1)
+    mb = row.shape[0]
+    if kv_len % bs or c % bs or kv_len < 0 or kv_len + c > mb * bs:
+        raise ValueError(f"blocked chunk [{kv_len}, {kv_len + c}) is not "
+                         f"whole blocks of {bs} inside {mb} blocks")
+    _check_blocks(row, nb)
+    table = _h2d(row, dev)
+    dst = table[kv_len // bs:(kv_len + c) // bs]
+    nblk = c // bs
+
+    def store(l, k, v):
+        k_l, v_l = cache["k"][l], cache["v"][l]
+        hkv, _, d = k.shape
+        k_l.index_copy_(0, dst, k.view(hkv, nblk, bs, d).transpose(0, 1))
+        v_l.index_copy_(0, dst, v.view(hkv, nblk, bs, d).transpose(0, 1))
+        return _gather_slot_kv(k_l, table), _gather_slot_kv(v_l, table)
+
+    return cache, _prefill_chunk_impl(cfg, w, tokens, kv_len, length,
+                                      mb * bs, store)
+
+
+def _check_blocks(table, num_blocks: int) -> None:
+    """A CUDA gather or scatter past the pool would fault the device."""
+    if table.size and (table.min() < 0 or table.max() >= num_blocks):
+        raise ValueError(f"block table names a block outside the pool of "
+                         f"{num_blocks}")
 
 
 class _DecodeIndex:
     """Device-side indices for ``steps`` consecutive decode passes of K
     tokens per slot, pass j shifted j positions on (a burst runs K == 1).
     Built from host arrays in one upload: positions [B, K], the
-    write-masked slots, and the flat (slot, position) rows a pass writes.
-    Slots with write_mask False are never written: their cache window is
-    left exactly as it was."""
+    write-masked slots, and the rows a pass writes: (slot, position) of a
+    dense line, or with ``tables`` [B, MB] (the blocked pool) (block,
+    offset) = (tables[b, p // bs], p % bs) for every pass, plus the tables
+    for the gather. Slots with write_mask False are never written: their
+    cache window (or their blocks) is left exactly as it was."""
 
     def __init__(self, positions0, write_mask, k: int, steps: int,
-                 max_seq: int, device: torch.device):
+                 max_seq: int, device: torch.device, tables=None,
+                 num_blocks: int = 0):
         pos0 = np.asarray(positions0, np.int64).reshape(-1)
         wm = np.asarray(write_mask, bool).reshape(-1)
         if wm.shape != pos0.shape:
@@ -284,48 +385,72 @@ class _DecodeIndex:
         b = pos0.shape[0]
         positions = pos0[:, None] + np.arange(k)[None, :]  # [B, K]
         wslots = np.flatnonzero(wm)
+        if tables is not None:
+            tables = np.asarray(tables, np.int64)
+            _check_blocks(tables, num_blocks)
+            bs = max_seq // tables.shape[1]
         last = positions.max(initial=0) + steps - 1
         if positions.min(initial=0) < 0 or last >= max_seq:
             raise ValueError(f"decode positions reach {last}, past the "
                              f"cache line of {max_seq} positions")
         n = wslots.shape[0]
-        packed = np.concatenate([positions.reshape(-1), wslots,
-                                 np.repeat(wslots, k),
-                                 positions[wslots].reshape(-1)])
+        wpos = positions[wslots].reshape(-1)  # [n*K], slot-major
+        if tables is None:
+            rows = [np.repeat(wslots, k), wpos]
+        else:  # every pass's rows: [steps, n*K] blocks, then offsets
+            p = wpos[None, :] + np.arange(steps)[:, None]
+            rows = [tables[np.repeat(wslots, k)[None, :], p // bs].reshape(-1),
+                    (p % bs).reshape(-1), tables.reshape(-1)]
+        packed = np.concatenate([positions.reshape(-1), wslots, *rows])
         t = _h2d(packed, device)
         o = b * k
         self._positions = t[:o].view(b, k)
         self.wslots = t[o:o + n]
-        self.row_slot = t[o + n:o + n + n * k]
-        self._row_pos = t[o + n + n * k:]
+        o += n
+        m = n * k
+        self.tables = None
+        if tables is None:
+            self._row0, self._row2 = t[o:o + m], t[o + m:o + 2 * m]
+        else:
+            self._row0 = t[o:o + steps * m].view(steps, m)
+            self._row2 = t[o + steps * m:o + 2 * steps * m].view(steps, m)
+            self.tables = t[o + 2 * steps * m:].view(tables.shape)
         self._kpos = torch.arange(max_seq, device=device)
 
     def at(self, j: int):
-        """(positions [B, K], row positions, blocked [B, 1, K, S]) of pass j
-        (positions shifted by j)."""
+        """(positions [B, K], the rows pass j writes as (first, third)
+        cache indices, blocked [B, 1, K, S]) of pass j (positions shifted
+        by j)."""
         pos = self._positions + j if j else self._positions
-        rows = self._row_pos + j if j else self._row_pos
+        if self.tables is None:
+            rows = (self._row0, self._row2 + j if j else self._row2)
+        else:
+            rows = (self._row0[j], self._row2[j])
         blocked = (self._kpos[None, None, :] > pos[:, :, None])[:, None]
         return pos, rows, blocked
 
 
-def _write_rows(cache_l, new, idx: _DecodeIndex, row_pos) -> None:
-    """cache_l [B, Hkv, S, D] <- new [B, Hkv, K, D] at each write-masked
-    slot's K positions; touches only those rows."""
+def _write_rows(cache_l, new, idx: _DecodeIndex, rows) -> None:
+    """cache_l [B, Hkv, S, D] (or the pool's [NB, Hkv, bs, D]) <- new
+    [B, Hkv, K, D] at each write-masked slot's K rows; touches only those
+    rows (torch has no dropping scatter: masked slots are left out)."""
     _, hkv, _, d = new.shape
-    rows = new.permute(0, 2, 1, 3).index_select(0, idx.wslots)
-    cache_l[idx.row_slot, :, row_pos] = rows.reshape(-1, hkv, d)
+    vals = new.permute(0, 2, 1, 3).index_select(0, idx.wslots)
+    cache_l[rows[0], :, rows[1]] = vals.reshape(-1, hkv, d)
 
 
 def _multi_token_impl(cfg: LlamaConfig, w: PreparedParams, cache, tokens,
                       idx: _DecodeIndex, j: int = 0):
-    """Consume K tokens per slot in one pass against the KV cache.
+    """Consume K tokens per slot in one pass against the KV cache: JAX's
+    ``_multi_token_impl`` and, when ``idx`` carries block tables,
+    ``_multi_token_impl_blocked`` (row writes into the pool, attention over
+    each slot's gathered line), in one body.
 
     tokens: [B, K] on the device; pass ``j`` of ``idx``: tokens[:, t] is
     written at positions0 + j + t and attends kv through its own position.
     Returns (cache, logits [B, K, V] f32)."""
     b, k = tokens.shape
-    positions, row_pos, blocked = idx.at(j)
+    positions, rows, blocked = idx.at(j)
     x = w.embed[tokens]  # [B, K, H]
     cos, sin = rope_cos_sin(positions, w.inv_freq)
     for l, lp in enumerate(w.layers):
@@ -334,8 +459,11 @@ def _multi_token_impl(cfg: LlamaConfig, w: PreparedParams, cache, tokens,
         q = apply_rope_cs(q, cos, sin)
         kk = apply_rope_cs(kk, cos, sin)
         k_l, v_l = cache["k"][l], cache["v"][l]
-        _write_rows(k_l, kk, idx, row_pos)
-        _write_rows(v_l, v, idx, row_pos)
+        _write_rows(k_l, kk, idx, rows)
+        _write_rows(v_l, v, idx, rows)
+        if idx.tables is not None:
+            k_l = _gather_batch_kv(k_l, idx.tables)
+            v_l = _gather_batch_kv(v_l, idx.tables)
         x = _attn_out(lp, _attention(cfg, q, k_l, v_l, blocked), x)
         x = _mlp(cfg, lp, x)
     return cache, _lm_head(cfg, w, x)
@@ -361,21 +489,30 @@ def decode_step(cfg: LlamaConfig, params, cache, tokens, positions,
 
 
 @torch.no_grad()
-def decode_burst(cfg: LlamaConfig, params, cache, token0, positions0,
-                 write_mask, temps, top_ps, generator: torch.Generator,
-                 steps: int, need_top_p: bool = True):
-    """``steps`` chained decode+sample steps in one dispatch: each sampled
-    token feeds the next step on the device, nothing is read back.
-    Greedy/temperature/top-p sampling (top-k takes single steps).
-    Returns (cache, tokens [steps, B] int64 on the device)."""
+def decode_step_blocked(cfg: LlamaConfig, params, cache, tables, tokens,
+                        positions, write_mask):
+    """decode_step against the block pool; ``tables`` [B, MB] host array
+    (ray_tpu/llm/engine.py:517)."""
     w = prepare_params(cfg, params)
     dev = cache["k"].device
-    tok = _as_tokens(token0, dev)
-    idx = _DecodeIndex(positions0, write_mask, 1, steps,
-                       cache["k"].shape[3], dev)
-    temps = _as_f32(temps, dev)
-    top_ps = _as_f32(top_ps, dev)
-    out = torch.empty((steps, tok.shape[0]), dtype=torch.long, device=dev)
+    idx = _blocked_index(cache, tables, positions, write_mask, 1, 1)
+    cache, logits = _multi_token_impl(cfg, w, cache,
+                                      _as_tokens(tokens, dev)[:, None], idx)
+    return cache, logits[:, 0]
+
+
+def _blocked_index(cache, tables, positions0, write_mask, k: int,
+                   steps: int) -> _DecodeIndex:
+    _, nb, _, bs, _ = cache["k"].shape
+    tables = np.asarray(tables)
+    return _DecodeIndex(positions0, write_mask, k, steps,
+                        tables.shape[1] * bs, cache["k"].device, tables, nb)
+
+
+def _burst(cfg, w, cache, tok, idx, temps, top_ps, generator, steps: int,
+           need_top_p: bool):
+    out = torch.empty((steps, tok.shape[0]), dtype=torch.long,
+                      device=tok.device)
     for j in range(steps):
         cache, logits = _multi_token_impl(cfg, w, cache, tok[:, None], idx, j)
         tok = sample_tokens(logits[:, 0], temps, top_ps, 0, generator,
@@ -385,12 +522,100 @@ def decode_burst(cfg: LlamaConfig, params, cache, token0, positions0,
 
 
 @torch.no_grad()
+def decode_burst(cfg: LlamaConfig, params, cache, token0, positions0,
+                 write_mask, temps, top_ps, generator: torch.Generator,
+                 steps: int, need_top_p: bool = True):
+    """``steps`` chained decode+sample steps in one dispatch: each sampled
+    token feeds the next step on the device, nothing is read back.
+    Greedy/temperature/top-p sampling (top-k takes single steps).
+    Returns (cache, tokens [steps, B] int64 on the device)."""
+    dev = cache["k"].device
+    idx = _DecodeIndex(positions0, write_mask, 1, steps,
+                       cache["k"].shape[3], dev)
+    return _burst(cfg, prepare_params(cfg, params), cache,
+                  _as_tokens(token0, dev), idx, _as_f32(temps, dev),
+                  _as_f32(top_ps, dev), generator, steps, need_top_p)
+
+
+@torch.no_grad()
+def decode_burst_blocked(cfg: LlamaConfig, params, cache, tables, token0,
+                         positions0, write_mask, temps, top_ps,
+                         generator: torch.Generator, steps: int,
+                         need_top_p: bool = True):
+    """decode_burst against the block pool (ray_tpu/llm/engine.py:525):
+    the engine allocates blocks covering positions0 + steps for every
+    written slot before the dispatch; the tables are uploaded once."""
+    dev = cache["k"].device
+    idx = _blocked_index(cache, tables, positions0, write_mask, 1, steps)
+    return _burst(cfg, prepare_params(cfg, params), cache,
+                  _as_tokens(token0, dev), idx, _as_f32(temps, dev),
+                  _as_f32(top_ps, dev), generator, steps, need_top_p)
+
+
+# Speculative decoding (ray_tpu/llm/engine.py:308-351). Rollback is free:
+# entries written past the accepted prefix sit at positions >= next_pos,
+# which every later read masks and every later write overwrites.
+
+
+@torch.no_grad()
+def draft_propose(cfg: LlamaConfig, params, cache, token0, positions0,
+                  k: int, write_mask):
+    """Greedy-propose ``k`` tokens with the draft model in one dispatch:
+    k + 1 decode steps, so the last proposal's KV is written too (its own
+    proposal is dropped) and a fully accepted tick needs no catch-up.
+    Returns (cache, proposals [B, k] int64 on the device)."""
+    w = prepare_params(cfg, params)
+    dev = cache["k"].device
+    tok = _as_tokens(token0, dev)
+    idx = _DecodeIndex(positions0, write_mask, 1, k + 1,
+                       cache["k"].shape[3], dev)
+    out = torch.empty((tok.shape[0], k + 1), dtype=torch.long, device=dev)
+    for j in range(k + 1):
+        cache, logits = _multi_token_impl(cfg, w, cache, tok[:, None], idx, j)
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        out[:, j] = tok
+    return cache, out[:, :k]
+
+
+@torch.no_grad()
+def spec_verify_step(cfg: LlamaConfig, params, cache, tokens, positions0,
+                     write_mask):
+    """Target forward over K tokens per slot in one pass (decode_step is
+    its K = 1 case). tokens: [B, K], the last sampled token then the
+    draft's proposals; positions0 / write_mask: [B] host arrays. Writes
+    K/V at positions0 .. positions0 + K - 1 and returns (cache, logits
+    [B, K, V] f32): logits[:, j] scores the token at positions0 + j + 1."""
+    w = prepare_params(cfg, params)
+    dev = cache["k"].device
+    tokens = _as_tokens(tokens, dev)
+    idx = _DecodeIndex(positions0, write_mask, tokens.shape[1], 1,
+                       cache["k"].shape[3], dev)
+    return _multi_token_impl(cfg, w, cache, tokens, idx)
+
+
+@torch.no_grad()
 def copy_prefix_kv(cfg: LlamaConfig, cache, src_slot: int, dst_slot: int):
     """Copy one slot's whole KV line to another slot, all layers at once
     (prefix-cache adoption from a donor). Positions past the adopted
     prefix are masked by ``length``/``positions`` downstream."""
     cache["k"][:, dst_slot] = cache["k"][:, src_slot]
     cache["v"][:, dst_slot] = cache["v"][:, src_slot]
+    return cache
+
+
+@torch.no_grad()
+def copy_blocks(cache, src_blocks, dst_blocks):
+    """Copy pool blocks src[i] -> dst[i], all layers (blocked prefix
+    adoption: a content copy). src/dst: host arrays, uploaded at once."""
+    src = np.asarray(src_blocks, np.int64).reshape(-1)
+    dst = np.asarray(dst_blocks, np.int64).reshape(-1)
+    nb = cache["k"].shape[1]
+    _check_blocks(src, nb)
+    _check_blocks(dst, nb)
+    t = _h2d(np.concatenate([src, dst]), cache["k"].device)
+    n = src.shape[0]
+    for name in ("k", "v"):
+        cache[name].index_copy_(1, t[n:], cache[name].index_select(1, t[:n]))
     return cache
 
 
@@ -452,9 +677,20 @@ class GenerationRequest:
     finish_reason: str | None = None
     next_pos: int = 0  # position the next token will occupy; <0 = prefilling
     prefilled_len: int = 0  # prompt tokens already in the KV cache
+    preloaded: tuple | None = None  # (kv_k, kv_v, first_token) P/D import
+    last_slot: int = -1  # slot the request last occupied (KV export)
+    hold_slot: bool = False  # keep the slot (and its KV) after finishing
+    draft_len: int = 0  # draft-cache positions filled (speculative decoding)
+    draft_fail_count: int = 0  # consecutive draft catch-up failures
+    spec_disabled: bool = False  # excluded from speculation (see _spec_decode)
+    arrival_seq: int = 0  # admission order: preemption evicts later ones
+    prefill_gen: int = 0  # bumped on preemption: stale deferred fetches no-op
+    n_prompt: int = -1  # the submitted prompt's length, once preempted
     trace_ctx: dict | None = None  # tracing is not ported: always None
     submit_ts: float = 0.0
+    admit_ts: float = 0.0
     first_token_ts: float = 0.0
+    kv_imported: bool = False  # a P/D hand-off continuation
 
 
 @dataclass
@@ -467,14 +703,43 @@ class GenerationResult:
 
 
 def _unported(config: LLMConfig) -> None:
-    for on, what in (
-            (config.kv_block_size > 0, "blocked KV (kv_block_size > 0)"),
-            (config.speculative_model is not None, "speculative decoding"),
-            (config.tensor_parallel_size > 1, "tensor parallelism"),
-            (bool(config.checkpoint_path), "checkpoint loading")):
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to ray_tpu_torch yet")
+    if config.tensor_parallel_size > 1:
+        raise NotImplementedError(
+            "tensor parallelism (tensor_parallel_size > 1) is not ported "
+            "to ray_tpu_torch yet")
+
+
+def _load_checkpoint(path: str, dtype: str | None):
+    """(config or None, CPU params) from ``path``: an HF Llama directory
+    (config.json; its geometry comes back too) through llm/hf.py, else a
+    save_pytree (DCP) directory, whose float leaves are cast to ``dtype``
+    when one is given."""
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"checkpoint directory {path!r} not found")
+    if os.path.isfile(os.path.join(path, "config.json")):
+        from ray_tpu_torch.llm.hf import convert_hf_llama
+
+        return convert_hf_llama(path, dtype=dtype)
+    from ray_tpu_torch.train.checkpoint import restore_pytree
+
+    params = restore_pytree(path)
+    if dtype is not None:
+        dt = getattr(torch, dtype)
+        params = tree_map(lambda t: t.to(dt) if t.is_floating_point()
+                          else t, params)
+    return None, params
+
+
+def _kv_tensor(a, dtype: torch.dtype) -> torch.Tensor:
+    """A payload's KV as a CPU tensor in the cache dtype: the port's
+    tensors, or numpy arrays (JAX's ml_dtypes bfloat16 through float32,
+    which is exact)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", dtype)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a)).to(dtype)
 
 
 class LLMEngine:
@@ -497,6 +762,13 @@ class LLMEngine:
         self.model_cfg = config.model_config()
         self.tokenizer = get_tokenizer(config.tokenizer)
         self.max_slots = config.max_num_seqs
+        if params is None and config.checkpoint_path:
+            ck_cfg, params = _load_checkpoint(config.checkpoint_path,
+                                              config.dtype)
+            if ck_cfg is not None:  # an HF checkpoint's own geometry
+                self.model_cfg = ck_cfg
+        # Validate against the final geometry (an HF checkpoint replaces
+        # config.model, and its vocab is what the tokenizer must fit).
         self.max_seq = config.max_seq_len or self.model_cfg.max_seq_len
         if self.tokenizer.vocab_size > self.model_cfg.vocab_size:
             raise ValueError("tokenizer vocab exceeds model vocab")
@@ -507,8 +779,58 @@ class LLMEngine:
             params = params_to(params, self.device)
         self.params = params
         self._weights = prepare_params(self.model_cfg, params)
-        self.cache = init_kv_cache(self.model_cfg, self.max_slots,
-                                   self.max_seq, self.device)
+
+        # KV layout: dense [slots, max_seq] lines or the block pool.
+        self.block_size = int(config.kv_block_size or 0)
+        self.blocked = self.block_size > 0
+        if self.blocked:
+            if config.speculative_model is not None:
+                raise ValueError(
+                    "speculative decoding requires the dense KV layout "
+                    "(kv_block_size=0)")
+            if self.block_size & (self.block_size - 1):
+                raise ValueError("kv_block_size must be a power of two")
+            if self.max_seq % self.block_size:
+                raise ValueError(
+                    "max_seq_len must be a multiple of kv_block_size")
+            self.blocks_per_slot = self.max_seq // self.block_size
+            self.num_blocks = int(
+                config.kv_num_blocks
+                or (self.max_slots * self.blocks_per_slot + 1) // 2)
+            self._tables = np.zeros(
+                (self.max_slots, self.blocks_per_slot), np.int32)
+            self._free_blocks: list[int] = list(range(self.num_blocks))
+            self._slot_nblk = [0] * self.max_slots
+            self.preemptions = 0
+        self.cache = self._new_cache()
+
+        # Speculative decoding: a draft model with its own dense cache,
+        # in the target's vocab space.
+        self.draft_cfg = config.draft_model_config()
+        self.spec_k = max(1, int(config.speculative_tokens))
+        self._draft_params = self._draft_weights = None
+        self.draft_cache = None
+        self.spec_ticks = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        if self.draft_cfg is not None:
+            dp = None
+            if config.speculative_checkpoint_path:
+                ck_cfg, dp = _load_checkpoint(
+                    config.speculative_checkpoint_path, config.dtype)
+                if ck_cfg is not None:
+                    self.draft_cfg = ck_cfg
+            if self.draft_cfg.vocab_size != self.model_cfg.vocab_size:
+                raise ValueError(
+                    "speculative draft must share the target's vocab "
+                    f"({self.draft_cfg.vocab_size} != "
+                    f"{self.model_cfg.vocab_size})")
+            if dp is None:
+                dp = init_params(self.draft_cfg, generator=config.seed + 7,
+                                 device=self.device)
+            self.draft_params = dp
+            self.draft_cache = init_kv_cache(self.draft_cfg, self.max_slots,
+                                             self.max_seq, self.device)
 
         self._slots: dict[int, GenerationRequest | None] = {
             i: None for i in range(self.max_slots)}
@@ -528,8 +850,16 @@ class LLMEngine:
         self.chained_bursts = 0
         self.prefix_block = int(config.prefix_block_tokens or 0)
         self._prefix_hash_cache: dict[tuple, tuple[int, ...]] = {}
+        self._cache_gen = 0  # bumped when a device failure rebuilds the cache
         self._prefill_rr = -1  # last slot that ran a prefill chunk
         self._waiting: queue.Queue[GenerationRequest] = queue.Queue()
+        # Held slots handed back by release_slot (user threads); the
+        # scheduler thread frees and retires them at tick start.
+        self._released: queue.Queue[GenerationRequest] = queue.Queue()
+        # Preempted (blocked-KV) requests re-admit ahead of the queue.
+        self._preempted: deque[GenerationRequest] = deque()
+        self._arrival_seq = 0
+        self._submit_lock = threading.Lock()  # guards _arrival_seq
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(config.seed + 1)
         # Pipelined decode: (active snapshot, burst, fetch) of a chained
@@ -539,6 +869,26 @@ class LLMEngine:
         self._work = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+
+    @property
+    def draft_params(self):
+        return self._draft_params
+
+    @draft_params.setter
+    def draft_params(self, params) -> None:
+        """Swap the draft's weights (a test hands the target's own for a
+        perfect draft); they move to the engine's device and are prepared
+        once, here."""
+        self._draft_params = params_to(params, self.device)
+        self._draft_weights = prepare_params(self.draft_cfg,
+                                             self._draft_params)
+
+    def _new_cache(self) -> dict:
+        if self.blocked:
+            return init_kv_cache_blocked(self.model_cfg, self.num_blocks,
+                                         self.block_size, self.device)
+        return init_kv_cache(self.model_cfg, self.max_slots, self.max_seq,
+                             self.device)
 
     # ---- public API ----
 
@@ -553,7 +903,13 @@ class LLMEngine:
             request_id=uuid.uuid4().hex[:12], prompt_ids=ids,
             sampling=sampling,
             stream_queue=queue.Queue() if stream else None)
+        return self._enqueue(req)
+
+    def _enqueue(self, req: GenerationRequest) -> GenerationRequest:
         req.submit_ts = time.time()
+        with self._submit_lock:
+            self._arrival_seq += 1
+            req.arrival_seq = self._arrival_seq
         self._waiting.put(req)
         self._work.set()
         return req
@@ -580,12 +936,111 @@ class LLMEngine:
         if req.error:
             raise RuntimeError(req.error)
 
-    def prefill_only(self, *a, **kw):
-        raise NotImplementedError(
-            "prefill/decode hand-off is not ported to ray_tpu_torch yet")
+    # -- prefill/decode disaggregation: a prefill engine computes the
+    #    prompt's KV once, ships it, and a decode engine continues --
 
-    submit_prefilled = prefill_only
-    release_slot = prefill_only
+    def prefill_only(self, prompt: str | list[int],
+                     sampling: SamplingParams | None = None) -> dict:
+        """Run ONLY the prompt prefill; return the prompt's KV (CPU tensors
+        [L, Hkv, P, D] in the cache dtype) and the first sampled token, for
+        a decode engine's ``submit_prefilled``."""
+        if self.blocked:
+            raise ValueError(
+                "prefill/decode disaggregation exports dense KV lines; "
+                "run the prefill engine with kv_block_size=0")
+        sampling = sampling or SamplingParams()
+        ids = (self.tokenizer.encode(prompt) if isinstance(prompt, str)
+               else [int(t) for t in prompt])
+        ids = ids[: self.max_seq - 1]
+        req = GenerationRequest(
+            request_id=uuid.uuid4().hex[:12], prompt_ids=ids,
+            sampling=replace(sampling, max_tokens=1), hold_slot=True)
+        self._enqueue(req)
+        try:
+            if not req.done.wait(120):
+                raise TimeoutError("prefill timed out")
+            # The cache and its generation BEFORE the error check: a device
+            # failure that rebuilds the cache mid-export turns into an
+            # error below instead of an export of the fresh zeros.
+            cache, gen = self.cache, self._cache_gen
+            if req.error:
+                raise RuntimeError(req.error)
+            p = len(ids)
+            # hold_slot kept the slot reserved: no admit overwrote its
+            # line. The copies queue on the device's current stream behind
+            # the prefill that wrote it.
+            lines = [cache[n][:, req.last_slot, :, :p] for n in ("k", "v")]
+            if self.device.type == "cuda":
+                fetches = [_HostFetch(t) for t in lines]
+                kv_k, kv_v = (f.tensor() for f in fetches)
+            else:
+                kv_k, kv_v = (t.clone() for t in lines)
+            if self._cache_gen != gen or req.error:
+                raise RuntimeError(
+                    req.error or "KV cache lost during prefill export")
+        finally:
+            # On timeout the request may still run: without hold_slot its
+            # own _finish frees the slot (an orphaned hold leaks it).
+            req.hold_slot = False
+            self.release_slot(req)
+        return {"prompt_ids": ids, "kv_k": kv_k, "kv_v": kv_v,
+                "first_token": req.out_tokens[0],
+                "finish_reason": req.finish_reason}
+
+    def release_slot(self, req: GenerationRequest) -> None:
+        """Return a ``hold_slot`` reservation (prefill_only's export is
+        done). The scheduler thread frees the slot and retires its line as
+        a cached prefix (a prefill engine so builds the prefix cache it
+        publishes); freeing here would race the scheduler's admit."""
+        self._released.put(req)
+        self._work.set()
+
+    def _process_releases(self) -> None:
+        """Scheduler-thread half of release_slot."""
+        while True:
+            try:
+                req = self._released.get_nowait()
+            except queue.Empty:
+                return
+            if req.finish_reason is None and not req.error:
+                # The export timed out while the prefill still runs: its
+                # _finish (hold_slot was dropped) frees the slot.
+                continue
+            for slot, r in self._slots.items():
+                if r is req:
+                    self._slots[slot] = None
+                    self._prefix_live.pop(slot, None)
+                    if self.blocked:
+                        self._free_slot_blocks(slot)
+                    elif (req.finish_reason not in (None, "error")
+                          and not req.error):
+                        # A clean prefill: the line holds exactly the
+                        # prompt's prefix. Retire it.
+                        self._prefix_cached[slot] = (
+                            tuple(req.prompt_ids), time.monotonic())
+
+    def submit_prefilled(self, payload: dict,
+                         sampling: SamplingParams | None = None,
+                         stream: bool = False) -> GenerationRequest:
+        """Continue decoding from a shipped prefill (KV import). The
+        payload's KV may be the port's CPU tensors or numpy arrays (a JAX
+        engine's payload, bfloat16 included)."""
+        if self.blocked:
+            raise ValueError(
+                "KV import writes dense KV lines; run the decode engine "
+                "with kv_block_size=0")
+        sampling = sampling or SamplingParams()
+        req = GenerationRequest(
+            request_id=uuid.uuid4().hex[:12],
+            prompt_ids=[int(t) for t in payload["prompt_ids"]],
+            sampling=sampling,
+            stream_queue=queue.Queue() if stream else None)
+        dt = self.model_cfg.torch_dtype
+        req.preloaded = (_kv_tensor(payload["kv_k"], dt),
+                         _kv_tensor(payload["kv_v"], dt),
+                         int(payload["first_token"]))
+        req.kv_imported = True
+        return self._enqueue(req)
 
     def shutdown(self) -> None:
         self._stop.set()
@@ -622,15 +1077,28 @@ class LLMEngine:
 
     def stats(self) -> dict:
         active = sum(1 for r in self._slots.values() if r is not None)
-        return {"active": active, "waiting": self._waiting.qsize(),
-                "slots": self.max_slots,
-                "prefix_hits": self.prefix_hits,
-                "prefix_tokens_saved": self.prefix_tokens_saved,
-                "prefix_cached_slots": len(self._prefix_cached),
-                "prefix_block": self.prefix_block,
-                "prefill_chunks": self.prefill_chunks,
-                "decode_bursts": self.decode_bursts,
-                "chained_bursts": self.chained_bursts}
+        out = {"active": active, "waiting": self._waiting.qsize(),
+               "slots": self.max_slots,
+               "prefix_hits": self.prefix_hits,
+               "prefix_tokens_saved": self.prefix_tokens_saved,
+               "prefix_cached_slots": len(self._prefix_cached),
+               "prefix_block": self.prefix_block,
+               "prefill_chunks": self.prefill_chunks,
+               "decode_bursts": self.decode_bursts,
+               "chained_bursts": self.chained_bursts}
+        if self.blocked:
+            out["kv_blocks_total"] = self.num_blocks
+            out["kv_blocks_free"] = len(self._free_blocks)
+            out["kv_block_size"] = self.block_size
+            out["preemptions"] = self.preemptions
+        if self.draft_cfg is not None:
+            out["spec_ticks"] = self.spec_ticks
+            out["spec_proposed"] = self.spec_proposed
+            out["spec_accepted"] = self.spec_accepted
+            out["spec_acceptance"] = (
+                round(self.spec_accepted / self.spec_proposed, 3)
+                if self.spec_proposed else 0.0)
+        return out
 
     # ---- scheduler ----
 
@@ -660,6 +1128,7 @@ class LLMEngine:
         decoding slots. Admission into currently-empty slots runs BEFORE
         the pipelined burst is resolved: such a slot was free at that
         burst's dispatch, so its write mask excludes it."""
+        self._process_releases()
         worked = self._admit()
         deferred: list = []
         try:
@@ -689,6 +1158,22 @@ class LLMEngine:
         decoding = {s: r for s, r in self._slots.items()
                     if r is not None and r.next_pos >= 0
                     and not r.done.is_set()}
+        if decoding and self._draft_params is not None:
+            # Greedy requests with room for a speculative tick speculate;
+            # the rest (sampled, near the cache end) decode plainly in the
+            # same tick.
+            spec = {s: r for s, r in decoding.items()
+                    if r.sampling.temperature <= 0.0
+                    and r.next_pos + self.spec_k + 1 < self.max_seq}
+            rest = {s: r for s, r in decoding.items() if s not in spec}
+            if spec:
+                self._spec_decode(spec)
+            # A device failure in the speculative half failed every slot.
+            rest = {s: r for s, r in rest.items()
+                    if self._slots.get(s) is r and not r.done.is_set()}
+            if rest:
+                self._decode(rest)
+            return True
         if decoding:
             self._decode(decoding)
             worked = True
@@ -698,8 +1183,13 @@ class LLMEngine:
         """Fetch the deferred first tokens (dispatched in _prefill_step)
         and start those requests decoding. Runs AFTER the tick's decode
         dispatch so the fetch overlaps the queued device work."""
-        for req, fetch in deferred:
+        for req, gen, fetch in deferred:
             if req.done.is_set():  # failed meanwhile (device recovery)
+                continue
+            if gen != req.prefill_gen:
+                # Preempted after this fetch was dispatched: the token
+                # belongs to a KV state that no longer exists (emitting it
+                # would duplicate the re-prefill's first token).
                 continue
             try:
                 tok = int(fetch.numpy()[0])
@@ -719,11 +1209,25 @@ class LLMEngine:
         admitted = False
         while any(o is None for o in self._slots.values()):
             try:
-                req = self._waiting.get_nowait()
+                req = self._next_waiting()
             except queue.Empty:
                 break
+            req.admit_ts = time.time()
+            if req.preloaded is not None:
+                slot = self._take_slot()
+                try:
+                    self._admit_prefilled(req, slot)
+                except Exception as e:  # noqa: BLE001 - bad KV payload
+                    self._slots[slot] = None
+                    self._fail(req, f"KV import failed: {e!r}")
+                admitted = True
+                continue
             donor, adopt, retired = self._best_prefix(req.prompt_ids)
             req.prefilled_len = 0
+            if self.blocked:
+                self._admit_blocked(req, donor, adopt, retired)
+                admitted = True
+                continue
             if donor is not None and adopt < self.PREFIX_COPY_MIN:
                 # Trivial LCP: not worth a copy, never worth a donor.
                 donor = None
@@ -734,26 +1238,20 @@ class LLMEngine:
                 # consumes most of it (an in-place adopt overwrites it).
                 slot = donor
                 self._prefix_cached.pop(slot, None)
-                req.prefilled_len = adopt
-                self.prefix_hits += 1
-                self.prefix_tokens_saved += adopt
+                self._adopted(req, adopt)
             else:
                 slot = self._take_slot()
                 if donor is not None and slot == donor:
                     # LRU eviction handed us the donor itself: its KV line
                     # is already in place.
-                    req.prefilled_len = adopt
-                    self.prefix_hits += 1
-                    self.prefix_tokens_saved += adopt
+                    self._adopted(req, adopt)
                 elif donor is not None:
                     # Content copy from the donor line (live OR retired)
                     # into the fresh slot, preserving the donor.
                     try:
                         self.cache = copy_prefix_kv(self.model_cfg,
                                                     self.cache, donor, slot)
-                        req.prefilled_len = adopt
-                        self.prefix_hits += 1
-                        self.prefix_tokens_saved += adopt
+                        self._adopted(req, adopt)
                         if donor in self._prefix_cached:
                             self._prefix_cached[donor] = (
                                 self._prefix_cached[donor][0],
@@ -763,12 +1261,155 @@ class LLMEngine:
                         self._recover_device_failure(
                             f"prefix copy failed: {e!r}")
                         req.prefilled_len = 0
-            # next_pos < 0 marks "still prefilling" (prefilled_len tracks
-            # progress); _finish frees by identity.
-            req.next_pos = -1
-            self._slots[slot] = req
+            self._occupy(slot, req)
             admitted = True
         return admitted
+
+    def _adopted(self, req: GenerationRequest, adopt: int) -> None:
+        req.prefilled_len = adopt
+        self.prefix_hits += 1
+        self.prefix_tokens_saved += adopt
+
+    def _occupy(self, slot: int, req: GenerationRequest) -> None:
+        # next_pos < 0 marks "still prefilling" (prefilled_len tracks
+        # progress); _finish frees by identity.
+        req.next_pos = -1
+        req.last_slot = slot
+        self._slots[slot] = req
+
+    def _admit_blocked(self, req: GenerationRequest, donor, adopt: int,
+                       retired: bool) -> None:
+        """Block-pool admission: prefix adoption is a whole-block content
+        copy from a LIVE donor (finished requests return their blocks to
+        the pool, so there are no retired lines)."""
+        slot = self._take_slot()
+        adopt = (adopt // self.block_size) * self.block_size
+        if (donor is not None and not retired
+                and adopt >= max(self.PREFIX_COPY_MIN, self.block_size)
+                # preempt=False: an eviction could pick the DONOR, whose
+                # freed blocks would become the copy's destination while
+                # its table row still names them.
+                and self._ensure_blocks(slot, adopt - 1, preempt=False)):
+            nb = adopt // self.block_size
+            try:
+                self.cache = copy_blocks(self.cache, self._tables[donor, :nb],
+                                         self._tables[slot, :nb])
+                self._adopted(req, adopt)
+            except Exception as e:  # noqa: BLE001
+                logger.exception("block prefix copy failed")
+                self._recover_device_failure(f"prefix copy failed: {e!r}")
+                req.prefilled_len = 0
+        self._occupy(slot, req)
+
+    # ---- blocked-KV pool accounting (scheduler thread only) ----
+    #
+    # A chained burst still in flight may write blocks the host has freed
+    # (a request that finished inside the first burst keeps its rows in
+    # the chained burst's snapshot) and that a later admission re-issues.
+    # That is safe only by stream order: every later writer of the pool
+    # (prefill chunks, decode passes, copy_blocks) is enqueued on the
+    # scheduler thread's current stream, behind the in-flight burst. Keep
+    # every pool write on that one stream.
+
+    def _ensure_blocks(self, slot: int, upto_pos: int,
+                       preempt: bool = True) -> bool:
+        """Grow ``slot``'s block table to cover position ``upto_pos``. On
+        pool exhaustion, preempt requests that arrived after this slot's
+        (unless ``preempt`` is False). False if the pool cannot cover it
+        now."""
+        need = min(upto_pos // self.block_size + 1, self.blocks_per_slot)
+        while self._slot_nblk[slot] < need:
+            if not self._free_blocks:
+                if preempt and self._preempt_for_blocks(slot):
+                    continue
+                return False
+            self._tables[slot, self._slot_nblk[slot]] = \
+                self._free_blocks.pop()
+            self._slot_nblk[slot] += 1
+        return True
+
+    def _free_slot_blocks(self, slot: int) -> None:
+        n = self._slot_nblk[slot]
+        if n:
+            self._free_blocks.extend(int(b) for b in self._tables[slot, :n])
+            self._slot_nblk[slot] = 0
+
+    def _preempt_for_blocks(self, slot: int) -> bool:
+        """Evict the NEWEST request that arrived after ``slot``'s and holds
+        blocks (vLLM's order: later arrivals yield to earlier ones), by
+        recompute: its blocks return to the pool and it is requeued;
+        readmitted, its prompt + generated tokens re-prefill and decoding
+        continues without re-emitting a token. The oldest request is so
+        never evicted and always progresses. (The JAX engine evicts the
+        newest other request whatever the requester's age, and counts an
+        eviction that freed no block as progress: under pool pressure its
+        requests evict one another without end, and its free list can be
+        popped empty.) True if blocks were freed."""
+        me = self._slots[slot].arrival_seq
+
+        def victims():
+            return [(s, r) for s, r in self._slots.items()
+                    if r is not None and s != slot and self._slot_nblk[s]
+                    and r.arrival_seq > me and not r.done.is_set()
+                    and not r.hold_slot and r.preloaded is None]
+
+        if not victims():
+            return False
+        # An in-flight chained burst still emits for its snapshot: resolve
+        # it first so a preempted request can't receive its tokens.
+        self._resolve_pending_burst()
+        if self._free_blocks:
+            return True  # the resolve's finishes freed enough
+        left = victims()
+        if not left:
+            return False
+        s, req = max(left, key=lambda sr: sr[1].arrival_seq)
+        self._preempt_slot(s, req)
+        return True
+
+    def _preempt_slot(self, slot: int, req: GenerationRequest) -> None:
+        self.preemptions += 1
+        self._prefix_live.pop(slot, None)
+        self._slots[slot] = None
+        self._free_slot_blocks(slot)
+        # Re-prefill the submitted prompt and everything emitted so far.
+        # (The JAX engine appends out_tokens to the already-grown prompt,
+        # so a second preemption of one request repeats its tokens in the
+        # context; the submitted length is kept here to avoid that.)
+        if req.n_prompt < 0:
+            req.n_prompt = len(req.prompt_ids)
+        req.prompt_ids = req.prompt_ids[:req.n_prompt] + list(req.out_tokens)
+        req.prefilled_len = 0
+        req.next_pos = -1
+        req.prefill_gen += 1  # invalidate in-flight deferred fetches
+        if len(req.prompt_ids) >= self.max_seq:
+            self._finish(req, "length")
+        else:
+            self._preempted.append(req)
+
+    def _ensure_decode_blocks(self, active: dict, burst: int) -> dict:
+        """Cover positions next_pos .. next_pos + burst - 1 for every
+        active slot before a decode dispatch; a slot the pool cannot cover
+        (even after evicting newer requests) is itself preempted."""
+        out = {}
+        for slot, req in active.items():
+            if self._slots.get(slot) is not req or req.done.is_set():
+                continue  # evicted by an earlier slot's ensure
+            if self._ensure_blocks(slot, req.next_pos + burst - 1):
+                out[slot] = req
+            else:
+                self._preempt_slot(slot, req)
+        # A LATER slot's ensure may have evicted a request accepted above:
+        # dispatching it would write through its stale table into blocks
+        # the pool already re-issued. Re-filter against the live slots.
+        return {s: r for s, r in out.items()
+                if self._slots.get(s) is r and not r.done.is_set()}
+
+    def _next_waiting(self) -> GenerationRequest:
+        """Preempted requests re-admit ahead of fresh arrivals."""
+        if self._preempted:
+            return self._preempted.popleft()
+        return self._waiting.get_nowait()
 
     def _take_slot(self) -> int:
         """An unoccupied slot: prefer one with no cached prefix; otherwise
@@ -800,11 +1441,39 @@ class LLMEngine:
                 best_slot, best_p, best_retired = slot, p, True
         return best_slot, best_p, best_retired
 
+    def _admit_prefilled(self, req: GenerationRequest, slot: int) -> None:
+        """KV import: write the shipped prefill into this slot's line (one
+        host-to-device copy each for K and V, queued on the scheduler's
+        stream) and enter decode directly, the shipped first token
+        emitted first."""
+        kv_k, kv_v, first_token = req.preloaded
+        want = (self.model_cfg.num_layers, self.model_cfg.num_kv_heads,
+                self.model_cfg.head_dim)
+        got = (kv_k.shape[0], kv_k.shape[1], kv_k.shape[3]) \
+            if kv_k.dim() == 4 else None
+        p = kv_k.shape[2] if kv_k.dim() == 4 else 0
+        if got != want or p > self.max_seq or kv_v.shape != kv_k.shape:
+            raise ValueError(
+                f"payload KV shape {tuple(kv_k.shape)} incompatible with "
+                f"this engine (layers/kv_heads/head_dim {want}, max_seq "
+                f"{self.max_seq})")
+        for name, t in (("k", kv_k), ("v", kv_v)):
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            self.cache[name][:, slot, :, :p] = t
+        req.preloaded = None
+        req.next_pos = p
+        req.last_slot = slot
+        self._slots[slot] = req
+        self._prefix_live[slot] = tuple(req.prompt_ids)  # imported KV = donor
+        self._emit(req, first_token)
+
     def _prefill_step(self, deferred: list) -> bool:
         """Run ONE chunk of ONE prefilling request, rotating across slots so
         concurrent long prompts interleave chunks. A final chunk's
         first-token sample is dispatched and its copy to the host started,
-        but not waited for: (req, fetch) goes to ``deferred``."""
+        but not waited for: (req, prefill_gen, fetch) goes to
+        ``deferred``."""
         slots = list(self._slots.keys())
         n = len(slots)
         for i in range(n):
@@ -822,10 +1491,27 @@ class LLMEngine:
             toks = np.zeros((bucket,), np.int64)
             toks[:take] = req.prompt_ids[req.prefilled_len:
                                          req.prefilled_len + take]
+            if self.blocked and not self._ensure_blocks(
+                    slot, req.prefilled_len + bucket - 1):
+                if any(self._slot_nblk[s] for s, r in self._slots.items()
+                       if r is not None and s != slot):
+                    continue  # older requests hold blocks: wait for them
+                self._slots[slot] = None
+                self._free_slot_blocks(slot)
+                self._fail(req, "KV block pool exhausted "
+                                f"({self.num_blocks} blocks x "
+                                f"{self.block_size} tokens)")
+                return True
             try:
-                self.cache, logits = prefill_chunk(
-                    self.model_cfg, self._weights, self.cache,
-                    _h2d(toks, self.device), req.prefilled_len, p, slot)
+                if self.blocked:
+                    self.cache, logits = prefill_chunk_blocked(
+                        self.model_cfg, self._weights, self.cache,
+                        self._tables[slot], _h2d(toks, self.device),
+                        req.prefilled_len, p)
+                else:
+                    self.cache, logits = prefill_chunk(
+                        self.model_cfg, self._weights, self.cache,
+                        _h2d(toks, self.device), req.prefilled_len, p, slot)
                 req.prefilled_len += take
                 self.prefill_chunks += 1
                 if req.prefilled_len >= p:  # final chunk: sample 1st token
@@ -833,7 +1519,7 @@ class LLMEngine:
                     # prefix donor for later shared-prefix requests.
                     self._prefix_live[slot] = tuple(req.prompt_ids)
                     out = self._sample_dispatch(logits[None], [req])
-                    deferred.append((req, _HostFetch(out)))
+                    deferred.append((req, req.prefill_gen, _HostFetch(out)))
             except Exception as e:  # noqa: BLE001 - e.g. OOM on long prompt
                 logger.exception("prefill failed for %s", req.request_id)
                 self._recover_device_failure(f"prefill failed: {e!r}")
@@ -842,18 +1528,33 @@ class LLMEngine:
 
     def _recover_device_failure(self, err: str) -> None:
         """After a failed prefill/decode dispatch the KV cache is suspect
-        (a half-written pass): fail every slotted request, then rebuild a
-        fresh cache so the engine keeps serving NEW traffic."""
+        (a half-written pass): fail every slotted request, then rebuild
+        fresh caches (the draft's too) so the engine keeps serving NEW
+        traffic."""
+        self._cache_gen += 1  # invalidates in-flight prefill_only exports
         self._pending_burst = None  # chained into the lost cache
         for req in list(self._slots.values()):
-            if req is not None and not req.done.is_set():
+            if req is None:
+                continue
+            if req.done.is_set():
+                # Finished and held for export: its waiter has the result;
+                # mark the held KV unusable so the export raises.
+                req.error = err
+            else:
                 self._fail(req, err)
         self._slots = {i: None for i in range(self.max_slots)}
         self._prefix_live.clear()
         self._prefix_cached.clear()
         self.cache = None  # release the old pool before allocating anew
-        self.cache = init_kv_cache(self.model_cfg, self.max_slots,
-                                   self.max_seq, self.device)
+        if self.blocked:
+            self._tables[:] = 0
+            self._free_blocks = list(range(self.num_blocks))
+            self._slot_nblk = [0] * self.max_slots
+        self.cache = self._new_cache()
+        if self.draft_cfg is not None:
+            self.draft_cache = None
+            self.draft_cache = init_kv_cache(self.draft_cfg, self.max_slots,
+                                             self.max_seq, self.device)
 
     def _burst_len(self, active: dict[int, GenerationRequest]) -> int:
         """Largest safe burst length for this decode batch, rounded down to
@@ -883,8 +1584,13 @@ class LLMEngine:
         return max(d, 1)
 
     def _decode(self, active: dict[int, GenerationRequest]) -> bool:
-        """Returns False iff a device failure wiped the engine state."""
+        """Returns False iff a device failure wiped the engine state
+        (callers mid-tick then abandon the rest of the tick)."""
         burst = self._burst_len(active)
+        if self.blocked:
+            active = self._ensure_decode_blocks(active, burst)
+            if not active:
+                return True
         tokens = np.zeros((self.max_slots,), np.int64)
         positions = np.zeros((self.max_slots,), np.int64)
         write = np.zeros((self.max_slots,), bool)
@@ -896,9 +1602,14 @@ class LLMEngine:
             return self._decode_burst(active, burst, tokens, positions,
                                       write)
         try:
-            self.cache, logits = decode_step(
-                self.model_cfg, self._weights, self.cache,
-                _h2d(tokens, self.device), positions, write)
+            if self.blocked:
+                self.cache, logits = decode_step_blocked(
+                    self.model_cfg, self._weights, self.cache, self._tables,
+                    _h2d(tokens, self.device), positions, write)
+            else:
+                self.cache, logits = decode_step(
+                    self.model_cfg, self._weights, self.cache,
+                    _h2d(tokens, self.device), positions, write)
         except Exception as e:  # noqa: BLE001 - cache state suspect
             logger.exception("decode step failed (%d active)", len(active))
             self._recover_device_failure(f"decode failed: {e!r}")
@@ -917,6 +1628,17 @@ class LLMEngine:
             self._emit(req, int(sampled[slot]))
         return True
 
+    def _burst_call(self, token0, positions0, write, temps, top_ps,
+                    burst: int, need_top_p: bool):
+        if self.blocked:
+            return decode_burst_blocked(
+                self.model_cfg, self._weights, self.cache, self._tables,
+                token0, positions0, write, temps, top_ps, self._generator,
+                burst, need_top_p)
+        return decode_burst(
+            self.model_cfg, self._weights, self.cache, token0, positions0,
+            write, temps, top_ps, self._generator, burst, need_top_p)
+
     def _decode_burst(self, active: dict[int, GenerationRequest],
                       burst: int, tokens, positions, write) -> bool:
         """Emit ``burst`` tokens per active slot from one dispatch. In
@@ -930,17 +1652,22 @@ class LLMEngine:
             top_ps[slot] = req.sampling.top_p
         need_top_p = bool((top_ps < 1.0).any())
         try:
-            self.cache, toks = decode_burst(
-                self.model_cfg, self._weights, self.cache,
+            self.cache, toks = self._burst_call(
                 _h2d(tokens, self.device), positions, write, temps, top_ps,
-                self._generator, burst, need_top_p)
+                burst, need_top_p)
             fetch = _HostFetch(toks)  # copy queued behind the burst
             self.decode_bursts += 1
-            if self._should_chain(active, burst):
-                self.cache, toks2 = decode_burst(
-                    self.model_cfg, self._weights, self.cache,
+            chain = self._should_chain(active, burst)
+            if chain and self.blocked:
+                # A chain never evicts: it runs only when every slot's
+                # blocks for the second burst are already coverable.
+                chain = all(self._ensure_blocks(
+                    s, r.next_pos + 2 * burst - 1, preempt=False)
+                    for s, r in active.items())
+            if chain:
+                self.cache, toks2 = self._burst_call(
                     toks[burst - 1], positions + burst, write, temps,
-                    top_ps, self._generator, burst, need_top_p)
+                    top_ps, burst, need_top_p)
                 self._pending_burst = (dict(active), burst,
                                        _HostFetch(toks2))
                 self.decode_bursts += 1
@@ -958,13 +1685,15 @@ class LLMEngine:
                       burst: int) -> bool:
         """Chain a second burst only when the device would otherwise sit
         idle through the fetch: steady decode (nothing waiting to admit,
-        no prefilling slot), every slot has cache headroom for TWO bursts,
-        and someone still needs more than one burst of tokens."""
+        no prefilling slot, no draft model sharing the tick), every slot
+        has cache headroom for TWO bursts, and someone still needs more
+        than one burst of tokens."""
         if burst <= 1 or not self.config.decode_pipeline:
             return False
-        if self._pending_burst is not None:
+        if self._pending_burst is not None or \
+                self._draft_params is not None:
             return False
-        if not self._waiting.empty():
+        if not self._waiting.empty() or self._preempted:
             return False
         for r in self._slots.values():
             if r is not None and r.next_pos < 0:
@@ -1000,16 +1729,131 @@ class LLMEngine:
                 req.next_pos += 1
                 self._emit(req, int(toks[j, slot]))
 
+    def _spec_decode(self, active: dict[int, GenerationRequest]) -> None:
+        """One speculative tick: the draft proposes spec_k tokens per slot
+        in one dispatch, the target verifies them (and the bonus position)
+        in one forward, and each slot advances by accepted + 1 tokens.
+        Greedy acceptance makes the output that of plain greedy decoding
+        whatever the draft proposes. The proposals stay on the device:
+        one fetch a tick brings back proposals and the target's argmax."""
+        k = self.spec_k
+        # A request whose draft catch-up keeps failing is excluded from
+        # speculation (one bad request must not turn it off for all): it
+        # decodes plainly, the rest speculate.
+        spec_active = {s: r for s, r in active.items() if not r.spec_disabled}
+        plain_active = {s: r for s, r in active.items() if r.spec_disabled}
+        if not spec_active:
+            self._decode(active)
+            return
+        if plain_active and not self._decode(plain_active):
+            # The plain half hit a device failure: every slot was failed
+            # and both caches rebuilt; nothing valid remains to speculate.
+            return
+        active = spec_active
+        # Draft catch-up: a slot whose draft cache lags (fresh prompt,
+        # prefix adoption, P/D import) prefills the missing span.
+        for slot, req in active.items():
+            if req.draft_len < req.next_pos and \
+                    not self._draft_catch_up(slot, req):
+                # The failure reset the whole draft state (cache rebuilt,
+                # every draft_len zeroed): decode this tick plainly.
+                self._decode(active)
+                return
+        token0 = np.zeros((self.max_slots,), np.int64)
+        pos0 = np.zeros((self.max_slots,), np.int64)
+        write = np.zeros((self.max_slots,), bool)
+        for slot, req in active.items():
+            token0[slot] = req.out_tokens[-1]
+            pos0[slot] = req.next_pos
+            write[slot] = True
+        try:
+            tok0 = _h2d(token0, self.device)
+            self.draft_cache, proposals = draft_propose(
+                self.draft_cfg, self._draft_weights, self.draft_cache, tok0,
+                pos0, k, write)
+            verify = torch.cat([tok0[:, None], proposals], dim=1)  # [B, k+1]
+            self.cache, logits = spec_verify_step(
+                self.model_cfg, self._weights, self.cache, verify, pos0,
+                write)
+            both = _HostFetch(torch.cat(
+                [proposals, torch.argmax(logits, dim=-1)], dim=1)).numpy()
+        except Exception as e:  # noqa: BLE001 - caches state suspect
+            logger.exception("speculative step failed (%d active)",
+                             len(active))
+            self._recover_device_failure(f"speculative decode failed: {e!r}")
+            return
+        proposals, greedy = both[:, :k], both[:, k:]  # [B, k], [B, k+1]
+        self.spec_ticks += 1
+        for slot, req in active.items():
+            accepted = 0
+            while accepted < k and \
+                    proposals[slot, accepted] == greedy[slot, accepted]:
+                accepted += 1
+            self.spec_proposed += k
+            self.spec_accepted += accepted
+            emit = [int(t) for t in proposals[slot, :accepted]]
+            emit.append(int(greedy[slot, accepted]))  # corrected/bonus
+            for tok in emit:
+                if req.done.is_set():
+                    break
+                req.next_pos += 1
+                self._emit(req, tok)
+            # The draft's KV is valid through the accepted prefix:
+            # draft_propose writes k + 1 rows, enough for all accepted.
+            req.draft_len = req.next_pos
+
     def _chunk_bucket(self, start: int, remaining: int) -> tuple[int, int]:
         """(bucket, take) for one prefill chunk starting at ``start``:
         power-of-two bucket from prefill_bucket_min, capped at
         prefill_chunk, and CLAMPED to the cache tail (a window past
-        max_seq would make the device functions raise)."""
+        max_seq would make the device functions raise). Blocked chunks
+        write whole pool blocks: buckets are power-of-two multiples of
+        block_size and starts stay block-aligned."""
         bucket = self.config.prefill_bucket_min
+        if self.blocked:
+            bucket = max(bucket, self.block_size)
         while bucket < min(remaining, self.config.prefill_chunk):
             bucket *= 2
         bucket = min(bucket, self.max_seq - start)
         return bucket, min(remaining, bucket)
+
+    def _draft_catch_up(self, slot: int, req: GenerationRequest) -> bool:
+        """Prefill the draft cache for positions draft_len .. next_pos - 1
+        (the tokens the target has consumed)."""
+        seq = list(req.prompt_ids) + req.out_tokens[:-1]
+        start = req.draft_len
+        try:
+            while start < req.next_pos:
+                bucket, take = self._chunk_bucket(start,
+                                                  req.next_pos - start)
+                toks = np.zeros((bucket,), np.int64)
+                toks[:take] = seq[start:start + take]
+                self.draft_cache, _ = prefill_chunk(
+                    self.draft_cfg, self._draft_weights, self.draft_cache,
+                    _h2d(toks, self.device), start, start + take, slot)
+                start += take
+            req.draft_len = req.next_pos
+            req.draft_fail_count = 0
+            return True
+        except Exception:  # noqa: BLE001 - draft trouble must not kill
+            # the request; the caller decodes plainly. The draft cache is
+            # suspect: rebuild it and mark every request's draft state
+            # cold. A request failing three times in a row is excluded
+            # from speculation, so it stops resetting everyone's.
+            logger.exception("draft catch-up failed for %s", req.request_id)
+            req.draft_fail_count += 1
+            if req.draft_fail_count >= 3:
+                req.spec_disabled = True
+                logger.warning("disabling speculation for %s after %d "
+                               "failed draft catch-ups", req.request_id,
+                               req.draft_fail_count)
+            self.draft_cache = None
+            self.draft_cache = init_kv_cache(self.draft_cfg, self.max_slots,
+                                             self.max_seq, self.device)
+            for r in self._slots.values():
+                if r is not None:
+                    r.draft_len = 0
+            return False
 
     def _sample_dispatch(self, logits, reqs) -> torch.Tensor:
         """Sample on the device; returns the (unfetched) token tensor so
@@ -1050,18 +1894,26 @@ class LLMEngine:
             self._finish(req, finish)
 
     def _fail(self, req: GenerationRequest, err: str) -> None:
-        """Fail one request: record the error, free its slot, and wake its
-        waiter — the engine keeps serving others."""
+        """Fail one request: record the error, free its slot and any staged
+        KV payload, and wake its waiter — the engine keeps serving others."""
         req.error = err
+        req.preloaded = None
+        req.hold_slot = False  # never pin a slot for a failed request
         self._finish(req, "error")
 
     def _finish(self, req: GenerationRequest, reason: str) -> None:
         req.finish_reason = reason
         for slot, r in self._slots.items():
             if r is req:
+                req.last_slot = slot
                 toks = self._prefix_live.pop(slot, None)
+                if req.hold_slot:
+                    continue  # released after the export (release_slot)
                 self._slots[slot] = None
-                if toks is not None and reason != "error":
+                if self.blocked:
+                    # The pool takes the blocks back; no retired lines.
+                    self._free_slot_blocks(slot)
+                elif toks is not None and reason != "error":
                     # Retire, don't discard: the slot's KV stays intact
                     # until the slot is reclaimed, so an identical or
                     # shared-prefix prompt admits with zero prefill.
@@ -1074,7 +1926,9 @@ class LLMEngine:
         toks = req.out_tokens
         if toks and toks[-1] == self.tokenizer.eos_id:
             toks = toks[:-1]
+        prompt = req.prompt_ids if req.n_prompt < 0 else \
+            req.prompt_ids[:req.n_prompt]
         return GenerationResult(
-            request_id=req.request_id, prompt_ids=req.prompt_ids,
+            request_id=req.request_id, prompt_ids=prompt,
             token_ids=list(toks), text=self.tokenizer.decode(toks),
             finish_reason=req.finish_reason or "stop")

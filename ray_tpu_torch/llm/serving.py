@@ -1,8 +1,10 @@
 """LLM serving surface over the PyTorch engine (port of the handle API of
 ray_tpu/llm/serving.py). One ``LLMServer`` = one engine instance, which
-batches across the server's concurrent requests. ``build_llm_deployment``,
-``build_openai_app`` and the HTTP ingress sit on the JAX package's serve
-stack and are not ported yet.
+batches across the server's concurrent requests and takes every engine
+option of ``LLMConfig`` (blocked KV, speculative decoding, checkpoints;
+tensor parallelism raises). The prefill/decode servers are in llm/pd.py.
+``build_llm_deployment``, ``build_openai_app`` and the HTTP ingress sit on
+the JAX package's serve stack and are not ported yet.
 """
 
 from __future__ import annotations

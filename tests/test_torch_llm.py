@@ -535,24 +535,10 @@ def test_llm_server_handle_surface():
         srv.shutdown()
 
 
-@pytest.mark.parametrize("kw", [dict(kv_block_size=16),
-                                dict(speculative_model="tiny"),
-                                dict(tensor_parallel_size=2),
-                                dict(checkpoint_path="/nonexistent")])
+@pytest.mark.parametrize("kw", [dict(tensor_parallel_size=2)])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="tensor parallel"):
         LLMEngine(_cfg(**kw), device="cpu")
-
-
-def test_pd_handoff_raises():
-    eng = LLMEngine(_cfg(), device="cpu")
-    try:
-        with pytest.raises(NotImplementedError):
-            eng.prefill_only("hello")
-        with pytest.raises(NotImplementedError):
-            eng.submit_prefilled({})
-    finally:
-        eng.shutdown()
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu():
@@ -570,6 +556,7 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 
 def test_import_loads_neither_jax_nor_ray_tpu():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.llm, "
+            "ray_tpu_torch.llm.pd, ray_tpu_torch.llm.hf, "
             "ray_tpu_torch.ops.norms, ray_tpu_torch.ops.rope\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'ray_tpu' or "
