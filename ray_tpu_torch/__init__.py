@@ -13,7 +13,9 @@ CUDA RMSNorm, flash-attention forward/backward and ring-step chunk
 kernels, ring attention over a ``torch.distributed`` group, RoPE, the
 fused cross-entropy); the int8 gradient format (``collective``); the RL
 library (``rl``: batched torch envs, PPO with the fused Anakin loop, DQN,
-SAC, IMPALA, APPO) on the ``Trainable`` of ``tune``; peak rates for MFU
+SAC, IMPALA, APPO, the offline BC, MARWIL and CQL, multi-agent PPO,
+Dreamer) on the ``Trainable`` of ``tune``, with the in-memory datasets
+offline RL reads (``data``); peak rates for MFU
 (``accelerators``); the head-packing profiler and paired timings
 (``devbench``).
 Importing the package is cheap: CUDA kernels are built from ``csrc/`` at

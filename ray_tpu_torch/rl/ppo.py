@@ -96,13 +96,25 @@ def clone_params(tree):
     return tree_map(lambda t: t.detach().clone(), tree)
 
 
+def state_from_numpy(tree, device):
+    """A numpy tree (an optimizer state's checkpoint) -> tensors on
+    ``device``, each keeping its dtype; named tuples keep their type."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def gumbel(shape, generator: torch.Generator, device,
+           dtype=torch.float32) -> torch.Tensor:
+    """Standard Gumbel draws -log(-log(u)), u uniform in [tiny, 1), as
+    jax.random.gumbel."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    return -torch.log(-torch.log(u.clamp_(min=torch.finfo(dtype).tiny)))
+
+
 def sample_categorical(logits: torch.Tensor,
                        generator: torch.Generator) -> torch.Tensor:
-    """Gumbel-max, as jax.random.categorical: argmax(logits + g) with
-    g = -log(-log(u)), u uniform in [tiny, 1)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    u = u.clamp_(min=torch.finfo(logits.dtype).tiny)
-    return (logits - torch.log(-torch.log(u))).argmax(-1)
+    """Gumbel-max, as jax.random.categorical: argmax(logits + g)."""
+    return (logits + gumbel(logits.shape, generator, logits.device,
+                            logits.dtype)).argmax(-1)
 
 
 def _logp_of(logp_all: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,9 @@ ray_tpu/train/spmd.py builds. A ``GradientTransformation`` is an
 - ``adam(lr, b1, b2, eps)``: optax.adam, ``scale_by_adam`` ->
   ``scale_by_learning_rate`` (the RL learners' optimizer);
 - ``sgd(lr)``: optax.sgd without momentum, ``scale_by_learning_rate`` in
-  a chain.
+  a chain;
+- ``clip_by_global_norm(max_norm)``: optax's, for a chain before adam
+  (Dreamer's optimizer).
 
 State is updated in place: ``update`` writes the new moments and count
 into the tensors of the state it was given and returns that same state,
@@ -155,6 +157,23 @@ def scale_by_learning_rate(learning_rate: float) -> GradientTransformation:
     def update_fn(updates, state, params=None):
         return tree_map(lambda u: u * _weak(-learning_rate, u),
                           updates), state
+
+    return GradientTransformation(lambda params: EmptyState(), update_fn)
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """optax.clip_by_global_norm: every update scaled by max_norm / norm
+    (``(t / norm) * max_norm``) when the norm over all leaves reaches
+    ``max_norm``, else passed through. Chosen on the device, without a
+    host read."""
+
+    def update_fn(updates, state, params=None):
+        leaves = tree_leaves(updates)
+        norm = torch.sqrt(sum(torch.sum(t * t) for t in leaves))
+        keep = norm < max_norm
+        return tree_map(lambda t: torch.where(
+            keep, t, (t / norm.to(t.dtype)) * _weak(max_norm, t)),
+            updates), state
 
     return GradientTransformation(lambda params: EmptyState(), update_fn)
 

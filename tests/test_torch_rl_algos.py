@@ -89,6 +89,48 @@ def test_adam_matches_optax_over_five_steps():
     assert int(ts[0].count) == 5 and isinstance(ours["pair"], tuple)
 
 
+@pytest.mark.parametrize("max_norm", [0.5, 100.0], ids=["clips", "under"])
+@pytest.mark.parametrize("with_adam", [False, True],
+                         ids=["alone", "chained_adam"])
+def test_clip_by_global_norm_matches_optax_over_five_steps(max_norm,
+                                                          with_adam):
+    import jax.numpy as jnp
+    import optax
+
+    rng = np.random.default_rng(1)
+    tree = {"layers": [{"w": rng.normal(size=(3, 4)).astype(np.float32),
+                        "b": np.zeros(4, np.float32)}],
+            "pair": (rng.normal(size=5).astype(np.float32),
+                     rng.normal(size=(2, 2)).astype(np.float32))}
+    jp = tree_map(jnp.asarray, tree)
+    ours = tree_map(lambda a: torch.tensor(np.array(a)), tree)
+    if with_adam:
+        jopt = optax.chain(optax.clip_by_global_norm(max_norm),
+                           optax.adam(1e-2))
+        topt = optim.chain(optim.clip_by_global_norm(max_norm),
+                           optim.adam(1e-2))
+    else:
+        jopt = optax.clip_by_global_norm(max_norm)
+        topt = optim.clip_by_global_norm(max_norm)
+    js, ts = jopt.init(jp), topt.init(ours)
+    for _ in range(5):
+        grads = tree_map(lambda a: rng.normal(size=np.shape(a)).astype(
+            np.float32), tree)
+        ju, js = jopt.update(tree_map(jnp.asarray, grads), js, jp)
+        tu, ts = topt.update(tree_map(torch.from_numpy, grads), ts, ours)
+        _close(tu, ju, ADAM_TOL, "updates")
+        if max_norm < 1.0 and not with_adam:
+            norm = np.sqrt(sum(float((t.numpy() ** 2).sum())
+                               for t in tree_leaves(tu)))
+            assert norm == pytest.approx(max_norm, rel=1e-5)
+        elif not with_adam:  # under the limit: passed through unchanged
+            for a, b in zip(tree_leaves(tu), tree_leaves(grads)):
+                np.testing.assert_array_equal(a.numpy(), b)
+        jp = optax.apply_updates(jp, ju)
+        ours = optim.apply_updates(ours, tu)
+        _close(ours, jp, ADAM_TOL, "params")
+
+
 def test_tree_map_walks_lists_and_tuples_keeping_their_type():
     Pair = namedtuple("Pair", "a b")
     tree = {"x": [1, 2, (3, Pair(4, [5]))], "y": 6}
