@@ -232,6 +232,29 @@ failure raises and the script exits non-zero without a result line:
    (d) one dreamer_update on the card against the CPU with the same
    noise: every loss term, every gradient leaf, the params after the
    step;
+19. TorchTrainer on the port's in-process runtime (ray_tpu_torch.init,
+   the train controller, its worker group and checkpoint restarts), at
+   phase 8's 1.1B geometry, full depth, fused backward: (a) the step run
+   directly for steps 0-5 (batch i from a numpy generator seeded by i),
+   then under TorchTrainer with one worker (use_gpu, a one-rank NCCL group
+   through TorchBackendConfig(distributed=True), max_failures 1): rank 0
+   saves with save_pytree after step 2, the first attempt raises at the
+   start of step 4, the resumed one restores and runs 3-5; the reported
+   losses bit-equal to the direct loop's (step 3's in both attempts), the
+   restart recorded as (checkpoint, worker_error), K1-K3 launched inside
+   the worker thread as the remat policy predicts for the 7 steps run,
+   the train thread on cuda:0, the card's allocated memory back within 64
+   MiB of its value before fit() when the restarted attempt starts; the
+   median step time under the trainer beside the direct loop's, the
+   checkpoint's bytes and save time, the restart time split into the
+   group rebuild and init, the restore and the first step, each attempt's
+   peak memory; (b) tests/test_train.py's two-worker quadratic in CUDA f32
+   tensors, the gradient averaged through the host collective (one card a
+   rank with two or more cards, else both threads on cuda:0): both ranks'
+   w bit-equal, and equal to the same program on the CPU; (c) the
+   refusals: distributed=True at two workers raises NotImplementedError
+   before any worker starts, use_gpu=True on a runtime with no "GPU"
+   resource raises ValueError without hanging;
 11. cross-device: f32 engines at tiny width (d=64) and at 1B width with
    two layers (d=2048), CUDA (kernel) vs CPU (plain) greedy token streams
    must be equal; a bf16 trainer at small width, 3 steps on the card
@@ -5682,6 +5705,444 @@ def phase_serving_rest() -> dict:
     return out
 
 
+# Phase 19: TorchTrainer on the port's in-process runtime, at phase 8's
+# 1.1B geometry (bench.py:292-297), full width and depth, on the fused
+# backward. (a) One worker, restarted once: steps 0-5, batch i from a
+# numpy generator seeded by i; rank 0 saves after step 2; the first attempt
+# raises at the start of step 4; the resumed one restores and runs 3-5.
+P19_STEPS = 6
+P19_SAVE_AFTER = 2
+P19_FAIL_AT = 4
+# After the failed attempt's group shut down, the card's allocated memory
+# must be back to what it was before fit(), within this many bytes.
+P19_MEM_SLACK = 64 * 2 ** 20
+# (b) Two workers average a quadratic's gradient through the host
+# collective: tests/test_train.py's test_multi_worker_ddp_with_host_collective
+# in CUDA f32 tensors.
+P19_DDP_STEPS = 5
+# How long a fit() may take before the phase calls it hung (seconds).
+P19_FIT_DEADLINE_S = 600
+
+
+def _p19_batch(i: int, vocab: int, batch: int, seq: int):
+    import numpy as np
+
+    rng = np.random.default_rng(i)
+    tokens = rng.integers(0, vocab, (batch, seq), dtype=np.int32)
+    return tokens, np.roll(tokens, -1, axis=1)
+
+
+def _p19_step(cfg, device):
+    from ray_tpu_torch.train import adamw_lowmem, make_llama_train_step
+
+    return make_llama_train_step(
+        cfg, optimizer=adamw_lowmem(3e-4, weight_decay=0.1),
+        attn_impl="flash", remat="attn+", seed=SEED, device=device)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _fit_in_time(trainer, deadline_s: float = P19_FIT_DEADLINE_S):
+    """trainer.fit() on a thread joined within ``deadline_s``: a fit that
+    hangs fails the phase instead of the script's time limit."""
+    out: dict = {}
+
+    def run():
+        try:
+            out["result"] = trainer.fit()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True, name="p19-fit")
+    t.start()
+    t.join(deadline_s)
+    if t.is_alive():
+        raise AssertionError(f"fit() did not return in {deadline_s} s")
+    if "error" in out:
+        raise out["error"]
+    return out["result"]
+
+
+def _thread_matmul_residue() -> int:
+    """Bytes the card keeps allocated after a thread that ran one matmul
+    has ended: PyTorch keeps a cuBLAS workspace per handle and stream in
+    its caching allocator, and a new thread takes an idle handle (and its
+    workspace) from the pool."""
+    import torch
+
+    before = torch.cuda.memory_allocated()
+
+    def one_matmul():
+        a = torch.ones(64, 64, device="cuda")
+        (a @ a).sum().item()
+
+    t = threading.Thread(target=one_matmul)
+    t.start()
+    t.join()
+    return torch.cuda.memory_allocated() - before
+
+
+def trainer_direct_loop(cfg, device, batch: int, seq: int) -> dict:
+    """The step with no trainer: steps 0..P19_STEPS-1 on their batches;
+    each step's loss (read as a float, as the train function reports it)
+    and host time, and the state's checkpoint bytes."""
+    import gc
+
+    import torch
+    from ray_tpu_torch._device import tree_leaves
+
+    step, init, shard = _p19_step(cfg, device)
+    state = init()
+    losses, secs = [], []
+    for i in range(P19_STEPS):
+        tok, tgt = _p19_batch(i, cfg.vocab_size, batch, seq)
+        t0 = time.perf_counter()
+        state, m = step(state, shard(tok), shard(tgt))
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    state_bytes = _nbytes(t for t in tree_leaves(state.checkpoint_tree())
+                          if isinstance(t, torch.Tensor))
+    del state, step, init, shard, m
+    gc.collect()
+    return {"losses": losses, "step_s": secs, "state_bytes": state_bytes}
+
+
+def trainer_restart_fn(cfg, batch: int, seq: int, marks: dict):
+    """The train function of phase 19 (a): it builds the step itself,
+    saves on rank 0 after step P19_SAVE_AFTER, raises at the start of step
+    P19_FAIL_AT in its first attempt, and when resumed restores the
+    checkpoint and runs the steps after it. ``marks[attempt]`` collects
+    its clocks, step times and memory readings (no tensor: the function
+    holds none past its own frame)."""
+
+    def train_fn(config):
+        import torch
+        from ray_tpu_torch.train import (get_context, report, restore_pytree,
+                                         save_pytree)
+
+        ctx = get_context()
+        dev = ctx.get_device()
+        on_card = dev.type == "cuda"
+        rec = marks.setdefault(ctx.restart_count, {"step_s": [],
+                                                   "reports": []})
+        rec["t_start"] = time.time()
+        rec["device"] = str(dev)
+        if on_card:
+            rec["current_device"] = torch.cuda.current_device()
+            rec["mem_start"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        step, init, shard = _p19_step(cfg, dev)
+        state, start = init(), 0
+        if ctx.get_checkpoint():
+            t0 = time.time()
+            restore_pytree(ctx.get_checkpoint(), state.checkpoint_tree())
+            if on_card:
+                torch.cuda.synchronize()
+            rec["restore"] = (t0, time.time())
+            start = P19_SAVE_AFTER + 1
+        for i in range(start, P19_STEPS):
+            if i == P19_FAIL_AT and ctx.restart_count == 0:
+                if on_card:
+                    rec["peak"] = torch.cuda.max_memory_allocated()
+                rec["t_error"] = time.time()
+                raise RuntimeError(f"injected failure at the start of step {i}")
+            tok, tgt = _p19_batch(i, cfg.vocab_size, batch, seq)
+            t0 = time.perf_counter()
+            state, m = step(state, shard(tok), shard(tgt))
+            loss = float(m["loss"])
+            rec["step_s"].append((i, time.perf_counter() - t0))
+            ck = None
+            if i == P19_SAVE_AFTER and ctx.get_world_rank() == 0:
+                t0 = time.perf_counter()
+                ck = save_pytree(state.checkpoint_tree(), os.path.join(
+                    ctx.storage_path, f"checkpoint_{i:08d}"), step=i)
+                rec["save_s"] = time.perf_counter() - t0
+                rec["ckpt_bytes"] = _dir_bytes(ck)
+            report({"step": i, "loss": loss, "attempt": ctx.restart_count},
+                   checkpoint=ck)
+            rec["reports"].append((i, time.time()))
+        if on_card:
+            rec["peak"] = torch.cuda.max_memory_allocated()
+
+    return train_fn
+
+
+def trainer_ddp_fn(config):
+    """Phase 19 (b)'s train function: tests/test_train.py's quadratic in
+    f32 tensors on the worker's device, the gradient averaged through the
+    host collective; the last report carries w."""
+    import torch
+    import ray_tpu_torch.collective as col
+    from ray_tpu_torch.train import get_context, report
+
+    ctx = get_context()
+    rank, world, dev = ctx.get_world_rank(), ctx.get_world_size(), \
+        ctx.get_device()
+    g = col.init_collective_group(world_size=world, rank=rank,
+                                  backend="host", group_name=config["group"])
+    w = torch.zeros(4, dtype=torch.float32, device=dev)
+    for step in range(P19_DDP_STEPS):
+        target = torch.full((4,), 3.0 + 0.1 * rank, dtype=torch.float32,
+                            device=dev)
+        grad = 2 * (w - target)
+        grad = g.allreduce(grad) / world  # DDP gradient average
+        w -= 0.3 * grad
+        report({"step": step, "rank": rank,
+                "loss": float(((w - 3.05) ** 2).sum()),
+                "current_device": torch.cuda.current_device()
+                if dev.type == "cuda" else None,
+                **({"w": w.cpu().tolist()}
+                   if step == P19_DDP_STEPS - 1 else {})})
+
+
+def trainer_ddp_run(storage: str, device: str, num_workers: int,
+                    use_gpu: bool, label: str) -> dict:
+    """Phase 19 (b) under one runtime: each rank's final w and reports."""
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig, TorchBackendConfig,
+                                     TorchTrainer)
+
+    scaling = ScalingConfig(num_workers=num_workers, use_gpu=use_gpu,
+                            resources_per_worker={} if use_gpu
+                            else {"CPU": 1})
+    res = _fit_in_time(TorchTrainer(
+        trainer_ddp_fn, train_loop_config={"group": f"ddp-{label}"},
+        scaling_config=scaling,
+        run_config=RunConfig(name=f"ddp-{label}", storage_path=storage),
+        backend_config=TorchBackendConfig(device=device)))
+    if not res.ok:
+        raise AssertionError(f"ddp ({label}) failed: {res.error}")
+    last = {m["rank"]: m for m in res.metrics_history
+            if m["step"] == P19_DDP_STEPS - 1}
+    return {"w": {r: last[r]["w"] for r in sorted(last)},
+            "current_device": {m["rank"]: m["current_device"]
+                               for m in res.metrics_history}}
+
+
+def phase_trainer() -> dict:
+    """Phase 19: TorchTrainer on the in-process runtime. (a) The 1.1B step
+    under one worker restarted once from its checkpoint, its losses bit
+    for bit against the step run directly; (b) two workers averaging
+    through the host collective on the card against the same program on
+    the CPU; (c) the refusals."""
+    import gc
+    import shutil
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    import ray_tpu_torch
+    from ray_tpu_torch.core.worker import global_worker
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig,
+                                     TorchBackendConfig, TorchTrainer)
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    storage = os.path.join(root, "ray_tpu_torch", "_native", "_build",
+                           "phase19")
+    shutil.rmtree(storage, ignore_errors=True)
+    os.makedirs(storage)
+    cfg = LlamaConfig(**BENCH_GEOMETRY, max_seq_len=2048)
+    batch, seq = 4, 2048
+    out: dict = {}
+    gib = 2.0 ** 30
+
+    _phase("TorchTrainer (a): the 1.1B step, one worker, restarted once "
+           "from its checkpoint")
+    direct = trainer_direct_loop(cfg, "cuda", batch, seq)
+    free = shutil.disk_usage(storage).free
+    if free < 2 * direct["state_bytes"]:
+        raise AssertionError(
+            f"the checkpoint directory {storage} has {free / gib:.2f} GiB "
+            f"free, less than twice the state's {direct['state_bytes'] / gib:.3f}"
+            " GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    thread_residue = _thread_matmul_residue()
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0  # count the trainer's run only
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=8,
+                       resources={"GPU": torch.cuda.device_count()})
+    marks: dict = {}
+    t0 = time.perf_counter()
+    try:
+        res = _fit_in_time(TorchTrainer(
+            trainer_restart_fn(cfg, batch, seq, marks),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            backend_config=TorchBackendConfig(distributed=True),
+            run_config=RunConfig(
+                name="llama-1b", storage_path=storage,
+                failure_config=FailureConfig(max_failures=1))))
+    finally:
+        ray_tpu_torch.shutdown()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    fit_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    if not res.ok:
+        raise AssertionError(f"fit failed: {res.error}")
+    restarts = [(r["tier"], r["trigger"]) for r in res.restarts]
+    if restarts != [("checkpoint", "worker_error")]:
+        raise AssertionError(f"restarts {res.restarts}")
+    got = [(m["attempt"], m["step"], m["loss"]) for m in res.metrics_history]
+    want = [(0, i, direct["losses"][i]) for i in range(P19_FAIL_AT)] + \
+        [(1, i, direct["losses"][i])
+         for i in range(P19_SAVE_AFTER + 1, P19_STEPS)]
+    if got != want:
+        raise AssertionError(f"reported losses {got} != the direct loop's "
+                             f"{want} (bit for bit)")
+    steps_run = len(got)
+    want_launch = {k: v * steps_run for k, v in
+                   predicted_launches("attn+", cfg.num_layers).items()}
+    for k in ("rms_norm", "flash_fwd", "flash_bwd"):
+        if launches[k] != want_launch[k]:
+            raise AssertionError(
+                f"{k} launched {launches[k]} times in fit(), not the "
+                f"{want_launch[k]} of {steps_run} steps")
+    a0, a1 = marks[0], marks[1]
+    for a in (a0, a1):
+        if a["current_device"] != 0 or a["device"] != "cuda:0":
+            raise AssertionError(f"train thread on {a['device']} / "
+                                 f"{a['current_device']}, not cuda:0")
+    mem_after = a1["mem_start"]
+    if abs(mem_after - mem_before) > P19_MEM_SLACK:
+        raise AssertionError(
+            f"after the failed attempt the card holds {mem_after / gib:.3f}"
+            f" GiB, against {mem_before / gib:.3f} GiB before fit()")
+    direct_ms = 1e3 * statistics.median(direct["step_s"][1:])
+    trainer_s = [s for i, s in a0["step_s"][1:]] + \
+        [s for i, s in a1["step_s"][1:]]
+    trainer_ms = 1e3 * statistics.median(trainer_s)
+    restore_s = a1["restore"][1] - a1["restore"][0]
+    first_report = a1["reports"][0][1]
+    restart_s = first_report - a0["t_error"]
+    regroup_s = a1["restore"][0] - a0["t_error"]
+    warm_s = first_report - a1["restore"][1]
+    print(f"losses bit-equal to the direct loop: "
+          + " ".join(f"{x:.6f}" for x in direct["losses"])
+          + f" (step {P19_SAVE_AFTER + 1}'s in both attempts)")
+    print(f"restarts: {res.restarts[0]['tier']}, trigger "
+          f"{res.restarts[0]['trigger']}, detection "
+          f"{res.restarts[0]['detection_latency_s']:.3f} s after the last "
+          f"good poll")
+    print(f"step ms, median of each attempt's steps after its first: "
+          f"trainer {trainer_ms:.2f} ({len(trainer_s)} steps: "
+          + " ".join(f"{1e3 * s:.2f}" for s in trainer_s)
+          + f") vs direct loop {direct_ms:.2f} (steps 1-{P19_STEPS - 1}: "
+          + " ".join(f"{1e3 * s:.2f}" for s in direct["step_s"][1:])
+          + f"); trainer/direct {trainer_ms / direct_ms:.4f}")
+    print(f"checkpoint: {a0['ckpt_bytes'] / gib:.3f} GiB on disk "
+          f"({a0['ckpt_bytes']} bytes; state tensors "
+          f"{direct['state_bytes']} bytes), saved in {a0['save_s']:.3f} s "
+          f"({a0['ckpt_bytes'] / a0['save_s'] / 1e9:.2f} GB/s)")
+    print(f"restart: {restart_s:.3f} s from the failure to the first "
+          f"resumed report = detection, group rebuild, step build and init "
+          f"{regroup_s:.3f} s + restore {restore_s:.3f} s "
+          f"({a0['ckpt_bytes'] / restore_s / 1e9:.2f} GB/s) + first step "
+          f"{warm_s:.3f} s")
+    print(f"peak device memory: attempt 0 {a0['peak'] / gib:.3f} GiB, "
+          f"attempt 1 {a1['peak'] / gib:.3f} GiB; allocated before fit() "
+          f"{mem_before / gib:.3f} GiB, at the restart "
+          f"{mem_after / gib:.3f} GiB ({(mem_after - mem_before) / 2**20:+.1f}"
+          f" MiB; a thread that ran one matmul and ended leaves "
+          f"{thread_residue / 2**20:+.1f} MiB, its cuBLAS workspace)")
+    print(f"launches in fit(): " + ", ".join(
+        f"{k} {launches[k]}" for k in ("rms_norm", "flash_fwd", "flash_bwd"))
+          + f" (= {steps_run} steps of the attn+ policy); fit() "
+          f"{fit_s:.2f} s")
+    out["restart"] = {
+        "losses": direct["losses"], "launches": launches,
+        "step_ms_trainer": trainer_ms, "step_ms_direct": direct_ms,
+        "step_ms_trainer_each": [1e3 * s for s in trainer_s],
+        "step_ms_direct_each": [1e3 * s for s in direct["step_s"]],
+        "ckpt_bytes": a0["ckpt_bytes"], "state_bytes": direct["state_bytes"],
+        "save_s": a0["save_s"], "restore_s": restore_s,
+        "restart_s": restart_s, "regroup_s": regroup_s,
+        "first_step_s": warm_s,
+        "detection_s": res.restarts[0]["detection_latency_s"],
+        "peak_gib": [a0["peak"] / gib, a1["peak"] / gib],
+        "mem_before_gib": mem_before / gib,
+        "mem_at_restart_gib": mem_after / gib,
+        "thread_matmul_residue_mib": thread_residue / 2 ** 20,
+        "fit_s": fit_s}
+    shutil.rmtree(storage, ignore_errors=True)
+    os.makedirs(storage)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _phase("TorchTrainer (b): two workers, the host collective, on the card "
+           "against the CPU")
+    cards = torch.cuda.device_count()
+    runs = {}
+    for label, device, use_gpu in (("cuda", "cuda", cards >= 2),
+                                   ("cpu", "cpu", False)):
+        ray_tpu_torch.init(num_cpus=8, resources={"GPU": cards})
+        try:
+            runs[label] = trainer_ddp_run(storage, device, 2, use_gpu, label)
+        finally:
+            ray_tpu_torch.shutdown()
+    w_card, w_cpu = runs["cuda"]["w"], runs["cpu"]["w"]
+    if w_card[0] != w_card[1] or w_card != w_cpu:
+        raise AssertionError(f"w on the card {w_card} vs the CPU {w_cpu}: "
+                             "not bit-equal")
+    devs = runs["cuda"]["current_device"]
+    want_devs = {0: 0, 1: 1 if cards >= 2 else 0}
+    if devs != want_devs:
+        raise AssertionError(f"train threads' current devices {devs}, not "
+                             f"{want_devs}")
+    print(f"w after {P19_DDP_STEPS} steps, both ranks and the CPU run, bit "
+          f"for bit: {w_card[0]}; rank threads on cuda "
+          + ", ".join(f"{r}:{d}" for r, d in sorted(devs.items()))
+          + (" (use_gpu, one card a rank)" if cards >= 2
+             else " (one card: both threads on cuda:0, CPU 1 a worker)"))
+    out["ddp"] = {"w": w_card[0], "current_device": devs}
+
+    _phase("TorchTrainer (c): the refusals")
+    ray_tpu_torch.init(num_cpus=8, resources={"GPU": cards})
+    try:
+        before = len(global_worker.runtime._actors)
+        t0 = time.perf_counter()
+        try:
+            TorchTrainer(trainer_ddp_fn, scaling_config=ScalingConfig(
+                num_workers=2), backend_config=TorchBackendConfig(
+                    distributed=True), run_config=RunConfig(
+                        storage_path=storage)).fit()
+            raise AssertionError("distributed=True at 2 workers ran")
+        except NotImplementedError as e:
+            refused_dist = str(e)
+        if len(global_worker.runtime._actors) != before:
+            raise AssertionError("a worker started before the refusal")
+    finally:
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=8)  # no "GPU" resource
+    try:
+        try:
+            _fit_in_time(TorchTrainer(
+                trainer_ddp_fn, scaling_config=ScalingConfig(use_gpu=True),
+                run_config=RunConfig(storage_path=storage)), deadline_s=60)
+            raise AssertionError("use_gpu=True without a GPU resource ran")
+        except ValueError as e:
+            refused_gpu = str(e)
+    finally:
+        ray_tpu_torch.shutdown()
+    refuse_s = time.perf_counter() - t0
+    print(f"distributed=True at 2 workers: NotImplementedError, no worker "
+          f"started ({refused_dist[:90]}...); use_gpu=True without a GPU "
+          f"resource: ValueError ({refused_gpu[:80]}...); both in "
+          f"{refuse_s:.3f} s")
+    out["refusals_s"] = refuse_s
+    shutil.rmtree(storage, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 19: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5713,6 +6174,7 @@ def main() -> int:
     rl = phase_rl()
     rest = phase_serving_rest()
     rl_rest = phase_rl_rest()
+    trainer = phase_trainer()
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -5754,6 +6216,8 @@ def main() -> int:
                                  k_: train8b["runs"][k_]["launches"][
                                      "rms_norm"] for k_ in P13_MODES},
                              "pipeline": pipe["run"]["launches"]["rms_norm"],
+                             "trainer":
+                                 trainer["restart"]["launches"]["rms_norm"],
                              "mixtral": {
                                  k_: moe["runs"][k_]["launches"]["rms_norm"]
                                  for k_ in P15_MODES}},
@@ -5786,6 +6250,7 @@ def main() -> int:
                 "train_8b": {k_: train8b["runs"][k_]["launches"][name]
                              for k_ in P13_MODES},
                 "pipeline": pipe["run"]["launches"][name],
+                "trainer": trainer["restart"]["launches"][name],
                 "mixtral": {k_: moe["runs"][k_]["launches"][name]
                             for k_ in P15_MODES}},
             "max_abs_err": max(row["max_abs_err"],
@@ -5890,7 +6355,7 @@ def main() -> int:
                       "rl": rl, "rl_ranks": rl_ranks,
                       "serving_rest": {k: v for k, v in rest.items()
                                        if k != "launches"},
-                      "rl_rest": rl_rest}))
+                      "rl_rest": rl_rest, "trainer": trainer}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,9 +17,67 @@ SAC, IMPALA, APPO, the offline BC, MARWIL and CQL, multi-agent PPO,
 Dreamer) on the ``Trainable`` of ``tune``, with the in-memory datasets
 offline RL reads (``data``); peak rates for MFU
 (``accelerators``); the head-packing profiler and paired timings
-(``devbench``).
-Importing the package is cheap: CUDA kernels are built from ``csrc/`` at
-their first launch.
+(``devbench``); the in-process runtime (``init``, ``remote``, ``get``,
+``put``, ``wait``, actors: ``core``), the host collective (``collective``)
+and the trainer on it (``train.TorchTrainer``).
+Importing the package is cheap: it starts no thread (``init`` starts the
+runtime's), and CUDA kernels are built from ``csrc/`` at their first
+launch.
 """
 
+from ray_tpu_torch.api import (
+    available_resources,
+    cancel,
+    cluster_resources,
+    get,
+    get_actor,
+    init,
+    is_initialized,
+    kill,
+    put,
+    shutdown,
+    wait,
+)
+from ray_tpu_torch.core.exceptions import (
+    ActorDiedError,
+    ActorUnavailableError,
+    GetTimeoutError,
+    ObjectLostError,
+    OutOfMemoryError,
+    RayTpuError,
+    TaskCancelledError,
+    TaskError,
+)
+from ray_tpu_torch.core.events import timeline
+from ray_tpu_torch.core.object_ref import ObjectRef
+from ray_tpu_torch.core.remote_function import remote
+from ray_tpu_torch.core.worker import get_runtime_context
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "init",
+    "shutdown",
+    "is_initialized",
+    "remote",
+    "get",
+    "put",
+    "wait",
+    "kill",
+    "cancel",
+    "get_actor",
+    "cluster_resources",
+    "available_resources",
+    "get_runtime_context",
+    "timeline",
+    "ObjectRef",
+    "RayTpuError",
+    "TaskError",
+    "TaskCancelledError",
+    "ActorDiedError",
+    "ActorUnavailableError",
+    "ObjectLostError",
+    "OutOfMemoryError",
+    "GetTimeoutError",
+    "__version__",
+]

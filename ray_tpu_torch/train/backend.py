@@ -1,9 +1,13 @@
-"""Process-group bring-up for a training rank.
+"""Framework backends: per-worker bring-up, and process-group bring-up
+for a training rank.
 
-Port of ray_tpu/train/backend.py's ``free_port`` and
-``_init_jax_distributed``: every rank calls ``init_distributed`` with the
-coordinator's address, the number of processes and its own id; rank 0
-hosts the ``TCPStore`` the others meet at.
+Port of ray_tpu/train/backend.py: ``BackendConfig``/``Backend``, and
+``TorchBackendConfig``/``TorchBackend``, the twins of
+``JaxBackendConfig``/``JaxBackend``. ``init_distributed`` is the twin of
+``_init_jax_distributed``: every rank calls it with the coordinator's
+address, the number of processes and its own id; rank 0 hosts the
+``TCPStore`` the others meet at. Out: the XLA flags and the multi-slice
+environment.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ import os
 import random
 import socket
 from datetime import timedelta
+
+from dataclasses import dataclass
 
 import torch
 
@@ -91,3 +97,86 @@ def init_distributed(coordinator_addr: str, num_processes: int,
         timeout=TIMEOUT,
         **({"device_id": dev} if kind == "cuda" else {}))
     return dev
+
+
+@dataclass
+class BackendConfig:
+    distributed: bool = False
+
+    def validate(self, scaling) -> None:
+        """Refuse a configuration before any worker starts."""
+
+    def make_backend(self) -> "Backend":
+        return Backend()
+
+
+class Backend:
+    def on_start(self, worker_group, coordinator_addr: str | None) -> None:
+        pass
+
+
+@dataclass
+class TorchBackendConfig(BackendConfig):
+    """Each worker's device, and optionally a ``torch.distributed`` world.
+
+    ``device="cuda"`` (the default) runs rank r's train function on card
+    ``r % device_count`` (one card a rank where there are enough; every
+    rank on card 0 where there is one) and raises where there is no card;
+    ``device="cpu"`` runs on the CPU. ``distributed=True`` has every
+    worker join the default process group through ``init_distributed``
+    (NCCL on the card, gloo on the CPU) at the controller's coordinator
+    address. The in-process runtime's workers are threads of one process,
+    which holds one rank of one default group, so ``distributed=True``
+    takes one worker: more raise ``NotImplementedError`` (process workers,
+    ROADMAP Queue A item 7(b)). Without it, ranks sync gradients through
+    ``ray_tpu_torch.collective``'s host backend.
+    """
+
+    device: str = "cuda"
+
+    def validate(self, scaling) -> None:
+        from ray_tpu_torch._device import resolve_device
+
+        most = max(scaling.num_workers, scaling.max_workers or 0)
+        if self.distributed and most > 1:
+            raise NotImplementedError(
+                f"TorchBackendConfig(distributed=True) with {most} workers: "
+                "the in-process runtime's workers are threads of one "
+                "process, which holds one rank of one process group; more "
+                "ranks need process workers (ROADMAP Queue A item 7(b)). "
+                "Use distributed=False and ray_tpu_torch.collective's host "
+                "backend, or one worker")
+        resolve_device(self.device)
+
+    def make_backend(self) -> "TorchBackend":
+        return TorchBackend(self)
+
+
+class TorchBackend(Backend):
+    def __init__(self, cfg: TorchBackendConfig):
+        self.cfg = cfg
+
+    def rank_device(self, rank: int) -> torch.device:
+        from ray_tpu_torch._device import resolve_device
+
+        dev = resolve_device(self.cfg.device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+        return dev
+
+    def on_start(self, worker_group, coordinator_addr: str | None) -> None:
+        import ray_tpu_torch
+
+        workers = worker_group.workers
+        ray_tpu_torch.get([w.set_device.remote(self.rank_device(rank))
+                           for rank, w in enumerate(workers)], timeout=120)
+        if not self.cfg.distributed:
+            return
+        # Every worker joins against the coordinator's address (reference:
+        # v2/jax/config.py:84). A restarted group meets at a new address;
+        # a one-rank group a process already holds stays as it is.
+        ray_tpu_torch.get([
+            w.exec_fn.remote(init_distributed, coordinator_addr,
+                             len(workers), rank, self.cfg.device)
+            for rank, w in enumerate(workers)
+        ], timeout=300)
