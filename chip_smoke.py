@@ -255,6 +255,33 @@ failure raises and the script exits non-zero without a result line:
    refusals: distributed=True at two workers raises NotImplementedError
    before any worker starts, use_gpu=True on a runtime with no "GPU"
    resource raises ValueError without hanging;
+20. Serve on the card (ray_tpu_torch.serve on the in-process runtime,
+   init(resources={"GPU": 1})): phase 7's engine configuration, its
+   seeded weights (embedding rows from 128 up zeroed, so greedy outputs
+   are visible ASCII) written once as a save_pytree directory that the
+   direct engine and every replica load, behind build_openai_app with
+   ray_actor_options={"num_gpus": ...}, reached over HTTP through the
+   proxy, handle, router and replica: (a) phase 7's wave through POST
+   /v1/completions by eight urllib clients, a warm-up then P20_WAVES
+   timed waves in turns with the engine driven directly, every
+   completion's text, usage and finish_reason equal to the engine's;
+   tok/s of both (median [min, max]), their ratio, and the median latency
+   a request adds over HTTP; (b) POST /v1/chat/completions with stream:
+   true, a wave and P20_STREAM_WAVES more, each in turn with the engine
+   driven directly: every line an SSE data line, [DONE] last, the
+   frames' deltas equal to the non-streaming and the direct text, TTFT
+   p50/p90 (request to first data frame) beside the engine's own
+   first_token_ts - submit_ts; (c) autoscaling (min 1, max 2, target 4 ongoing, short
+   delays, num_gpus 0.5 a replica): waves until both replicas have
+   served, the replica count over time 1 -> 2 -> 1, the tokens equal
+   to the engine's; after each serve.shutdown() the card's allocated
+   memory (cuBLAS workspaces cleared for each reading) back within
+   P20_MEM_SLACK of its value before serve.run, and the workspaces so
+   freed at most P20_CUBLAS_WORKSPACE for each engine thread that ran
+   at once (2 in (a)/(b), 3 in (c)); (d)
+   the refusals, each at once: placement_group_bundles, grpc_options,
+   tensor_parallel_size 2, num_gpus on a runtime with no "GPU" resource;
+   rms_norm's launches counted over the HTTP waves only;
 11. cross-device: f32 engines at tiny width (d=64) and at 1B width with
    two layers (d=2048), CUDA (kernel) vs CPU (plain) greedy token streams
    must be equal; a bf16 trainer at small width, 3 steps on the card
@@ -6143,6 +6170,538 @@ def phase_trainer() -> dict:
     return out
 
 
+# Phase 20: Serve on the card. Phase 7's configuration behind a serve
+# replica, driven over HTTP.
+P20_WAVES = 5  # timed HTTP waves, each in turn with a direct one
+P20_STREAM_WAVES = 1  # more streaming waves, each in turn with a direct one
+# Greedy outputs are kept in ASCII: the seeded embedding's rows from this
+# id up are zeroed (tied head, so those logits are 0 and never the
+# largest), which makes every output token a visible one-byte character
+# and the text gates compare every token.
+P20_VOCAB_SHOWN = 128
+P20_MEM_SLACK = 64 * 2 ** 20  # card memory after serve.shutdown, bytes
+# PyTorch's cuBLAS workspace for one thread on sm_90 (its default
+# CUBLAS_WORKSPACE_CONFIG ":4096:8", 8 x 4096 KiB). The workspaces freed
+# for a reading may be at most one of these for each engine thread that
+# ran at once; more would be a handle left behind by each replica.
+P20_CUBLAS_WORKSPACE = 32 * 2 ** 20
+P20_SCALE_S = 60.0  # the most the autoscaling load may run
+
+
+def _p20_request(port: int, path: str, body: dict):
+    import urllib.request
+
+    return urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+
+
+def p20_post(port: int, path: str, body: dict) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(_p20_request(port, path, body),
+                                timeout=600) as r:
+        return json.loads(r.read())
+
+
+def p20_stream(port: int, path: str, body: dict):
+    """POST a streaming request; returns (parsed frames, seconds from the
+    request to the first data frame). Fails unless every line is an SSE
+    data line or blank, each frame parses, and the stream ends in
+    ``data: [DONE]``."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    frames, first, done = [], None, False
+    with urllib.request.urlopen(_p20_request(port, path, body),
+                                timeout=600) as r:
+        ctype = r.headers.get("Content-Type", "")
+        for raw in r:
+            line = raw.decode("utf-8").rstrip("\n")
+            if not line:
+                continue
+            if not line.startswith("data: ") or done:
+                raise AssertionError(f"SSE line {line[:80]!r} (after "
+                                     f"[DONE]: {done})")
+            if first is None:
+                first = time.perf_counter() - t0
+            if line == "data: [DONE]":
+                done = True
+                continue
+            frames.append(json.loads(line[6:]))
+    if not ctype.startswith("text/event-stream") or not done:
+        raise AssertionError(f"stream of {ctype!r} ended without [DONE]")
+    return frames, first
+
+
+def p20_loop(prompts, call, concurrency: int = 8):
+    """Closed loop: ``concurrency`` clients each send the next prompt as
+    soon as their last answer came. Returns ({index: answer}, wall s,
+    {index: latency s}); raises the first client's error."""
+    out, lat, errors = {}, {}, []
+    lock = threading.Lock()
+    todo = list(enumerate(prompts))
+
+    def client():
+        while True:
+            with lock:
+                if not todo or errors:
+                    return
+                i, p = todo.pop(0)
+            t0 = time.perf_counter()
+            try:
+                r = call(p)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                with lock:
+                    errors.append(e)
+                return
+            with lock:
+                out[i], lat[i] = r, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(concurrency)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if len(out) != len(prompts) or any(t.is_alive() for t in threads):
+        raise AssertionError(f"{len(out)}/{len(prompts)} requests answered")
+    return out, wall, lat
+
+
+def p20_direct(eng, prompt, sampling):
+    """One request to the engine itself: (result, engine TTFT s)."""
+    req = eng.submit(prompt, sampling)
+    if not req.done.wait(600):
+        raise TimeoutError("direct request timed out")
+    if req.error or req.finish_reason not in ("length", "stop"):
+        raise AssertionError(f"direct request ended {req.finish_reason} "
+                             f"({req.error})")
+    return eng._result(req), req.first_token_ts - req.submit_ts
+
+
+def p20_check_completion(label: str, got: dict, want) -> None:
+    """An HTTP completion against the engine's own result."""
+    choice = got["choices"][0]
+    text = choice.get("text", choice.get("message", {}).get("content"))
+    usage = {"prompt_tokens": len(want.prompt_ids),
+             "completion_tokens": len(want.token_ids),
+             "total_tokens": len(want.prompt_ids) + len(want.token_ids)}
+    if text != want.text or got["usage"] != usage or \
+            choice["finish_reason"] != want.finish_reason:
+        raise AssertionError(
+            f"{label}: HTTP {text!r} {got['usage']} "
+            f"{choice['finish_reason']} vs direct {want.text!r} {usage} "
+            f"{want.finish_reason}")
+
+
+def p20_check_stream(label: str, frames: list, want_text: str,
+                     want_tokens: int) -> None:
+    deltas = [f["choices"][0]["delta"].get("content", "") for f in frames]
+    if "".join(deltas) != want_text or len(frames) != want_tokens + 1 or \
+            frames[-1]["choices"][0]["finish_reason"] not in ("length",
+                                                              "stop"):
+        raise AssertionError(
+            f"{label}: stream {''.join(deltas)!r} in {len(frames)} frames "
+            f"vs {want_text!r} ({want_tokens} tokens)")
+
+
+def p20_checkpoint(cfg, directory: str, device: str) -> None:
+    """Phase 7's seeded weights with the embedding rows from
+    P20_VOCAB_SHOWN up zeroed, written once as a save_pytree directory
+    that the direct engine and every replica load."""
+    import shutil
+
+    import torch
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.train.checkpoint import save_pytree
+
+    shutil.rmtree(directory, ignore_errors=True)
+    params = init_params(cfg.model_config(), generator=cfg.seed,
+                         device=device)
+    with torch.no_grad():
+        params["embed_tokens"][P20_VOCAB_SHOWN:] = 0
+        if "lm_head" in params:  # an untied head (the CPU check's tiny)
+            params["lm_head"][:, P20_VOCAB_SHOWN:] = 0
+    save_pytree(params, directory)
+    del params
+
+
+def p20_allocated() -> tuple[int, int]:
+    """(the card's allocated bytes without cuBLAS workspaces, the
+    workspaces' bytes). PyTorch keeps a cuBLAS handle and its workspace
+    for each thread that ran a matmul, and hands both to the next thread
+    after that thread ends (32 MiB a handle on an H100): clearing them
+    makes the reading count what is held, not how many threads ran."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    after = torch.cuda.memory_allocated()
+    return after, before - after
+
+
+def p20_memory_back(mem0: int, engine_threads: int) -> float:
+    """Wait (up to 15 s: killed replicas' threads end on their own) until
+    the card's allocated memory, cuBLAS workspaces aside, is back within
+    P20_MEM_SLACK of mem0, and check that the workspaces freed for the
+    readings are at most P20_CUBLAS_WORKSPACE for each of the
+    engine_threads that ran at once; returns the gap in MiB."""
+    deadline = time.perf_counter() + 15
+    freed = 0
+    while True:
+        now, workspaces = p20_allocated()
+        freed += workspaces
+        gap = now - mem0
+        if abs(gap) <= P20_MEM_SLACK:
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError(
+                f"card memory after serve.shutdown() {gap / 2 ** 20:+.1f} "
+                f"MiB from before serve.run")
+        time.sleep(0.2)
+    bound = engine_threads * P20_CUBLAS_WORKSPACE
+    if freed > bound:
+        raise AssertionError(
+            f"{freed / 2 ** 20:.2f} MiB of cuBLAS workspaces freed after "
+            f"serve.shutdown(), above {bound / 2 ** 20:.0f} MiB for "
+            f"{engine_threads} engine threads: a handle left behind")
+    print(f"after serve.shutdown(): allocated {gap / 2 ** 20:+.2f} MiB from "
+          f"before serve.run (slack {P20_MEM_SLACK // 2 ** 20} MiB), cuBLAS "
+          f"workspaces aside ({freed / 2 ** 20:.2f} MiB of them freed "
+          f"for the reading, at most {bound / 2 ** 20:.0f} MiB for "
+          f"{engine_threads} engine threads)")
+    return gap / 2 ** 20
+
+
+def p20_replicas(name: str):
+    """(replica id, actor) of each RUNNING replica of deployment name."""
+    import ray_tpu_torch
+    from ray_tpu_torch.serve.handle import CONTROLLER_NAME, SERVE_NAMESPACE
+
+    ctrl = ray_tpu_torch.get_actor(CONTROLLER_NAME, namespace=SERVE_NAMESPACE)
+    infos = ray_tpu_torch.get(ctrl.get_replicas.remote(name), timeout=30)
+    return [(i.replica_id, ray_tpu_torch.get_actor(
+        i.actor_name, namespace=SERVE_NAMESPACE)) for i in infos
+        if not i.draining]
+
+
+def phase_serve(model="llama3_1b", dtype: str = "bfloat16",
+                device: str = "cuda") -> dict:
+    """Phase 20: Serve on the card (ray_tpu_torch.serve): phase 7's engine
+    behind a replica of build_openai_app, reached over HTTP through the
+    proxy, handle, router and replica. (a) /v1/completions in turns with
+    the engine driven directly, every completion's text and usage equal
+    to the engine's; (b) /v1/chat/completions with stream: true, the SSE
+    frames well formed and their deltas equal to the non-streaming and
+    the direct text, TTFT beside the engine's own; (c) autoscaling 1 -> 2
+    -> 1 on one card, both replicas serving, tokens equal to the
+    engine's, the card's memory back within P20_MEM_SLACK after
+    serve.shutdown(); (d) the refusals. ``model``, ``dtype`` and
+    ``device`` shrink it for a CPU check of the script itself."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import (LLMConfig, LLMEngine, SamplingParams,
+                                   build_openai_app)
+    from ray_tpu_torch.ops import norms
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckdir = os.path.join(root, "ray_tpu_torch", "_native", "_build",
+                         "phase20")
+    base = LLMConfig(model=model, dtype=dtype, max_num_seqs=8,
+                     max_seq_len=1024, decode_burst=16, prefill_chunk=512,
+                     seed=SEED)
+    _phase("Serve (setup): phase 7's engine, seeded weights written once")
+    p20_checkpoint(base, ckdir, device)
+    cfg = replace(base, checkpoint_path=ckdir)
+    greedy64 = SamplingParams(max_tokens=64, temperature=0.0)
+    body64 = {"max_tokens": 64, "temperature": 0.0}
+    rng = np.random.default_rng(SEED + 20)
+
+    def fresh_wave():
+        """Phase 7's prompt lengths, fresh ASCII tokens."""
+        _, wave = _wave_prompts(rng)
+        return [[t % P20_VOCAB_SHOWN for t in p] for p in wave]
+
+    def chat(ids):
+        return [{"role": "user", "content": "".join(map(chr, ids))}]
+
+    eng = LLMEngine(cfg, device=device)
+    out: dict = {}
+    serve_launches = 0
+
+    def served(fn):
+        """Run one HTTP wave, adding its rms_norm launches (the direct
+        engine idles meanwhile) to the serve path's count."""
+        nonlocal serve_launches
+        norms.rms_norm.launches = 0
+        try:
+            return fn()
+        finally:
+            serve_launches += norms.rms_norm.launches
+
+    try:
+        mem0 = p20_allocated()[0] if cuda else 0
+        ray_tpu_torch.init(num_cpus=8, resources={"GPU": 1})
+        try:
+            _phase("Serve (a): /v1/completions over HTTP in turns with the "
+                   "engine driven directly")
+            t0 = time.perf_counter()
+            serve.run(build_openai_app(
+                cfg, device=device, ray_actor_options={"num_gpus": 1}),
+                route_prefix="/", http=True, _blocking_timeout=300)
+            port = serve.http_port()
+            up_s = time.perf_counter() - t0
+            print(f"serve.run up in {up_s:.2f} s (one replica, its engine "
+                  f"loaded from the checkpoint); proxy on port {port}")
+
+            def http_wave(prompts):
+                return served(lambda: p20_loop(prompts, lambda p: p20_post(
+                    port, "/v1/completions", {"prompt": p, **body64})))
+
+            def direct_wave(prompts):
+                return p20_loop(prompts,
+                                lambda p: p20_direct(eng, p, greedy64))
+
+            def check_wave(label, prompts, http, direct):
+                for i in range(len(prompts)):
+                    p20_check_completion(f"{label} prompt {i}", http[i],
+                                         direct[i][0])
+
+            warm = fresh_wave()
+            h, _, _ = http_wave(warm)
+            d, _, _ = direct_wave(warm)
+            check_wave("warm-up", warm, h, d)
+            http_rates, direct_rates, http_lat, direct_lat = [], [], [], []
+            for w in range(P20_WAVES):
+                prompts = fresh_wave()
+                h, h_s, h_lat = http_wave(prompts)
+                d, d_s, d_lat = direct_wave(prompts)
+                check_wave(f"wave {w}", prompts, h, d)
+                h_tok = sum(r["usage"]["completion_tokens"]
+                            for r in h.values())
+                d_tok = sum(len(r[0].token_ids) for r in d.values())
+                http_rates.append(h_tok / h_s)
+                direct_rates.append(d_tok / d_s)
+                http_lat += list(h_lat.values())
+                direct_lat += list(d_lat.values())
+                print(f"  wave {w}: HTTP {h_tok} tokens in {h_s:.3f} s = "
+                      f"{http_rates[-1]:.1f} tok/s; direct {d_tok} in "
+                      f"{d_s:.3f} s = {direct_rates[-1]:.1f} tok/s")
+            ratio = statistics.median(http_rates) / \
+                statistics.median(direct_rates)
+            extra_ms = (statistics.median(http_lat)
+                        - statistics.median(direct_lat)) * 1e3
+            print(f"{P20_WAVES} waves of 16 at concurrency 8, in turns: HTTP "
+                  f"tok/s {_spread(http_rates)}; direct tok/s "
+                  f"{_spread(direct_rates)}; HTTP/direct {ratio:.4f}; request "
+                  f"latency median HTTP "
+                  f"{statistics.median(http_lat) * 1e3:.1f} ms vs direct "
+                  f"{statistics.median(direct_lat) * 1e3:.1f} ms (HTTP adds "
+                  f"{extra_ms:.1f} ms); every text and usage equal: ok")
+            out["http"] = {
+                "up_s": up_s, "waves": P20_WAVES,
+                "http_tok_per_s": statistics.median(http_rates),
+                "http_tok_per_s_min": min(http_rates),
+                "http_tok_per_s_max": max(http_rates),
+                "direct_tok_per_s": statistics.median(direct_rates),
+                "direct_tok_per_s_min": min(direct_rates),
+                "direct_tok_per_s_max": max(direct_rates),
+                "http_over_direct": ratio,
+                "latency_ms_http": statistics.median(http_lat) * 1e3,
+                "latency_ms_direct": statistics.median(direct_lat) * 1e3,
+                "extra_latency_ms": extra_ms}
+
+            _phase("Serve (b): /v1/chat/completions with stream: true")
+            path = "/v1/chat/completions"
+            prompts = fresh_wave()
+            whole, _, _ = served(lambda: p20_loop(prompts, lambda p: p20_post(
+                port, path, {"messages": chat(p), **body64})))
+            streams, _, _ = served(lambda: p20_loop(prompts, lambda p: p20_stream(
+                port, path, {"messages": chat(p), "stream": True, **body64})))
+            tok = eng.tokenizer
+            direct, _, _ = p20_loop(prompts, lambda p: p20_direct(
+                eng, tok.apply_chat_template(chat(p)), greedy64))
+            for i in range(len(prompts)):
+                want = direct[i][0]
+                p20_check_completion(f"chat prompt {i}", whole[i], want)
+                p20_check_stream(f"stream prompt {i}", streams[i][0],
+                                 whole[i]["choices"][0]["message"]["content"],
+                                 len(want.token_ids))
+            http_ttft = [streams[i][1] * 1e3 for i in streams]
+            eng_ttft = [direct[i][1] * 1e3 for i in direct]
+            for w in range(P20_STREAM_WAVES):
+                prompts = fresh_wave()
+                streams, _, _ = served(lambda: p20_loop(
+                    prompts, lambda p: p20_stream(port, path, {
+                        "messages": chat(p), "stream": True, **body64})))
+                direct, _, _ = p20_loop(prompts, lambda p: p20_direct(
+                    eng, tok.apply_chat_template(chat(p)), greedy64))
+                for i in range(len(prompts)):
+                    want = direct[i][0]
+                    p20_check_stream(f"timed stream {w} prompt {i}",
+                                     streams[i][0], want.text,
+                                     len(want.token_ids))
+                http_ttft += [streams[i][1] * 1e3 for i in streams]
+                eng_ttft += [direct[i][1] * 1e3 for i in direct]
+            q = statistics.quantiles
+            ttft = {"http_p50_ms": statistics.median(http_ttft),
+                    "http_p90_ms": q(http_ttft, n=10)[-1],
+                    "engine_p50_ms": statistics.median(eng_ttft),
+                    "engine_p90_ms": q(eng_ttft, n=10)[-1]}
+            print(f"SSE: frames parse, [DONE] last, deltas equal the "
+                  f"non-streaming and the direct text: ok; TTFT over "
+                  f"{len(http_ttft)} streamed requests (sent to first data "
+                  f"frame) p50 {ttft['http_p50_ms']:.1f} ms, p90 "
+                  f"{ttft['http_p90_ms']:.1f} ms; the engine's own "
+                  f"(first_token_ts - submit_ts) direct p50 "
+                  f"{ttft['engine_p50_ms']:.1f} ms, p90 "
+                  f"{ttft['engine_p90_ms']:.1f} ms")
+            out["stream"] = ttft
+            serve.shutdown()
+            if cuda:
+                # the direct engine's thread and one replica's
+                out["mem_gap_mib_ab"] = p20_memory_back(mem0, 2)
+
+            _phase("Serve (c): autoscaling 1 -> 2 -> 1 on one card")
+            asc = {"min_replicas": 1, "max_replicas": 2,
+                   "target_ongoing_requests": 4, "upscale_delay_s": 0.5,
+                   "downscale_delay_s": 2.0, "metrics_interval_s": 0.2}
+            t_scale = time.perf_counter()
+            serve.run(build_openai_app(
+                cfg, device=device, name="LLMAuto", autoscaling_config=asc,
+                ray_actor_options={"num_gpus": 0.5}), route_prefix="/",
+                http=True, _blocking_timeout=300)
+            port = serve.http_port()
+            counts, stop_watch = [], threading.Event()
+
+            def watch():
+                while not stop_watch.is_set():
+                    st = serve.status().get("LLMAuto")
+                    n = st.replica_states.get("RUNNING", 0) if st else 0
+                    if not counts or counts[-1][1] != n:
+                        counts.append((time.perf_counter() - t_scale, n))
+                    stop_watch.wait(0.1)
+
+            watcher = threading.Thread(target=watch)
+            watcher.start()
+            try:
+                asked, answers = [], []
+                served_by: dict = {}
+                deadline = time.perf_counter() + P20_SCALE_S
+                while len(served_by) < 2 or min(served_by.values()) < 1:
+                    if time.perf_counter() > deadline:
+                        raise AssertionError(
+                            f"no two serving replicas in {P20_SCALE_S} s: "
+                            f"counts {counts}, served {served_by}")
+                    prompts = fresh_wave()
+                    h, _, _ = http_wave(prompts)
+                    asked += prompts
+                    answers += [h[i] for i in range(len(prompts))]
+                    reps = p20_replicas("LLMAuto")
+                    served_by = {rid: ray_tpu_torch.get(
+                        a.get_metrics.remote(), timeout=30)["total"]
+                        for rid, a in reps}
+                stats = {rid: ray_tpu_torch.get(a.handle_request.remote(
+                    "stats", (), {}), timeout=30) for rid, a in reps}
+                t_load = time.perf_counter() - t_scale
+                deadline = time.perf_counter() + 60
+                while counts[-1][1] != 1 or \
+                        serve.status()["LLMAuto"].replica_states != \
+                        {"RUNNING": 1}:
+                    if time.perf_counter() > deadline:
+                        raise AssertionError(f"no scale-down: {counts}")
+                    time.sleep(0.1)
+            finally:
+                stop_watch.set()
+                watcher.join()
+            peak = max(n for _, n in counts)
+            if peak != 2 or counts[-1][1] != 1:
+                raise AssertionError(f"replica counts {counts}")
+            direct, _, _ = p20_loop(asked, lambda p: p20_direct(eng, p,
+                                                                greedy64))
+            for i, got in enumerate(answers):
+                p20_check_completion(f"autoscaled prompt {i}", got,
+                                     direct[i][0])
+            print(f"replicas over time (s, RUNNING): "
+                  + ", ".join(f"({t:.2f}, {n})" for t, n in counts)
+                  + f"; load stopped at {t_load:.2f} s after "
+                  f"{len(asked)} requests; requests a replica "
+                  f"{served_by}; engine prefill chunks a replica "
+                  + json.dumps({r: s["prefill_chunks"]
+                                for r, s in stats.items()})
+                  + "; every text and usage equal to the engine's: ok")
+            out["autoscale"] = {"counts": counts, "load_s": t_load,
+                                "requests": len(asked),
+                                "served_by": list(served_by.values())}
+            serve.shutdown()
+        finally:
+            serve.shutdown()
+            ray_tpu_torch.shutdown()
+        if cuda:
+            # the direct engine's thread and two replicas'
+            out["mem_gap_mib_c"] = p20_memory_back(mem0, 3)
+    finally:
+        eng.shutdown()
+
+    _phase("Serve (d): the refusals")
+    t0 = time.perf_counter()
+    refused = []
+
+    def refuses(label, exc, fn):
+        try:
+            fn()
+        except exc as e:
+            refused.append(f"{label}: {type(e).__name__}")
+            return
+        raise AssertionError(f"{label} did not raise {exc.__name__}")
+
+    refuses("placement_group_bundles", NotImplementedError,
+            lambda: serve.deployment(
+                placement_group_bundles=[{"GPU": 1}])(LLMEngine))
+    refuses("grpc_options", NotImplementedError,
+            lambda: serve.start(grpc_options={"port": 0}))
+    refuses("tensor_parallel_size 2", NotImplementedError,
+            lambda: build_openai_app(replace(cfg, tensor_parallel_size=2)))
+    ray_tpu_torch.init(num_cpus=8)  # no "GPU" resource
+    try:
+        refuses("num_gpus without a GPU resource", ValueError,
+                lambda: serve.run(build_openai_app(
+                    cfg, device=device, ray_actor_options={"num_gpus": 1}),
+                    _blocking_timeout=60))
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    refuse_s = time.perf_counter() - t0
+    if refuse_s > 5:
+        raise AssertionError(f"the refusals took {refuse_s:.2f} s")
+    print(f"{'; '.join(refused)}; all in {refuse_s:.3f} s")
+    import shutil
+
+    shutil.rmtree(ckdir, ignore_errors=True)
+    out["refusals_s"] = refuse_s
+    out["launches"] = serve_launches
+    if cuda and serve_launches < 1:
+        raise AssertionError("rms_norm never launched on the serve path")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"rms_norm launches on the serve path {serve_launches}; phase 20: "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6175,6 +6734,7 @@ def main() -> int:
     rest = phase_serving_rest()
     rl_rest = phase_rl_rest()
     trainer = phase_trainer()
+    serve_ = phase_serve()
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -6218,6 +6778,7 @@ def main() -> int:
                              "pipeline": pipe["run"]["launches"]["rms_norm"],
                              "trainer":
                                  trainer["restart"]["launches"]["rms_norm"],
+                             "serve": serve_["launches"],
                              "mixtral": {
                                  k_: moe["runs"][k_]["launches"]["rms_norm"]
                                  for k_ in P15_MODES}},
@@ -6355,7 +6916,9 @@ def main() -> int:
                       "rl": rl, "rl_ranks": rl_ranks,
                       "serving_rest": {k: v for k, v in rest.items()
                                        if k != "launches"},
-                      "rl_rest": rl_rest, "trainer": trainer}))
+                      "rl_rest": rl_rest, "trainer": trainer,
+                      "serve": {k: v for k, v in serve_.items()
+                                if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

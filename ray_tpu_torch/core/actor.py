@@ -5,7 +5,8 @@ class yields an ActorClass; ``.remote(...)`` creates the actor and returns
 an ActorHandle whose method accessors submit ordered actor tasks. Named
 actors, max_restarts (of ``__init__``), max_concurrency, async actors and
 options() per-instantiation overrides; ``num_gpus`` demands the ``"GPU"``
-resource. Out: DAG ``.bind`` and the internal ``__rtpu_call_fn__`` hook
+resource; ``method.options(num_returns="streaming")`` streams a generator
+method's yields. Out: DAG ``.bind`` and the internal ``__rtpu_call_fn__`` hook
 (compiled graphs, ROADMAP Queue A item 7's MPMD pipelines); method calls
 carry no tracing context; ``max_task_retries`` and ``lifetime`` (a process
 runtime's notions) are unknown options; ``runtime_env`` and
@@ -18,6 +19,7 @@ import itertools
 import os
 from typing import Any
 
+from ray_tpu_torch.core.object_ref import ObjectRefGenerator
 from ray_tpu_torch.core.remote_function import _build_resources, check_options
 from ray_tpu_torch.core.task_spec import ActorCreationSpec, TaskSpec
 from ray_tpu_torch.core.worker import global_worker
@@ -47,7 +49,7 @@ class ActorMethod:
         self._method_name = method_name
         self._num_returns = num_returns
 
-    def options(self, num_returns: int = 1):
+    def options(self, num_returns: int | str = 1):
         check_options({"num_returns": num_returns}, {"num_returns": 1})
         return ActorMethod(self._handle, self._method_name, num_returns)
 
@@ -82,7 +84,8 @@ class ActorHandle:
             raise AttributeError(name)
         return ActorMethod(self, name)
 
-    def _submit_method(self, method_name: str, args: tuple, kwargs: dict, num_returns: int = 1):
+    def _submit_method(self, method_name: str, args: tuple, kwargs: dict,
+                       num_returns: int | str = 1):
         worker = global_worker
         worker.check_connected()
         seq_no = next(self._seq)
@@ -99,6 +102,9 @@ class ActorHandle:
             name=f"{method_name}",
         )
         refs = worker.runtime.submit_actor_task(spec)
+        if num_returns == "streaming":
+            return ObjectRefGenerator(spec.task_id, worker.worker_id,
+                                      end_ref=refs[0])
         return refs[0] if num_returns == 1 else refs
 
     def __reduce__(self):

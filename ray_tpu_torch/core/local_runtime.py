@@ -9,12 +9,19 @@ KV. An infeasible demand (more of a resource than the runtime has at all,
 e.g. ``num_gpus=1`` on a runtime started without ``resources={"GPU": n}``)
 raises at once instead of waiting.
 
+Streaming returns (``num_returns="streaming"``): the executor drives the
+task's generator, each yield becomes an object the consumer's
+ObjectRefGenerator picks up, and the item count (or the producer's error)
+lands under STREAM_END_INDEX.
+
 Out: the flight recorder, placement groups, runtime envs, the function
-registry, compiled-graph hooks, streaming returns and the state API's
-snapshot. Added: ``shutdown`` stops every thread the runtime started (its
-task pool, actor threads and their pools and event loops): waiting ``get``s
-and ``wait``s end, pending coroutines of async actors are cancelled, and
-the threads are joined within a deadline.
+registry, compiled-graph hooks and the state API's snapshot. Added:
+``shutdown`` stops every thread the runtime started (its task pool, actor
+threads and their pools and event loops): waiting ``get``s and ``wait``s
+end, pending coroutines of async actors are cancelled, and the threads are
+joined within a deadline. A killed or ended actor's instance is dropped, so
+what it holds (device memory) can be freed. A stream whose consumer
+dropped its generator stops at the producer's next yield (``close_stream``).
 """
 
 from __future__ import annotations
@@ -165,6 +172,11 @@ class LocalRuntime:
         self._named_actors: dict[tuple[str, str], ActorID] = {}
         self._cancelled: set[ObjectID] = set()
         self._kv: dict[str, dict[str, bytes]] = {}
+        # Streams whose consumer is gone (task id -> first unread index),
+        # and streams that ended before their consumer went (task id ->
+        # item count); each entry is popped by whichever side comes second.
+        self._streams_closed: dict = {}
+        self._streams_ended: dict = {}
         self._lock = threading.RLock()
         self._shutdown = False
 
@@ -354,6 +366,9 @@ class LocalRuntime:
         return obj
 
     def _store_results(self, spec: TaskSpec, return_ids: list[ObjectID], result: Any) -> None:
+        if spec.num_returns == "streaming":
+            self._drive_stream(spec, result)
+            return
         if spec.num_returns == 1:
             values = [result]
         else:
@@ -376,6 +391,58 @@ class LocalRuntime:
             if oid not in self._released:
                 self.store.put(oid, serialization.serialize(v), self.worker_id)
                 self._register_nested(oid, v)
+
+    def _drive_stream(self, spec: TaskSpec, gen: Any) -> None:
+        """Executor side of a streaming task: store each yield as return
+        index i, then the count (or the producer's error) under
+        STREAM_END_INDEX. A consumer that went away (close_stream) stops
+        the drive at the next yield; the producer is closed there, so its
+        ``finally`` blocks run."""
+        from ray_tpu_torch.core.object_ref import STREAM_END_INDEX
+
+        tid = spec.task_id
+        n = 0
+        end_value: Any
+        try:
+            for v in gen:
+                oid = ObjectID.for_task_return(tid, n)
+                self.store.put(oid, serialization.serialize(v), self.worker_id)
+                self.refs.add_owned(oid)
+                n += 1
+                if tid in self._streams_closed:
+                    close = getattr(gen, "close", None)
+                    if close is not None:
+                        close()
+                    break
+            end_value = n
+        except BaseException as e:  # noqa: BLE001 - stream error -> end marker
+            end_value = TaskError(e, task_desc=spec.name)
+        with self._lock:
+            first_unread = self._streams_closed.pop(tid, None)
+            if first_unread is None:
+                self._streams_ended[tid] = n
+        if first_unread is not None:
+            self._drop_stream_items(tid, first_unread, n)
+        end = ObjectID.for_task_return(tid, STREAM_END_INDEX)
+        if end not in self._released:
+            self.store.put(end, serialization.serialize(end_value),
+                           self.worker_id)
+
+    def close_stream(self, task_id, first_unread: int) -> None:
+        """The consumer dropped its ObjectRefGenerator: items it never read
+        are freed, and a stream still running stops at its next yield."""
+        with self._lock:
+            count = self._streams_ended.pop(task_id, None)
+            if count is None:
+                self._streams_closed[task_id] = first_unread
+                return
+        self._drop_stream_items(task_id, first_unread, count)
+
+    def _drop_stream_items(self, task_id, start: int, stop: int) -> None:
+        for i in range(start, stop):
+            oid = ObjectID.for_task_return(task_id, i)
+            self.refs.add_local_ref(oid)  # released at once: deletes it
+            self.refs.remove_local_ref(oid)
 
     def _store_error(self, return_ids: list[ObjectID], err: BaseException) -> None:
         blob = serialization.serialize(err)
@@ -435,6 +502,10 @@ class LocalRuntime:
             if state.loop:
                 state.loop.call_soon_threadsafe(state.loop.stop)
             self.resources.release(spec.resources)
+            # A process exit frees what the actor held; here the instance
+            # is dropped instead (calls still running keep their own
+            # reference until they return).
+            state.instance = None
 
     def _actor_init(self, state: _ActorState) -> None:
         cls = serialization.deserialize(state.spec.cls_blob)
@@ -458,7 +529,11 @@ class LocalRuntime:
             try:
                 set_task_context(spec.task_id, state.spec.actor_id, state.spec.resources)
                 args, kwargs = self._resolve_args(spec)
-                method = getattr(state.instance, spec.method_name)
+                instance = state.instance
+                if instance is None:  # the actor ended while this call queued
+                    raise ActorDiedError(state.spec.actor_id.hex(),
+                                         state.death_reason or "actor ended")
+                method = getattr(instance, spec.method_name)
                 with task_execution(spec, self.worker_id.hex()):
                     if inspect.iscoroutinefunction(method):
                         fut = asyncio.run_coroutine_threadsafe(method(*args, **kwargs), state.loop)

@@ -1,15 +1,20 @@
 """ObjectRef: a first-class distributed future.
 
 Port of ray_tpu/core/object_ref.py for the in-process runtime (out: the
-client proxy's ``refcount_disabled`` and the streaming tasks'
-``ObjectRefGenerator``): a ref names an object owned by
+client proxy's ``refcount_disabled``): a ref names an object owned by
 exactly one worker; refs are cheap to copy and pickle; every live ref holds
 one local reference in the runtime's reference counter, so an object is
-freed when its last ref goes.
+freed when its last ref goes. ``ObjectRefGenerator`` iterates the yields of
+a streaming task (``num_returns="streaming"``). Added: a generator dropped
+before its stream ends tells the runtime, which stops driving the producer
+(it is closed at its next yield) and frees the items nobody will read; and
+a generator waiting for its next item raises ObjectLostError once the
+runtime shuts down.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 from ray_tpu_torch.utils.ids import ObjectID, WorkerID
@@ -92,3 +97,70 @@ class ObjectRef:
 
     def __reduce__(self):
         return (ObjectRef, (self.id, self.owner_id))
+
+
+# Stream-end sentinel index: the item count of a finished streaming task is
+# stored under this return index (far above any real item index).
+STREAM_END_INDEX = 0xFFFFFFFE
+
+
+class ObjectRefGenerator:
+    """Iterator over the yields of a streaming task
+    (``num_returns="streaming"``): each ``__next__`` blocks until the next
+    yielded item is in the store and returns its ObjectRef. The stream ends
+    when the executor stores the item count (or the producer's error) under
+    STREAM_END_INDEX."""
+
+    def __init__(self, task_id, owner_id: WorkerID, end_ref=None):
+        self._task_id = task_id
+        self._owner_id = owner_id
+        self._index = 0
+        self._total: int | None = None
+        # Pins the stream-end marker for the generator's lifetime: it is
+        # the task's only pre-declared return.
+        self._end_ref = end_ref
+        self._rt = _current_runtime()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> ObjectRef:
+        return self._next(timeout=300.0)
+
+    def _next(self, timeout: float) -> ObjectRef:
+        rt = self._rt
+        contains = rt.store.contains
+        oid = ObjectID.for_task_return(self._task_id, self._index)
+        end_oid = ObjectID.for_task_return(self._task_id, STREAM_END_INDEX)
+        deadline = time.monotonic() + timeout
+        while True:
+            if self._total is not None and self._index >= self._total:
+                raise StopIteration
+            if contains(oid):
+                self._index += 1
+                return ObjectRef(oid, self._owner_id)
+            if self._total is None and contains(end_oid):
+                end = rt.get([ObjectRef(end_oid, self._owner_id)])[0]
+                self._total = int(end)
+                continue
+            if rt._shutdown:
+                from ray_tpu_torch.core.exceptions import ObjectLostError
+
+                raise ObjectLostError(oid.hex(), "the runtime shut down")
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"streaming task {self._task_id.hex()[:12]} produced no "
+                    f"item {self._index} in time")
+            # Plain polling: building ObjectRefs to use wait() would take
+            # and drop local refs on ids the producer has not sealed yet.
+            with rt._wait_cond:
+                rt._wait_cond.wait(timeout=0.02)
+
+    def completed(self) -> bool:
+        return self._total is not None and self._index >= self._total
+
+    def __del__(self):
+        try:
+            self._rt.close_stream(self._task_id, self._index)
+        except Exception:  # noqa: BLE001 - runtime gone or interpreter teardown
+            pass

@@ -7,9 +7,9 @@ num_returns and retries per call site. ``num_gpus`` is the counterpart of
 ``num_tpus``: it demands the ``"GPU"`` resource.
 
 Out (each raises ``NotImplementedError``): ``runtime_env`` and
-placement-group strategies (process workers, ROADMAP Queue A item 7(b)) and
-streaming returns (``num_returns="streaming"``, which the serve deployments
-of item 7 bring). Tasks carry no tracing context.
+placement-group strategies (process workers, ROADMAP Queue A item 7(b)).
+``num_returns="streaming"`` returns an ObjectRefGenerator over the task's
+yields. Tasks carry no tracing context.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import functools
 from typing import Any
 
+from ray_tpu_torch.core.object_ref import ObjectRefGenerator
 from ray_tpu_torch.core.task_spec import TaskSpec
 from ray_tpu_torch.core.worker import global_worker
 from ray_tpu_torch.utils import serialization
@@ -51,10 +52,10 @@ def check_options(opts: dict[str, Any], known: dict[str, Any]) -> None:
             f"scheduling strategy {strategy!r}: placement groups and node "
             "affinity need the cluster runtime (ROADMAP Queue A item 7(b)); "
             "the in-process runtime has one node")
-    if opts.get("num_returns") == "streaming":
-        raise NotImplementedError(
-            "num_returns='streaming' is not ported (ROADMAP Queue A item 7: "
-            "the serve deployments bring it)")
+    n = opts.get("num_returns", 1)
+    if n != "streaming" and not (isinstance(n, int) and n >= 1):
+        raise ValueError(
+            f"num_returns must be a positive int or 'streaming', got {n!r}")
 
 
 def _build_resources(opts: dict[str, Any]) -> dict[str, float]:
@@ -109,6 +110,9 @@ class RemoteFunction:
             name=opts["name"] or self._fn.__name__,
         )
         refs = worker.runtime.submit_task(spec)
+        if opts["num_returns"] == "streaming":
+            return ObjectRefGenerator(spec.task_id, worker.worker_id,
+                                      end_ref=refs[0])
         if opts["num_returns"] == 1:
             return refs[0]
         return refs

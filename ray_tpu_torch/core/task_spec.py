@@ -21,7 +21,7 @@ class TaskSpec:
     fn_blob: bytes  # the pickled callable (empty for actor tasks)
     args_blob: bytes  # serialized (args, kwargs)
     arg_ref_ids: list[ObjectID] = field(default_factory=list)
-    num_returns: int = 1
+    num_returns: int | str = 1  # int, or "streaming" (generator task)
     resources: dict[str, float] = field(default_factory=dict)
     max_retries: int = 3
     retry_exceptions: bool = False
@@ -32,6 +32,12 @@ class TaskSpec:
     method_name: str | None = None
 
     def return_ids(self) -> list[ObjectID]:
+        if self.num_returns == "streaming":
+            # The stream-end marker is the task's one pre-declared return:
+            # errors land there and the consumer's generator raises them.
+            from ray_tpu_torch.core.object_ref import STREAM_END_INDEX
+
+            return [ObjectID.for_task_return(self.task_id, STREAM_END_INDEX)]
         return [ObjectID.for_task_return(self.task_id, i) for i in range(self.num_returns)]
 
 

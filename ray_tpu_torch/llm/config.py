@@ -1,14 +1,17 @@
 """LLM configs for the PyTorch engine.
 
-Port of ray_tpu/llm/config.py. Tensor parallelism is not served yet:
-``tensor_parallel_size > 1`` reaches the engine, which raises
-``NotImplementedError``. The serve-deployment fields (engine kwargs,
-placement groups) come with the serve layer that reads them.
+Port of ray_tpu/llm/config.py. Not served yet, each raising
+``NotImplementedError`` when the engine is built (and at once in
+``build_llm_deployment``): ``tensor_parallel_size > 1``, a
+``placement_group_config`` (gang placement groups, ROADMAP Queue A item
+7(b)) and a non-empty ``engine_kwargs`` (the engine takes its options as
+the fields below; the JAX package's engine reads none either).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
+from typing import Any
 
 from ray_tpu_torch.models.llama import LlamaConfig
 
@@ -39,6 +42,9 @@ class LLMConfig:
     # Chunked prefill: long prompts prefill in chunks of this many tokens so
     # active decodes run between chunks.
     prefill_chunk: int = 512
+    engine_kwargs: dict[str, Any] = field(default_factory=dict)
+    # Per-replica gang placement: {"bundles": [{...}, ...], "strategy": ...}.
+    placement_group_config: dict | None = None
     # Speculative decoding: a draft model proposes speculative_tokens
     # greedily and the target verifies them in one forward. Greedy
     # (temperature 0) requests only; their output equals plain greedy.

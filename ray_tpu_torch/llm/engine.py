@@ -687,6 +687,7 @@ class GenerationRequest:
     prefill_gen: int = 0  # bumped on preemption: stale deferred fetches no-op
     n_prompt: int = -1  # the submitted prompt's length, once preempted
     trace_ctx: dict | None = None  # tracing is not ported: always None
+    cancelled: bool = False  # its reader is gone: finish at the next token
     submit_ts: float = 0.0
     admit_ts: float = 0.0
     first_token_ts: float = 0.0
@@ -707,6 +708,14 @@ def _unported(config: LLMConfig) -> None:
         raise NotImplementedError(
             "tensor parallelism (tensor_parallel_size > 1) is not ported "
             "to ray_tpu_torch yet")
+    if config.placement_group_config is not None:
+        raise NotImplementedError(
+            "placement_group_config: gang placement groups need the "
+            "cluster runtime (ROADMAP Queue A item 7(b))")
+    if config.engine_kwargs:
+        raise NotImplementedError(
+            f"engine_kwargs {sorted(config.engine_kwargs)}: the engine "
+            "takes its options as LLMConfig fields")
 
 
 def _load_checkpoint(path: str, dtype: str | None):
@@ -1042,10 +1051,17 @@ class LLMEngine:
         req.kv_imported = True
         return self._enqueue(req)
 
+    def cancel(self, req: GenerationRequest) -> None:
+        """Stop generating for a request whose reader went away (a client
+        that closed its stream): it finishes, and frees its slot, at its
+        next token."""
+        req.cancelled = True
+
     def shutdown(self) -> None:
         self._stop.set()
         self._work.set()
-        self._thread.join(timeout=5)
+        if threading.current_thread() is not self._thread:
+            self._thread.join(timeout=5)
 
     def prefix_block_hashes(self) -> tuple[int, ...]:
         """Chain hashes (serve/prefix.py) of every prompt prefix whose KV
@@ -1886,6 +1902,8 @@ class LLMEngine:
         finish = None
         if token in eos:
             finish = "stop"
+        elif req.cancelled:
+            finish = "abort"
         elif len(req.out_tokens) >= req.sampling.max_tokens:
             finish = "length"
         elif req.next_pos + 1 >= self.max_seq:

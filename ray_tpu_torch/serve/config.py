@@ -1,0 +1,117 @@
+"""Serve configuration types.
+
+Port of ray_tpu/serve/config.py. Out: the per-deployment request-tracing
+sample rate (tracing is not ported) and the gang placement-group fields
+(ROADMAP Queue A item 7(b); serve/deployment.py refuses them where a
+deployment is declared).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+from ray_tpu_torch.serve.resilience import (
+    CircuitBreakerConfig,
+    ResilienceSettings,
+    RetryPolicy,
+)
+
+
+@dataclass
+class AutoscalingConfig:
+    min_replicas: int = 1
+    max_replicas: int = 8
+    target_ongoing_requests: float = 2.0
+    upscale_delay_s: float = 0.5
+    downscale_delay_s: float = 2.0
+    metrics_interval_s: float = 0.2
+
+
+@dataclass
+class DeploymentConfig:
+    num_replicas: int = 1
+    max_ongoing_requests: int = 16
+    autoscaling_config: AutoscalingConfig | None = None
+    user_config: Any = None
+    health_check_period_s: float = 1.0
+    health_check_timeout_s: float = 5.0
+    max_consecutive_health_failures: int = 3
+    graceful_shutdown_timeout_s: float = 5.0
+    version: str | None = None
+
+    # --- request resilience (see serve/resilience.py) ---
+    # Default per-request budget: requests carry an absolute deadline of
+    # now + request_timeout_s from the handle (overridable per call via
+    # handle.options(timeout_s=...)); the router bounds queue waits by it
+    # and the replica drops requests that expire before execution starts.
+    request_timeout_s: float = 30.0
+    # Router-side admission control: callers parked waiting for replica
+    # capacity beyond this count are shed with Overloaded (HTTP 503 /
+    # gRPC RESOURCE_EXHAUSTED) instead of queuing unboundedly. -1 removes
+    # the bound (pre-resilience behavior).
+    max_queued_requests: int = 256
+    # Replica-side admission: a replica rejects with Overloaded once its
+    # in-progress requests exceed max_ongoing_requests + this slack. The
+    # router already caps per-router in-flight at max_ongoing_requests;
+    # the slack absorbs the overshoot of several routers (the program's
+    # handles + proxies) honestly filling their own caps at once.
+    replica_queue_slack: int = 8
+    # Assignment-level retry/hedge policy (replica deaths, replica-side
+    # sheds, optional tail hedging). RetryPolicy(max_retries=0) disables
+    # policy retries; never-sent failures are still retried once.
+    retry_policy: RetryPolicy = field(default_factory=RetryPolicy)
+    # Per-replica circuit breaker (consecutive failures / latency outlier
+    # → blacklist with half-open recovery probes).
+    circuit_breaker: CircuitBreakerConfig = field(
+        default_factory=CircuitBreakerConfig)
+
+    def resilience_settings(self) -> ResilienceSettings:
+        """The router-facing view of these knobs (published with every
+        replica snapshot)."""
+        return ResilienceSettings(
+            request_timeout_s=self.request_timeout_s,
+            max_queued_requests=self.max_queued_requests,
+            retry=self.retry_policy,
+            breaker=self.circuit_breaker)
+
+    # resources per replica: num_cpus, num_gpus (the "GPU" resource, the
+    # counterpart of the JAX package's num_tpus) and custom resources
+    ray_actor_options: dict = field(default_factory=dict)
+
+
+@dataclass
+class ReplicaInfo:
+    """What routers need to know about one live replica (published via
+    long-poll, reference: _private/common.py RunningReplicaInfo).
+
+    ``draining`` replicas are still finishing in-flight work but must not
+    receive new assignments (graceful shutdown / rolling update). The
+    ``settings`` dict is the deployment's ResilienceSettings
+    (deployment-level, duplicated per replica so the snapshot stays a flat
+    list routers already understand).
+
+    ``prefix_blocks`` is the replica's published prefix-cache state for
+    KV-block-aware routing (serve/prefix.py chain hashes, collected by the
+    controller through ServeReplica.router_meta on a cadence and
+    piggybacked here): None = the replica doesn't publish (non-LLM
+    deployments); a tuple = the chain hashes of every cached prompt prefix
+    it holds, with ``prefix_block`` the block size they were computed
+    with."""
+
+    replica_id: str
+    deployment_name: str
+    actor_name: str
+    max_ongoing_requests: int
+    draining: bool = False
+    settings: dict | None = None
+    prefix_blocks: tuple | None = None
+    prefix_block: int = 0
+
+
+@dataclass
+class DeploymentStatus:
+    name: str
+    status: str  # UPDATING | HEALTHY | UNHEALTHY
+    replica_states: dict[str, int] = field(default_factory=dict)
+    message: str = ""

@@ -1,0 +1,608 @@
+"""DeploymentHandle: the client-side composition/request API.
+
+Port of ray_tpu/serve/handle.py: ``handle.remote()`` returns a
+DeploymentResponse; handles pickle and rebuild their router lazily, so
+deployments compose by passing handles through init args.
+
+The handle is also where the resilience layer's retry/hedge loop lives
+(serve/resilience.py): a DeploymentResponse owns the request's deadline
+and, on replica death or replica-side rejection, re-routes through the
+shared router excluding replicas already tried. Requests that provably
+never reached a replica (``ActorDiedError.never_sent``) get one transparent
+re-resolve + retry even with the policy disabled.
+
+Out: request tracing (its root spans, sampling and tail-keep verdicts;
+tracing is not ported).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any
+
+import ray_tpu_torch
+from ray_tpu_torch.serve import resilience
+from ray_tpu_torch.serve.long_poll import LongPollClient
+from ray_tpu_torch.serve.router import Router
+
+CONTROLLER_NAME = "SERVE_CONTROLLER"
+SERVE_NAMESPACE = "serve"
+
+_UNSET = object()
+
+class DeploymentResponse:
+    """Future-like result of a handle call, with the retry/hedge loop.
+
+    ``result()`` drives the attempts: it waits on every outstanding attempt
+    at once, takes the first completion, and on a retryable failure
+    (classified by resilience.classify against the deployment's
+    RetryPolicy) submits a fresh attempt through the router with all tried
+    replicas excluded. Tail hedging launches one duplicate attempt after
+    ``hedge_after_s`` of silence; the first response wins (the loser runs
+    to completion on its replica — hedging trades work for tail latency,
+    opt in only for idempotent deployments)."""
+
+    def __init__(self, router: Router | None, method_name: str = "",
+                 args: tuple = (), kwargs: dict | None = None,
+                 deadline: float | None = None,
+                 route_hint: str | None = None, ref=None,
+                 prefix_hashes: tuple | None = None):
+        self._router = router
+        self._method = method_name
+        self._args = args
+        self._kwargs = kwargs or {}
+        self._deadline = deadline
+        self._hint = route_hint
+        self._prefix_hashes = prefix_hashes
+        self._lock = threading.RLock()
+        self._attempts: list[tuple[Any, str]] = []  # (ref, replica_id)
+        self._tried: set[str] = set()
+        self._retries_used = 0
+        self._never_sent_used = False
+        self._hedged = False
+        self._born = time.time()
+        self._outcome = _UNSET
+        self._outcome_err: BaseException | None = None
+        if ref is not None:  # pre-resolved (composition/back-compat)
+            self._attempts.append((ref, ""))
+        else:
+            # Sheds (Overloaded) surface here synchronously; a replica that
+            # vanished before submit is retried through _maybe_retry (the
+            # router wraps it as a never-sent ActorDiedError).
+            try:
+                self._submit_attempt()
+            except BaseException as err:
+                if not self._maybe_retry(err, self._policy(),
+                                         self._deadline):
+                    raise
+
+    # ------------------------------------------------------------- attempts
+
+    def _submit_attempt(self):
+        ref, rid = self._router.assign_request(
+            self._method, self._args, self._kwargs,
+            deadline=self._deadline, route_hint=self._hint,
+            prefix_hashes=self._prefix_hashes,
+            exclude=frozenset(self._tried))
+        if rid:
+            self._tried.add(rid)
+        self._attempts.append((ref, rid))
+        self._last_submit = time.time()  # hedge timer anchor
+        return ref
+
+    def _policy(self) -> resilience.RetryPolicy:
+        return self._router.settings.retry if self._router is not None \
+            else resilience.RetryPolicy(max_retries=0)
+
+    def result(self, timeout: float | None = 60.0) -> Any:
+        with self._lock:
+            if self._outcome is not _UNSET:
+                if self._outcome_err is not None:
+                    raise self._outcome_err
+                return self._outcome
+            try:
+                value = self._drive(timeout)
+            except BaseException as e:
+                # Cache only TERMINAL outcomes. A DeadlineExceeded caused
+                # by the CALLER's wait cap — the request's own budget
+                # intact, an attempt still in flight — is transient:
+                # result(timeout=longer) must be able to re-poll (the
+                # pre-resilience ray_tpu_torch.get(ref, timeout=) semantics).
+                transient = (isinstance(e, (resilience.DeadlineExceeded,
+                                            TimeoutError))
+                             and bool(self._attempts)
+                             and not resilience.expired(self._deadline))
+                if not transient:
+                    self._outcome, self._outcome_err = None, e
+                raise
+            self._outcome = value
+            return value
+
+    def _drive(self, timeout: float | None) -> Any:
+        deadline = self._deadline
+        if timeout is not None:
+            cap = time.time() + timeout
+            deadline = cap if deadline is None else min(deadline, cap)
+        policy = self._policy()
+        while True:
+            remaining = None if deadline is None else deadline - time.time()
+            if remaining is not None and remaining <= 0:
+                raise resilience.DeadlineExceeded(
+                    f"deployment call {self._method!r} exceeded its budget")
+            seg = remaining if remaining is not None else 3600.0
+            hedge_at = None
+            if policy.hedge_after_s is not None and not self._hedged \
+                    and len(self._attempts) == 1:
+                # Anchored at the LAST submit, not response creation: after
+                # a retry, the fresh attempt earns a full hedge window of
+                # observed silence — hedging a just-submitted retry would
+                # double load exactly while replicas are failing.
+                hedge_at = getattr(self, "_last_submit", self._born) \
+                    + policy.hedge_after_s
+                seg = min(seg, max(hedge_at - time.time(), 0.0))
+            refs = [ref for ref, _ in self._attempts]
+            done, _ = ray_tpu_torch.wait(refs, num_returns=1,
+                                   timeout=max(seg, 0.005))
+            if not done:
+                if hedge_at is not None and time.time() >= hedge_at:
+                    self._launch_hedge()
+                continue
+            ref = done[0]
+            try:
+                return ray_tpu_torch.get(ref, timeout=0)
+            except BaseException as err:  # noqa: BLE001 - classified below
+                self._attempts = [(f, r) for f, r in self._attempts
+                                  if f is not ref]
+                if self._attempts:
+                    continue  # a hedge sibling is still in flight
+                if not self._maybe_retry(err, policy, deadline):
+                    raise
+
+    def _launch_hedge(self) -> None:
+        """Duplicate the request on a replica not yet tried; best-effort
+        and NON-BLOCKING (no_park): if every untried replica is saturated
+        there is no hedge — parking would consume an admission slot and
+        inject a guaranteed-wasted duplicate the moment the original's
+        completion frees capacity."""
+        self._hedged = True
+        try:
+            ref, rid = self._router.assign_request(
+                self._method, self._args, self._kwargs,
+                deadline=self._deadline, route_hint=None,
+                exclude=frozenset(self._tried), no_park=True)
+        except Exception:
+            return
+        if rid:
+            self._tried.add(rid)
+        self._attempts.append((ref, rid))
+
+    def _maybe_retry(self, err: BaseException,
+                     policy: resilience.RetryPolicy,
+                     deadline: float | None) -> bool:
+        """Submit a replacement attempt if the failure warrants one."""
+        if self._router is None:
+            return False
+        kind = resilience.classify(err)
+        # Exclude the failed replica even when the failure predates a
+        # recorded attempt (submit-time death carries the replica id).
+        failed_rid = getattr(resilience.unwrap(err), "actor_id_hex", "")
+        if failed_rid:
+            self._tried.add(failed_rid)
+        if kind == "never_sent" and not self._never_sent_used and \
+                policy.retry_never_sent:
+            # The call never reached the dead replica: one transparent
+            # re-resolve + retry, independent of the policy budget (cannot
+            # have executed, so safe even for non-idempotent methods).
+            self._never_sent_used = True
+        elif resilience.is_retryable(kind, policy) and \
+                self._retries_used < policy.max_retries:
+            self._retries_used += 1
+            if policy.backoff_s > 0:
+                import random as _random
+
+                pause = policy.backoff_s * (2 ** (self._retries_used - 1))
+                pause *= _random.random()  # full jitter
+                if deadline is not None:
+                    pause = min(pause, max(deadline - time.time(), 0.0))
+                time.sleep(pause)
+        else:
+            return False
+        try:
+            self._submit_attempt()
+        except Exception:
+            return False  # shed/expired on resubmit: surface the original
+        return True
+
+    def _to_object_ref(self):
+        # Composition: downstream calls consume the CURRENT attempt's ref.
+        # A later retry can't rebind an already-passed ref; the downstream
+        # call then sees the original failure — same semantics as before
+        # the resilience layer.
+        if not self._attempts:
+            # Every attempt failed and was drained by result(): re-raise
+            # the recorded failure instead of an opaque IndexError.
+            if self._outcome_err is not None:
+                raise self._outcome_err
+            raise resilience.DeadlineExceeded(
+                f"deployment call {self._method!r} has no live attempt")
+        return self._attempts[0][0]
+
+
+class DeploymentResponseGenerator:
+    """Iterator over a streaming handle call's chunks (reference:
+    DeploymentResponseGenerator, handle.options(stream=True)). The first
+    item from the replica is a meta dict ({"streaming": bool}); it is
+    consumed here and exposed as ``.streaming``. ``timeout`` bounds the wait
+    for each chunk.
+
+    Resilience: failures BEFORE the first user chunk re-route like unary
+    retries (never-sent always, replica deaths within the policy budget) —
+    no output was observed, so a fresh attempt on a sibling replica is
+    transparent. Once chunks have flowed the stream cannot be resumed
+    mid-output; errors surface to the consumer. First-chunk success and
+    mid-stream failures feed the router's circuit breaker."""
+
+    def __init__(self, ref_gen, on_done=None, timeout: float = 60.0,
+                 router: Router | None = None, replica_id: str = "",
+                 resubmit=None):
+        self._gen = ref_gen
+        self._meta = None
+        self._on_done = on_done
+        self.timeout = timeout
+        self._router = router
+        self._rid = replica_id
+        self._resubmit = resubmit  # (exclude) -> ((gen, on_done), rid)
+        self._tried = {replica_id} if replica_id else set()
+        self._retries_used = 0
+        self._never_sent_used = False
+        self._born = time.perf_counter()
+        self._first_chunk_seen = False
+
+    @property
+    def meta(self) -> dict:
+        if self._meta is None:
+            try:
+                self._meta = self._next_chunk(for_meta=True)
+            except BaseException:
+                # Meta-frame failure is how every replica-side shed/
+                # expiry/app-error of a streaming request surfaces (the
+                # proxies read .streaming first): release the router's
+                # in-flight slot NOW — leaving it to __del__ lets callers
+                # that keep failed generators alive read as permanent
+                # saturation.
+                self._done()
+                raise
+        return self._meta
+
+    @property
+    def streaming(self) -> bool:
+        return bool(self.meta.get("streaming"))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Any:
+        self.meta  # ensure consumed
+        try:
+            chunk = self._next_chunk()
+        except StopIteration:
+            self._done()
+            raise
+        except BaseException:
+            self._done()
+            raise
+        if not self._first_chunk_seen:
+            self._first_chunk_seen = True
+            if self._router is not None and self._rid:
+                self._router.record_stream_outcome(
+                    self._rid, True, time.perf_counter() - self._born)
+        return chunk
+
+    def _next_chunk(self, for_meta: bool = False) -> Any:
+        while True:
+            try:
+                if not for_meta and self._meta is None:
+                    # A retry swapped in a fresh attempt mid-iteration: its
+                    # first frame is the META dict, which must be consumed
+                    # here — returning it as a data chunk would hand the
+                    # consumer a {"streaming": ...} payload AND swallow the
+                    # real first chunk as meta on the next call.
+                    self._meta = ray_tpu_torch.get(self._gen._next(self.timeout))
+                return ray_tpu_torch.get(self._gen._next(self.timeout))
+            except StopIteration:
+                raise
+            except BaseException as err:  # noqa: BLE001 - classified
+                if self._recover(err):
+                    continue
+                raise
+
+    def _recover(self, err: BaseException) -> bool:
+        """Re-route a failed stream that produced no user output yet."""
+        if self._router is not None and self._rid:
+            kind = resilience.classify(err)
+            # Same breaker contract as the unary completion watcher:
+            # every failure except explicit backpressure (shed/expired)
+            # counts — a replica answering only errors is routed around,
+            # whether the error came from infrastructure or the model.
+            # One carve-out WITHIN "expired": a per-chunk stall (plain
+            # TimeoutError with the request's own budget still intact) is
+            # the replica producing NOTHING for the whole chunk window —
+            # the hung-but-health-checks-pass mode — and does count.
+            cause = resilience.unwrap(err)
+            stalled = (isinstance(cause, TimeoutError)
+                       and not isinstance(cause,
+                                          resilience.DeadlineExceeded))
+            if kind not in ("overloaded_replica", "overloaded_router",
+                            "expired") or (kind == "expired" and stalled):
+                self._router.record_stream_outcome(self._rid, False)
+        if self._first_chunk_seen or self._resubmit is None:
+            return False
+        kind = resilience.classify(err)
+        policy = (self._router.settings.retry if self._router is not None
+                  else resilience.RetryPolicy(max_retries=0))
+        if kind == "never_sent" and not self._never_sent_used and \
+                policy.retry_never_sent:
+            self._never_sent_used = True
+        elif resilience.is_retryable(kind, policy) and \
+                self._retries_used < policy.max_retries:
+            self._retries_used += 1
+        else:
+            return False
+        try:
+            (gen, on_done), rid = self._resubmit(frozenset(self._tried))
+        except Exception:
+            return False
+        # Swap in the fresh attempt; release the failed one's router slot.
+        self._done()
+        self._gen, self._on_done = gen, on_done
+        self._meta = None  # re-consume the new attempt's meta frame
+        if rid:
+            self._tried.add(rid)
+        self._rid = rid
+        return True
+
+    def close(self) -> None:
+        """Abandon the stream: release the router slot now and drop the
+        runtime stream, whose producer stops at its next yield."""
+        self._done()
+        self._gen = None
+
+    def _done(self):
+        # Probe-slot settlement for abandoned streams lives in the
+        # router's on_done closure (it knows whether THIS request's
+        # admission consumed a half-open probe slot).
+        if self._on_done is not None:
+            cb, self._on_done = self._on_done, None
+            try:
+                cb()
+            except Exception:
+                pass
+
+    def __del__(self):
+        self._done()
+
+
+# One Router (+ LongPollClient) per deployment per runtime, shared by ALL
+# DeploymentHandle instances — handle.options(...) and the handle.method
+# sugar create new handle objects per call, and giving each its own router
+# would spawn a fresh long-poll client and a synchronous controller
+# get_replicas seed PER REQUEST. Those 5s-blocking listen calls pile up on
+# the controller actor's thread pool and every new request's seed call
+# queues behind them — the serve stack measured 53 tok/s with ~10 s TTFT
+# under sustained load against 1,700 tok/s engine-direct until routers were
+# shared. Keyed WEAKLY by the runtime object (not id(): a freed runtime's
+# address can be reused by the next runtime, resurrecting a router bound to
+# a dead controller) so a shutdown/init cycle gets fresh routers; orphaned
+# poll threads also self-terminate when their born runtime is replaced.
+import weakref
+
+_ROUTERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_ROUTERS_LOCK = threading.Lock()
+
+
+def _reset_routers() -> None:
+    """Called by serve.shutdown(): drop shared routers and stop their poll
+    threads so the next serve.run starts clean."""
+    with _ROUTERS_LOCK:
+        for per_runtime in _ROUTERS.values():
+            for router, poll in per_runtime.values():
+                if poll is not None:
+                    poll.stop()
+                try:
+                    router.close()  # stop the completion reaper thread
+                except Exception:
+                    pass
+        _ROUTERS.clear()
+
+
+class DeploymentHandle:
+    def __init__(self, deployment_name: str, app_name: str = "default",
+                 method_name: str = "__call__"):
+        self.deployment_name = deployment_name
+        self.app_name = app_name
+        self._method_name = method_name
+        self._stream = False
+        self._mux_id: str | None = None
+        self._route_hint: str | None = None
+        self._prefix_hashes: tuple | None = None
+        self._timeout_s: float | None = None  # None = deployment default
+        self._lock = threading.Lock()
+        self._router: Router | None = None
+        self._poll: LongPollClient | None = None
+
+    # -- composition --
+
+    def options(self, method_name: str | None = None,
+                stream: bool | None = None,
+                multiplexed_model_id: str | None = None,
+                route_hint: str | None = None,
+                prefix_hashes: tuple | None = None,
+                timeout_s: float | None = None) -> "DeploymentHandle":
+        h = DeploymentHandle(self.deployment_name, self.app_name,
+                             method_name or self._method_name)
+        h._stream = self._stream if stream is None else stream
+        # multiplexed_model_id routes to the replica holding the model AND
+        # is readable replica-side via serve.get_multiplexed_model_id()
+        # (reference: handle.options(multiplexed_model_id=...)). route_hint
+        # is the bare affinity key (reference: prefix-aware routing).
+        # prefix_hashes is the precise variant: the request prompt's
+        # chained block hashes (serve/prefix.py), scored against the
+        # prefix-cache state replicas publish — the router lands the call
+        # on the replica holding the longest matching cached prefix.
+        # timeout_s overrides the deployment's request_timeout_s as this
+        # call's total budget (deadline = now + timeout_s at .remote()).
+        h._mux_id = multiplexed_model_id \
+            if multiplexed_model_id is not None else self._mux_id
+        h._route_hint = route_hint if route_hint is not None \
+            else self._route_hint
+        h._prefix_hashes = tuple(prefix_hashes) \
+            if prefix_hashes is not None else self._prefix_hashes
+        h._timeout_s = timeout_s if timeout_s is not None \
+            else self._timeout_s
+        return h
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        # handle.method.remote(...) sugar (reference handle API)
+        return DeploymentHandle(self.deployment_name, self.app_name, name)
+
+    # -- data plane --
+
+    def remote(self, *args, **kwargs):
+        router = self._ensure_router()
+        args = tuple(a._to_object_ref() if isinstance(a, DeploymentResponse)
+                     else a for a in args)
+        kwargs = {k: (v._to_object_ref() if isinstance(v, DeploymentResponse)
+                      else v) for k, v in kwargs.items()}
+        hint = self._route_hint or self._mux_id
+        hashes = self._prefix_hashes
+        if self._mux_id:
+            kwargs["__rtpu_mux_id"] = self._mux_id  # replica context
+        timeout_s = self._timeout_s if self._timeout_s is not None \
+            else router.settings.request_timeout_s
+        deadline = resilience.make_deadline(timeout_s)
+        if self._stream:
+            method = self._method_name
+
+            def resubmit(exclude):
+                return router.assign_request(method, args, kwargs,
+                                             stream=True, route_hint=hint,
+                                             prefix_hashes=hashes,
+                                             deadline=deadline,
+                                             exclude=exclude)
+
+            try:
+                (gen, on_done), rid = router.assign_request(
+                    method, args, kwargs, stream=True, route_hint=hint,
+                    prefix_hashes=hashes, deadline=deadline)
+            except BaseException as err:
+                # Never-sent submit failure: one transparent re-resolve
+                # excluding the vanished replica (mirrors the unary path).
+                if resilience.classify(err) != "never_sent" or \
+                        not router.settings.retry.retry_never_sent:
+                    raise
+                dead = getattr(resilience.unwrap(err), "actor_id_hex", "")
+                (gen, on_done), rid = resubmit(
+                    frozenset({dead} if dead else ()))
+            return DeploymentResponseGenerator(
+                gen, on_done=on_done, router=router, replica_id=rid,
+                resubmit=resubmit,
+                timeout=timeout_s if timeout_s is not None else 60.0)
+        return DeploymentResponse(router, self._method_name, args, kwargs,
+                                  deadline=deadline, route_hint=hint,
+                                  prefix_hashes=hashes)
+
+    def _ensure_router(self) -> Router:
+        from ray_tpu_torch.core.worker import global_worker
+
+        if self._router is not None:
+            return self._router
+        runtime = global_worker.runtime
+        dep_key = (self.app_name, self.deployment_name)
+        with _ROUTERS_LOCK:
+            cached = _ROUTERS.get(runtime, {}).get(dep_key)
+            if cached is not None:
+                self._router, self._poll = cached
+                return self._router
+        router = self._build_router()
+        with _ROUTERS_LOCK:
+            # Lost the build race? keep the first one; ours is torn down.
+            per_runtime = _ROUTERS.setdefault(runtime, {})
+            cached = per_runtime.get(dep_key)
+            if cached is not None:
+                # Identity guard: when two threads race on the SAME handle,
+                # the loser's _build_router may have returned the winner's
+                # (router, poll) via self._lock — stopping self._poll then
+                # would kill the shared poll client we're adopting.
+                if self._poll is not None and self._poll is not cached[1]:
+                    self._poll.stop()
+                self._router, self._poll = cached
+            else:
+                per_runtime[dep_key] = (router, self._poll)
+                self._router = router
+        return self._router
+
+    def _build_router(self) -> Router:
+        with self._lock:
+            if self._router is None:
+                controller = ray_tpu_torch.get_actor(CONTROLLER_NAME,
+                                               namespace=SERVE_NAMESPACE)
+                key = f"replicas:{self.deployment_name}"
+                dep_name = self.deployment_name
+
+                def listen(kv: dict, timeout: float) -> dict:
+                    return ray_tpu_torch.get(controller.listen.remote(kv, timeout),
+                                       timeout=timeout + 30)
+
+                def on_update(_key, snap):
+                    # Wake router assign loops parked on saturation — a new
+                    # replica set may have capacity — and let the router
+                    # adopt settings / GC breaker state from the snapshot.
+                    r = self._router
+                    if r is not None:
+                        r.notify_replicas_changed(snap or [])
+
+                def report_unhealthy(replica_id: str, reason: str) -> None:
+                    # Breaker-open → controller health check nudge. Fire
+                    # and forget: the returned ref is dropped, and a dead
+                    # controller must never take the data plane with it.
+                    try:
+                        controller.report_replica_unhealthy.remote(
+                            dep_name, replica_id, reason)
+                    except Exception:
+                        pass
+
+                def on_alive():
+                    # Completed listen round = controller alive: keep the
+                    # router's prefix-map TTL from expiring a healthy but
+                    # UNCHANGED publication (snapshots only flow on change).
+                    r = self._router
+                    if r is not None:
+                        r.touch_prefix_map()
+
+                self._poll = LongPollClient(listen, [key],
+                                            callback=on_update,
+                                            on_alive=on_alive)
+                # Seed synchronously so the first request doesn't race the
+                # poll thread.
+                seed = ray_tpu_torch.get(
+                    controller.get_replicas.remote(self.deployment_name))
+                self._poll._cache.setdefault(key, seed)
+
+                def get_replicas():
+                    return self._poll.get(key) or []
+
+                self._router = Router(self.deployment_name, get_replicas,
+                                      report_unhealthy=report_unhealthy)
+                if seed:
+                    self._router.notify_replicas_changed(seed)
+            return self._router
+
+    def __reduce__(self):
+        return (DeploymentHandle,
+                (self.deployment_name, self.app_name, self._method_name))
+
+    def __repr__(self) -> str:
+        return f"DeploymentHandle({self.deployment_name!r})"

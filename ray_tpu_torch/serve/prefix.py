@@ -1,7 +1,8 @@
 """Chained block hashes for KV-block-aware prefix routing.
 
-The port's own copy of ``block_hashes`` from ray_tpu/serve/prefix.py (the
-port imports nothing of the JAX package). A prompt is hashed in fixed-size
+The port's own copy of ``block_hashes`` and ``match_len`` from
+ray_tpu/serve/prefix.py (the port imports nothing of the JAX package). A
+prompt is hashed in fixed-size
 blocks where block ``i``'s hash chains over block ``i-1``'s, so hash
 ``h_i`` identifies the whole prefix through block ``i``. crc32 over the
 little-endian uint32 ids: stable across processes, and equal to the JAX
@@ -37,3 +38,15 @@ def block_hashes(ids: Sequence[int], block: int,
         h = zlib.crc32(buf[i:i + step], h)
         out.append(h)
     return tuple(out)
+
+
+def match_len(hashes: Sequence[int], held: "set[int] | frozenset[int]"
+              ) -> int:
+    """Leading blocks of ``hashes`` present in ``held``. Chaining makes a
+    gap impossible in an honest publication, so stop at the first miss."""
+    n = 0
+    for h in hashes:
+        if h not in held:
+            break
+        n += 1
+    return n

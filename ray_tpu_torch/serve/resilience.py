@@ -1,0 +1,465 @@
+"""Request resilience primitives: deadlines, shedding, retries, breakers.
+
+Port of ray_tpu/serve/resilience.py; the errors it classifies are the
+port's own (core/exceptions.py). Out: the shed/expired counters (metrics
+are not ported).
+
+- **Deadlines**: every request carries an absolute wall-clock deadline
+  (``time.time()`` based). The router bounds queue waits by it; the replica
+  drops requests that expire before execution starts (a request that waited
+  out its budget must not spend card time producing an answer nobody
+  reads); the batcher sheds expired items before they enter a batch.
+- **Admission control**: the router parks at most ``max_queued_requests``
+  callers per deployment; beyond that, :class:`Overloaded` is raised
+  immediately (HTTP 503 at the proxy) with a ``retry_after_s`` hint. The
+  replica defends itself the same way: its admission check rejects once
+  ongoing work exceeds ``max_ongoing_requests + replica_queue_slack``.
+- **Retries**: assignment-level. A replica death or replica-side rejection
+  re-routes to a replica not yet tried. Calls that provably never reached
+  a replica (``ActorDiedError.never_sent``) are retried once even with the
+  policy disabled.
+- **Hedging**: optional tail latency insurance for idempotent deployments:
+  after ``hedge_after_s`` with no reply, a second attempt goes to a
+  different replica and the first completed response wins.
+- **Circuit breaking**: per-replica consecutive-failure and latency-outlier
+  tracking opens a breaker that removes the replica from routing; after a
+  cooldown a bounded number of half-open probes decide between closing it
+  and re-opening. Open events feed the controller's health checker.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+from ray_tpu_torch.core.exceptions import (
+    ActorDiedError,
+    ActorUnavailableError,
+    RayTpuError,
+    TaskError,
+)
+
+
+class Overloaded(RayTpuError):
+    """Request shed by admission control (router queue cap or replica
+    admission). Maps to HTTP 503 + Retry-After / gRPC RESOURCE_EXHAUSTED.
+    ``where`` records which hop shed it ("router" | "replica")."""
+
+    def __init__(self, message: str = "overloaded",
+                 retry_after_s: float = 1.0, where: str = "router"):
+        self.retry_after_s = retry_after_s
+        self.where = where
+        super().__init__(message)
+
+    def __reduce__(self):
+        return (Overloaded, (str(self), self.retry_after_s, self.where))
+
+
+class DeadlineExceeded(RayTpuError, TimeoutError):
+    """The request's deadline passed before a result was produced. Raised
+    router-side (no replica slot within the budget), replica-side (expired
+    before execution started — the drop that saves card time), or
+    batcher-side (expired while queued for a batch)."""
+
+    def __init__(self, message: str = "request deadline exceeded"):
+        super().__init__(message)
+
+    def __reduce__(self):
+        return (DeadlineExceeded, (str(self),))
+
+
+@dataclass
+class RetryPolicy:
+    """Assignment-level retry/hedge policy for one deployment.
+
+    - ``max_retries``: extra attempts after the first on retryable failures
+      (replica death, replica-side Overloaded when ``retry_overloaded``).
+      0 disables policy retries; the never-sent single retry stays on —
+      those requests provably did not execute.
+    - ``retry_overloaded``: also re-route replica-side admission rejects to
+      a sibling (router-side sheds are never retried internally — the whole
+      deployment is saturated and the client owns backoff).
+    - ``hedge_after_s``: tail hedging for idempotent calls — after this
+      long with no reply, launch one duplicate on a replica not yet tried
+      and take the first response. None disables. Only safe when the
+      deployment is idempotent; hedged losers still run to completion.
+    - ``backoff_s``: base pause between retry attempts (full jitter,
+      doubling per attempt; 0 retries immediately, the in-cluster
+      default — the router already excludes the failed replica).
+    - ``retry_never_sent``: the single transparent retry of calls that
+      provably never reached a replica. On by default and independent of
+      ``max_retries`` (it is always execution-safe); exposed as a switch
+      so A/B load tests can measure the raw-error baseline.
+    """
+
+    max_retries: int = 1
+    retry_overloaded: bool = True
+    hedge_after_s: float | None = None
+    backoff_s: float = 0.0
+    retry_never_sent: bool = True
+
+    def to_dict(self) -> dict:
+        return {"max_retries": self.max_retries,
+                "retry_overloaded": self.retry_overloaded,
+                "hedge_after_s": self.hedge_after_s,
+                "backoff_s": self.backoff_s,
+                "retry_never_sent": self.retry_never_sent}
+
+    @classmethod
+    def from_dict(cls, d: dict | None) -> "RetryPolicy":
+        return cls(**d) if d else cls()
+
+
+@dataclass
+class CircuitBreakerConfig:
+    """Per-replica breaker thresholds for one deployment.
+
+    - ``enabled``: master gate; off = route to every published replica.
+    - ``failure_threshold``: consecutive failures that open the breaker.
+    - ``open_s``: cooldown while open (no traffic), then half-open.
+    - ``half_open_probes``: concurrent trial requests allowed half-open;
+      one success closes the breaker, one failure re-opens it.
+    - ``latency_factor`` / ``latency_min_samples``: latency-outlier trip —
+      a replica whose rolling median exceeds ``latency_factor`` × the
+      deployment-wide rolling median (with at least ``latency_min_samples``
+      of its own samples) is treated as sick even though calls succeed
+      (the slow-replica mode a liveness health check never catches).
+    """
+
+    enabled: bool = True
+    failure_threshold: int = 3
+    open_s: float = 2.0
+    half_open_probes: int = 1
+    latency_factor: float = 5.0
+    latency_min_samples: int = 16
+
+    def to_dict(self) -> dict:
+        return {"enabled": self.enabled,
+                "failure_threshold": self.failure_threshold,
+                "open_s": self.open_s,
+                "half_open_probes": self.half_open_probes,
+                "latency_factor": self.latency_factor,
+                "latency_min_samples": self.latency_min_samples}
+
+    @classmethod
+    def from_dict(cls, d: dict | None) -> "CircuitBreakerConfig":
+        return cls(**d) if d else cls()
+
+
+# --------------------------------------------------------------- deadlines
+
+# kwargs key carrying the absolute request deadline router → replica
+# (popped replica-side before the user callable sees kwargs).
+DEADLINE_KEY = "__rtpu_deadline"
+
+
+def make_deadline(timeout_s: float | None) -> float | None:
+    """Absolute wall-clock deadline for a request starting now."""
+    return None if timeout_s is None else time.time() + timeout_s
+
+
+def remaining(deadline: float | None) -> float | None:
+    """Seconds of budget left (None = unbounded; can be <= 0)."""
+    return None if deadline is None else deadline - time.time()
+
+
+def expired(deadline: float | None) -> bool:
+    return deadline is not None and time.time() >= deadline
+
+
+# Replica-side request context: the replica stamps the active request's
+# deadline (and owning deployment) here before invoking
+# user code, so in-replica machinery (the batcher, long token loops) and
+# user code can honor the caller's budget without threading it through
+# every signature.
+_req_ctx = threading.local()
+
+
+def current_deadline() -> float | None:
+    """Absolute deadline of the request this thread is executing, or None.
+    Readable from user deployment code via serve.request_deadline()."""
+    return getattr(_req_ctx, "deadline", None)
+
+
+def current_deployment() -> str:
+    return getattr(_req_ctx, "deployment", "")
+
+
+def _set_current_deadline(deadline: float | None,
+                          deployment: str = "") -> None:
+    _req_ctx.deadline = deadline
+    _req_ctx.deployment = deployment
+
+
+# ---------------------------------------------------------------- breaker
+
+_CLOSED, _OPEN, _HALF_OPEN = "closed", "open", "half_open"
+_LATENCY_WINDOW = 64  # rolling samples kept per replica / deployment-wide
+
+
+class _ReplicaBreaker:
+    __slots__ = ("state", "consecutive_failures", "open_until", "probes_out",
+                 "latencies", "opens")
+
+    def __init__(self):
+        self.state = _CLOSED
+        self.consecutive_failures = 0
+        self.open_until = 0.0
+        self.probes_out = 0
+        self.latencies: deque[float] = deque(maxlen=_LATENCY_WINDOW)
+        self.opens = 0  # lifetime open transitions (metrics/tests)
+
+
+def _median(values) -> float | None:
+    vals = sorted(values)
+    return vals[len(vals) // 2] if vals else None
+
+
+class CircuitBreaker:
+    """Per-deployment breaker bank: one state machine per replica id.
+
+    Thread-safe; the router consults :meth:`allow` inside its choose loop
+    and feeds outcomes via :meth:`record_success` / :meth:`record_failure`.
+    ``on_open`` (optional callable ``(replica_id, reason)``) fires on each
+    closed/half-open → open transition — the router uses it to nudge the
+    controller's health check at the sick replica.
+    """
+
+    def __init__(self, config: CircuitBreakerConfig | None = None,
+                 on_open=None):
+        self.config = config or CircuitBreakerConfig()
+        self.on_open = on_open
+        self._lock = threading.Lock()
+        self._replicas: dict[str, _ReplicaBreaker] = {}
+        self._fleet_latencies: deque[float] = deque(maxlen=_LATENCY_WINDOW * 4)
+        # Sticky "has ANY breaker ever opened" flag, read without the lock:
+        # the router's choose loop probes every replica per request and
+        # skips the lock entirely in the healthy steady state. Racy by design — a trip concurrent with the read is
+        # visible to the next request.
+        self._open_seen = False
+
+    def _get(self, replica_id: str) -> _ReplicaBreaker:
+        rb = self._replicas.get(replica_id)
+        if rb is None:
+            rb = self._replicas[replica_id] = _ReplicaBreaker()
+        return rb
+
+    def allow(self, replica_id: str) -> bool:
+        """May the router assign a request to this replica right now?
+        Half-open admission CONSUMES a probe slot — callers must route the
+        request if this returns True (or call :meth:`cancel_probe`)."""
+        return self.allow_ex(replica_id)[0]
+
+    def allow_ex(self, replica_id: str) -> tuple[bool, bool]:
+        """(allowed, is_probe): ``is_probe`` is True only when this very
+        admission consumed a half-open probe slot — the caller must
+        remember it per request, so that only the probe request's
+        completion settles the slot (a non-probe request's neutral
+        completion calling cancel_probe would free the slot while the
+        real probe is still in flight)."""
+        if not self.config.enabled:
+            return True, False
+        with self._lock:
+            rb = self._replicas.get(replica_id)
+            if rb is None or rb.state == _CLOSED:
+                return True, False
+            now = time.monotonic()
+            if rb.state == _OPEN:
+                if now < rb.open_until:
+                    return False, False
+                rb.state = _HALF_OPEN
+                rb.probes_out = 0
+            # half-open: bounded concurrent probes
+            if rb.probes_out >= self.config.half_open_probes:
+                return False, False
+            rb.probes_out += 1
+            return True, True
+
+    def cancel_probe(self, replica_id: str) -> None:
+        """Return an unused half-open probe slot (the router admitted via
+        :meth:`allow` but failed to submit — e.g. the actor handle could
+        not be resolved)."""
+        with self._lock:
+            rb = self._replicas.get(replica_id)
+            if rb is not None and rb.state == _HALF_OPEN and rb.probes_out:
+                rb.probes_out -= 1
+
+    def is_open(self, replica_id: str) -> bool:
+        if not self._open_seen:
+            return False
+        with self._lock:
+            rb = self._replicas.get(replica_id)
+            if rb is None:
+                return False
+            if rb.state == _OPEN and \
+                    time.monotonic() >= rb.open_until:
+                return False  # due for half-open probing
+            return rb.state == _OPEN
+
+    def state(self, replica_id: str) -> str:
+        with self._lock:
+            rb = self._replicas.get(replica_id)
+            return rb.state if rb is not None else _CLOSED
+
+    def open_count(self) -> int:
+        with self._lock:
+            now = time.monotonic()
+            return sum(1 for rb in self._replicas.values()
+                       if rb.state == _OPEN and now < rb.open_until)
+
+    def record_success(self, replica_id: str, latency_s: float) -> None:
+        if not self.config.enabled:
+            return
+        trip = None
+        with self._lock:
+            rb = self._get(replica_id)
+            rb.consecutive_failures = 0
+            rb.latencies.append(latency_s)
+            self._fleet_latencies.append(latency_s)
+            if rb.state == _HALF_OPEN:
+                # One good probe closes the breaker (reference behavior:
+                # a single trial success restores traffic; the failure
+                # threshold re-arms from zero).
+                rb.state = _CLOSED
+                rb.probes_out = 0
+            elif rb.state == _CLOSED:
+                trip = self._latency_outlier_locked(rb)
+                if trip:
+                    self._open_locked(replica_id, rb)
+        if trip and self.on_open is not None:
+            self.on_open(replica_id, trip)
+
+    def record_failure(self, replica_id: str) -> None:
+        if not self.config.enabled:
+            return
+        reason = None
+        with self._lock:
+            rb = self._get(replica_id)
+            rb.consecutive_failures += 1
+            if rb.state == _HALF_OPEN:
+                # Failed probe: straight back to open, fresh cooldown.
+                reason = "half-open probe failed"
+                self._open_locked(replica_id, rb)
+            elif rb.state == _CLOSED and \
+                    rb.consecutive_failures >= self.config.failure_threshold:
+                reason = (f"{rb.consecutive_failures} consecutive failures")
+                self._open_locked(replica_id, rb)
+        if reason and self.on_open is not None:
+            self.on_open(replica_id, reason)
+
+    def _latency_outlier_locked(self, rb: _ReplicaBreaker) -> str | None:
+        cfg = self.config
+        if len(rb.latencies) < cfg.latency_min_samples:
+            return None
+        fleet = _median(self._fleet_latencies)
+        # Median over the most RECENT min_samples only: a replica that
+        # turns slow must trip after min_samples slow requests — judged
+        # over the full window, a long fast history would mask the
+        # degradation until half the window had churned.
+        mine = _median(list(rb.latencies)[-cfg.latency_min_samples:])
+        if fleet is None or mine is None or fleet <= 0:
+            return None
+        if mine > cfg.latency_factor * fleet:
+            return (f"latency outlier: median {mine * 1e3:.0f} ms vs fleet "
+                    f"{fleet * 1e3:.0f} ms (> {cfg.latency_factor}x)")
+        return None
+
+    def _open_locked(self, replica_id: str, rb: _ReplicaBreaker) -> None:
+        self._open_seen = True
+        rb.state = _OPEN
+        rb.open_until = time.monotonic() + self.config.open_s
+        rb.probes_out = 0
+        rb.opens += 1
+        # A latency-tripped replica's samples are stale once it recovers;
+        # drop them so a healed replica isn't re-tripped by history.
+        rb.latencies.clear()
+
+    def forget(self, live_replica_ids) -> None:
+        """Drop state for replicas no longer published (controller replaced
+        them); keeps the bank from growing across churn."""
+        live = set(live_replica_ids)
+        with self._lock:
+            for rid in [r for r in self._replicas if r not in live]:
+                del self._replicas[rid]
+
+
+# ------------------------------------------------------------ error taxonomy
+
+def unwrap(err: BaseException) -> BaseException:
+    """Peel TaskError wrapping: a replica-raised Overloaded/DeadlineExceeded
+    arrives at the caller as TaskError(cause=...)."""
+    seen = 0
+    while isinstance(err, TaskError) and err.cause is not None and seen < 4:
+        err = err.cause
+        seen += 1
+    return err
+
+
+def classify(err: BaseException) -> str:
+    """Bucket a data-plane failure for retry decisions:
+
+    - ``never_sent``  — replica died before the call left the caller;
+      always safe to retry once (cannot have executed).
+    - ``replica_died`` — replica death with the call possibly executed.
+    - ``overloaded_replica`` / ``overloaded_router`` — admission shed.
+    - ``expired``     — deadline passed.
+    - ``app_error``   — the user callable raised: never retried (it is the
+      deployment's answer, so re-running it can't help the caller). It
+      still counts against the replica's circuit breaker — consecutive
+      errors from one replica are a health signal regardless of origin
+      (envoy-style outlier detection counts 5xx the same way), and
+      interleaved successes reset the streak so deterministic bad INPUT
+      only trips a breaker when it is the only traffic.
+    """
+    e = unwrap(err)
+    if isinstance(e, ActorDiedError):
+        return "never_sent" if getattr(e, "never_sent", False) \
+            else "replica_died"
+    if isinstance(e, ActorUnavailableError):
+        return "replica_died"
+    if isinstance(e, Overloaded):
+        return ("overloaded_replica" if e.where == "replica"
+                else "overloaded_router")
+    if isinstance(e, (DeadlineExceeded, TimeoutError)):
+        return "expired"
+    return "app_error"
+
+
+def is_retryable(kind: str, policy: RetryPolicy) -> bool:
+    if kind == "never_sent":
+        # Provably not executed; retried outside the max_retries budget.
+        return policy.retry_never_sent
+    if kind == "replica_died":
+        return policy.max_retries > 0
+    if kind == "overloaded_replica":
+        return policy.max_retries > 0 and policy.retry_overloaded
+    return False
+
+
+@dataclass
+class ResilienceSettings:
+    """Deployment-level resilience knobs the controller publishes to every
+    router (rides each ReplicaInfo in the long-poll snapshot; the router
+    adopts whatever the newest snapshot carries)."""
+
+    request_timeout_s: float = 30.0
+    max_queued_requests: int = 256
+    retry: RetryPolicy = field(default_factory=RetryPolicy)
+    breaker: CircuitBreakerConfig = field(default_factory=CircuitBreakerConfig)
+
+    def to_dict(self) -> dict:
+        return {"request_timeout_s": self.request_timeout_s,
+                "max_queued_requests": self.max_queued_requests,
+                "retry": self.retry.to_dict(),
+                "breaker": self.breaker.to_dict()}
+
+    @classmethod
+    def from_dict(cls, d: dict | None) -> "ResilienceSettings":
+        if not d:
+            return cls()
+        return cls(request_timeout_s=d.get("request_timeout_s", 30.0),
+                   max_queued_requests=d.get("max_queued_requests", 256),
+                   retry=RetryPolicy.from_dict(d.get("retry")),
+                   breaker=CircuitBreakerConfig.from_dict(d.get("breaker")))

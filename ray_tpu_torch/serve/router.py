@@ -1,0 +1,670 @@
+"""Router: assigns requests to replicas (power-of-two-choices).
+
+Port of ray_tpu/serve/router.py: sample two replicas and pick the one with
+the smaller queue; requests queue router-side when all replicas are
+saturated. With it the request-resilience layer (serve/resilience.py):
+
+- queue waits are bounded by the request's absolute deadline;
+- admission control sheds with :class:`Overloaded` once
+  ``max_queued_requests`` callers are parked;
+- the choose loop never picks a draining replica, a replica the caller
+  already tried (retry exclusion), or one whose circuit breaker is open;
+- per-replica breakers track consecutive failures and latency outliers
+  from the completion watcher, blacklist sick replicas with half-open
+  recovery probes, and nudge the controller's health check on open.
+
+KV-block-aware prefix routing: replicas publish the chain hashes of the
+prompt prefixes their engines hold (serve/prefix.py, piggybacked on the
+long-poll snapshot); a request carrying ``prefix_hashes`` lands on the
+best-matched replica while its load stays within the balance delta.
+Entries age out (TTL) and dead/draining replicas are dropped from the map
+on every snapshot.
+
+Completion watching is one reaper thread over all in-flight refs of a
+router. Out: the router's metrics and request tracing (neither is ported).
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable
+
+import ray_tpu_torch
+from ray_tpu_torch.core.exceptions import ActorDiedError
+from ray_tpu_torch.serve.config import ReplicaInfo
+from ray_tpu_torch.serve.prefix import match_len
+from ray_tpu_torch.serve.resilience import (
+    DEADLINE_KEY,
+    CircuitBreaker,
+    DeadlineExceeded,
+    Overloaded,
+    ResilienceSettings,
+    classify,
+)
+
+# Routers ignore a replica's prefix publication older than this.
+PREFIX_MAP_TTL_S = 30.0
+
+
+class _CompletionReaper:
+    """One thread watching EVERY in-flight unary ref of a router: releases
+    the replica slot the moment a reply lands and hands outcome
+    observation (a possibly-blocking local fetch in cluster mode) to a
+    small pool. Replaces a watcher thread per request — at router hot-path
+    rates, thread create/teardown alone was most of the per-request
+    cost."""
+
+    # Outcome observations queued behind the pool beyond this are settled
+    # NEUTRAL instead (probe slot returned, no breaker signal): in cluster
+    # mode one observation can block seconds on a result fetch, and an
+    # unbounded backlog would defer breaker feedback minutes behind
+    # completions — bounded-late health signal beats unbounded-late.
+    OBS_BACKLOG_MAX = 256
+
+    def __init__(self, router: "Router"):
+        self._router = router
+        self._cv = threading.Condition()
+        self._pending: dict = {}  # ref -> (rid, t_submit, is_probe)
+        self._stopped = False
+        self._obs_backlog = 0  # guarded by _cv
+        # Observation pool: outcome gets are usually instant (actor
+        # replies land in the caller's store) but a cluster-mode fetch can
+        # block — it must never stall slot release for other requests.
+        from ray_tpu_torch.core.worker import global_worker
+
+        rt = global_worker.runtime
+        self._observe = ThreadPoolExecutor(
+            max_workers=2, thread_name_prefix=rt._thread_prefix + "serve-reap")
+        self._thread = rt._start_thread(
+            self._loop, (), f"serve-reaper-{router._deployment}")
+
+    def add(self, ref, rid: str, t_submit: float, is_probe: bool) -> None:
+        with self._cv:
+            self._pending[ref] = (rid, t_submit, is_probe)
+            self._cv.notify()
+
+    def stop(self) -> None:
+        with self._cv:
+            self._stopped = True
+            self._cv.notify()
+        self._observe.shutdown(wait=False)
+
+    def _loop(self) -> None:
+        from ray_tpu_torch.core.worker import global_worker
+
+        router = self._router
+        born_runtime = global_worker.runtime
+        while True:
+            with self._cv:
+                while not self._pending and not self._stopped:
+                    self._cv.wait()
+                if self._stopped:
+                    return
+                refs = list(self._pending)
+            if global_worker.runtime is not born_runtime or \
+                    born_runtime._shutdown:
+                return  # our runtime is gone (LongPollClient discipline)
+            try:
+                # First-completion wake (event-driven in both runtimes),
+                # then a zero-timeout sweep to drain everything already
+                # ready in one pass. The timeout bounds the blind spot for
+                # refs ADDED mid-wait (they're absent from this snapshot):
+                # their observed latency — a breaker outlier input — is
+                # overstated by at most one cycle, so keep it short.
+                ready, _ = ray_tpu_torch.wait(refs, num_returns=1, timeout=0.05,
+                                        fetch_local=False)
+                if ready and len(refs) > 1:
+                    ready, _ = ray_tpu_torch.wait(refs, num_returns=len(refs),
+                                            timeout=0, fetch_local=False)
+            except Exception:
+                if self._stopped or \
+                        global_worker.runtime is not born_runtime:
+                    return
+                # One poisoned ref must not wedge the SHARED reaper (the
+                # per-request watchers it replaced failed one request per
+                # bad ref): evict the refs wait() rejects individually,
+                # releasing their slots with a neutral settle.
+                self._evict_poisoned(refs)
+                time.sleep(0.05)
+                continue
+            if not ready:
+                continue
+            now = time.perf_counter()
+            done = []
+            with self._cv:
+                for ref in ready:
+                    rec = self._pending.pop(ref, None)
+                    if rec is not None:
+                        done.append((ref, rec))
+            for ref, (rid, t_submit, is_probe) in done:
+                # Release first: _settle may block on a result fetch, and
+                # parked callers must not wait out that fetch for a slot
+                # the replica already freed.
+                router._release(rid)
+                with self._cv:
+                    saturated = self._obs_backlog >= self.OBS_BACKLOG_MAX
+                    if not saturated:
+                        self._obs_backlog += 1
+                if saturated:
+                    router._settle_neutral(rid, is_probe)
+                    continue
+                try:
+                    self._observe.submit(self._settle_one, ref, rid,
+                                         now - t_submit, is_probe)
+                except RuntimeError:  # shutting down
+                    return
+
+    def _settle_one(self, ref, rid: str, latency: float,
+                    is_probe: bool) -> None:
+        try:
+            self._router._settle(ref, rid, latency, is_probe)
+        finally:
+            with self._cv:
+                self._obs_backlog -= 1
+
+    def _evict_poisoned(self, refs) -> None:
+        """Drop every pending ref that ray_tpu_torch.wait rejects on its own:
+        its slot is released and settled neutral (no outcome will ever
+        arrive for it), so the rest of the pending set keeps draining."""
+        for ref in refs:
+            try:
+                ray_tpu_torch.wait([ref], num_returns=1, timeout=0,
+                             fetch_local=False)
+            except Exception:
+                with self._cv:
+                    rec = self._pending.pop(ref, None)
+                if rec is not None:
+                    rid, _, is_probe = rec
+                    self._router._release(rid)
+                    self._router._settle_neutral(rid, is_probe)
+
+
+class Router:
+    def __init__(self, deployment_name: str,
+                 get_replicas: Callable[[], list[ReplicaInfo]],
+                 report_unhealthy: Callable[[str, str], None] | None = None):
+        self._deployment = deployment_name
+        self._get_replicas = get_replicas
+        self._inflight: dict[str, int] = {}  # replica_id -> local in-flight
+        self._lock = threading.Lock()
+        self._not_saturated = threading.Condition(self._lock)
+        self._rng = random.Random()
+        self._waiting = 0  # callers parked for capacity (queue-depth gauge)
+        # Set by _choose_locked (under _lock) when the chosen replica's
+        # admission consumed a half-open breaker probe slot; read by
+        # assign_request immediately after, per request.
+        self._choice_was_probe = False
+        self._report_unhealthy = report_unhealthy
+        self.settings = ResilienceSettings()
+        self._settings_adopted = False
+        self.breaker = CircuitBreaker(self.settings.breaker,
+                                      on_open=self._on_breaker_open)
+        # Prefix-cache map: replica_id -> (frozenset of chain hashes,
+        # receipt stamp). Rebuilt from every snapshot (dead/draining
+        # replicas drop out immediately); entries older than the TTL are
+        # ignored so a wedged control plane can't pin stale locality.
+        self._prefix_map: dict[str, tuple[frozenset, float]] = {}
+        self._prefix_ttl = PREFIX_MAP_TTL_S
+        # Cached replica actor handles (get_actor is a name-table lookup —
+        # an RPC in cluster mode — and handles are thread-safe now).
+        self._actors: dict[str, object] = {}
+        self._reaper: _CompletionReaper | None = None
+        self._reaper_lock = threading.Lock()
+
+    # ------------------------------------------------------------ settings
+
+    def _adopt_settings(self, replicas: list[ReplicaInfo]) -> None:
+        """Adopt the deployment-level resilience settings riding the newest
+        replica snapshot (cheap: dict identity check short-circuits)."""
+        for r in replicas:
+            s = getattr(r, "settings", None)
+            if s is not None:
+                if s is not getattr(self, "_last_settings_dict", None):
+                    self._last_settings_dict = s
+                    self.settings = ResilienceSettings.from_dict(s)
+                    self.breaker.config = self.settings.breaker
+                self._settings_adopted = True
+                return
+
+    def _on_breaker_open(self, replica_id: str, reason: str) -> None:
+        # Feed the controller's health check: a breaker trip means THIS
+        # router has stopped routing there, but only the controller can
+        # probe-and-replace a genuinely sick replica for everyone.
+        if self._report_unhealthy is not None:
+            try:
+                self._report_unhealthy(replica_id, reason)
+            except Exception:
+                pass
+
+    def _get_reaper(self) -> _CompletionReaper:
+        reaper = self._reaper
+        if reaper is None:
+            with self._reaper_lock:
+                reaper = self._reaper
+                if reaper is None:
+                    reaper = self._reaper = _CompletionReaper(self)
+        return reaper
+
+    def close(self) -> None:
+        """Stop background machinery (called by serve.shutdown via
+        handle._reset_routers)."""
+        with self._reaper_lock:
+            if self._reaper is not None:
+                self._reaper.stop()
+                self._reaper = None
+
+    # ---------------------------------------------------------- data plane
+
+    def assign_request(self, method_name: str, args: tuple, kwargs: dict,
+                       timeout: float | None = None, stream: bool = False,
+                       route_hint: str | None = None,
+                       deadline: float | None = None,
+                       exclude: set[str] | frozenset[str] | None = None,
+                       no_park: bool = False,
+                       prefix_hashes: tuple | None = None):
+        """Pick a replica, submit, and return ``(result, replica_id)``
+        where result is the ObjectRef (or ``(gen, on_done)`` when
+        streaming). One attempt — retry/hedge loops live in the handle,
+        which excludes already-tried replicas here.
+
+        Placement order: ``prefix_hashes`` (KV-block-aware — the replica
+        with the longest matched cached prefix wins while its load stays
+        within the balance delta), then ``route_hint`` (rendezvous-hash
+        affinity with the same balance bound), then pow-2 on local
+        in-flight counts. Both locality mechanisms yield to load
+        balancing beyond HINT_BALANCE_DELTA — a deployment-wide shared
+        prefix must not pin all traffic to one replica while siblings
+        idle.
+
+        The wait for a replica slot is bounded by ``deadline`` (absolute
+        wall clock; defaults to now + the deployment's request_timeout_s,
+        or the legacy ``timeout`` argument when given). While every
+        eligible replica is saturated the caller parks on a Condition that
+        is notified on request completion and on replica-set changes — no
+        sleep-poll — but only ``settings.max_queued_requests`` callers may
+        park: beyond that, :class:`Overloaded` sheds the request
+        immediately (admission control)."""
+        t_enter = time.time()
+        if deadline is None:
+            budget = timeout if timeout is not None \
+                else self.settings.request_timeout_s
+            deadline = t_enter + budget
+        with self._lock:
+            parked = False
+            try:
+                while True:
+                    replicas = self._get_replicas()
+                    if replicas and not self._settings_adopted:
+                        self._adopt_settings(replicas)
+                    if replicas and exclude and all(
+                            r.replica_id in exclude or
+                            getattr(r, "draining", False)
+                            for r in replicas):
+                        # Retry exclusion covers every published replica:
+                        # nothing a wake can change for THIS call — fail
+                        # fast so the handle surfaces the original error
+                        # instead of a full-budget park that also occupies
+                        # an admission slot (a 0.5s retry-after shed must
+                        # not become a 30s stall on a 1-replica app).
+                        raise Overloaded(
+                            f"{self._deployment!r}: every replica already "
+                            f"tried by this request", retry_after_s=0.5,
+                            where="router")
+                    chosen = (self._choose_locked(replicas, route_hint,
+                                                  exclude, prefix_hashes)
+                              if replicas else None)
+                    if chosen is not None:
+                        is_probe = self._choice_was_probe
+                        self._inflight[chosen.replica_id] = \
+                            self._inflight.get(chosen.replica_id, 0) + 1
+                        break
+                    remaining = deadline - time.time()
+                    if remaining <= 0:
+                        raise DeadlineExceeded(
+                            f"no available replica for {self._deployment!r} "
+                            f"within the request budget "
+                            f"({deadline - t_enter:.1f}s)")
+                    if not parked:
+                        if no_park:
+                            # Internal opportunistic assignment (hedging):
+                            # take a free slot now or give up — a hedge
+                            # that parks would add load exactly at
+                            # saturation and block the caller's drive
+                            # loop. Not counted as a shed: never
+                            # user-visible.
+                            raise Overloaded(
+                                f"{self._deployment!r} has no free replica "
+                                f"for an opportunistic assignment",
+                                retry_after_s=0.0, where="router")
+                        cap = self.settings.max_queued_requests
+                        if cap >= 0 and self._waiting >= cap:
+                            # Bounded router queue: shed instead of joining
+                            # an unbounded wait (the client owns backoff).
+                            raise Overloaded(
+                                f"{self._deployment!r} router queue full "
+                                f"({cap} waiting)",
+                                retry_after_s=1.0, where="router")
+                        parked = True
+                        self._waiting += 1
+                    # Bounded wait: replica-set changes arrive via
+                    # notify_replicas_changed(), completions via _release();
+                    # the 0.5 s cap only covers lost-notify edge cases.
+                    self._not_saturated.wait(timeout=min(remaining, 0.5))
+            finally:
+                if parked:
+                    self._waiting -= 1
+
+        # Propagate the budget: the replica drops the request if it expires
+        # before execution starts (and exposes it to user code / batcher).
+        # handle.remote builds a fresh kwargs dict per call, so the key is
+        # written in place; retries/hedges sharing the dict skip the copy
+        # (the deadline is constant for the request's lifetime).
+        if kwargs.get(DEADLINE_KEY) != deadline:
+            kwargs[DEADLINE_KEY] = deadline
+
+        rid = chosen.replica_id
+        try:
+            handle = self._actors.get(rid)
+            if handle is None:
+                handle = ray_tpu_torch.get_actor(chosen.actor_name,
+                                                 namespace="serve")
+                self._actors[rid] = handle
+        except Exception as e:
+            # Replica vanished between the long-poll snapshot and submission:
+            # give the slot back (a leaked increment would read as permanent
+            # saturation), return any half-open probe slot, and count the
+            # miss against the breaker. Surfaced as a NEVER-SENT actor death
+            # (the request provably didn't reach any replica) carrying the
+            # replica id, so the handle's retry loop can exclude it and
+            # re-resolve onto a live sibling.
+            self._release(rid)
+            if is_probe:
+                self.breaker.cancel_probe(rid)
+            self.breaker.record_failure(rid)
+            raise ActorDiedError(
+                rid, f"replica {rid} vanished before submit: {e!r}",
+                never_sent=True) from e
+        if stream:
+            try:
+                gen = handle.handle_request_streaming.options(
+                    num_returns="streaming").remote(method_name, args, kwargs)
+            except Exception:
+                self._submit_failed(rid, is_probe)
+                raise
+
+            done = threading.Event()
+
+            def on_stream_done():
+                # In-flight until the consumer exhausts/abandons the stream
+                # (keeps max_ongoing_requests honest for long-lived SSE).
+                if not done.is_set():
+                    done.set()
+                    self._release(rid)
+                    if is_probe:
+                        # Settle this request's half-open probe slot if no
+                        # outcome was recorded (abandoned stream): no-op
+                        # once record_success/failure already moved the
+                        # breaker out of half-open.
+                        self.breaker.cancel_probe(rid)
+
+            return (gen, on_stream_done), rid
+        try:
+            ref = handle.handle_request.remote(method_name, args, kwargs)
+        except Exception:
+            self._submit_failed(rid, is_probe)
+            raise
+
+        self._get_reaper().add(ref, rid, time.perf_counter(), is_probe)
+        return ref, rid
+
+    def _submit_failed(self, rid: str, is_probe: bool) -> None:
+        self._actors.pop(rid, None)  # handle may be bound to a corpse
+        self._release(rid)
+        if is_probe:
+            self.breaker.cancel_probe(rid)
+        self.breaker.record_failure(rid)
+
+    def _settle(self, ref, rid: str, latency: float, is_probe: bool) -> None:
+        """Breaker bookkeeping for one completed unary call (runs on the
+        reaper's observation pool; the slot was already released)."""
+        outcome = None
+        try:
+            outcome = self._observe_outcome(ref)
+        finally:
+            if outcome is True:
+                self.breaker.record_success(rid, latency)
+            elif outcome is False:
+                self.breaker.record_failure(rid)
+            elif is_probe:
+                # Neutral (shed/expired/unknown): no health signal
+                # either way — but THIS request's half-open probe
+                # slot must be returned so the breaker doesn't wedge
+                # half-open (and a shed must NOT close the breaker
+                # on a still-sick replica). Only the probe request
+                # settles the slot: a non-probe neutral completion
+                # canceling it would over-admit probes.
+                self.breaker.cancel_probe(rid)
+
+    def _settle_neutral(self, rid: str, is_probe: bool) -> None:
+        """Observation-backlog overflow path: no outcome signal either
+        way, but a probe's half-open slot must still be returned."""
+        if is_probe:
+            self.breaker.cancel_probe(rid)
+
+    def _observe_outcome(self, ref) -> bool | None:
+        """Ternary outcome of the completed call: True = healthy answer,
+        False = failure (infra or application), None = neutral — sheds and
+        deadline expiries say nothing about replica health in EITHER
+        direction (counting a fast shed as success would close a half-open
+        breaker on a still-overloaded replica and seed its cleared latency
+        window with bogus samples). The result is already local (actor
+        replies land in the caller's store), so this get is cheap."""
+        try:
+            # Bounded get: in cluster mode the reply may still be a local
+            # fetch away after wait(fetch_local=False); a timeout here is
+            # "unknown" (neutral).
+            ray_tpu_torch.get(ref, timeout=5.0)
+            return True
+        except (Overloaded, DeadlineExceeded):
+            return None
+        except Exception as e:  # noqa: BLE001 - classify
+            kind = classify(e)
+            if kind in ("overloaded_replica", "overloaded_router",
+                        "expired"):
+                return None
+            return False
+
+    # ----------------------------------------------------------- feedback
+
+    def record_stream_outcome(self, replica_id: str, ok: bool,
+                              latency_s: float | None = None) -> None:
+        """Breaker feedback for streaming calls: the generator wrapper
+        reports first-chunk success (with TTFT as the latency sample) or a
+        mid-stream failure (the completion watcher can't see stream
+        errors — they surface in the consumer)."""
+        if ok:
+            self.breaker.record_success(replica_id, latency_s or 0.0)
+        else:
+            self.breaker.record_failure(replica_id)
+
+    def _release(self, replica_id: str) -> None:
+        with self._lock:
+            self._inflight[replica_id] -= 1
+            self._not_saturated.notify_all()
+
+    def notify_replicas_changed(self,
+                                replicas: list[ReplicaInfo] | None = None
+                                ) -> None:
+        """Wake parked assign loops after a replica-set update (called from
+        the long-poll callback in DeploymentHandle). With the new snapshot
+        in hand, also adopt its settings, garbage-collect breaker state and
+        cached actor handles for replicas the controller no longer
+        publishes, and rebuild the prefix-cache map (dead and draining
+        replicas drop out of it HERE — the choose loop must never
+        prefix-route into a drain)."""
+        if replicas is not None:
+            self._adopt_settings(replicas)
+            live = [r.replica_id for r in replicas]
+            self.breaker.forget(live)
+            live_set = set(live)
+            for rid in list(self._actors):
+                if rid not in live_set:
+                    self._actors.pop(rid, None)
+            now = time.monotonic()
+            pm: dict[str, tuple[frozenset, float]] = {}
+            for r in replicas:
+                blocks = getattr(r, "prefix_blocks", None)
+                if blocks and not getattr(r, "draining", False):
+                    pm[r.replica_id] = (frozenset(blocks), now)
+            self._prefix_map = pm
+        with self._lock:
+            self._not_saturated.notify_all()
+
+    def touch_prefix_map(self) -> None:
+        """Re-stamp every prefix-map entry (called after each successful
+        long-poll round, updates or not). The controller republishes only
+        on CHANGE, so a healthy deployment with a stable warm cache sends
+        no snapshots — without this the TTL would expire exactly the
+        steady-state publication it exists to protect, silently shutting
+        prefix routing off after PREFIX_MAP_TTL_S. The TTL then
+        only trips when polling itself stops: a wedged/dead controller."""
+        pm = self._prefix_map
+        if pm:
+            now = time.monotonic()
+            self._prefix_map = {rid: (held, now)
+                                for rid, (held, _) in pm.items()}
+
+    # How far above the least-loaded replica a hint-preferred replica may
+    # be before load balancing overrides cache locality.
+    HINT_BALANCE_DELTA = 2
+
+    def _eligible_locked(self, r: ReplicaInfo,
+                         exclude) -> bool:
+        if getattr(r, "draining", False):
+            return False
+        if exclude and r.replica_id in exclude:
+            return False
+        return not self.breaker.is_open(r.replica_id)
+
+    def _choose_prefix_locked(self, replicas: list[ReplicaInfo],
+                              prefix_hashes) -> ReplicaInfo | None:
+        """Longest-matched-prefix choice over the (already eligible)
+        candidate set. Ties on match length break to the least-loaded
+        replica; a best-matched replica more than HINT_BALANCE_DELTA above
+        the least-loaded one is skipped (locality yields to balance).
+        Returns None when nothing matches — the caller falls through to
+        rendezvous-hint and pow-2 choice."""
+        pm = self._prefix_map
+        if not pm:
+            return None
+        now = time.monotonic()
+        ttl = self._prefix_ttl
+        inflight = self._inflight
+        min_load = min(inflight.get(r.replica_id, 0) for r in replicas)
+        best = None
+        best_m = 0
+        best_load = 0
+        for r in replicas:
+            ent = pm.get(r.replica_id)
+            if ent is None:
+                continue
+            held, stamp = ent
+            if ttl > 0 and now - stamp > ttl:
+                continue  # aged out: stale publication, ignore
+            m = match_len(prefix_hashes, held)
+            if m <= 0:
+                continue
+            load = inflight.get(r.replica_id, 0)
+            if load >= r.max_ongoing_requests:
+                continue
+            if load - min_load > self.HINT_BALANCE_DELTA:
+                continue
+            if m > best_m or (m == best_m and load < best_load):
+                best, best_m, best_load = r, m, load
+        if best is None:
+            return None
+        ok, probe = self.breaker.allow_ex(best.replica_id)
+        if not ok:
+            return None  # half-open, probe budget spent: balance instead
+        self._choice_was_probe = probe
+        return best
+
+    def _choose_locked(self, replicas: list[ReplicaInfo],
+                       route_hint: str | None = None,
+                       exclude: set[str] | frozenset[str] | None = None,
+                       prefix_hashes: tuple | None = None
+                       ) -> ReplicaInfo | None:
+        """Choice over the ELIGIBLE set: never a draining replica, never
+        one the caller already tried, never one whose breaker is open
+        (half-open admission happens below, via breaker.allow_ex).
+        Prefix-match first, then rendezvous hint, then pow-2."""
+        self._choice_was_probe = False
+        replicas = [r for r in replicas if self._eligible_locked(r, exclude)]
+        if not replicas:
+            return None
+        if prefix_hashes:
+            got = self._choose_prefix_locked(replicas, prefix_hashes)
+            if got is not None:
+                return got
+        if route_hint is not None:
+            # Rendezvous hashing: every router maps the same hint to the
+            # same replica without coordination — but only while the hinted
+            # replica's load stays within HINT_BALANCE_DELTA of the
+            # least-loaded replica. Beyond that, locality yields to pow-2
+            # balancing (a deployment-wide shared prefix must not pin all
+            # traffic to one replica while siblings idle).
+            import zlib
+
+            min_load = min(self._inflight.get(r.replica_id, 0)
+                           for r in replicas)
+            ranked = sorted(
+                replicas,
+                key=lambda r: zlib.crc32(
+                    f"{route_hint}:{r.replica_id}".encode()),
+            )
+            for r in ranked:
+                load = self._inflight.get(r.replica_id, 0)
+                if load >= r.max_ongoing_requests:
+                    continue
+                if load - min_load <= self.HINT_BALANCE_DELTA:
+                    ok, probe = self.breaker.allow_ex(r.replica_id)
+                    if ok:
+                        self._choice_was_probe = probe
+                        return r
+                    continue  # half-open and out of probe slots
+                break  # hinted replica overloaded — balance instead
+        candidates = (self._rng.sample(replicas, 2)
+                      if len(replicas) >= 2 else list(replicas))
+        best, best_load = None, None
+        for r in candidates:
+            load = self._inflight.get(r.replica_id, 0)
+            if load >= r.max_ongoing_requests:
+                continue
+            if best_load is None or load < best_load:
+                best, best_load = r, load
+        if best is None:
+            return None
+        ok, probe = self.breaker.allow_ex(best.replica_id)
+        if not ok:
+            # Half-open with its probe budget spent: try the other pow-2
+            # candidate; otherwise report saturation (the caller parks and
+            # the breaker re-admits on the next wake).
+            for r in candidates:
+                if r.replica_id == best.replica_id:
+                    continue
+                load = self._inflight.get(r.replica_id, 0)
+                if load < r.max_ongoing_requests:
+                    ok2, probe2 = self.breaker.allow_ex(r.replica_id)
+                    if ok2:
+                        self._choice_was_probe = probe2
+                        return r
+            return None
+        self._choice_was_probe = probe
+        return best
+
+    def metrics(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._inflight)

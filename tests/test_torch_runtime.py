@@ -344,10 +344,109 @@ def test_port_options_refuse_what_the_runtime_does_not_honour():
         ray_tpu_torch.remote(runtime_env={"env_vars": {"A": "1"}})(f)
     with pytest.raises(NotImplementedError, match="placement"):
         ray_tpu_torch.remote(scheduling_strategy=object())(f)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        ray_tpu_torch.remote(num_returns="streaming")(f)
+    with pytest.raises(ValueError, match="streaming"):
+        ray_tpu_torch.remote(num_returns="stream")(f)
     with pytest.raises(ValueError, match="num_tpus"):
         ray_tpu_torch.remote(num_tpus=1)(f)
+
+
+def test_streaming_returns_match_ray_tpu():
+    """num_returns="streaming" on a task and on an actor method: the same
+    items in the same order, an error raised mid-stream at the same item,
+    a stalled stream's _next(timeout) raising the same way."""
+    def program(rt, col, accel):
+        @rt.remote(num_returns="streaming")
+        def squares(n):
+            for i in range(n):
+                yield i * i
+
+        @rt.remote(num_returns="streaming")
+        def breaks(n):
+            for i in range(n):
+                yield {"i": i}
+            raise ValueError("mid-stream")
+
+        @rt.remote(num_returns="streaming")
+        def stalls():
+            yield "first"
+            time.sleep(1.0)
+            yield "late"
+
+        @rt.remote
+        class Letters:
+            def stream(self, n):
+                for i in range(n):
+                    yield chr(65 + i)
+
+        items = [rt.get(r, timeout=T) for r in squares.remote(6)]
+        a = Letters.remote()
+        letters = [rt.get(r, timeout=T) for r in
+                   a.stream.options(num_returns="streaming").remote(4)]
+        seen, err = [], None
+        gen = breaks.remote(3)
+        try:
+            for r in gen:
+                seen.append(rt.get(r, timeout=T))
+        except Exception as e:  # noqa: BLE001 - the class name is compared
+            err = (type(e).__name__, "mid-stream" in str(e))
+        s = stalls.remote()
+        first = rt.get(next(s), timeout=T)
+        stalled = type(_raised(lambda: s._next(0.2))).__name__
+        late = rt.get(next(s), timeout=T)
+        return (items, letters, seen, err, first, stalled, late,
+                next(s, "end"))
+
+    want, got = both(program, num_cpus=4)
+    assert got == want == (
+        [0, 1, 4, 9, 16, 25], ["A", "B", "C", "D"],
+        [{"i": 0}, {"i": 1}, {"i": 2}], ("TaskError", True), "first",
+        "TimeoutError", "late", "end")
+
+
+def test_port_stream_dropped_by_its_consumer_stops_and_frees():
+    """A generator dropped mid-stream stops its producer at the next yield
+    (its finally runs) and the items nobody read are freed."""
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=4)
+    rt = global_worker.runtime
+    try:
+        @ray_tpu_torch.remote
+        class Source:
+            def __init__(self):
+                self.produced = 0
+                self.closed = threading.Event()
+
+            def stream(self):
+                try:
+                    while True:
+                        self.produced += 1
+                        yield np.zeros(1000)
+                        time.sleep(0.005)
+                finally:
+                    self.closed.set()
+
+            def report(self):
+                return self.produced, self.closed.is_set()
+
+        src = Source.options(max_concurrency=2).remote()
+        gen = src.stream.options(num_returns="streaming").remote()
+        assert ray_tpu_torch.get(next(gen), timeout=T).shape == (1000,)
+        time.sleep(0.1)  # some items pile up unread
+        del gen
+        deadline = time.monotonic() + 10
+        produced, closed = ray_tpu_torch.get(src.report.remote(), timeout=T)
+        while not closed and time.monotonic() < deadline:
+            time.sleep(0.02)
+            produced, closed = ray_tpu_torch.get(src.report.remote(),
+                                                 timeout=T)
+        assert closed and produced > 2
+        time.sleep(0.05)
+        with rt.store._lock:
+            left = len(rt.store._objects)
+        assert left <= 1  # the report's reply at most
+        assert rt._streams_closed == {} and rt._streams_ended == {}
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def test_port_shutdown_joins_threads_even_with_a_rank_left_waiting():
@@ -482,7 +581,7 @@ def test_import_is_cheap_and_loads_no_jax_ray_tpu_or_cloudpickle():
 
     code = (
         "import sys, threading\n"
-        "import ray_tpu_torch, ray_tpu_torch.collective\n"
+        "import ray_tpu_torch, ray_tpu_torch.collective, ray_tpu_torch.serve\n"
         "print(threading.active_count(), 'torch' in sys.modules)\n"
         "import ray_tpu_torch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
