@@ -282,6 +282,30 @@ failure raises and the script exits non-zero without a result line:
    the refusals, each at once: placement_group_bundles, grpc_options,
    tensor_parallel_size 2, num_gpus on a runtime with no "GPU" resource;
    rms_norm's launches counted over the HTTP waves only;
+21. tuning on the card: (a) every remat policy (none, full, attn, attn+,
+   dots, dots+ and "dots:8,attn:8") at phase 8's configuration from the
+   same seeded params on the same batch, 1 warm-up and 3 timed steps each:
+   step 1's loss bit-equal to none's, one forward + backward's gradients
+   within test_torch_train.py's tolerance of none's (bit-equality
+   printed), K1-K3 launches per step as predicted_launches says; step ms,
+   tokens/s, peak memory beside the autotuner's prediction; then
+   ViT-B/16 (phase 9b's b128) and Mixtral (phase 15's configuration)
+   under none, attn and dots with the same gates, and the 1.1B step under
+   dots with RTPU_CE_CHUNK 256 and 2048 (loss within 1e-5 of chunk
+   512's; peak and ms); (b) the train-step autotuner at the 1.1B
+   geometry, s2048, over candidate_space(16, batches=(4, 8)) within
+   device_hbm_budget_bytes(), measuring 6 (each build and step inside its
+   candidate's applied_env, peak by max_memory_allocated, a finally that
+   frees everything): a measured winner, every failure an
+   OutOfMemoryError, card memory back after the search, each measured
+   peak over its prediction, the rerun from the cache alone choosing the
+   same winner; (c) Tune on ray_tpu_torch.init(resources={"GPU": 1}):
+   four trials at once ({"CPU": 1, "GPU": 0.25}) of a 2-layer 1.1B-width
+   step at b2 s2048 over four learning rates under ASHA (max_t 8, grace
+   2), each trial's losses bit-equal to the same function run directly,
+   the best lr the direct runs', card memory back after fit(); then
+   Tuner(TorchTrainer) over two learning rates, each final loss equal to
+   the trainer alone's; K1-K3's launches counted over each part;
 11. cross-device: f32 engines at tiny width (d=64) and at 1B width with
    two layers (d=2048), CUDA (kernel) vs CPU (plain) greedy token streams
    must be equal; a bf16 trainer at small width, 3 steps on the card
@@ -1889,22 +1913,30 @@ PROFILED_STEPS = 3  # steps under torch.profiler after the timed ones
 
 
 def predicted_launches(remat, num_layers: int, ring: int = 0,
-                       split: bool = False) -> dict:
-    """Kernel launches per training step under a uniform remat policy, for
-    Llama and ViT alike (both run two rms_norms a layer plus a final one).
-    Forward: the norms, one flash forward a layer. The backward recomputes
-    the norms of the checkpointed segments (attn: attention inputs + MLP;
-    attn+: attention inputs, gate, rest of the MLP; full: the layer, the
-    flash forward included) and runs one flash backward a layer; rms_norm's
-    backward is plain tensor ops (no launch). The flash kernels are K2/K3,
-    K2 and K4 + K5 with ``split`` (the split backward), or with ``ring`` >
-    0 (context parallel over that many ranks: as many ring steps a layer)
-    K6/K7, each after its tile-bounds pre-pass."""
-    recompute = 0 if remat in (False, "none") else 2
-    full = remat not in (False, "none", "attn", "attn+")
-    fwd, bwd = num_layers * (2 if full else 1), num_layers
+                       split: bool = False, model: str = "llama") -> dict:
+    """Kernel launches per training step under a remat policy or a
+    per-layer spec ("dots:8,attn:8"), for Llama, ViT and Mixtral alike
+    (each runs two rms_norms a layer plus a final one). Forward: the
+    norms, one flash forward a layer. The backward recomputes the norms of
+    the checkpointed segments (attn, attn+, dots: both of a layer; full:
+    the layer, the flash forward included; Llama's dots+ keeps its norm
+    outputs and recomputes none, while ViT's and Mixtral's layers name no
+    norm output, so their dots+ is dots) and runs one flash backward a
+    layer; rms_norm's backward is plain tensor ops (no launch). The flash
+    kernels are K2/K3, K2 and K4 + K5 with ``split`` (the split backward),
+    or with ``ring`` > 0 (context parallel over that many ranks: as many
+    ring steps a layer) K6/K7, each after its tile-bounds pre-pass."""
+    from ray_tpu_torch.models.llama import normalize_remat
+
+    spec = normalize_remat(remat, num_layers)
+    layers = list(spec) if isinstance(spec, tuple) else [spec] * num_layers
+    kept_norms = ("none", False) + (("dots+",) if model == "llama" else ())
+    segments = ("none", False, "attn", "attn+", "dots", "dots+")
+    recompute = sum(0 if p in kept_norms else 2 for p in layers)
+    fwd = sum(1 if p in segments else 2 for p in layers)
+    bwd = num_layers
     flat = 0 if ring else 1
-    return {"rms_norm": 2 * num_layers + 1 + recompute * num_layers,
+    return {"rms_norm": 2 * num_layers + 1 + recompute,
             "flash_fwd": fwd * flat,
             "flash_bwd": 0 if split else bwd * flat,
             "flash_bwd_dq": bwd * flat if split else 0,
@@ -1966,13 +1998,13 @@ TOP_OPS = 16  # PyTorch ops listed by the device time they launched
 
 
 def profile_steps(step, state, tok, tgt, steps: int, step_s: float,
-                  counters) -> tuple:
+                  counters, quiet: bool = False) -> tuple:
     """``steps`` training steps under torch.profiler: prints the device
     busy share (of the profiled wall, which carries the profiler's own
     host cost, and of the unprofiled window's ``step_s``), each counted
     kernel's and each category's device ms per step, the largest kernels
-    and the PyTorch ops that launched the most device time themselves.
-    Returns (state, the numbers)."""
+    and the PyTorch ops that launched the most device time themselves
+    (``quiet``: nothing printed). Returns (state, the numbers)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1998,7 +2030,7 @@ def profile_steps(step, state, tok, tgt, steps: int, step_s: float,
     for name, ms in by_name.items():
         cat = kernel_category(name)
         cats[cat] = cats.get(cat, 0.0) + ms
-    if busy_ms > 0:
+    if busy_ms > 0 and not quiet:
         print(f"{steps} profiled step{'s' if steps > 1 else ''}, per step: "
               f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms = "
               f"{100 * busy_ms / wall_ms:.1f}% of the profiled wall (idle "
@@ -2013,7 +2045,7 @@ def profile_steps(step, state, tok, tgt, steps: int, step_s: float,
             for c, ms in sorted(cats.items(), key=lambda kv: -kv[1])))
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
             print(f"  {ms:8.3f} ms  {name[:100]}")
-    else:
+    elif not quiet:
         print("device busy: not measured (profiler saw no kernels)")
     ops = {}  # host-side ops only: the kernels' own rows repeat them
     for e in prof.key_averages() if busy_ms else ():
@@ -2022,7 +2054,7 @@ def profile_steps(step, state, tok, tgt, steps: int, step_s: float,
             us = getattr(e, "self_cuda_time_total", 0)
         if e.device_type == DeviceType.CPU and us > 0:
             ops[e.key] = us / 1e3 / steps
-    if ops:
+    if ops and not quiet:
         print("by PyTorch op (device ms per step of the kernels each op "
               "launched itself): " + ", ".join(
                   f"{k[:40]} {ms:.2f}" for k, ms in sorted(
@@ -3020,11 +3052,13 @@ def train_run(cfg, mesh, params, tokens, opts: dict, warmup: int,
 
 
 def timed_steps(step, init, params, tok, tgt, warmup: int, steps: int,
-                counters=None, profile: bool = False) -> dict:
+                counters=None, profile: bool = False,
+                quiet: bool = False) -> dict:
     """``init(params)``, then ``warmup`` + ``steps`` steps of ``step`` on
     (``tok``, ``tgt``), the counts reset right before the first step and
     read right after the last; ``train_run``'s readings (and a profiler
-    split of one more step with ``profile``). The state dies here."""
+    split of one more step with ``profile``, printed unless ``quiet``).
+    The state dies here."""
     import gc
 
     import torch
@@ -3062,7 +3096,7 @@ def timed_steps(step, init, params, tok, tgt, warmup: int, steps: int,
            "rows": int(tok.shape[0])}
     if profile:
         state, out["profile"] = profile_steps(step, state, tok, tgt, 1,
-                                              step_s, counters)
+                                              step_s, counters, quiet)
     gc.unfreeze()
     del state
     torch.cuda.empty_cache()
@@ -6702,6 +6736,623 @@ def phase_serve(model="llama3_1b", dtype: str = "bfloat16",
     return out
 
 
+P21_WARMUP, P21_STEPS = 1, 3   # steps of each run: warm-up, then timed
+P21_POLICIES = ("none", "full", "attn", "attn+", "dots", "dots+",
+                "dots:8,attn:8")
+P21_GRAD_TOL = dict(rtol=1e-6, atol=1e-7)  # test_torch_train.py's
+P21_CE_CHUNKS = (256, 2048)  # against the default 512, under dots
+P21_CE_RTOL = 1e-5           # test_torch_loss.py's f32 tolerance
+P21_AUTOTUNE_BATCHES = (4, 8)
+P21_MAX_MEASURE = 6
+P21_TUNE_LAYERS, P21_TUNE_BATCH, P21_TUNE_STEPS = 2, 2, 8
+P21_TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+P21_TUNE_REMAT = "dots"
+P21_TRAINER_LRS = (3e-4, 1e-3)
+P21_TRAINER_STEPS = 3
+P21_FIT_DEADLINE_S = 300
+P21_TUNE_THREADS = 4  # trial threads that ran matmuls at once
+# cuBLAS workspaces a thread of a training step leaves: the fused loss's
+# f32-output products go through cuBLASLt, which keeps its own (phase
+# 21's first chip run read 64 MiB for the main thread after (b)).
+P21_THREAD_WORKSPACES = 2
+
+
+P21_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd")  # K1-K3
+
+
+def _p21_counts(counters) -> dict:
+    return {k: counters[k].launches for k in P21_KERNELS}
+
+
+def _p21_zero(counters) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def _p21_add(total: dict, launches: dict) -> None:
+    """Adds one run's K1-K3 launches (timed_steps zeroes the counts at
+    each run's start) to a part's total."""
+    for k in P21_KERNELS:
+        total[k] = total.get(k, 0) + launches[k]
+
+
+def p21_grads_against_none(names, loss_call, params, policies) -> dict:
+    """Each policy's loss and gradients of one forward + backward from
+    ``params`` against remat none's: the loss bit-equal, every gradient
+    within P21_GRAD_TOL (and whether bit-equal). Fails on a difference.
+    Also what each policy keeps for the backward: the card's allocated
+    bytes after the forward over before it."""
+    import torch
+    from ray_tpu_torch._device import tree_leaves, tree_map
+
+    tree = tree_map(lambda t: t.detach().requires_grad_(), params)
+    leaves = tree_leaves(tree)
+    kept = {}
+
+    def run(policy):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+
+        def call():
+            loss = loss_call(tree, policy)
+            torch.cuda.synchronize()
+            kept[policy] = torch.cuda.memory_allocated() - base
+            return loss
+
+        return _loss_grads(call, leaves)
+
+    ref_loss, ref = run("none")
+    out = {"none": {"kept_gib": kept["none"] / 2 ** 30}}
+    for policy in policies:
+        loss, got = run(policy)
+        if loss != ref_loss:
+            raise AssertionError(f"remat {policy}: loss {loss!r} != none's "
+                                 f"{ref_loss!r}")
+        bits = True
+        for name, g, w in zip(names, got, ref):
+            torch.testing.assert_close(
+                g, w, **P21_GRAD_TOL,
+                msg=lambda m, n=name: f"remat {policy} grad {n}: {m}")
+            bits = bits and torch.equal(g, w)
+        out[policy] = {"loss": loss, "grads_bit_equal": bits,
+                       "kept_gib": kept[policy] / 2 ** 30}
+        del got
+    del ref, leaves, tree
+    return out
+
+
+def p21_policy_runs(label, model, cfg, params, make_step, batch, loss_call,
+                    policies, counters, launches: dict, predict=None,
+                    tokens_per_step=None) -> dict:
+    """(a) for one model: every policy in ``policies`` from the same
+    params on the same batch, P21_WARMUP + P21_STEPS steps each, the
+    first loss bit-equal to none's, launches per step as predicted, and
+    one forward + backward each against none's gradients. ``make_step(p)``
+    gives (step, init, shard) under policy p; ``predict(p)`` the
+    autotuner's bytes for p (None: no model of this family); ``launches``
+    gets the runs' K1-K3 launches."""
+    import torch
+
+    names = list(_leaf_names(params))
+    grads = p21_grads_against_none(names, loss_call, params,
+                                   [p for p in policies if p != "none"])
+    torch.cuda.empty_cache()
+    runs = {}
+    for policy in policies:
+        step, init, shard = make_step(policy)
+        r = timed_steps(step, init, params, shard(batch[0]),
+                        shard(batch[1]), P21_WARMUP, P21_STEPS, counters,
+                        profile=True, quiet=True)
+        del step, init, shard
+        steps = P21_WARMUP + P21_STEPS
+        _p21_add(launches, r["launches"])
+        per_step = {k: r["launches"][k] / steps for k in P21_KERNELS}
+        want = {k: float(v) for k, v in predicted_launches(
+            policy, cfg.num_layers, model=model).items() if k in per_step}
+        if per_step != want:
+            raise AssertionError(f"{label} remat {policy}: launches per step "
+                                 f"{per_step} != the prediction {want}")
+        if r["losses"][0] != runs.get("none", r)["losses"][0]:
+            raise AssertionError(
+                f"{label} remat {policy}: step 1's loss {r['losses'][0]!r} "
+                f"!= none's {runs['none']['losses'][0]!r}")
+        pred = predict(policy) if predict else None
+        ms = statistics.median(r["step_ms_events"])
+        runs[policy] = {
+            "losses": r["losses"], "step_ms": ms,
+            "step_ms_events": r["step_ms_events"],
+            "per_s": tokens_per_step / (ms / 1e3),
+            "peak_gib": r["peak_gib"], "launches_per_step": per_step,
+            "predicted_gib": None if pred is None else pred / 2 ** 30,
+            "busy_ms": r["profile"]["busy_ms"],
+            "profiled_wall_ms": r["profile"]["profiled_wall_ms"],
+            **grads.get(policy, {})}
+        x = runs[policy]
+        print(f"{label} {policy}: {ms:.2f} ms a step (median of "
+              f"{P21_STEPS}), {x['per_s']:.1f} {'images' if model == 'vit' else 'tokens'}/s, "
+              f"kept after the forward {x['kept_gib']:.3f} GiB, peak "
+              f"{x['peak_gib']:.3f} GiB, predicted "
+              + ("n/a" if pred is None else f"{x['predicted_gib']:.3f} GiB "
+                 f"(measured/predicted {x['peak_gib'] / x['predicted_gib']:.3f})")
+              + "; launches per step " + ", ".join(
+                  f"{k} {v:g}" for k, v in per_step.items())
+              + (f"; grads bit-equal to none's: {x['grads_bit_equal']}"
+                 if "grads_bit_equal" in x else "")
+              + ("; device busy " + (
+                  f"{x['busy_ms']:.2f} of {x['profiled_wall_ms']:.2f} ms "
+                  f"profiled" if x["busy_ms"] else "not measured"))
+              + f"; step-1 loss {r['losses'][0]:.6f}")
+        torch.cuda.empty_cache()
+    return runs
+
+
+def p21_remat(counters) -> dict:
+    """(a): every remat policy at full width, ViT and Mixtral under attn
+    and dots, and RTPU_CE_CHUNK."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch.autotune import Candidate, predict_hbm
+    from ray_tpu_torch.models import llama, mixtral, vit
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.models.vit import ViTConfig
+    from ray_tpu_torch.train import (
+        adamw_lowmem,
+        make_llama_train_step,
+        make_mixtral_train_step,
+        make_vit_train_step,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out, launches = {}, {}
+    cfg = LlamaConfig(**BENCH_GEOMETRY, max_seq_len=2048)
+    batch, seq = 4, 2048
+    params = llama.init_params(cfg, generator=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    targets = np.roll(tokens, -1, axis=1)
+    tok_t, tgt_t = (torch.as_tensor(a, device=dev) for a in (tokens, targets))
+
+    def llama_step(policy):
+        return make_llama_train_step(
+            cfg, optimizer=adamw_lowmem(3e-4, weight_decay=0.1),
+            attn_impl="flash", remat=policy, seed=SEED, device=dev)
+
+    out["llama"] = p21_policy_runs(
+        "1.1B", "llama", cfg, params, llama_step, (tokens, targets),
+        lambda p, r: llama.loss_fn(cfg, p, tok_t, tgt_t, attn_impl="flash",
+                                   remat=r),
+        P21_POLICIES, counters, launches,
+        predict=lambda r: predict_hbm(cfg, seq, Candidate(
+            batch=batch, remat=r)).total_bytes,
+        tokens_per_step=batch * seq)
+
+    chunks = {512: out["llama"]["dots"]}
+    for chunk in P21_CE_CHUNKS:
+        cand = Candidate(batch=batch, remat="dots", ce_chunk=chunk)
+        with cand.applied_env():
+            step, init, shard = llama_step("dots")
+            r = timed_steps(step, init, params, shard(tokens),
+                            shard(targets), P21_WARMUP, P21_STEPS, counters)
+            del step, init, shard
+        _p21_add(launches, r["launches"])
+        ms = statistics.median(r["step_ms_events"])
+        chunks[chunk] = {"losses": r["losses"], "step_ms": ms,
+                         "peak_gib": r["peak_gib"],
+                         "predicted_gib": predict_hbm(
+                             cfg, seq, cand).total_bytes / 2 ** 30}
+        torch.cuda.empty_cache()
+    base = chunks[512]["losses"][0]
+    for chunk, r in sorted(chunks.items()):
+        if abs(r["losses"][0] - base) > P21_CE_RTOL * abs(base):
+            raise AssertionError(f"RTPU_CE_CHUNK={chunk}: loss "
+                                 f"{r['losses'][0]!r} vs chunk 512's {base!r}")
+        print(f"1.1B dots, RTPU_CE_CHUNK={chunk}: step-1 loss "
+              f"{r['losses'][0]:.6f} ({r['losses'][0] / base - 1:+.2e} of "
+              f"chunk 512's), {r['step_ms']:.2f} ms a step, peak "
+              f"{r['peak_gib']:.3f} GiB, predicted "
+              f"{r['predicted_gib']:.3f} GiB")
+    out["ce_chunk"] = {str(k): {k2: v2 for k2, v2 in v.items()
+                                if k2 in ("step_ms", "peak_gib",
+                                          "predicted_gib")}
+                       | {"loss": v["losses"][0]}
+                       for k, v in chunks.items()}
+    del params, tok_t, tgt_t
+    torch.cuda.empty_cache()
+
+    vcfg = replace(ViTConfig.base16(), dtype="bfloat16")
+    vrng = np.random.default_rng(SEED + 5)
+    images = vrng.uniform(0, 1, (VIT_BATCH, vcfg.image_size, vcfg.image_size,
+                                 vcfg.num_channels)).astype(np.float32)
+    labels = vrng.integers(0, vcfg.num_classes, VIT_BATCH)
+    img_t = torch.as_tensor(images, device=dev)
+    lab_t = torch.as_tensor(labels, device=dev)
+    vparams = vit.init_params(vcfg, generator=SEED, device=dev)
+    out["vit"] = p21_policy_runs(
+        f"ViT-B/16 b{VIT_BATCH}", "vit", vcfg, vparams,
+        lambda r: make_vit_train_step(
+            vcfg, optimizer=adamw_lowmem(3e-4, weight_decay=0.1), remat=r,
+            seed=SEED, device=dev),
+        (images, labels),
+        lambda p, r: vit.loss_fn(vcfg, p, img_t, lab_t, remat=r),
+        ("none", "attn", "dots"), counters, launches,
+        tokens_per_step=VIT_BATCH)
+    del vparams, img_t, lab_t
+    torch.cuda.empty_cache()
+
+    mcfg = cfg_mixtral(P15_LAYERS)
+    mtok = np.random.default_rng(SEED + 7).integers(
+        0, mcfg.vocab_size, (P15_BATCH, P15_SEQ), dtype=np.int32)
+    mtgt = np.roll(mtok, -1, axis=1)
+    mtok_t, mtgt_t = (torch.as_tensor(a, device=dev).long()
+                      for a in (mtok, mtgt))
+    mparams = mixtral.init_params(mcfg, generator=SEED, device=dev)
+    out["mixtral"] = p21_policy_runs(
+        f"Mixtral 8x7B-width {P15_LAYERS} layers", "mixtral", mcfg, mparams,
+        lambda r: make_mixtral_train_step(mcfg, None, attn_impl="flash",
+                                          remat=r, seed=SEED, device=dev),
+        (mtok, mtgt),
+        lambda p, r: mixtral.loss_fn(mcfg, p, mtok_t, mtgt_t,
+                                     attn_impl="flash", remat=r),
+        ("none", "attn", "dots"), counters, launches,
+        tokens_per_step=P15_BATCH * P15_SEQ)
+    del mparams, mtok_t, mtgt_t
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def p21_measure_fn(cfg, seq: int, counters, failures: list,
+                   launches: dict):
+    """The autotuner's measurement closure (the port's counterpart of
+    bench.py's): build the candidate's step and run its steps inside
+    ``applied_env()`` (the port reads RTPU_CE_CHUNK at each step),
+    P21_WARMUP + P21_STEPS steps, the peak from the built state on; the
+    ``finally`` frees everything so that an out-of-memory candidate does
+    not poison the next. ``failures`` gets (label, error type, message),
+    ``launches`` the K1-K3 launches of the steps that ran."""
+    import gc
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch.train import adamw, adamw_lowmem, make_llama_train_step
+
+    def measure(cand):
+        step = init = shard = None
+        try:
+            opt = (adamw_lowmem(3e-4, weight_decay=0.1)
+                   if cand.opt == "lowmem" else
+                   adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16))
+            tokens = np.random.default_rng(SEED).integers(
+                0, cfg.vocab_size, (cand.batch, seq), dtype=np.int32)
+            with cand.applied_env():
+                step, init, shard = make_llama_train_step(
+                    cfg, optimizer=opt, attn_impl=cand.attn,
+                    remat=cand.remat, seed=SEED, device="cuda",
+                    **cand.step_options())
+                r = timed_steps(step, init, None, shard(tokens),
+                                shard(np.roll(tokens, -1, axis=1)),
+                                P21_WARMUP, P21_STEPS, counters)
+            _p21_add(launches, r["launches"])
+            ms = statistics.median(r["step_ms_events"])
+            peak = int(r["peak_gib"] * 2 ** 30)
+            return {"tokens_per_sec": cand.batch * seq / (ms / 1e3),
+                    "step_ms": ms, "measured_hbm_bytes": peak,
+                    "measured_hbm_gb": round(peak / 2 ** 30, 3),
+                    "hbm_source": "torch.cuda.max_memory_allocated"}
+        except Exception as e:  # noqa: BLE001 - recorded, then re-raised
+            failures.append((cand.label, type(e).__name__, str(e)[:200]))
+            raise
+        finally:
+            step = init = shard = None  # noqa: F841
+            gc.unfreeze()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    return measure
+
+
+def p21_autotune(counters) -> dict:
+    """(b): autotune_train_configs at the 1.1B geometry, s2048, over
+    candidate_space(16, batches=(4, 8)) within the card's memory."""
+    import tempfile
+
+    import torch
+    from ray_tpu_torch.autotune import (
+        AutotuneCache,
+        autotune_train_configs,
+        candidate_space,
+        device_hbm_budget_bytes,
+        predict_hbm,
+    )
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(**BENCH_GEOMETRY, max_seq_len=2048)
+    seq = 2048
+    space = candidate_space(cfg.num_layers, batches=P21_AUTOTUNE_BATCHES)
+    budget = device_hbm_budget_bytes()
+    kind = torch.cuda.get_device_name(0)
+    failures: list = []
+    launches: dict = {}
+    mem0, _ = p20_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = AutotuneCache(os.path.join(tmp, "autotune.json"))
+        t0 = time.perf_counter()
+        res = autotune_train_configs(
+            cfg, seq, space, hbm_budget_bytes=budget,
+            measure_fn=p21_measure_fn(cfg, seq, counters, failures,
+                                      launches),
+            max_measure=P21_MAX_MEASURE, cache=cache, device_kind=kind)
+        search_s = time.perf_counter() - t0
+        again = autotune_train_configs(
+            cfg, seq, space, hbm_budget_bytes=budget, measure_fn=None,
+            max_measure=P21_MAX_MEASURE, cache=cache, device_kind=kind)
+    now, workspaces = p20_allocated()
+    if abs(now - mem0) > P20_MEM_SLACK:
+        raise AssertionError(f"autotune: card memory after the search "
+                             f"{(now - mem0) / 2 ** 20:+.1f} MiB from before")
+    if res.measured < 1:
+        raise AssertionError(f"autotune measured nothing: {res.trace}")
+    by_label = {c.label: c for c in space}
+    for label, kind_, msg in failures:
+        pred = predict_hbm(cfg, seq, by_label[label]).total_bytes
+        print(f"autotune: {label} failed ({kind_}), predicted "
+              f"{pred / 2 ** 30:.3f} GiB: {msg}")
+    bad = [f for f in failures if f[1] != "OutOfMemoryError"]
+    if bad:
+        raise AssertionError(f"autotune candidates failed with other than "
+                             f"out-of-memory: {bad}")
+    if again.winner != res.winner:
+        raise AssertionError(f"autotune rerun from the cache chose "
+                             f"{again.winner}, the measured winner is "
+                             f"{res.winner}")
+    rows = [r for r in res.trace if "tokens_per_sec" in r]
+    for r in rows:
+        r["measured_over_predicted"] = (r["measured_hbm_gb"]
+                                        / r["predicted_hbm_gb"])
+        print(f"autotune measured {r['config']}: {r['tokens_per_sec']:.1f} "
+              f"tokens/s ({r['step_ms']:.2f} ms a step), peak "
+              f"{r['measured_hbm_gb']:.3f} GiB, predicted "
+              f"{r['predicted_hbm_gb']:.3f} GiB, measured/predicted "
+              f"{r['measured_over_predicted']:.3f}")
+    print(f"autotune: space {res.space_size}, pruned {res.pruned} (budget "
+          f"{budget / 2 ** 30:.2f} GiB), measured {res.measured}, failed "
+          f"{res.failed}, in {search_s:.1f} s; winner {res.winner} at "
+          f"{res.tokens_per_sec:.1f} tokens/s; the rerun from the cache "
+          f"alone chose {again.winner}; card memory after "
+          f"{(now - mem0) / 2 ** 20:+.2f} MiB ({workspaces / 2 ** 20:.0f} "
+          f"MiB of cuBLAS workspaces cleared)")
+    return {"space": res.space_size, "pruned": res.pruned,
+            "measured": res.measured, "failed": res.failed,
+            "budget_gib": budget / 2 ** 30, "winner": res.winner,
+            "tokens_per_sec": res.tokens_per_sec, "search_s": search_s,
+            "rerun_winner": again.winner, "measured_rows": rows,
+            "failures": failures, "launches": launches}
+
+
+def p21_tune_losses(lr: float, report=None) -> list:
+    """The 1.1B geometry at P21_TUNE_LAYERS layers, b2 s2048, remat
+    P21_TUNE_REMAT, adamw_lowmem(lr), P21_TUNE_STEPS steps on one seeded
+    batch (phase 19's first), so that a good lr fits it; the losses so
+    far, handed to ``report`` after each step."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train import adamw_lowmem, make_llama_train_step
+
+    cfg = replace(LlamaConfig(**BENCH_GEOMETRY, max_seq_len=2048),
+                  num_layers=P21_TUNE_LAYERS)
+    step, init, shard = make_llama_train_step(
+        cfg, optimizer=adamw_lowmem(lr, weight_decay=0.1),
+        attn_impl="flash", remat=P21_TUNE_REMAT, seed=SEED, device="cuda")
+    state = init()
+    tok, tgt = _p19_batch(0, cfg.vocab_size, P21_TUNE_BATCH, 2048)
+    tok, tgt = shard(tok), shard(tgt)
+    losses = []
+    for _ in range(P21_TUNE_STEPS):
+        state, m = step(state, tok, tgt)
+        losses.append(float(m["loss"]))
+        if report is not None:
+            report(losses)
+    return losses
+
+
+def p21_tune_trial(config: dict) -> None:
+    """Tune's function trainable: every step reports the loss and the
+    losses so far."""
+    from ray_tpu_torch import tune
+
+    p21_tune_losses(config["lr"], lambda losses: tune.report(
+        {"loss": losses[-1], "losses": list(losses)}))
+
+
+def p21_trainer_fn(config: dict) -> None:
+    """TorchTrainer's train function: phase 19's step (its seeded batches)
+    at P21_TUNE_LAYERS layers with adamw_lowmem(config["lr"])."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train import (
+        adamw_lowmem,
+        get_context,
+        make_llama_train_step,
+        report,
+    )
+
+    cfg = replace(LlamaConfig(**BENCH_GEOMETRY, max_seq_len=2048),
+                  num_layers=P21_TUNE_LAYERS)
+    step, init, shard = make_llama_train_step(
+        cfg, optimizer=adamw_lowmem(config["lr"], weight_decay=0.1),
+        attn_impl="flash", remat="attn+", seed=SEED,
+        device=get_context().get_device())
+    state = init()
+    for i in range(config["steps"]):
+        tok, tgt = _p19_batch(i, cfg.vocab_size, P21_TUNE_BATCH, 2048)
+        state, m = step(state, shard(tok), shard(tgt))
+        report({"loss": float(m["loss"]), "step": i})
+
+
+def _p21_trainer(lr: float):
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    return TorchTrainer(
+        p21_trainer_fn, train_loop_config={"lr": lr,
+                                           "steps": P21_TRAINER_STEPS},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True))
+
+
+def p21_tune(counters) -> dict:
+    """(c): Tune's Tuner on the card, four trials at once a quarter card
+    each, against the same function run directly; then TorchTrainer under
+    Tune against the trainer alone."""
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+
+    direct, t0 = {}, time.perf_counter()
+    for lr in P21_TUNE_LRS:
+        direct[lr] = p21_tune_losses(lr)
+    direct_s = time.perf_counter() - t0
+    best_lr = min(P21_TUNE_LRS, key=lambda lr: direct[lr][-1])
+    early = min(P21_TUNE_LRS, key=lambda lr: direct[lr][1])
+    print("Tune direct runs (main thread): " + "; ".join(
+        f"lr {lr:g}: " + " ".join(f"{x:.4f}" for x in direct[lr])
+        for lr in P21_TUNE_LRS) + f"; best lr {best_lr:g} (at step 2: "
+        f"{early:g}), {direct_s:.2f} s")
+    torch.cuda.empty_cache()
+    ray_tpu_torch.init(num_cpus=8, resources={"GPU": 1})
+    try:
+        mem0, _ = p20_allocated()
+        _p21_zero(counters)
+        t0 = time.perf_counter()
+        grid = _fit_in_time(tune.Tuner(
+            p21_tune_trial,
+            param_space={"lr": tune.grid_search(list(P21_TUNE_LRS))},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=4,
+                scheduler=tune.AsyncHyperBandScheduler(
+                    max_t=P21_TUNE_STEPS, grace_period=2)),
+            trial_resources={"CPU": 1, "GPU": 0.25}), P21_FIT_DEADLINE_S)
+        fit_s = time.perf_counter() - t0
+        launches = _p21_counts(counters)
+        freed = 0
+        deadline = time.perf_counter() + 15
+        while True:
+            now, ws = p20_allocated()
+            freed += ws
+            if abs(now - mem0) <= P20_MEM_SLACK:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"Tune: card memory after fit() "
+                                     f"{(now - mem0) / 2 ** 20:+.1f} MiB")
+            time.sleep(0.2)
+        if freed > (P21_TUNE_THREADS * P21_THREAD_WORKSPACES
+                    * P20_CUBLAS_WORKSPACE):
+            raise AssertionError(f"Tune: {freed / 2 ** 20:.0f} MiB of cuBLAS "
+                                 f"workspaces after fit(): a handle kept")
+        if grid.errors:
+            raise AssertionError(f"Tune trials failed: {grid.errors}")
+        stopped, reached = 0, {}
+        for r in grid.results:
+            got = r.metrics["losses"]
+            want = direct[r.config["lr"]][:len(got)]
+            if got != want:
+                raise AssertionError(f"Tune trial lr {r.config['lr']:g}: "
+                                     f"losses {got} != direct {want}")
+            stopped += len(got) < P21_TUNE_STEPS
+            reached[r.config["lr"]] = len(got)
+        # ASHA stops whichever trial reaches its rung last, a race between
+        # the trials' threads: the best is held against the direct runs
+        # cut where each trial stopped, and against the whole runs' best
+        # when no trial that could win was stopped.
+        best = grid.get_best_result().config["lr"]
+        cut_best = min(reached, key=lambda lr: direct[lr][reached[lr] - 1])
+        if best != cut_best or (reached[best_lr] == P21_TUNE_STEPS
+                                and best != best_lr):
+            raise AssertionError(f"Tune's best lr {best:g}: the direct runs "
+                                 f"cut at the trials' stops give "
+                                 f"{cut_best:g}, whole {best_lr:g}")
+        print(f"Tune: {len(grid)} trials, 4 at once ({{'CPU': 1, 'GPU': "
+              f"0.25}} each), ASHA max_t {P21_TUNE_STEPS} grace 2: "
+              f"{stopped} stopped early (steps run: " + ", ".join(
+                  f"lr {k:g} {v}" for k, v in sorted(reached.items()))
+              + f"); every trial's losses bit-equal to the direct run's; "
+              f"best lr {best:g} (the direct runs' {best_lr:g}); fit() "
+              f"{fit_s:.2f} s vs "
+              f"the direct runs' {direct_s:.2f} s; card memory after fit() "
+              f"{(now - mem0) / 2 ** 20:+.2f} MiB ({freed / 2 ** 20:.0f} "
+              f"MiB of cuBLAS workspaces cleared); launches " + ", ".join(
+                  f"{k} {v}" for k, v in launches.items())
+              + "; device busy share over fit(): not measured")
+
+        alone = {}
+        for lr in P21_TRAINER_LRS:
+            res = _fit_in_time(_p21_trainer(lr), P21_FIT_DEADLINE_S)
+            if res.error:
+                raise AssertionError(f"TorchTrainer lr {lr:g}: {res.error}")
+            alone[lr] = res.metrics["loss"]
+        t0 = time.perf_counter()
+        tgrid = _fit_in_time(tune.Tuner(
+            _p21_trainer(P21_TRAINER_LRS[0]),
+            param_space={"train_loop_config": {
+                "lr": tune.grid_search(list(P21_TRAINER_LRS)),
+                "steps": P21_TRAINER_STEPS}},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=1)),
+            P21_FIT_DEADLINE_S)
+        tfit_s = time.perf_counter() - t0
+        if tgrid.errors:
+            raise AssertionError(f"Tuner(TorchTrainer) failed: "
+                                 f"{tgrid.errors}")
+        for r in tgrid.results:
+            lr = r.config["train_loop_config"]["lr"]
+            if r.metrics["loss"] != alone[lr]:
+                raise AssertionError(
+                    f"Tuner(TorchTrainer) lr {lr:g}: final loss "
+                    f"{r.metrics['loss']!r} != alone {alone[lr]!r}")
+        print(f"Tuner(TorchTrainer): {len(tgrid)} trials of phase 19's step "
+              f"at {P21_TUNE_LAYERS} layers, {P21_TRAINER_STEPS} steps, "
+              f"each final loss equal to the trainer alone's ("
+              + ", ".join(f"lr {k:g}: {v:.6f}" for k, v in alone.items())
+              + f"); fit() {tfit_s:.2f} s")
+    finally:
+        ray_tpu_torch.shutdown()
+    return {"trials": len(grid), "stopped_early": stopped, "best_lr": best,
+            "direct_best_lr": best_lr, "steps_run": {
+                str(k): v for k, v in reached.items()},
+            "direct_losses": {str(k): v for k, v in direct.items()},
+            "fit_s": fit_s, "direct_s": direct_s, "launches": launches,
+            "memory_after_mib": (now - mem0) / 2 ** 20,
+            "trainer_trials": len(tgrid), "trainer_fit_s": tfit_s,
+            "trainer_losses": {str(k): v for k, v in alone.items()}}
+
+
+def phase_tuning() -> dict:
+    """Phase 21: tuning on the card. (a) every remat policy, (b) the
+    autotuner, (c) Tune; K1-K3's launches counted over each part."""
+    _phase("tuning: every remat policy (1.1B, ViT-B/16, Mixtral), "
+           "RTPU_CE_CHUNK, the train-step autotuner within the card's "
+           "memory, and Tune's Tuner with ASHA on the port's runtime")
+    counters = _counters()
+    out, launches = {}, {}
+    for name, part in (("remat", p21_remat), ("autotune", p21_autotune),
+                       ("tune", p21_tune)):
+        t0 = time.perf_counter()
+        out[name] = part(counters)
+        launches[name] = out[name].pop("launches")
+        out[name + "_s"] = time.perf_counter() - t0
+        idle = [k for k in P21_KERNELS if not launches[name].get(k)]
+        if idle:
+            raise AssertionError(f"phase 21 ({name}): {idle} never launched")
+        print(f"phase 21 ({name}) took {out[name + '_s']:.1f} s; launches "
+              + ", ".join(f"{k} {v}" for k, v in launches[name].items()))
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6735,6 +7386,7 @@ def main() -> int:
     rl_rest = phase_rl_rest()
     trainer = phase_trainer()
     serve_ = phase_serve()
+    tuning = phase_tuning()
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -6781,7 +7433,9 @@ def main() -> int:
                              "serve": serve_["launches"],
                              "mixtral": {
                                  k_: moe["runs"][k_]["launches"]["rms_norm"]
-                                 for k_ in P15_MODES}},
+                                 for k_ in P15_MODES},
+                             **{k_: v_["rms_norm"] for k_, v_ in
+                                tuning["launches"].items()}},
         "max_abs_err": max_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -6813,7 +7467,8 @@ def main() -> int:
                 "pipeline": pipe["run"]["launches"][name],
                 "trainer": trainer["restart"]["launches"][name],
                 "mixtral": {k_: moe["runs"][k_]["launches"][name]
-                            for k_ in P15_MODES}},
+                            for k_ in P15_MODES},
+                **{k_: v_[name] for k_, v_ in tuning["launches"].items()}},
             "max_abs_err": max(row["max_abs_err"],
                                vit["attention"][name]["max_abs_err"]),
             "ms": row["ms"],
@@ -6918,7 +7573,8 @@ def main() -> int:
                                        if k != "launches"},
                       "rl_rest": rl_rest, "trainer": trainer,
                       "serve": {k: v for k, v in serve_.items()
-                                if k != "launches"}}))
+                                if k != "launches"},
+                      "tuning": tuning}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

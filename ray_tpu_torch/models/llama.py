@@ -3,20 +3,22 @@ training forward with rematerialisation.
 
 Port of ray_tpu/models/llama.py: ``LlamaConfig`` (same fields and presets),
 ``param_logical_axes``, ``init_params``, ``params_from_jax``, and
-``forward_hidden``/``forward``/``loss_fn`` with the remat policies
-``none``, ``full``, ``attn`` and ``attn+``. The param tree keeps the JAX
+``forward_hidden``/``forward``/``loss_fn`` with every remat policy of
+the JAX package: ``none``, ``full``, ``attn``, ``attn+``, ``dots`` and
+``dots+``, and per-layer mixes of them. The param tree keeps the JAX
 layout exactly: a dict with layer weights stacked on a leading ``[L, ...]``
 axis and matmuls written
 ``x @ W[in, out]``, so a tree made by the JAX package's ``init_params``
 converts leaf by leaf with no transposes.
 
 Remat is ``torch.utils.checkpoint`` (non-reentrant) around segments of the
-layer, in place of JAX's name-based save policies (``_remat_wrap``):
+layer, in place of JAX's name-based save policies (``_remat_wrap``).
+Under every policy but ``full`` flash attention runs outside any segment,
+so its inputs and residuals (out, lse) are kept and K2 never re-runs:
 
 - ``attn``: the attention inputs (attn norm, q/k/v projections, rope) are
   one checkpointed segment whose outputs, the rope'd q/k and v, are kept;
-  flash attention runs outside any segment, so its residuals (out, lse)
-  are kept and K2 never re-runs; the output projection + residual add and
+  the output projection + residual add and
   the whole SwiGLU half are checkpointed and recomputed in the backward.
   Unlike XLA, which prunes the q/k/v projections out of the recompute, the
   port re-runs them with the attention-input segment.
@@ -25,9 +27,19 @@ layer, in place of JAX's name-based save policies (``_remat_wrap``):
   kept, the norm's output too (one [B, S, H] tensor a layer more than JAX
   keeps). The backward recomputes the up product from them, and the norm
   and gate product only for the gate segment's own gradient.
+- ``dots``: every matrix product's output is kept (q/k/v, wo, gate, up,
+  w_down: JAX's ``checkpoint_dots``) and the backward recomputes the
+  rms_norms (K1), silu and gate * up. Two selective-checkpoint segments
+  keep their products' outputs and recompute the rest: (attn norm, q/k/v
+  products) and (mlp norm, SwiGLU). Rope, the output projection and the
+  residual adds run outside them, since their backward needs nothing
+  they would recompute, and each op inside a selective segment costs
+  host time. The rope'd q/k that flash keeps are two tensors a layer
+  more than JAX keeps.
+- ``dots+``: as ``dots``, and the norm and rope outputs are kept too: only
+  the SwiGLU (silu, gate * up) is a segment (K1 never re-runs).
 - ``full``/True: the whole layer is one segment (K2 re-runs).
 - ``none``/False: nothing is recomputed.
-- ``dots``/``dots+`` raise ``NotImplementedError``.
 
 Under ``attn``/``attn+`` ring attention (``sp_axis`` set) sits outside
 every segment too, so neither K6 nor the ring's shifts re-run in the
@@ -55,9 +67,9 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device, tree_map
-from ray_tpu_torch.models._common import ckpt, layer_params
+from ray_tpu_torch.models._common import ckpt, ckpt_dots, layer_params
 from ray_tpu_torch.ops.attention import blockwise_attention, flash_attention
-from ray_tpu_torch.ops.loss import fused_cross_entropy
+from ray_tpu_torch.ops.loss import default_ce_chunk, fused_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.ring_attention import ring_attention_local
 from ray_tpu_torch.ops.rope import apply_rope_cs, rope_cos_sin, rope_frequencies
@@ -234,16 +246,23 @@ def _tp_out(ps, y):
     return y if ps is None else ps.reduce_from_tp(y)
 
 
-def _attn_inputs(cfg: LlamaConfig, x, lp, cos, sin, ps=None):
+def _attn_proj(cfg: LlamaConfig, x, lp, ps=None):
+    """attn norm, then the q/k/v products as [B, S, heads, D] views."""
     b, s, _ = x.shape
     norm, wq, wk, wv = layer_weights(ps, lp, "attn_norm", "wq", "wk", "wv")
     xn = _tp_in(ps, rms_norm(x, norm, cfg.norm_eps))
-    q = (xn @ wq).view(b, s, -1, cfg.head_dim)
-    k = (xn @ wk).view(b, s, -1, cfg.head_dim)
-    v = (xn @ wv).view(b, s, -1, cfg.head_dim)
+    return tuple((xn @ w).view(b, s, -1, cfg.head_dim) for w in (wq, wk, wv))
+
+
+def _rope_qkv(q, k, v, cos, sin):
+    """[B, S, heads, D] -> rope'd q/k and v as [B, heads, S, D]."""
     q = apply_rope_cs(q.transpose(1, 2), cos, sin)
     k = apply_rope_cs(k.transpose(1, 2), cos, sin)
     return q, k, v.transpose(1, 2)
+
+
+def _attn_inputs(cfg: LlamaConfig, x, lp, cos, sin, ps=None):
+    return _rope_qkv(*_attn_proj(cfg, x, lp, ps), cos, sin)
 
 
 def _attn_out(cfg: LlamaConfig, x, o, wo, ps=None):
@@ -254,41 +273,75 @@ def _attn_out(cfg: LlamaConfig, x, o, wo, ps=None):
     return x + _tp_out(ps, o @ wo).to(x.dtype)
 
 
+def _mlp_norm(cfg: LlamaConfig, x, lp, ps=None):
+    (norm,) = layer_weights(ps, lp, "mlp_norm")
+    return _tp_in(ps, rms_norm(x, norm, cfg.norm_eps))
+
+
+def _mlp_gate(x, xn, lp, ps=None):
+    (w_gate,) = layer_weights(ps, lp, "w_gate")
+    return F.silu((xn @ w_gate).float()).to(x.dtype)
+
+
 def _mlp_norm_gate(cfg: LlamaConfig, x, lp, ps=None):
-    norm, w_gate = layer_weights(ps, lp, "mlp_norm", "w_gate")
-    xn = _tp_in(ps, rms_norm(x, norm, cfg.norm_eps))
-    return xn, F.silu((xn @ w_gate).float()).to(x.dtype)
+    xn = _mlp_norm(cfg, x, lp, ps)
+    return xn, _mlp_gate(x, xn, lp, ps)
+
+
+def _mlp_out(x, xn, gate, lp, ps=None):
+    """(gate * up) @ w_down: what the MLP adds to the residual."""
+    w_up, w_down = layer_weights(ps, lp, "w_up", "w_down")
+    up = xn @ w_up
+    return _tp_out(ps, (gate * up) @ w_down).to(x.dtype)
 
 
 def _mlp_rest(x, xn, gate, lp, ps=None):
-    w_up, w_down = layer_weights(ps, lp, "w_up", "w_down")
-    up = xn @ w_up
-    return x + _tp_out(ps, (gate * up) @ w_down).to(x.dtype)
+    return x + _mlp_out(x, xn, gate, lp, ps)
+
+
+def _swiglu(x, xn, lp, ps=None):
+    """The MLP's addend from its norm's output ``xn``."""
+    return _mlp_out(x, xn, _mlp_gate(x, xn, lp, ps), lp, ps)
+
+
+def _norm_swiglu(cfg: LlamaConfig, x, lp, ps=None):
+    return _swiglu(x, _mlp_norm(cfg, x, lp, ps), lp, ps)
 
 
 def _mlp(cfg: LlamaConfig, x, lp, ps=None):
-    xn, gate = _mlp_norm_gate(cfg, x, lp, ps)
-    return _mlp_rest(x, xn, gate, lp, ps)
+    return x + _norm_swiglu(cfg, x, lp, ps)
 
 
 def _layer(cfg: LlamaConfig, x, layer_params, cos, sin, attn_impl: str,
            sp_axis, policy: str = "none", ps=None):
     """One transformer block, x: [B, S, H]. ``policy`` is "none" (plain
-    autograd), "attn" or "attn+" (checkpointed segments, see the module
-    docstring); ``ps`` the param sharding (None: whole params)."""
+    autograd), "attn", "attn+", "dots" or "dots+" (checkpointed segments,
+    see the module docstring); ``ps`` the param sharding (None: whole
+    params)."""
     lp = layer_params
-    if policy == "none":
-        q, k, v = _attn_inputs(cfg, x, lp, cos, sin, ps)
+    if policy in ("attn", "attn+"):
+        q, k, v = ckpt(partial(_attn_inputs, cfg, ps=ps), x, lp, cos, sin)
         o = _attention(cfg, q, k, v, attn_impl, sp_axis)
-        x = _attn_out(cfg, x, o, lp["wo"], ps)
-        return _mlp(cfg, x, lp, ps)
-    q, k, v = ckpt(partial(_attn_inputs, cfg, ps=ps), x, lp, cos, sin)
+        x = ckpt(partial(_attn_out, cfg, ps=ps), x, o, lp["wo"])
+        if policy == "attn":
+            return ckpt(partial(_mlp, cfg, ps=ps), x, lp)
+        xn, gate = ckpt(partial(_mlp_norm_gate, cfg, ps=ps), x, lp)
+        return ckpt(partial(_mlp_rest, ps=ps), x, xn, gate, lp)
+    # none, dots, dots+: the segments hold only what a policy recomputes
+    # (a selective-checkpoint segment costs host time on each op in it)
+    if policy == "dots":
+        q, k, v = _rope_qkv(*ckpt_dots(partial(_attn_proj, cfg, ps=ps), x,
+                                       lp), cos, sin)
+    else:
+        q, k, v = _attn_inputs(cfg, x, lp, cos, sin, ps)
     o = _attention(cfg, q, k, v, attn_impl, sp_axis)
-    x = ckpt(partial(_attn_out, cfg, ps=ps), x, o, lp["wo"])
-    if policy == "attn":
-        return ckpt(partial(_mlp, cfg, ps=ps), x, lp)
-    xn, gate = ckpt(partial(_mlp_norm_gate, cfg, ps=ps), x, lp)
-    return ckpt(partial(_mlp_rest, ps=ps), x, xn, gate, lp)
+    x = _attn_out(cfg, x, o, lp["wo"], ps)
+    if policy == "none":
+        return _mlp(cfg, x, lp, ps)
+    if policy == "dots":
+        return x + ckpt_dots(partial(_norm_swiglu, cfg, ps=ps), x, lp)
+    xn = _mlp_norm(cfg, x, lp, ps)  # dots+: the norm's output is kept
+    return x + ckpt_dots(partial(_swiglu, ps=ps), x, xn, lp)
 
 
 def normalize_remat(remat, num_layers: int):
@@ -332,18 +385,14 @@ def _remat_runs(remat: tuple) -> list[tuple]:
 
 def _remat_wrap(layer_fn, remat):
     """``layer_fn(x, lp, policy=...)`` under one remat policy ->
-    ``fn(x, lp)``. True/'full' recomputes the whole layer; 'attn' and
-    'attn+' checkpoint segments around the kept attention residuals;
-    False/'none' saves everything; any other value is a full remat, as in
-    the JAX package. 'dots'/'dots+' are not ported."""
+    ``fn(x, lp)``. 'attn', 'attn+', 'dots' and 'dots+' are the layer's
+    own segments; False/'none' saves everything; True/'full' and any
+    other value recompute the whole layer, as in the JAX package. ViT and
+    Mixtral wrap their layers in this too."""
     if remat in (False, "none"):
         return partial(layer_fn, policy="none")
-    if remat in ("attn", "attn+"):
+    if remat in ("attn", "attn+", "dots", "dots+"):
         return partial(layer_fn, policy=remat)
-    if remat in ("dots", "dots+"):
-        raise NotImplementedError(
-            f"remat policy {remat!r} (save every matmul output) is not "
-            f"ported yet; use 'attn', 'attn+', 'full' or 'none'")
     plain = partial(layer_fn, policy="none")
     return lambda x, lp: ckpt(plain, x, lp)
 
@@ -422,16 +471,18 @@ def loss_fn(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
             targets: torch.Tensor, mask: torch.Tensor | None = None,
             fused_ce: bool = True, **fwd_kwargs) -> torch.Tensor:
     """Mean next-token cross-entropy over unmasked positions. The fused
-    loss runs 512-token chunks (the JAX package's default; its
-    RTPU_CE_CHUNK override is not ported); under ``param_shard`` it is
+    loss runs chunks of ``ops.loss.default_ce_chunk()`` tokens
+    (``RTPU_CE_CHUNK``, read at each call); under ``param_shard`` it is
     vocabulary-parallel over the tp group."""
     ps = fwd_kwargs.get("param_shard")
     if fused_ce:
         x = forward_hidden(cfg, params, tokens, **fwd_kwargs)
         head = unembed_weights(cfg, params, ps)
+        chunk = default_ce_chunk()
         if ps is None:
-            return fused_cross_entropy(x, head, targets, mask)
-        return fused_cross_entropy(x, head, targets, mask, tp_group=ps.tp,
+            return fused_cross_entropy(x, head, targets, mask, chunk)
+        return fused_cross_entropy(x, head, targets, mask, chunk,
+                                   tp_group=ps.tp,
                                    vocab_start=ps.tp_rank * head.shape[1])
     if ps is not None:
         raise NotImplementedError(

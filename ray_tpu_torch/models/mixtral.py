@@ -48,9 +48,22 @@ backward conjugate (each rank's combine reaches the gates of its own
 experts only), and so does the expert branch's input, so the router's
 gradient is summed once over ep.
 
-Remat: True/"full" recomputes each layer in the backward (the routing's
-collectives again too); False/"none" keeps everything. JAX's name-based
-policies raise ``NotImplementedError``.
+Remat: every policy of the JAX package, through Llama's ``_remat_wrap``.
+True/"full" recomputes each layer in the backward (the routing's
+collectives again too); False/"none" keeps everything. Mixtral's layer
+names no tensor but flash's residuals, so, as for ViT, "attn" and
+"attn+" are one policy here, and "dots" and "dots+" another. Flash runs
+outside every segment (its inputs q/k/v kept: K2 never re-runs). "attn"
+makes the layer two segments, Llama's attention inputs and (wo, residual
+add, mlp norm, router, routing, experts, combine, residual add), and
+recomputes both whole, the routing's collectives included;
+"dots" keeps every matrix product's output (q/k/v, wo, the router's
+logits, the one-hot dispatch product, the experts' products and the
+combine product) in two selective-checkpoint segments, (attn norm, q/k/v
+products) and (mlp norm, router, routing, experts, combine), and
+recomputes the norms, softmax, top-k, routing and silu; rope, the output
+projection and the adds run outside them. A segment that is recomputed
+appends its claims to ``route_stats`` once more.
 """
 
 from __future__ import annotations
@@ -65,7 +78,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama as _llama
-from ray_tpu_torch.models._common import ckpt, layer_params
+from ray_tpu_torch.models._common import ckpt, ckpt_dots, layer_params
 from ray_tpu_torch.models.llama import params_from_jax
 from ray_tpu_torch.ops.loss import fused_cross_entropy, logits_f32
 from ray_tpu_torch.ops.norms import rms_norm
@@ -319,15 +332,42 @@ def moe_block(cfg: MixtralConfig, x: torch.Tensor, lp: dict, ps=None,
     return y.view(b, s, h), aux
 
 
-def _layer(cfg: MixtralConfig, x, lp, cos, sin, attn_impl: str, ps=None,
-           routing=None, stats=None):
-    q, k, v = _llama._attn_inputs(cfg, x, lp, cos, sin, ps)
-    o = _llama._attention(cfg, q, k, v, attn_impl, None)
-    x = _llama._attn_out(cfg, x, o, lp["wo"], ps)
+def _moe(cfg: MixtralConfig, x, lp, ps=None, routing=None, stats=None):
+    """mlp norm and the expert layer: (what it adds to the residual,
+    aux)."""
     (norm,) = layer_weights(ps, lp, "mlp_norm")
     y, aux = moe_block(cfg, rms_norm(x, norm, cfg.norm_eps), lp, ps,
                        routing, stats)
-    return x + y.to(x.dtype), aux
+    return y.to(x.dtype), aux
+
+
+def _moe_half(cfg: MixtralConfig, x, o, lp, ps=None, routing=None,
+              stats=None):
+    x = _llama._attn_out(cfg, x, o, lp["wo"], ps)
+    y, aux = _moe(cfg, x, lp, ps, routing, stats)
+    return x + y, aux
+
+
+def _layer(cfg: MixtralConfig, x, lp, cos, sin, attn_impl: str, ps=None,
+           routing=None, stats=None, policy: str = "none"):
+    """One block -> (x, aux); ``policy`` as in the module docstring."""
+    attn_in = partial(_llama._attn_inputs, cfg, ps=ps)
+    moe_half = partial(_moe_half, cfg, ps=ps, routing=routing, stats=stats)
+    if policy == "none":
+        q, k, v = attn_in(x, lp, cos, sin)
+        return moe_half(x, _llama._attention(cfg, q, k, v, attn_impl, None),
+                        lp)
+    if policy not in ("dots", "dots+"):  # attn, attn+: recompute whole
+        q, k, v = ckpt(attn_in, x, lp, cos, sin)
+        o = _llama._attention(cfg, q, k, v, attn_impl, None)
+        return ckpt(moe_half, x, o, lp)
+    proj = ckpt_dots(partial(_llama._attn_proj, cfg, ps=ps), x, lp)
+    o = _llama._attention(cfg, *_llama._rope_qkv(*proj, cos, sin),
+                          attn_impl, None)
+    x = _llama._attn_out(cfg, x, o, lp["wo"], ps)
+    y, aux = ckpt_dots(partial(_moe, cfg, ps=ps, routing=routing,
+                               stats=stats), x, lp)
+    return x + y, aux
 
 
 def forward_hidden(cfg: MixtralConfig, params: dict, tokens: torch.Tensor,
@@ -353,16 +393,9 @@ def forward_hidden(cfg: MixtralConfig, params: dict, tokens: torch.Tensor,
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, None,
                                 device=dev)
     cos, sin = rope_cos_sin(positions, inv_freq)
-    layer = partial(_layer, cfg, cos=cos, sin=sin, attn_impl=attn_impl,
-                    ps=ps, routing=routing, stats=route_stats)
-    if remat in (True, "full"):
-        fn = partial(ckpt, layer)
-    elif remat in (False, "none"):
-        fn = layer
-    else:
-        raise NotImplementedError(
-            f"Mixtral remat policy {remat!r}: only True/'full' and "
-            f"False/'none' are ported")
+    fn = _llama._remat_wrap(
+        partial(_layer, cfg, cos=cos, sin=sin, attn_impl=attn_impl, ps=ps,
+                routing=routing, stats=route_stats), remat)
     auxes = []
     for lp in layer_params(params):
         x, aux = fn(x, lp)

@@ -13,11 +13,23 @@ rms_norm, ``w_up``, gelu in its tanh form (``jax.nn.gelu``'s default;
 PyTorch's default is the exact erf form) and ``w_down``. The class token's
 final-norm row gives the f32 logits.
 
-Remat: False/"none" saves everything; True/"full" recomputes each layer
-in the backward (a ``torch.utils.checkpoint`` segment, K2 re-run
-included). The JAX package's name-based policies ("attn", "attn+",
-"dots", "dots+") save residuals that the ViT layer does not name apart
-from flash's; they raise ``NotImplementedError`` here.
+Remat: every policy of the JAX package, through Llama's ``_remat_wrap``
+(JAX's ViT wraps its layer in Llama's). False/"none" saves everything;
+True/"full" recomputes each layer in the backward (a
+``torch.utils.checkpoint`` segment, K2 re-run included). The ViT layer
+names no tensor but flash's residuals, so under JAX "attn" and "attn+"
+keep only those, and "dots" and "dots+" are one policy: every matrix
+product's output plus flash's residuals. The port runs the same: the
+layer is two segments, (attn norm, q/k/v) and (wo, residual add, mlp
+norm, MLP, residual add), with flash attention between them and outside
+both. Under "attn"/"attn+" both segments are recomputed whole; under
+"dots"/"dots+" selective-checkpoint segments (attn norm, q/k/v) and
+(mlp norm, MLP) keep their products' outputs and recompute the norms
+(K1) and gelu, and the output projection and the adds run outside them
+(nothing to recompute there). One difference
+from JAX: since flash runs outside every segment, its inputs q/k/v are
+kept too, three [B, S, H] tensors a layer more than JAX keeps under
+"attn"; in exchange K2 never re-runs.
 
 Param sharding (``param_shard``, as in ``models.llama``): each layer
 gathers its leaves over fsdp inside itself (inside its remat segment
@@ -39,8 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models._common import ckpt, layer_params
-from ray_tpu_torch.models.llama import params_from_jax
+from ray_tpu_torch.models._common import ckpt, ckpt_dots, layer_params
+from ray_tpu_torch.models.llama import _remat_wrap, params_from_jax
 from ray_tpu_torch.ops.attention import blockwise_attention, flash_attention
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.parallel.param_shard import layer_weights
@@ -166,34 +178,60 @@ def patchify(cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, (hh // p) * (ww // p), p * p * c)
 
 
-def _layer(cfg: ViTConfig, x, lp, attn_impl: str, ps=None):
+def _tp(ps):
+    """The tp conjugates (identities without param sharding)."""
+    if ps is None:
+        return (lambda t: t), (lambda t: t)
+    return ps.copy_to_tp, ps.reduce_from_tp
+
+
+def _qkv(cfg: ViTConfig, x, lp, ps=None):
     b, s, _ = x.shape
-    hd = cfg.head_dim
-    (attn_norm, wq, wk, wv, wo, mlp_norm, w_up,
-     w_down) = layer_weights(ps, lp, "attn_norm", "wq", "wk", "wv", "wo",
-                             "mlp_norm", "w_up", "w_down")
-    tp_in = (lambda t: t) if ps is None else ps.copy_to_tp
-    tp_out = (lambda t: t) if ps is None else ps.reduce_from_tp
-    xn = tp_in(rms_norm(x, attn_norm, cfg.norm_eps))
-    q, k, v = ((xn @ w).view(b, s, -1, hd).transpose(1, 2)
-               for w in (wq, wk, wv))
+    norm, wq, wk, wv = layer_weights(ps, lp, "attn_norm", "wq", "wk", "wv")
+    xn = _tp(ps)[0](rms_norm(x, norm, cfg.norm_eps))
+    return tuple((xn @ w).view(b, s, -1, cfg.head_dim).transpose(1, 2)
+                 for w in (wq, wk, wv))
+
+
+def _attention(q, k, v, attn_impl: str):
     if attn_impl == "flash":
-        attn = flash_attention(q, k, v, False)  # bidirectional
-    else:
-        attn = blockwise_attention(q, k, v, causal=False)
-    x = x + tp_out(attn.transpose(1, 2).reshape(b, s, -1) @ wo)
-    xn = tp_in(rms_norm(x, mlp_norm, cfg.norm_eps))
-    return x + tp_out(F.gelu(xn @ w_up, approximate="tanh") @ w_down)
+        return flash_attention(q, k, v, False)  # bidirectional
+    return blockwise_attention(q, k, v, causal=False)
 
 
-def _remat_wrap(layer_fn, remat):
-    if remat in (False, "none"):
-        return layer_fn
-    if remat in ("attn", "attn+", "dots", "dots+"):
-        raise NotImplementedError(
-            f"remat policy {remat!r} (name-based residual saving) is not "
-            f"ported for ViT; use 'none' or 'full'")
-    return partial(ckpt, layer_fn)  # True / "full"
+def _out(cfg: ViTConfig, x, attn, lp, ps=None):
+    b, s, _ = x.shape
+    (wo,) = layer_weights(ps, lp, "wo")
+    return x + _tp(ps)[1](attn.transpose(1, 2).reshape(b, s, -1) @ wo)
+
+
+def _mlp(cfg: ViTConfig, x, lp, ps=None):
+    """mlp norm, w_up, gelu, w_down: what the MLP adds to the residual."""
+    norm, w_up, w_down = layer_weights(ps, lp, "mlp_norm", "w_up", "w_down")
+    tp_in, tp_out = _tp(ps)
+    xn = tp_in(rms_norm(x, norm, cfg.norm_eps))
+    return tp_out(F.gelu(xn @ w_up, approximate="tanh") @ w_down)
+
+
+def _out_mlp(cfg: ViTConfig, x, attn, lp, ps=None):
+    x = _out(cfg, x, attn, lp, ps)
+    return x + _mlp(cfg, x, lp, ps)
+
+
+def _layer(cfg: ViTConfig, x, lp, attn_impl: str, ps=None,
+           policy: str = "none"):
+    """One pre-norm block; ``policy`` as in the module docstring."""
+    qkv, out_mlp = partial(_qkv, cfg, ps=ps), partial(_out_mlp, cfg, ps=ps)
+    if policy == "none":
+        return out_mlp(x, _attention(*qkv(x, lp), attn_impl), lp)
+    if policy in ("attn", "attn+"):
+        attn = _attention(*ckpt(qkv, x, lp), attn_impl)
+        return ckpt(out_mlp, x, attn, lp)
+    # dots/dots+: the output projection and the adds need no recompute,
+    # so they stay outside the selective segments
+    attn = _attention(*ckpt_dots(qkv, x, lp), attn_impl)
+    x = _out(cfg, x, attn, lp, ps)
+    return x + ckpt_dots(partial(_mlp, cfg, ps=ps), x, lp)
 
 
 def forward(cfg: ViTConfig, params: dict, images: torch.Tensor,

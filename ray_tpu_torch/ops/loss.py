@@ -22,7 +22,33 @@ without one, bit for bit.
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+
+def _env_int(name: str, default: int) -> int:
+    """A positive int from the environment; unset, unparsable or <= 0
+    gives ``default`` (the JAX package's ``_env_int``)."""
+    v = os.environ.get(name)
+    if not v:
+        return default
+    try:
+        n = int(v)
+    except ValueError:
+        return default
+    return n if n > 0 else default
+
+
+def default_ce_chunk(default: int = 512) -> int:
+    """Sequence-chunk size for :func:`fused_cross_entropy`, overridable by
+    ``RTPU_CE_CHUNK`` (the train-step autotuner sets it per candidate).
+    Larger chunks take fewer steps but a bigger [B, chunk, V] f32 logits
+    workspace, the loss's largest transient. JAX reads it once, when the
+    step is traced; the eager port reads it at every ``loss_fn`` call, so
+    a measurement runs its warm-up and timed steps inside the
+    candidate's ``applied_env()``, not only the step's construction."""
+    return _env_int("RTPU_CE_CHUNK", default)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -80,7 +80,8 @@ def test_loss_fn_and_grads_match_jax_on_tiny(fused_ce):
 
 
 REMATS = [False, True, "none", "full", "attn", "attn+", ("attn", "attn+"),
-          "full:1,attn+:1"]
+          "full:1,attn+:1", "dots", "dots+", "dots:1,attn:1",
+          ("dots+", "attn+")]
 
 
 @pytest.mark.parametrize("remat", REMATS)
@@ -97,13 +98,11 @@ def test_every_remat_policy_gives_the_grads_of_none(remat):
 
 
 def test_unported_remat_raises():
-    params = llama.init_params(CFG, generator=1, device="cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    for remat in ("dots", "dots+"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            llama.forward_hidden(CFG, params, tokens, remat=remat)
-    with pytest.raises(ValueError, match="entries"):
-        llama.normalize_remat(("attn",), CFG.num_layers)
+    """Every policy runs; what the port refuses is a per-layer spec whose
+    length is not the layer count (JAX's ``ValueError``)."""
+    for spec in (("attn",), "dots:1", "attn:1,dots:2"):
+        with pytest.raises(ValueError, match="entries"):
+            llama.normalize_remat(spec, CFG.num_layers)
 
 
 def test_normalize_remat_and_runs_match_jax():

@@ -220,8 +220,9 @@ def test_gelu_is_the_tanh_form_of_jax():
     assert np.abs(exact - want).max() > 1e-4  # the erf form would not pass
 
 
-@pytest.mark.parametrize("remat", [True, "full"])
-def test_full_remat_gives_the_grads_of_none(remat):
+@pytest.mark.parametrize("remat", [True, "full", "attn", "attn+", "dots",
+                                   "dots+"])
+def test_every_remat_policy_gives_the_grads_of_none(remat):
     cfg, _ = CONFIGS["d64"]
     params = vit.init_params(cfg, generator=5, device="cpu")
     images, labels = _batch(cfg, seed=5)
@@ -230,15 +231,6 @@ def test_full_remat_gives_the_grads_of_none(remat):
     assert loss1 == loss0
     for k, w in g0.items():
         np.testing.assert_array_equal(g1[k], w, err_msg=k)
-
-
-@pytest.mark.parametrize("remat", ["dots", "dots+", "attn", "attn+"])
-def test_unported_remat_raises(remat):
-    cfg, _ = CONFIGS["tiny"]
-    params = vit.init_params(cfg, generator=6, device="cpu")
-    images, _ = _batch(cfg, seed=6)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        vit.forward(cfg, params, torch.from_numpy(images), remat=remat)
 
 
 def test_vit_step_needs_a_card_unless_asked_for_cpu():
