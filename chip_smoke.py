@@ -306,6 +306,36 @@ failure raises and the script exits non-zero without a result line:
    the best lr the direct runs', card memory back after fit(); then
    Tuner(TorchTrainer) over two learning rates, each final loss equal to
    the trainer alone's; K1-K3's launches counted over each part;
+22. the mesh layouts of the training step on one card, each on a one-rank
+   NCCL mesh against its reference's losses bit for bit, step by step,
+   with launches per step as predicted, step ms and peak beside the
+   reference's: (a) phase 13's model (Llama-3-8B width, 8 layers, b4
+   s2048, attn+, adamw_lowmem) with embed on tp and layers on pp (every
+   split dim gathered, the stacked layers dim once a step) against phase
+   13's (a), and ViT-B/16 at b128 with classes on tp against mesh=None;
+   (b) the unfused loss (loss_fn(fused_ce=False)) under the default rules
+   against mesh=None's; (c) FSDP + zero1 at one layer of that width,
+   written after step 2 through the write-behind writer, restored with
+   mesh=None and at the same mesh, steps 3-4 bit-equal to the
+   uninterrupted run's (bytes, save and restore seconds); (d) phase 15's
+   Mixtral with the batch over (dp, ep) (the all-to-all dispatch's
+   reduce-scatter and all-gather on one-rank groups) against phase 15's
+   (a);
+22b. with four cards, one a rank (NCCL): context parallelism under FSDP
+   and TP (fsdp2 x sp2, tp2 x sp2; the ring through K6/K7 over sp, the
+   gathers over fsdp, the tp conjugates) at Llama-3-8B width, 8 layers,
+   global b2 s8192, adamw at 2e-5 (the loss falls step by step), every
+   step's loss and the first grad norm against one card's run of the
+   same batch (mesh=None, K2/K3), launches a rank a step as predicted,
+   tokens/s per card and per-rank peak; Mixtral at phase 15's 2 layers
+   (4 do not train on one card) and phase 15b's global batch under dp2 x
+   ep2 as 15b runs it (the ep ranks on the same rows), with the batch
+   over (dp, ep) and sp2 x ep2 (the ring, the routing in JAX's token
+   order), tokens/s per card beside the first, each against one card's
+   training run: under adamw the first loss and grad norm, under plain
+   SGD every step's loss and the first grad norm; an
+   FSDP + zero1 state saved at fsdp2 x dp2 and restored at tp2 x dp2,
+   stepped on; with fewer cards it prints that it skipped;
 11. cross-device: f32 engines at tiny width (d=64) and at 1B width with
    two layers (d=2048), CUDA (kernel) vs CPU (plain) greedy token streams
    must be equal; a bf16 trainer at small width, 3 steps on the card
@@ -3024,9 +3054,10 @@ def _opt_bytes(state) -> int:
 
 
 def train_run(cfg, mesh, params, tokens, opts: dict, warmup: int,
-              steps: int, counters=None, profile: bool = False) -> dict:
+              steps: int, counters=None, profile: bool = False,
+              lr: float = 3e-4) -> dict:
     """``warmup`` + ``steps`` steps of make_llama_train_step (bf16, remat
-    attn+, adamw_lowmem) from a copy of ``params`` over ``mesh`` on the
+    attn+, adamw_lowmem at ``lr``) from a copy of ``params`` over ``mesh`` on the
     global batch ``tokens``, with DDP rules unless ``opts`` holds "rules"
     (overrides of the default table); counts reset right before the first
     step and read right after the last. Returns the losses, grad norms,
@@ -3043,7 +3074,7 @@ def train_run(cfg, mesh, params, tokens, opts: dict, warmup: int,
     rules = ShardingRules().override(**opts.pop("rules", DDP_RULES))
     step, init, shard = make_llama_train_step(
         cfg, mesh, rules=rules,
-        optimizer=adamw_lowmem(3e-4, weight_decay=0.1), attn_impl="flash",
+        optimizer=adamw_lowmem(lr, weight_decay=0.1), attn_impl="flash",
         remat="attn+", seed=SEED,
         device=torch.device("cuda", torch.cuda.current_device()), **opts)
     return timed_steps(step, init, params, shard(tokens),
@@ -7353,6 +7384,660 @@ def phase_tuning() -> dict:
     return out
 
 
+# Phase 22: every mesh layout of the training step on one card (one-rank
+# NCCL groups: a one-rank gather, reduce-scatter or all-reduce is a copy,
+# so each mode must give its reference's losses bit for bit).
+P22_WARMUP, P22_STEPS = 1, 2
+# (c)'s depth: the save and two restores write and read the state (params
+# and adamw_lowmem's bf16 moments, ~8 GB at one layer: the untied
+# embedding and head hold 1.05B of its 1.27B params) at DCP's ~0.5 and
+# ~1.5 GB/s (phase 19), so one layer keeps the phase near its budget.
+P22_CKPT_LAYERS = 1
+P22_CKPT_STEPS = 4  # the uninterrupted run; the save after step 2
+# (a)'s rules: embed on tp takes tp before heads (wq), mlp (w_gate) and
+# vocab (lm_head), so no unit is tp-local: every split dim is gathered;
+# the stacked layers dim over pp is gathered once a step.
+P22_GATHER_RULES = {"embed": "tp", "layers": "pp"}
+P22_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd")
+
+
+def _p22_gate(label: str, r: dict, want_losses: list, want: dict,
+              launches: dict) -> None:
+    """Losses bit-equal to ``want_losses`` step by step, launches per step
+    equal to ``want``; adds the run's launches to ``launches``."""
+    steps = len(r["losses"])
+    per_step = {k: n / steps for k, n in r["launches"].items()}
+    for k, n in r["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    if per_step != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"{label}: launches per step {per_step} != "
+                             f"the prediction {want}")
+    if r["losses"] != want_losses[:steps]:
+        raise AssertionError(f"{label}: losses {r['losses']} not bit-equal "
+                             f"to {want_losses[:steps]}")
+    print(f"{label}: losses bit-equal step by step "
+          + " ".join(f"{x:.6f}" for x in r["losses"])
+          + f"; {r['step_ms']:.2f} ms a step, peak {r['peak_gib']:.3f} GiB"
+          + "; launches per step " + ", ".join(
+              f"{k} {v:g}" for k, v in per_step.items() if v))
+
+
+def _p22_unfused_step(cfg, mesh):
+    from functools import partial
+
+    import torch
+    from ray_tpu_torch.models.llama import (
+        init_params,
+        loss_fn,
+        param_logical_axes,
+    )
+    from ray_tpu_torch.train import adamw_lowmem, make_train_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return make_train_step(
+        mesh, loss=partial(loss_fn, cfg, fused_ce=False, attn_impl="flash",
+                           remat="attn+"),
+        init_fn=partial(init_params, cfg, device=dev),
+        logical_axes=param_logical_axes(cfg),
+        optimizer=adamw_lowmem(3e-4, weight_decay=0.1), seed=SEED,
+        device=dev)
+
+
+def p22_checkpoint(mesh, counters, launches) -> dict:
+    """(c): FSDP + zero1 (the default rules on the one-rank mesh) for
+    P22_CKPT_STEPS steps, written after step 2 through the write-behind
+    writer; restored with mesh=None and at the same mesh, each stepping
+    on: the losses bit-equal to the uninterrupted run's."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+    from ray_tpu_torch.train import (
+        AsyncCheckpointWriter,
+        adamw_lowmem,
+        make_llama_train_step,
+        restore_pytree,
+    )
+
+    cfg = cfg_8b(P22_CKPT_LAYERS)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params = init_params(cfg, generator=SEED, device="cuda")
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (P13_BATCH, P13_SEQ), dtype=np.int32)
+    root = os.path.dirname(os.path.abspath(__file__))
+    directory = os.path.join(root, "ray_tpu_torch", "_native", "_build",
+                             "phase22")
+
+    def make(m):
+        return make_llama_train_step(
+            cfg, m, rules=ShardingRules(),
+            optimizer=adamw_lowmem(3e-4, weight_decay=0.1),
+            attn_impl="flash", remat="attn+", seed=SEED, device=dev,
+            **({"zero1": True} if m is not None else {}))
+
+    out = {"layers": cfg.num_layers, "params": cfg.num_params()}
+    try:
+        step, init, shard = make(mesh)
+        tok, tgt = shard(tokens), shard(np.roll(tokens, -1, axis=1))
+        state = init(params)
+        for c in counters.values():
+            c.launches = 0
+        losses = []
+        for i in range(P22_CKPT_STEPS):
+            state, m = step(state, tok, tgt)
+            losses.append(float(m["loss"]))
+            if i == 1:
+                writer = AsyncCheckpointWriter()
+                t0 = time.perf_counter()
+                writer.save(state.checkpoint_tree(), directory, step=2)
+                out["snapshot_s"] = time.perf_counter() - t0
+                writer.wait()
+                out["save_s"] = time.perf_counter() - t0
+                if writer.completed() != [directory]:
+                    raise AssertionError("phase 22 (c): the write-behind "
+                                         "writer did not complete")
+        n = {k: c.launches for k, c in counters.items()}
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        out["bytes"] = _dir_bytes(directory)
+        del state, step, init, shard
+        torch.cuda.empty_cache()
+        out["losses"] = losses
+        for key, m in (("mesh_none", None), ("same_mesh", mesh)):
+            step, init, shard = make(m)
+            state = init(params)
+            t0 = time.perf_counter()
+            restore_pytree(directory, state.checkpoint_tree())
+            out[key + "_restore_s"] = time.perf_counter() - t0
+            got = []
+            for _ in range(P22_CKPT_STEPS - 2):
+                state, mt = step(state, tok, tgt)
+                got.append(float(mt["loss"]))
+            if int(state.step) != P22_CKPT_STEPS or got != losses[2:]:
+                raise AssertionError(f"phase 22 (c) resumed {key}: losses "
+                                     f"{got} not bit-equal to "
+                                     f"{losses[2:]}")
+            out[key] = got
+            del state, step, init, shard
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    gb = out["bytes"] / 1e9
+    print(f"(c) FSDP + zero1 at {cfg.num_layers} layer(s) "
+          f"({cfg.num_params() / 1e9:.3f}B): losses "
+          + " ".join(f"{x:.6f}" for x in out["losses"])
+          + f"; written after step 2 by the write-behind writer, "
+          f"{gb:.3f} GB in {out['save_s']:.2f} s ({gb / out['save_s']:.2f} "
+          f"GB/s; the host snapshot {out['snapshot_s']:.2f} s), restored "
+          f"with mesh=None in {out['mesh_none_restore_s']:.2f} s and at the "
+          f"same mesh in {out['same_mesh_restore_s']:.2f} s: steps 3-4 "
+          f"bit-equal in both")
+    return out
+
+
+def phase_layouts(train8b: dict, moe: dict) -> dict:
+    """Phase 22: the new mesh layouts on a one-rank NCCL mesh, each
+    against its reference's losses bit for bit: (a) item 1's gathers
+    (embed on tp, layers on pp at the Llama-3-8B width of phase 13,
+    against phase 13's (a); ViT-B/16 at b128 with classes on tp, against
+    mesh=None); (b) the unfused loss under the default rules, against
+    mesh=None's; (c) FSDP + zero1 saved and resumed (p22_checkpoint); (d)
+    Mixtral (phase 15's configuration) with the batch over (dp, ep): the
+    all-to-all dispatch's collectives on one-rank groups, against phase
+    15's (a)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.models.vit import ViTConfig
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+    from ray_tpu_torch.train import (
+        adamw_lowmem,
+        make_mixtral_train_step,
+        make_vit_train_step,
+    )
+    from ray_tpu_torch.train.backend import free_port, init_distributed
+
+    _phase("mesh layouts of the training step on one rank: item 1's "
+           "gathers (tp, pp), the unfused loss, FSDP + zero1 saved and "
+           "resumed, Mixtral's batch over ep")
+    t_phase = time.perf_counter()
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    counters = _counters()
+    launches: dict = {}
+    runs: dict = {}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        mesh = build_mesh(MeshSpec())
+        cfg = cfg_8b(P13_LAYERS)
+        params = init_params(cfg, generator=SEED, device="cuda")
+        tokens = np.random.default_rng(SEED + 5).integers(
+            0, cfg.vocab_size, (P13_BATCH, P13_SEQ), dtype=np.int32)
+        want = predicted_launches("attn+", cfg.num_layers)
+        a13 = train8b["runs"]["a"]
+        r = runs["gathers"] = train_run(
+            cfg, mesh, params, tokens, {"rules": P22_GATHER_RULES},
+            P22_WARMUP, P22_STEPS, counters)
+        _p22_gate(f"(a) embed on tp, layers on pp ({cfg.num_layers} "
+                  f"layers) against phase 13's (a)", r, a13["losses"],
+                  want, launches)
+        tgt = np.roll(tokens, -1, axis=1)
+        for key, m in (("unfused_none", None), ("unfused", mesh)):
+            step, init, shard = _p22_unfused_step(cfg, m)
+            runs[key] = timed_steps(step, init, params, shard(tokens),
+                                    shard(tgt), P22_WARMUP, P22_STEPS,
+                                    counters)
+            del step, init, shard
+        _p22_gate("(b) the unfused loss, default rules, against mesh=None's",
+                  runs["unfused"], runs["unfused_none"]["losses"], want,
+                  launches)
+        del params
+        torch.cuda.empty_cache()
+        vcfg = replace(ViTConfig.base16(), dtype="bfloat16")
+        rng = np.random.default_rng(SEED + 5)
+        images = rng.uniform(0, 1, (VIT_BATCH, vcfg.image_size,
+                                    vcfg.image_size, vcfg.num_channels)
+                             ).astype(np.float32)
+        labels = rng.integers(0, vcfg.num_classes, VIT_BATCH)
+        for key, m in (("vit_none", None), ("vit_classes_tp", mesh)):
+            step, init, shard = make_vit_train_step(
+                vcfg, m, rules=ShardingRules().override(classes="tp"),
+                optimizer=adamw_lowmem(3e-4, weight_decay=0.1), seed=SEED,
+                device=dev)
+            runs[key] = timed_steps(step, init, None, shard(images),
+                                    shard(labels), P22_WARMUP, P22_STEPS,
+                                    counters)
+            del step, init, shard
+        _p22_gate(f"(a) ViT-B/16 b{VIT_BATCH}, classes on tp, against "
+                  f"mesh=None", runs["vit_classes_tp"],
+                  runs["vit_none"]["losses"],
+                  predicted_launches(False, vcfg.num_layers), launches)
+        runs["checkpoint"] = p22_checkpoint(mesh, counters, launches)
+        mcfg = cfg_mixtral(P15_LAYERS)
+        mparams = mixtral.init_params(mcfg, generator=SEED, device="cuda")
+        mtok = np.random.default_rng(SEED + 7).integers(
+            0, mcfg.vocab_size, (P15_BATCH, P15_SEQ), dtype=np.int32)
+        step, init, shard = make_mixtral_train_step(
+            mcfg, mesh, rules=ShardingRules().override(batch=("dp", "ep")),
+            attn_impl="flash", remat=True, seed=SEED, device=dev)
+        runs["mixtral_batch_ep"] = timed_steps(
+            step, init, mparams, shard(mtok),
+            shard(np.roll(mtok, -1, axis=1)), P22_WARMUP, P22_STEPS,
+            counters)
+        del step, init, shard, mparams
+        torch.cuda.empty_cache()
+        _p22_gate("(d) Mixtral, batch over (dp, ep), against phase 15's (a)",
+                  runs["mixtral_batch_ep"], moe["runs"]["a"]["losses"],
+                  predicted_launches("full", mcfg.num_layers), launches)
+    finally:
+        dist.destroy_process_group()
+    idle = [k for k in P22_KERNELS if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"phase 22: {idle} never launched")
+    for key, ref, what in (("gathers", a13, "phase 13 (a)"),
+                           ("unfused", runs["unfused_none"], "mesh=None"),
+                           ("vit_classes_tp", runs["vit_none"], "mesh=None"),
+                           ("mixtral_batch_ep", moe["runs"]["a"],
+                            "phase 15 (a)")):
+        r = runs[key]
+        r["over_reference"] = r["step_ms"] / ref["step_ms"] - 1
+        print(f"{key}: {r['step_ms']:.2f} ms a step, peak "
+              f"{r['peak_gib']:.3f} GiB; {what} {ref['step_ms']:.2f} ms, "
+              f"peak {ref['peak_gib']:.3f} GiB ({100 * r['over_reference']:+.2f}"
+              f"% a step)")
+    out = {"runs": runs, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"phase 22 took {out['seconds']:.1f} s; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    return out
+
+
+# Phase 22b: the layouts over four ranks, one card each.
+P22B_LAYERS = 8
+P22B_BATCH, P22B_SEQ = 2, 8192  # global: 16384 tokens a step
+P22B_WARMUP, P22B_STEPS = 1, 2
+P22B_CP = {"fsdp2sp2": dict(fsdp=2, sp=2), "tp2sp2": dict(tp=2, sp=2)}
+# adamw_lowmem's rate for the CP runs and their one-card reference: at
+# 3e-4 the loss of this batch rose at step 3 (12.27, 11.22, 13.62: the
+# second adam step overshoots), at 1e-4 too (11.10, 11.90); at 2e-5 it
+# falls step by step (12.27, 11.15, 9.45, 8.51), so each step's loss can
+# be held against one card's (one card, NVIDIA H100 80GB HBM3, 700.00 W).
+P22B_LR = 2e-5
+# Each rank's losses, step by step, against one card's run of the same
+# global batch, absolute: the ring (K6/K7, chunk by chunk, the log-sum-
+# exp combine) rounds the bf16 attention otherwise than K2/K3 on the whole
+# sequence, and the ranks' bf16 gradients are summed. Ten times the
+# largest gap of the first four-card run's sound readings (1.1e-3).
+P22B_TOL = 1e-2
+# The first step's grad norm (the params still equal), relative: ten
+# times the first four-card run's largest reading (1.2e-4).
+P22B_NORM_RTOL = 1.2e-3
+# Mixtral's part: its depth and its two optimizers. Four layers do not
+# train on one card (out of memory at 75 GiB), so the part runs at phase
+# 15's two, each layout against one card's training run of the same
+# optimizer. adamw (bf16 moments, eps 1e-8) at 5e-5: its loss falls step
+# by step (10.90, 8.23, 7.97, 7.41 on one card), but its first update is
+# lr * sign(g) wherever |g| >> eps, so a gradient element that bf16
+# rounding leaves near zero moves by lr either way; in the first run
+# over ranks the layouts' second losses were 2.9e-3 to 6.3e-2 off one
+# card's (the layout with the most bf16 roundings, ep ranks summing
+# partial combines, the furthest) while their first losses and grad
+# norms agreed within 3.1e-4 and 4.6e-4. Its pre-update loss and grad
+# norm are gated and its later losses printed. Plain SGD moves each
+# element by lr * g, so a rounding of g stays a rounding of the update:
+# its every step is gated, which holds the layouts' gradients, not only
+# their norm, against one card's.
+P22B_MOE_LAYERS = 2
+P22B_MOE_LR = 5e-5
+# SGD's rate: its loss falls step by step at 1e-2 (10.896, 10.828,
+# 10.762, 10.694 on one card) and not at 3e-2 or above.
+P22B_MOE_SGD_LR = 1e-2
+# Losses, absolute: ten times the first run's largest first-loss gap
+# (3.0e-4 at two layers, 7.4e-4 at four); the first grad norm, relative:
+# ten times its largest reading (4.5e-4).
+P22B_MOE_TOL = 1e-2
+P22B_MOE_NORM_RTOL = 5e-3
+P22B_MOE_OPTS = ("adamw", "sgd")
+P22B_CKPT_LAYERS = 2
+LAYOUTS_TIMEOUT_S = 900
+
+
+def _p22b_llama(rank, world, counters, res) -> None:
+    """Context parallelism under FSDP and TP at the Llama-3-8B width:
+    one card's run of the global batch (rank 0, mesh=None, K2/K3), then
+    each P22B_CP mesh."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    cfg = replace(cfg_8b(P22B_LAYERS), max_seq_len=P22B_SEQ)
+    tokens = np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (P22B_BATCH, P22B_SEQ), dtype=np.int32)
+    params = init_params(cfg, generator=SEED, device="cuda")
+    if rank == 0:
+        res["one_card"] = train_run(cfg, None, params, tokens, {},
+                                    P22B_WARMUP, P22B_STEPS, counters,
+                                    lr=P22B_LR)
+    dist.barrier()
+    for name, axes in P22B_CP.items():
+        r = train_run(cfg, build_mesh(MeshSpec(**axes)), params, tokens,
+                      {"rules": {}}, P22B_WARMUP, P22B_STEPS, counters,
+                      lr=P22B_LR)
+        peaks = [None] * world
+        dist.all_gather_object(peaks, r["peak_gib"])
+        r.update(per_rank_peak_gib=peaks, axes=axes)
+        res[name] = r
+    del params
+    torch.cuda.empty_cache()
+
+
+P22B_MOE_LAYOUTS = (
+    ("moe_dp2ep2", dict(dp=2, ep=2), {}),  # phase 15b's layout
+    ("moe_batch_ep", dict(dp=2, ep=2), {"batch": ("dp", "ep")}),
+    ("moe_sp2ep2", dict(sp=2, ep=2), {}))
+
+
+def _p22b_mixtral(rank, world, counters, res) -> None:
+    """Mixtral at P22B_MOE_LAYERS, at phase 15b's global batch, under
+    each of P22B_MOE_OPTS: one card's training run (rank 0, mesh=None),
+    then dp2 x ep2 as phase 15b runs it (the ep ranks on the same rows),
+    with the batch over (dp, ep), and sp2 x ep2 (the ring), each from the
+    same params with the same optimizer."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+    from ray_tpu_torch.train import make_mixtral_train_step
+    from ray_tpu_torch.train.optim import adamw, sgd
+
+    cfg = cfg_mixtral(P22B_MOE_LAYERS)
+    tokens = np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (P15_BATCH, P15_SEQ), dtype=np.int32)
+    params = mixtral.init_params(cfg, generator=SEED, device="cuda")
+    dev = torch.device("cuda", rank)
+
+    def run(mesh, over, opt):
+        step, init, shard = make_mixtral_train_step(
+            cfg, mesh, rules=ShardingRules().override(**over),
+            optimizer=sgd(P22B_MOE_SGD_LR) if opt == "sgd" else adamw(
+                P22B_MOE_LR, weight_decay=0.1, mu_dtype=torch.bfloat16),
+            attn_impl="flash", remat=True, seed=SEED, device=dev)
+        return timed_steps(step, init, params, shard(tokens),
+                           shard(np.roll(tokens, -1, axis=1)), P15_WARMUP,
+                           P15_STEPS, counters, quiet=True)
+
+    meshes = {}  # one mesh a layout: each group's NCCL communicator
+    # holds card memory outside PyTorch's pool until the process ends
+    for opt in P22B_MOE_OPTS:
+        if rank == 0:
+            res[f"moe_one_card_{opt}"] = run(None, {}, opt)
+        dist.barrier()
+        for name, axes, over in P22B_MOE_LAYOUTS:
+            key = tuple(sorted(axes.items()))
+            if key not in meshes:
+                meshes[key] = build_mesh(MeshSpec(**axes))
+            r = run(meshes[key], over, opt)
+            peaks = [None] * world
+            dist.all_gather_object(peaks, r["peak_gib"])
+            r.update(per_rank_peak_gib=peaks, axes=axes)
+            res[f"{name}_{opt}"] = r
+    del params
+    torch.cuda.empty_cache()
+
+
+def _p22b_checkpoint(rank, world, res) -> None:
+    """An FSDP + zero1 state (fsdp2 x dp2) saved after step 1 and restored
+    at tp2 x dp2 under zero1, one step each way."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+    from ray_tpu_torch.train import (
+        adamw_lowmem,
+        make_llama_train_step,
+        restore_pytree,
+        save_pytree,
+    )
+
+    cfg = cfg_8b(P22B_CKPT_LAYERS)
+    dev = torch.device("cuda", rank)
+    params = init_params(cfg, generator=SEED, device="cuda")
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (P13_BATCH, P13_SEQ), dtype=np.int32)
+    tgt = np.roll(tokens, -1, axis=1)
+    root = os.path.dirname(os.path.abspath(__file__))
+    directory = os.path.join(root, "ray_tpu_torch", "_native", "_build",
+                             "phase22b")
+
+    def make(axes):
+        return make_llama_train_step(
+            cfg, build_mesh(MeshSpec(**axes)), rules=ShardingRules(),
+            optimizer=adamw_lowmem(3e-4, weight_decay=0.1),
+            attn_impl="flash", remat="attn+", seed=SEED, device=dev,
+            zero1=True)
+
+    try:
+        step, init, shard = make(dict(fsdp=2, dp=2))
+        state = init(params)
+        state, m1 = step(state, shard(tokens), shard(tgt))
+        t0 = time.perf_counter()
+        save_pytree(state.checkpoint_tree(), directory, step=1)
+        save_s = time.perf_counter() - t0
+        state, m2 = step(state, shard(tokens), shard(tgt))
+        want = [float(m1["loss"]), float(m2["loss"])]
+        del state, step, init, shard
+        torch.cuda.empty_cache()
+        step, init, shard = make(dict(tp=2, dp=2))
+        state = init(params)
+        t0 = time.perf_counter()
+        restore_pytree(directory, state.checkpoint_tree())
+        restore_s = time.perf_counter() - t0
+        state, m = step(state, shard(tokens), shard(tgt))
+        res["checkpoint"] = {"losses": want, "resumed": float(m["loss"]),
+                             "step": int(state.step), "save_s": save_s,
+                             "restore_s": restore_s,
+                             "layers": cfg.num_layers}
+        del state, step, init, shard
+        dist.barrier()
+        if rank == 0:
+            res["checkpoint"]["bytes"] = _dir_bytes(directory)
+    finally:
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(directory, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _rank_layouts(rank: int, world: int, store: str, out_path: str,
+                  port: int, part: str) -> None:
+    """One rank of one part of ``phase_layouts_ranks`` on card ``rank``;
+    rank 0 writes the readings."""
+    import torch.distributed as dist
+    from ray_tpu_torch.train.backend import init_distributed
+
+    init_distributed(f"127.0.0.1:{port}", world, rank, device="cuda")
+    res: dict = {}
+    if part == "checkpoint":
+        _p22b_checkpoint(rank, world, res)
+    else:
+        {"llama": _p22b_llama, "mixtral": _p22b_mixtral}[part](
+            rank, world, _counters(), res)
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def phase_layouts_ranks(world: int) -> dict:
+    """Phase 22b (four cards, one a rank): context parallelism under FSDP
+    and TP (fsdp2 x sp2, tp2 x sp2) at the Llama-3-8B width, P22B_LAYERS
+    layers, global b2 s8192, losses step by step and the first grad norm
+    against one card's run of the same batch; Mixtral (P22B_MOE_LAYERS,
+    phase 15b's global batch) dp2 x ep2 with the batch over (dp, ep) and
+    sp2 x ep2 (the ring), each beside dp2 x ep2 as phase 15b runs it and
+    held against one card's training run under adamw and under SGD; an
+    FSDP + zero1 state saved
+    at fsdp2 x dp2 and restored at tp2 x dp2. Every gate is read before
+    the phase fails."""
+    import tempfile
+
+    from ray_tpu_torch._spawn import run_ranks
+    from ray_tpu_torch.train.backend import free_port
+
+    _phase(f"mesh layouts over {world} ranks, one card each: CP under "
+           f"FSDP/TP, Mixtral's batch over ep and sp, FSDP + zero1 across "
+           f"meshes")
+    t_phase = time.perf_counter()
+    res: dict = {}
+    # Each part in fresh processes: the NCCL communicators of the earlier
+    # parts' meshes would keep their card memory (an out-of-memory in
+    # the first run that held all three in one process).
+    for part in ("llama", "mixtral", "checkpoint"):
+        with tempfile.TemporaryDirectory() as tmp:
+            out_path = os.path.join(tmp, "rank0.json")
+            run_ranks(_rank_layouts, world, tmp,
+                      (out_path, free_port(), part), LAYOUTS_TIMEOUT_S)
+            with open(out_path) as f:
+                res.update(json.load(f))
+    failures = []  # every gate is read and printed before any fails
+
+    def gate(name, r, one, tol, norm_rtol, gated=None):
+        """``r``'s losses (the first ``gated``; all by default) and first
+        grad norm against one card's ``one``."""
+        r["loss_gaps"] = [abs(a - b) for a, b in zip(r["losses"],
+                                                     one["losses"])]
+        r["norm_gap"] = abs(r["norms"][0] - one["norms"][0]) / \
+            one["norms"][0]
+        which = "each" if gated is None else \
+            "the first" if gated == 1 else f"the first {gated}"
+        print(f"{name}: losses off one card's by "
+              + ", ".join(f"{d:.3e}" for d in r["loss_gaps"])
+              + f" ({which} limited to {tol}); grad_norm "
+              + " ".join(f"{x:.4f}" for x in r["norms"]) + " (one card's "
+              + " ".join(f"{x:.4f}" for x in one["norms"])
+              + f"), the first {r['norm_gap']:.3e} off (relative, limit "
+              f"{norm_rtol})")
+        if not all(math.isfinite(x) for x in r["losses"] + r["norms"]) \
+                or max(r["loss_gaps"][:gated]) > tol \
+                or r["norm_gap"] > norm_rtol:
+            failures.append(f"{name}: losses {r['losses']} norms "
+                            f"{r['norms']} against one card's "
+                            f"{one['losses']} {one['norms']}")
+
+    def falls(name, losses):
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            failures.append(f"{name}: the one-card losses {losses} do not "
+                            f"fall step by step")
+
+    one = res["one_card"]
+    cfg = cfg_8b(P22B_LAYERS)
+    print(f"one card, mesh=None, global b{P22B_BATCH} s{P22B_SEQ}, "
+          f"{cfg.num_layers} layers, lr {P22B_LR}: {one['step_ms']:.2f} ms "
+          f"a step, peak {one['peak_gib']:.3f} GiB; loss "
+          + " ".join(f"{x:.6f}" for x in one["losses"]) + "; grad_norm "
+          + " ".join(f"{x:.4f}" for x in one["norms"]))
+    falls("Llama", one["losses"])
+    cp_want = predicted_launches("attn+", cfg.num_layers, ring=2)
+    launches: dict = {}
+    for name in P22B_CP:
+        r = res[name]
+        steps = len(r["losses"])
+        per_step = {k: n / steps for k, n in r["launches"].items()}
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        rows = P22B_BATCH * P22B_SEQ / world  # a card's share of tokens
+        r["tokens_per_s_per_card"] = rows / (r["step_ms"] / 1e3)
+        print(f"{name}: {r['step_ms']:.2f} ms a step on rank 0's host "
+              f"clock, {r['tokens_per_s_per_card']:.1f} tokens/s per card; "
+              f"peak GiB per rank "
+              f"{[round(p, 3) for p in r['per_rank_peak_gib']]}; loss "
+              + " ".join(f"{x:.6f}" for x in r["losses"])
+              + "; launches a rank a step " + ", ".join(
+                  f"{k} {v:g}" for k, v in per_step.items() if v))
+        if per_step != {k: float(v) for k, v in cp_want.items()}:
+            failures.append(f"{name}: launches per step {per_step} != the "
+                            f"prediction {cp_want}")
+        gate(name, r, one, P22B_TOL, P22B_NORM_RTOL)
+    a, b = (res[n]["losses"] for n in P22B_CP)
+    print("fsdp2sp2 against tp2sp2, step by step: "
+          + ", ".join(f"{abs(x - y):.3e}" for x, y in zip(a, b)))
+    mcfg = cfg_mixtral(P22B_MOE_LAYERS)
+    moe_names = [n for n, _, _ in P22B_MOE_LAYOUTS]
+    for opt in P22B_MOE_OPTS:
+        mone = res[f"moe_one_card_{opt}"]
+        lr = P22B_MOE_SGD_LR if opt == "sgd" else P22B_MOE_LR
+        print(f"Mixtral one card, mesh=None, {mcfg.num_layers} layers, "
+              f"{opt} lr {lr}: {mone['step_ms']:.2f} ms a step, peak "
+              f"{mone['peak_gib']:.3f} GiB; loss "
+              + " ".join(f"{x:.6f}" for x in mone["losses"])
+              + "; grad_norm " + " ".join(f"{x:.4f}" for x in mone["norms"]))
+        falls(f"Mixtral {opt}", mone["losses"])
+        for name in moe_names:
+            key = f"{name}_{opt}"
+            r = res[key]
+            steps = len(r["losses"])
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            per_step = {k: n / steps for k, n in r["launches"].items()}
+            r["tokens_per_s_per_card"], r["mfu"] = _mixtral_rates(
+                mcfg, P15_BATCH / world, r["step_ms"])
+            ring = 2 if name == "moe_sp2ep2" else 0
+            want = predicted_launches("full", mcfg.num_layers, ring=ring)
+            print(f"{key}: {r['step_ms']:.2f} ms a step on rank 0's host "
+                  f"clock, {r['tokens_per_s_per_card']:.1f} tokens/s per "
+                  f"card, MFU {100 * r['mfu']:.2f}%; peak GiB per rank "
+                  f"{[round(p, 3) for p in r['per_rank_peak_gib']]}; loss "
+                  + " ".join(f"{x:.6f}" for x in r["losses"])
+                  + "; launches a rank a step " + ", ".join(
+                      f"{k} {v:g}" for k, v in per_step.items() if v))
+            if per_step != {k: float(v) for k, v in want.items()}:
+                failures.append(f"{key}: launches per step {per_step} != "
+                                f"the prediction {want}")
+            # adamw: the loss before the first update only (see the
+            # notes at P22B_MOE_LR); SGD: every step.
+            gate(key, r, mone, P22B_MOE_TOL, P22B_MOE_NORM_RTOL,
+                 1 if opt == "adamw" else None)
+    base = res["moe_dp2ep2_adamw"]["tokens_per_s_per_card"]
+    for name in moe_names[1:]:
+        r = res[f"{name}_adamw"]
+        r["over_dp2ep2"] = r["tokens_per_s_per_card"] / base
+        print(f"{name}: {r['over_dp2ep2']:.3f}x the tokens/s per card of "
+              f"dp2 x ep2 with the ep ranks on the same rows ({base:.1f}, "
+              f"phase 15b's layout, in this phase, adamw)")
+    ck = res["checkpoint"]
+    diff = abs(ck["resumed"] - ck["losses"][1])
+    print(f"FSDP + zero1 at {ck['layers']} layers saved at fsdp2 x dp2 after "
+          f"step 1 ({ck['bytes'] / 1e9:.3f} GB in {ck['save_s']:.2f} s), "
+          f"restored at tp2 x dp2 in {ck['restore_s']:.2f} s: step 2's loss "
+          f"{ck['resumed']:.6f} against the uninterrupted {ck['losses'][1]:.6f}"
+          f" ({diff:.3e}, limit {P13B_TOL})")
+    if ck["step"] != 2 or diff > P13B_TOL:
+        failures.append(f"checkpoint: {ck}")
+    if failures:
+        raise AssertionError("phase 22b: " + "; ".join(failures))
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 22b took {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -7387,6 +8072,7 @@ def main() -> int:
     trainer = phase_trainer()
     serve_ = phase_serve()
     tuning = phase_tuning()
+    layouts = phase_layouts(train8b, moe)
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -7404,6 +8090,16 @@ def main() -> int:
         _phase("Mixtral train over ranks: skipped (one card visible)")
         _phase("RL over ranks: skipped (one card visible)")
         ranks = train_ranks = pipe_ranks = moe_ranks = rl_ranks = None
+    if world >= 4:
+        layouts_ranks = phase_layouts_ranks(4)
+    else:
+        _phase("mesh layouts over four ranks: skipped (fewer than four "
+               "cards visible)")
+        layouts_ranks = None
+    # Launches of the layouts' paths, phase 22 and (four cards) 22b.
+    layout_launches = {k: layouts["launches"].get(k, 0) + (
+        layouts_ranks["launches"].get(k, 0) if layouts_ranks else 0)
+        for k in _counters()}
     phase_cross_device()
     phase_cross_device_train()
     phase_cross_device_vit()
@@ -7435,7 +8131,8 @@ def main() -> int:
                                  k_: moe["runs"][k_]["launches"]["rms_norm"]
                                  for k_ in P15_MODES},
                              **{k_: v_["rms_norm"] for k_, v_ in
-                                tuning["launches"].items()}},
+                                tuning["launches"].items()},
+                             "layouts": layout_launches["rms_norm"]},
         "max_abs_err": max_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -7468,7 +8165,8 @@ def main() -> int:
                 "trainer": trainer["restart"]["launches"][name],
                 "mixtral": {k_: moe["runs"][k_]["launches"][name]
                             for k_ in P15_MODES},
-                **{k_: v_[name] for k_, v_ in tuning["launches"].items()}},
+                **{k_: v_[name] for k_, v_ in tuning["launches"].items()},
+                "layouts": layout_launches[name]},
             "max_abs_err": max(row["max_abs_err"],
                                vit["attention"][name]["max_abs_err"]),
             "ms": row["ms"],
@@ -7521,7 +8219,8 @@ def main() -> int:
             "replaces": replaces, "tpu": f"ray_tpu/ops/attention.py:{tpu}",
             "checked": True, "launches": cp["launches"][name],
             "launches_by_path": {"ring_schedule": ring["launches"][name],
-                                 "cp_train": cp["launches"][name]},
+                                 "cp_train": cp["launches"][name],
+                                 "layouts": layout_launches[name]},
             "max_abs_err": row["max_abs_err"],
             "max_rel_err": row["max_rel_err"],
             "main_shape_errs": row["main_shape_errs"], "ms": row["ms"],
@@ -7542,7 +8241,8 @@ def main() -> int:
         "checked": True, "launches": cp["launches"]["chunk_tile_bounds"],
         "launches_by_path": {
             "ring_schedule": ring["launches"]["chunk_tile_bounds"],
-            "cp_train": cp["launches"]["chunk_tile_bounds"]},
+            "cp_train": cp["launches"]["chunk_tile_bounds"],
+            "layouts": layout_launches["chunk_tile_bounds"]},
         **row, "shape": [CP_SEQ, CP_SEQ], "dtype": "int32"})
     for name, (sched, line) in PACKED.items():
         row = packed[name]
@@ -7574,7 +8274,9 @@ def main() -> int:
                       "rl_rest": rl_rest, "trainer": trainer,
                       "serve": {k: v for k, v in serve_.items()
                                 if k != "launches"},
-                      "tuning": tuning}))
+                      "tuning": tuning,
+                      "layouts": {"one_card": layouts,
+                                  "four_cards": layouts_ranks}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

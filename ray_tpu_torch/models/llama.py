@@ -47,13 +47,19 @@ backward; ``full`` recomputes the ring, shifts included.
 
 Param sharding (``param_shard``, a ``parallel.param_shard.ParamShard``):
 ``params`` holds this rank's blocks of each leaf. Each segment gathers the
-layer leaves it uses over fsdp inside itself, so a recompute gathers
-again and a layer's whole weights live only while it runs; under tp
-q/k/v/gate/up are column-parallel (the local H / tp and Hkv / tp heads go
-through the flash kernels as they are), wo/w_down row-parallel followed by
-the tp all-reduce, each norm's output passes the identity-forward,
-all-reduce-backward conjugate, and the embedding and the head are
-vocabulary-parallel (``fused_cross_entropy`` over the tp group).
+layer leaves it uses on their split dims inside itself (over fsdp, say),
+so a recompute gathers again and a layer's whole weights live only while
+it runs; a split stacked ``layers`` dim is gathered once per forward.
+Under tp each unit the rules split over tp alone is computed locally:
+the attention's q/k/v column-parallel (the local H / tp and Hkv / tp
+heads go through the flash kernels as they are) and wo row-parallel, the
+MLP's gate/up column- and w_down row-parallel, each row-parallel product
+followed by the tp all-reduce and each norm's output entering a local
+unit through the identity-forward, all-reduce-backward conjugate; the
+embedding and the head vocabulary-parallel (``fused_cross_entropy`` over
+the tp group; the unfused loss and ``forward`` gather the logits over
+tp). A unit the rules split otherwise (``embed`` over (fsdp, tp) takes tp
+from ``heads`` in wq) is gathered whole and computed on every tp rank.
 """
 
 from __future__ import annotations
@@ -73,7 +79,7 @@ from ray_tpu_torch.ops.loss import default_ce_chunk, fused_cross_entropy
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.ring_attention import ring_attention_local
 from ray_tpu_torch.ops.rope import apply_rope_cs, rope_cos_sin, rope_frequencies
-from ray_tpu_torch.parallel.param_shard import layer_weights
+from ray_tpu_torch.parallel.param_shard import layer_weights, stacked_layers
 
 
 @dataclass(frozen=True)
@@ -235,22 +241,22 @@ def _attention(cfg: LlamaConfig, q, k, v, attn_impl: str, sp_axis):
     return blockwise_attention(q, k, v, causal=True)
 
 
-def _tp_in(ps, xn):
-    """A norm's output entering column-parallel products (the conjugate
-    whose backward sums its gradient over tp)."""
-    return xn if ps is None else ps.copy_to_tp(xn)
+def _tp_in(ps, xn, unit: str):
+    """A norm's output entering ``unit``'s column-parallel products (the
+    conjugate whose backward sums its gradient over tp)."""
+    return xn if ps is None else ps.tp_in(xn, unit)
 
 
-def _tp_out(ps, y):
-    """A row-parallel product's partial sums, summed over tp."""
-    return y if ps is None else ps.reduce_from_tp(y)
+def _tp_out(ps, y, unit: str):
+    """``unit``'s row-parallel product's partial sums, summed over tp."""
+    return y if ps is None else ps.tp_out(y, unit)
 
 
 def _attn_proj(cfg: LlamaConfig, x, lp, ps=None):
     """attn norm, then the q/k/v products as [B, S, heads, D] views."""
     b, s, _ = x.shape
     norm, wq, wk, wv = layer_weights(ps, lp, "attn_norm", "wq", "wk", "wv")
-    xn = _tp_in(ps, rms_norm(x, norm, cfg.norm_eps))
+    xn = _tp_in(ps, rms_norm(x, norm, cfg.norm_eps), "attn")
     return tuple((xn @ w).view(b, s, -1, cfg.head_dim) for w in (wq, wk, wv))
 
 
@@ -270,12 +276,12 @@ def _attn_out(cfg: LlamaConfig, x, o, wo, ps=None):
     if ps is not None:
         wo = ps.layer("wo", wo)
     o = o.transpose(1, 2).reshape(b, s, -1)
-    return x + _tp_out(ps, o @ wo).to(x.dtype)
+    return x + _tp_out(ps, o @ wo, "attn").to(x.dtype)
 
 
 def _mlp_norm(cfg: LlamaConfig, x, lp, ps=None):
     (norm,) = layer_weights(ps, lp, "mlp_norm")
-    return _tp_in(ps, rms_norm(x, norm, cfg.norm_eps))
+    return _tp_in(ps, rms_norm(x, norm, cfg.norm_eps), "mlp")
 
 
 def _mlp_gate(x, xn, lp, ps=None):
@@ -292,7 +298,7 @@ def _mlp_out(x, xn, gate, lp, ps=None):
     """(gate * up) @ w_down: what the MLP adds to the residual."""
     w_up, w_down = layer_weights(ps, lp, "w_up", "w_down")
     up = xn @ w_up
-    return _tp_out(ps, (gate * up) @ w_down).to(x.dtype)
+    return _tp_out(ps, (gate * up) @ w_down, "mlp").to(x.dtype)
 
 
 def _mlp_rest(x, xn, gate, lp, ps=None):
@@ -421,10 +427,9 @@ def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     if ps is None:
         x = F.embedding(tokens, params["embed_tokens"])
     else:
-        ps.local(cfg.num_heads, "q heads")
-        ps.local(cfg.num_kv_heads, "kv heads")
-        x = ps.vocab_embed(tokens, ps.full(("embed_tokens",),
-                                           params["embed_tokens"]))
+        ps.local(cfg.num_heads, "q heads", "attn")
+        ps.local(cfg.num_kv_heads, "kv heads", "attn")
+        x = ps.embed(tokens, params["embed_tokens"])
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 cfg.rope_scaling, device=dev)
     cos, sin = rope_cos_sin(positions, inv_freq)
@@ -433,7 +438,7 @@ def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     remat = normalize_remat(remat, cfg.num_layers)
     runs = (_remat_runs(remat) if isinstance(remat, tuple)
             else [(remat, 0, cfg.num_layers)])
-    layers = layer_params(params)
+    layers = layer_params(stacked_layers(ps, params))
     for policy, start, end in runs:
         layer_fn = _remat_wrap(base_fn, policy)
         for lp in layers[start:end]:
@@ -441,14 +446,14 @@ def forward_hidden(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     if ps is None:
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
     norm = ps.full(("final_norm",), params["final_norm"])
-    return _tp_in(ps, rms_norm(x, norm, cfg.norm_eps))
+    return _tp_in(ps, rms_norm(x, norm, cfg.norm_eps), "vocab")
 
 
 def unembed_weights(cfg: LlamaConfig, params: dict,
                     param_shard=None) -> torch.Tensor:
     """[H, V] head matrix (a transposed view of tied embeddings); with
-    ``param_shard``, this tp rank's [H, V / tp] columns, gathered over
-    fsdp."""
+    ``param_shard``, gathered on its non-local dims (this tp rank's
+    [H, V / tp] columns where the vocabulary is tp-local)."""
     ps = param_shard
     if cfg.tie_embeddings:
         w = params["embed_tokens"]
@@ -459,12 +464,17 @@ def unembed_weights(cfg: LlamaConfig, params: dict,
 
 def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
             positions: torch.Tensor | None = None, attn_impl: str = "flash",
-            sp_axis=None, remat: bool | str = True) -> torch.Tensor:
+            sp_axis=None, remat: bool | str = True,
+            param_shard=None) -> torch.Tensor:
     """tokens [B, S] -> f32 logits [B, S, V]: the head product of the
-    widened inputs in f32 (JAX: bf16 inputs, f32 accumulation)."""
+    widened inputs in f32 (JAX: bf16 inputs, f32 accumulation). Under a
+    vocabulary-parallel head (``param_shard``) each rank's columns are
+    all-gathered over tp (its columns of the gradient in the backward)."""
+    ps = param_shard
     x = forward_hidden(cfg, params, tokens, positions, attn_impl, sp_axis,
-                       remat)
-    return x.float() @ unembed_weights(cfg, params).float()
+                       remat, ps)
+    logits = x.float() @ unembed_weights(cfg, params, ps).float()
+    return logits if ps is None else ps.gather_vocab(logits)
 
 
 def loss_fn(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
@@ -473,7 +483,8 @@ def loss_fn(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
     """Mean next-token cross-entropy over unmasked positions. The fused
     loss runs chunks of ``ops.loss.default_ce_chunk()`` tokens
     (``RTPU_CE_CHUNK``, read at each call); under ``param_shard`` it is
-    vocabulary-parallel over the tp group."""
+    vocabulary-parallel over the tp group, and the unfused one takes the
+    logits gathered over tp."""
     ps = fwd_kwargs.get("param_shard")
     if fused_ce:
         x = forward_hidden(cfg, params, tokens, **fwd_kwargs)
@@ -482,13 +493,7 @@ def loss_fn(cfg: LlamaConfig, params: dict, tokens: torch.Tensor,
         if ps is None:
             return fused_cross_entropy(x, head, targets, mask, chunk)
         return fused_cross_entropy(x, head, targets, mask, chunk,
-                                   tp_group=ps.tp,
-                                   vocab_start=ps.tp_rank * head.shape[1])
-    if ps is not None:
-        raise NotImplementedError(
-            "loss_fn(fused_ce=False) under param sharding: the whole "
-            "[B, S, V] logits of a tp-sharded head are not gathered; use "
-            "the fused loss")
+                                   **ps.vocab_parallel(head))
     logits = forward(cfg, params, tokens, **fwd_kwargs)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]

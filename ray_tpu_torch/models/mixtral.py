@@ -31,22 +31,38 @@ claims, and C is the global batch's. ``token_frac`` is global (each
 expert keeps min(claims, C)); the aux a rank returns takes its own
 tokens' mean router probability, so that the mean over the data ranks,
 which the step takes of losses and gradients, is JAX's aux and its
-gradient.
+gradient. Under context parallelism (the group spans sp too) a rank holds
+one chunk of the sequence of each of its rows, and JAX's token order is
+the flatten of [B, S]: row b's chunk j comes after row b's earlier chunks
+and every earlier row's. The ranks exchange claim counts per (row,
+expert), and a claim's slot starts after the claims of every (row,
+chunk) before its own in that order.
 
 Param sharding (``param_shard``, as in ``models.llama``): each layer
 gathers its leaves over fsdp; under tp the attention is Llama's and each
 expert's ``mlp`` columns are local (the expert branch's input passes the
 tp conjugate, its down product is summed over tp); the embedding and the
-fused loss are vocabulary-parallel. Expert parallelism: with the
-``expert`` dim of ``we_gate``/``we_up``/``we_down`` over ``ep``, an ep
-rank holds E / ep experts and the same tokens as the other ep ranks (the
-batch does not split over ep). It dispatches to and runs its own experts
-only, and its partial combine is summed over ep (all-reduce forward,
-identity backward). The router, its softmax and the aux run whole on
-every ep rank; the gate values pass the identity-forward, all-reduce-
-backward conjugate (each rank's combine reaches the gates of its own
-experts only), and so does the expert branch's input, so the router's
-gradient is summed once over ep.
+fused loss are vocabulary-parallel (``forward`` gathers the logits over
+tp). Expert parallelism: with the ``expert`` dim of
+``we_gate``/``we_up``/``we_down`` over ``ep``, an ep rank holds E / ep
+experts. Where the batch does not split over ep, it holds the same tokens
+as the other ep ranks, dispatches to and runs its own experts only, and
+its partial combine is summed over ep (all-reduce forward, identity
+backward). The router, its softmax and the aux run whole on every ep
+rank; the gate values pass the identity-forward, all-reduce-backward
+conjugate (each rank's combine reaches the gates of its own experts
+only), and so does the expert branch's input, so the router's gradient
+is summed once over ep. Where the batch splits over ep (``batch=("dp",
+"ep")``: GShard's all-to-all dispatch), each ep rank routes its own
+tokens within the global routing, builds the expert inputs of every
+expert from them ([E, C, H]; each (expert, slot) holds at most one claim
+in the whole batch), and a reduce-scatter over ep on the expert dim sums
+them into its own experts' inputs: the sum adds zeros, so the bits are
+JAX's one-hot einsums'. After its experts, their outputs are all-gathered
+over ep and each rank combines its own tokens; the backward is the
+conjugate (an all-gather of the inputs' gradient, a reduce-scatter of the
+outputs'). A true ``all_to_all`` of the claimed slots alone would move
+less (ROADMAP: speed, not a port).
 
 Remat: every policy of the JAX package, through Llama's ``_remat_wrap``.
 True/"full" recomputes each layer in the backward (the routing's
@@ -84,7 +100,7 @@ from ray_tpu_torch.ops.loss import fused_cross_entropy, logits_f32
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import rope_cos_sin, rope_frequencies
 from ray_tpu_torch.parallel.mesh import mesh_coords
-from ray_tpu_torch.parallel.param_shard import layer_weights
+from ray_tpu_torch.parallel.param_shard import layer_weights, stacked_layers
 from ray_tpu_torch.parallel.sharding import (
     axes_group,
     axis_sizes,
@@ -218,50 +234,79 @@ def init_params(cfg: MixtralConfig,
 # --------------------------------------------------------------------------
 
 class RoutingGroup:
-    """The data-parallel ranks one batch's routing spans: ``group`` over
-    the batch axes, this rank's ``index`` in batch order among ``n``, and
-    ``order`` (group rank -> batch index; None when they agree)."""
+    """The ranks one batch's routing spans: ``group`` over the batch axes
+    (and sp, whose ``sp_n`` ranks each hold a chunk of the sequence),
+    this rank's ``index`` in batch order among ``n`` (data-major, the sp
+    chunk minor), and ``order`` (group rank -> index; None when they
+    agree)."""
 
-    def __init__(self, group, index: int, n: int, order=None):
+    def __init__(self, group, index: int, n: int, order=None,
+                 sp_n: int = 1):
         self.group, self.index, self.n, self.order = group, index, n, order
+        self.sp_n = sp_n
 
     @classmethod
-    def of_mesh(cls, mesh, data_axes: tuple[str, ...]) -> "RoutingGroup":
-        """The group of ``data_axes`` of ``mesh`` (collective the first
-        time: every rank calls it, in one order)."""
+    def of_mesh(cls, mesh, data_axes: tuple[str, ...],
+                sp: bool = False) -> "RoutingGroup":
+        """The group of ``data_axes`` of ``mesh``, with ``sp`` its sp axis
+        too (collective the first time: every rank calls it, in one
+        order)."""
         sizes, coords = axis_sizes(mesh), mesh_coords(mesh)
-        dims = [sizes[a] for a in data_axes]
-        index = int(np.ravel_multi_index([coords[a] for a in data_axes],
-                                         dims)) if data_axes else 0
-        group = axes_group(mesh, data_axes) if data_axes else None
-        blocks = group_blocks(mesh, group, data_axes) if data_axes else None
+        axes = tuple(data_axes) + (("sp",) if sp else ())
+        dims = [sizes[a] for a in axes]
+        index = int(np.ravel_multi_index([coords[a] for a in axes],
+                                         dims)) if axes else 0
+        group = axes_group(mesh, axes) if axes else None
+        blocks = group_blocks(mesh, group, axes) if axes else None
         order = None if blocks is None else torch.as_tensor(blocks).argsort()
-        return cls(group, index, math.prod(dims), order)
+        return cls(group, index, math.prod(dims), order,
+                   sizes["sp"] if sp else 1)
+
+    def _gather(self, counts: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``counts`` [n, ...], in index order."""
+        import torch.distributed as dist
+
+        parts = counts.new_empty(self.n * counts.numel())
+        dist.all_gather_into_tensor(parts, counts.contiguous().view(-1),
+                                    group=self.group)
+        parts = parts.view(self.n, *counts.shape)
+        if self.order is not None:
+            parts = parts[self.order.to(parts.device)]
+        return parts
 
     def claims(self, counts: torch.Tensor):
         """This rank's per-expert claim ``counts`` [E] -> (the claims of
         the ranks before it in batch order, every rank's), both [E]."""
-        import torch.distributed as dist
-
         if self.group is None:
             return torch.zeros_like(counts), counts
-        parts = counts.new_empty(self.n * counts.shape[0])
-        dist.all_gather_into_tensor(parts, counts.contiguous(),
-                                    group=self.group)
-        parts = parts.view(self.n, -1)
-        if self.order is not None:
-            parts = parts[self.order.to(parts.device)]
+        parts = self._gather(counts)
         return parts[:self.index].sum(0), parts.sum(0)
+
+    def row_claims(self, counts: torch.Tensor):
+        """Under sp: this rank's claims per (row, expert) ``counts``
+        [rows, E] -> (for each of its rows, the claims of every (row,
+        chunk) before its chunk of that row in JAX's token order, [rows,
+        E]; every rank's claims [E])."""
+        rows, e = counts.shape
+        parts = self._gather(counts).view(self.n // self.sp_n, self.sp_n,
+                                          rows, e)
+        flat = parts.transpose(1, 2).reshape(-1, e)  # (row, chunk) order
+        before = flat.cumsum(0) - flat
+        d, j = divmod(self.index, self.sp_n)
+        mine = (d * rows + torch.arange(rows, device=counts.device)) \
+            * self.sp_n + j
+        return before[mine], flat.sum(0)
 
 
 def _route(cfg: MixtralConfig, logits: torch.Tensor, capacity: int,
            routing: RoutingGroup | None = None, e0: int = 0,
-           n: int | None = None, gate_conj=None):
+           n: int | None = None, gate_conj=None, rows: int = 1):
     """Router logits [T, E] -> (dispatch, combine) [T, n, C] f32 for the
     ``n`` experts from ``e0`` (default: all), the aux (see the module
     docstring for its form under ``routing``) and every rank's claims
     per expert [E]. ``gate_conj`` wraps the renormalised gate values
-    (the ep conjugate)."""
+    (the ep conjugate); ``rows`` is the number of rows the T tokens
+    fill (read under sp)."""
     t = logits.shape[0]
     e, k, c = cfg.num_experts, cfg.top_k, capacity
     n = n or e
@@ -271,11 +316,18 @@ def _route(cfg: MixtralConfig, logits: torch.Tensor, capacity: int,
     if gate_conj is not None:
         gate_vals = gate_conj(gate_vals)
     flat = F.one_hot(gate_idx, e).view(t * k, e)  # token-major, k-minor
-    position = ((flat.cumsum(0) - flat) * flat).sum(-1).view(t, k)
-    counts = flat.sum(0)
-    if routing is not None:
-        before, counts = routing.claims(counts)
-        position = position + before[gate_idx]
+    if routing is not None and routing.sp_n > 1:  # per row: see above
+        per = flat.view(rows, -1, e)
+        position = ((per.cumsum(1) - per) * per).sum(-1).view(t, k)
+        before, counts = routing.row_claims(per.sum(1))
+        position = position + before.repeat_interleave(
+            t // rows, 0).gather(1, gate_idx)
+    else:
+        position = ((flat.cumsum(0) - flat) * flat).sum(-1).view(t, k)
+        counts = flat.sum(0)
+        if routing is not None:
+            before, counts = routing.claims(counts)
+            position = position + before[gate_idx]
     keep = (position < c) & (gate_idx >= e0) & (gate_idx < e0 + n)
     # Each (token, expert) holds at most one claim, so the sums below add
     # one value to zeros: JAX's one-hot einsums, bit for bit.
@@ -311,23 +363,31 @@ def moe_block(cfg: MixtralConfig, x: torch.Tensor, lp: dict, ps=None,
     router, w_gate, w_up, w_down = layer_weights(
         ps, lp, "router", "we_gate", "we_up", "we_down")
     logits = (xt @ router).float()
-    n = w_gate.shape[0]
-    e0 = 0 if ps is None else ps.ep_rank * n
+    # ep ranks on the same tokens, each on its own experts
+    ep = ps is not None and ps.ep_local and not ps.ep_dispatch
+    dispatch_ep = ps is not None and ps.ep_dispatch
+    n = w_gate.shape[0] if ep else cfg.num_experts
+    e0 = ps.ep_rank * n if ep else 0
     dispatch, combine, aux, claims = _route(
-        cfg, logits, c, routing, e0, n,
-        None if ps is None else ps.copy_to_ep)
+        cfg, logits, c, routing, e0, n, ps.copy_to_ep if ep else None, b)
     if stats is not None:
         stats.append(claims)
-    x_e = xt if ps is None else ps.copy_to_tp(ps.copy_to_ep(xt))
+    x_e = xt
+    if ps is not None:
+        x_e = ps.tp_in(ps.copy_to_ep(x_e) if ep else x_e, "mlp")
     expert_in = torch.einsum("tec,th->ech", dispatch.to(dt), x_e)
+    if dispatch_ep:  # every expert's slots -> this rank's experts'
+        expert_in = ps.scatter_experts(expert_in)
     gate = F.silu(torch.einsum("ech,ehi->eci", expert_in, w_gate)
                   .float()).to(dt)
     up = torch.einsum("ech,ehi->eci", expert_in, w_up)
     expert_out = torch.einsum("eci,eih->ech", gate * up, w_down)
     if ps is not None:
-        expert_out = ps.reduce_from_tp(expert_out)
+        expert_out = ps.tp_out(expert_out, "mlp")
+    if dispatch_ep:
+        expert_out = ps.gather_experts(expert_out)
     y = torch.einsum("tec,ech->th", combine.to(dt), expert_out)
-    if ps is not None:
+    if ep:
         y = ps.reduce_from_ep(y)
     return y.view(b, s, h), aux
 
@@ -349,21 +409,23 @@ def _moe_half(cfg: MixtralConfig, x, o, lp, ps=None, routing=None,
 
 
 def _layer(cfg: MixtralConfig, x, lp, cos, sin, attn_impl: str, ps=None,
-           routing=None, stats=None, policy: str = "none"):
-    """One block -> (x, aux); ``policy`` as in the module docstring."""
+           routing=None, stats=None, policy: str = "none", sp_axis=None):
+    """One block -> (x, aux); ``policy`` as in the module docstring;
+    ``sp_axis`` runs Llama's ring over its group (outside every
+    segment, as flash)."""
     attn_in = partial(_llama._attn_inputs, cfg, ps=ps)
     moe_half = partial(_moe_half, cfg, ps=ps, routing=routing, stats=stats)
     if policy == "none":
         q, k, v = attn_in(x, lp, cos, sin)
-        return moe_half(x, _llama._attention(cfg, q, k, v, attn_impl, None),
-                        lp)
+        return moe_half(x, _llama._attention(cfg, q, k, v, attn_impl,
+                                             sp_axis), lp)
     if policy not in ("dots", "dots+"):  # attn, attn+: recompute whole
         q, k, v = ckpt(attn_in, x, lp, cos, sin)
-        o = _llama._attention(cfg, q, k, v, attn_impl, None)
+        o = _llama._attention(cfg, q, k, v, attn_impl, sp_axis)
         return ckpt(moe_half, x, o, lp)
     proj = ckpt_dots(partial(_llama._attn_proj, cfg, ps=ps), x, lp)
     o = _llama._attention(cfg, *_llama._rope_qkv(*proj, cos, sin),
-                          attn_impl, None)
+                          attn_impl, sp_axis)
     x = _llama._attn_out(cfg, x, o, lp["wo"], ps)
     y, aux = ckpt_dots(partial(_moe, cfg, ps=ps, routing=routing,
                                stats=stats), x, lp)
@@ -374,10 +436,12 @@ def forward_hidden(cfg: MixtralConfig, params: dict, tokens: torch.Tensor,
                    positions: torch.Tensor | None = None,
                    attn_impl: str = "flash", remat: bool | str = True,
                    param_shard=None, routing: RoutingGroup | None = None,
-                   route_stats: list | None = None):
+                   route_stats: list | None = None, sp_axis=None):
     """tokens [B, S] -> (final-norm hidden states [B, S, H], the aux
     averaged over layers). ``route_stats`` (a list) gets each layer's
-    claims per expert (see :func:`moe_block`)."""
+    claims per expert (see :func:`moe_block`). ``sp_axis``: context
+    parallel as in Llama's ``forward_hidden`` (``tokens`` this rank's
+    chunk at ``positions``; ``routing`` then spans sp)."""
     s = tokens.shape[1]
     dev = tokens.device
     ps = param_shard
@@ -386,25 +450,24 @@ def forward_hidden(cfg: MixtralConfig, params: dict, tokens: torch.Tensor,
     if ps is None:
         x = F.embedding(tokens, params["embed_tokens"])
     else:
-        ps.local(cfg.num_heads, "q heads")
-        ps.local(cfg.num_kv_heads, "kv heads")
-        x = ps.vocab_embed(tokens, ps.full(("embed_tokens",),
-                                           params["embed_tokens"]))
+        ps.local(cfg.num_heads, "q heads", "attn")
+        ps.local(cfg.num_kv_heads, "kv heads", "attn")
+        x = ps.embed(tokens, params["embed_tokens"])
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, None,
                                 device=dev)
     cos, sin = rope_cos_sin(positions, inv_freq)
     fn = _llama._remat_wrap(
         partial(_layer, cfg, cos=cos, sin=sin, attn_impl=attn_impl, ps=ps,
-                routing=routing, stats=route_stats), remat)
+                routing=routing, stats=route_stats, sp_axis=sp_axis), remat)
     auxes = []
-    for lp in layer_params(params):
+    for lp in layer_params(stacked_layers(ps, params)):
         x, aux = fn(x, lp)
         auxes.append(aux)
     if ps is None:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     else:
         norm = ps.full(("final_norm",), params["final_norm"])
-        x = ps.copy_to_tp(rms_norm(x, norm, cfg.norm_eps))
+        x = ps.tp_in(rms_norm(x, norm, cfg.norm_eps), "vocab")
     return x, torch.stack(auxes).mean()
 
 
@@ -418,16 +481,13 @@ def forward(cfg: MixtralConfig, params: dict, tokens: torch.Tensor,
             remat: bool | str = True, param_shard=None,
             routing: RoutingGroup | None = None):
     """tokens [B, S] -> (f32 logits [B, S, V], the aux averaged over
-    layers). Under tp > 1 the logits of a vocabulary-parallel head are
-    not gathered (``NotImplementedError``): use ``loss_fn``."""
+    layers). A vocabulary-parallel head's logits are all-gathered over tp
+    (each rank's columns of the gradient in the backward)."""
     ps = param_shard
-    if ps is not None and ps.tp_n > 1:
-        raise NotImplementedError(
-            "Mixtral forward's whole logits under tp > 1 (a "
-            "vocabulary-parallel head) are not gathered; use loss_fn")
     x, aux = forward_hidden(cfg, params, tokens, positions, attn_impl,
                             remat, ps, routing)
-    return logits_f32(x, _head(params, ps)), aux
+    logits = logits_f32(x, _head(params, ps))
+    return (logits if ps is None else ps.gather_vocab(logits)), aux
 
 
 def loss_fn(cfg: MixtralConfig, params: dict, tokens: torch.Tensor,
@@ -442,9 +502,6 @@ def loss_fn(cfg: MixtralConfig, params: dict, tokens: torch.Tensor,
     x, aux = forward_hidden(cfg, params, tokens, param_shard=ps,
                             routing=routing, **fwd_kwargs)
     head = _head(params, ps)
-    if ps is None:
-        lm = fused_cross_entropy(x, head, targets, mask)
-    else:
-        lm = fused_cross_entropy(x, head, targets, mask, tp_group=ps.tp,
-                                 vocab_start=ps.tp_rank * head.shape[1])
+    lm = fused_cross_entropy(x, head, targets, mask,
+                             **({} if ps is None else ps.vocab_parallel(head)))
     return lm + cfg.router_aux_coef * aux

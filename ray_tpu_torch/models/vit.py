@@ -32,13 +32,14 @@ kept too, three [B, S, H] tensors a layer more than JAX keeps under
 "attn"; in exchange K2 never re-runs.
 
 Param sharding (``param_shard``, as in ``models.llama``): each layer
-gathers its leaves over fsdp inside itself (inside its remat segment
-under "full"); under tp q/k/v and ``w_up`` are column-parallel (the local
-heads and MLP columns), ``wo`` and ``w_down`` row-parallel followed by
-the tp all-reduce, each norm's output passes the conjugate whose
-backward sums over tp. ``patch_embed``, ``pos_embed``, ``cls_token``,
-the final norm and ``head`` are gathered whole (their ``classes`` and
-``patch_in`` dims stay replicated under the rules).
+gathers its leaves on their split dims inside itself (inside its remat
+segment under "full"); where the rules split a unit over tp alone, q/k/v
+and ``w_up`` are column-parallel (the local heads and MLP columns),
+``wo`` and ``w_down`` row-parallel followed by the tp all-reduce, each
+norm's output entering the unit through the conjugate whose backward
+sums over tp. ``patch_embed``, ``pos_embed``, ``cls_token``, the final
+norm and ``head`` are gathered whole (``classes`` over tp, say, is
+gathered, and each tp rank takes its columns of the gradient).
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ from ray_tpu_torch.models._common import ckpt, ckpt_dots, layer_params
 from ray_tpu_torch.models.llama import _remat_wrap, params_from_jax
 from ray_tpu_torch.ops.attention import blockwise_attention, flash_attention
 from ray_tpu_torch.ops.norms import rms_norm
-from ray_tpu_torch.parallel.param_shard import layer_weights
+from ray_tpu_torch.parallel.param_shard import layer_weights, stacked_layers
 
 __all__ = ["ViTConfig", "param_logical_axes", "init_params",
            "params_from_jax", "patchify", "forward", "loss_fn"]
@@ -178,17 +179,17 @@ def patchify(cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, (hh // p) * (ww // p), p * p * c)
 
 
-def _tp(ps):
-    """The tp conjugates (identities without param sharding)."""
+def _tp(ps, unit: str):
+    """``unit``'s tp conjugates (identities where it is not tp-local)."""
     if ps is None:
         return (lambda t: t), (lambda t: t)
-    return ps.copy_to_tp, ps.reduce_from_tp
+    return partial(ps.tp_in, unit=unit), partial(ps.tp_out, unit=unit)
 
 
 def _qkv(cfg: ViTConfig, x, lp, ps=None):
     b, s, _ = x.shape
     norm, wq, wk, wv = layer_weights(ps, lp, "attn_norm", "wq", "wk", "wv")
-    xn = _tp(ps)[0](rms_norm(x, norm, cfg.norm_eps))
+    xn = _tp(ps, "attn")[0](rms_norm(x, norm, cfg.norm_eps))
     return tuple((xn @ w).view(b, s, -1, cfg.head_dim).transpose(1, 2)
                  for w in (wq, wk, wv))
 
@@ -202,13 +203,14 @@ def _attention(q, k, v, attn_impl: str):
 def _out(cfg: ViTConfig, x, attn, lp, ps=None):
     b, s, _ = x.shape
     (wo,) = layer_weights(ps, lp, "wo")
-    return x + _tp(ps)[1](attn.transpose(1, 2).reshape(b, s, -1) @ wo)
+    return x + _tp(ps, "attn")[1](attn.transpose(1, 2).reshape(b, s, -1)
+                                  @ wo)
 
 
 def _mlp(cfg: ViTConfig, x, lp, ps=None):
     """mlp norm, w_up, gelu, w_down: what the MLP adds to the residual."""
     norm, w_up, w_down = layer_weights(ps, lp, "mlp_norm", "w_up", "w_down")
-    tp_in, tp_out = _tp(ps)
+    tp_in, tp_out = _tp(ps, "mlp")
     xn = tp_in(rms_norm(x, norm, cfg.norm_eps))
     return tp_out(F.gelu(xn @ w_up, approximate="tanh") @ w_down)
 
@@ -246,7 +248,7 @@ def forward(cfg: ViTConfig, params: dict, images: torch.Tensor,
     if ps is None:
         top = params
     else:
-        ps.local(cfg.num_heads, "heads")
+        ps.local(cfg.num_heads, "heads", "attn")
         top = {k: ps.full((k,), v) for k, v in params.items()
                if k != "layers"}
     x = patchify(cfg, images.to(cfg.torch_dtype)) @ top["patch_embed"]
@@ -254,7 +256,7 @@ def forward(cfg: ViTConfig, params: dict, images: torch.Tensor,
     x = torch.cat([cls, x], dim=1) + top["pos_embed"][None]
     layer_fn = _remat_wrap(partial(_layer, cfg, attn_impl=attn_impl, ps=ps),
                            remat)
-    for lp in layer_params(params):
+    for lp in layer_params(stacked_layers(ps, params)):
         x = layer_fn(x, lp)
     x = rms_norm(x, top["final_norm"], cfg.norm_eps)
     return (x[:, 0, :] @ top["head"]).float()  # the class token

@@ -83,9 +83,9 @@ PIPELINE_AXES = ("pp", "dp")
 def pp_param_shardings(cfg: LlamaConfig, mesh) -> dict:
     """Per param leaf, its spec over ``mesh``: the layer leaves split over
     ``pp`` on the stacked-layer dim, the embedding, final norm and head
-    replicated. A placement of the pipeline's own, not a rule-table
-    layout (the step factory's ``check_layout`` refuses ``layers`` on a
-    mesh axis)."""
+    replicated. A placement of the pipeline's own: the rules step takes
+    ``layers`` on pp too, but gathers the layers there (every rank runs
+    every layer)."""
     pp = axis_sizes(mesh).get("pp")
     if pp is None:
         raise ValueError("the mesh has no pp axis")

@@ -19,21 +19,27 @@ DCP in place of orbax:
   reads whatever saved chunks overlap each piece, and a whole tensor
   saved in another shape of the same size (a moment saved leaf-shaped,
   restored as a flat view) loads through a view. Without a template it
-  returns nested dicts of whole CPU tensors.
+  returns nested dicts of whole CPU tensors. A piece whose tensor was
+  saved in another shape of the same size (a moment saved as a flat
+  ``FlatShard`` view, restored as a leaf-shaped ``BlockShard``, or the
+  other way) is read whole by every rank and cut: the whole tensor of
+  each such key is alive during the load.
 
 ``TrainState.checkpoint_tree()`` (train/spmd.py) gives a step's state in
 this form: a ZeRO-1 state saved at 4 ranks restores at 2 or 1, an FSDP/TP
-state saved at fsdp2 x tp2 restores at dp=2 or with no mesh.
+state saved at fsdp2 x tp2 restores at dp=2 or with no mesh, with or
+without ZeRO-1 on either side.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
@@ -59,16 +65,44 @@ class FlatShard:
 @dataclass
 class BlockShard:
     """This rank's block ``local`` of a tensor of ``shape``, at
-    ``offsets`` (one a dim). ``replicas``/``owner`` as FlatShard's."""
+    ``offsets`` (one a dim). ``replicas``/``owner`` as FlatShard's.
+    ``after_load(local)``, when given, is called once a restore has
+    filled ``local``. With ``gather``, no rank holds the block: ``local``
+    is a meta tensor of its shape and dtype, a save calls ``gather()``
+    for it (a collective: every rank calls it, in the tree's order) and
+    only the ``owner`` keeps what it returns for the write, and a restore
+    reads the block into a new tensor on ``device`` and hands it to
+    ``after_load``, which cuts this rank's own piece from it."""
     local: torch.Tensor
     shape: tuple
     offsets: tuple
     replicas: Any = None
     owner: bool = True
+    after_load: Any = None
+    gather: Any = None
+    device: Any = None
 
     @property
     def whole(self) -> bool:
-        return tuple(self.local.shape) == tuple(self.shape)
+        return self.gather is None and \
+            tuple(self.local.shape) == tuple(self.shape)
+
+
+def _gathered(piece, load: bool):
+    """``piece`` with its block in ``local`` where it is a ``gather``ed
+    BlockShard: for a save the gathered block on its owner (an empty
+    tensor elsewhere, so each rank holds only the blocks it writes), for
+    a restore a new tensor to read it into."""
+    if not isinstance(piece, BlockShard) or piece.gather is None:
+        return piece
+    if load:
+        local = torch.empty(piece.local.shape, dtype=piece.local.dtype,
+                            device=piece.device)
+    else:
+        local = piece.gather()
+        if not piece.owner:
+            local = local[:0]
+    return replace(piece, local=local, gather=None)
 
 
 _PIECES = (FlatShard, BlockShard)
@@ -168,6 +202,13 @@ def _state_dict(flat, coordinated: bool):
             for k, v in flat}
 
 
+def _save_dict(tree, coordinated: bool):
+    """The state dict DCP saves: each gathered block made one leaf at a
+    time, kept by its owner only."""
+    return _state_dict(((k, _gathered(v, load=False))
+                        for k, v in tree_items(tree)), coordinated)
+
+
 def _write(tree: Any, directory: str, step: int | None,
            coordinated: bool) -> str:
     """Write ``tree`` under ``directory``: every rank together
@@ -185,8 +226,8 @@ def _write(tree: Any, directory: str, step: int | None,
             shutil.rmtree(target)
     if coordinated:
         dist.barrier()
-    dcp.save(_state_dict(tree_items(tree), coordinated),
-             checkpoint_id=target, no_dist=not coordinated)
+    dcp.save(_save_dict(tree, coordinated), checkpoint_id=target,
+             no_dist=not coordinated)
     if lead:  # last: a directory without it is a partial write
         with open(os.path.join(directory, "rtpu_meta.json"), "w") as f:
             json.dump({"step": step, "time": time.time()}, f)
@@ -228,9 +269,23 @@ def restore_pytree(directory: str, template: Any = None) -> Any:
                 node = node.setdefault(part, {})
             node[last] = v
         return out
-    flat = list(tree_items(template))
-    sd = _state_dict(flat, _distributed())
+    flat = [(k, _gathered(v, load=True)) for k, v in tree_items(template)]
     saved = dcp.FileSystemReader(target).read_metadata().state_dict_metadata
+    # Pieces of a tensor saved in another shape of the same size: read
+    # whole, cut below (the same keys on every rank, so the collective
+    # ShardedTensor builds stay in one order).
+    reshaped = {}
+    for k, v in flat:
+        size = getattr(saved.get(k), "size", None)
+        if isinstance(v, _PIECES) and size is not None:
+            shape = tuple(v.shape) if isinstance(v, BlockShard) \
+                else (v.numel,)
+            if tuple(size) != shape and size.numel() == math.prod(shape):
+                reshaped[k] = torch.empty(tuple(size), dtype=v.local.dtype,
+                                          device=v.local.device)
+    sd = _state_dict([(k, v) for k, v in flat if k not in reshaped],
+                     _distributed())
+    sd.update(reshaped)
     for k, v in flat:  # a whole tensor saved in another shape
         m = saved.get(k)
         if type(v) is torch.Tensor and getattr(m, "size", None) is not None \
@@ -240,10 +295,14 @@ def restore_pytree(directory: str, template: Any = None) -> Any:
     dcp.load(sd, checkpoint_id=target)
     leaves = []
     for k, v in flat:
+        if k in reshaped:
+            _cut(v, reshaped.pop(k))
+        elif isinstance(v, _PIECES) and v.replicas is not None:
+            dist.broadcast(v.local, src=dist.get_global_rank(
+                v.replicas, 0), group=v.replicas)
         if isinstance(v, _PIECES):
-            if v.replicas is not None:
-                dist.broadcast(v.local, src=dist.get_global_rank(
-                    v.replicas, 0), group=v.replicas)
+            if getattr(v, "after_load", None) is not None:
+                v.after_load(v.local)
             leaves.append(v.local)
         elif isinstance(v, torch.Tensor):
             leaves.append(v)
@@ -252,14 +311,24 @@ def restore_pytree(directory: str, template: Any = None) -> Any:
     return tree_rebuild(template, leaves)
 
 
+def _cut(piece, whole: torch.Tensor) -> None:
+    """Fill ``piece`` from the whole tensor it is a piece of (read in
+    another shape of the same size)."""
+    if isinstance(piece, BlockShard):
+        whole = whole.reshape(piece.shape)
+        piece.local.copy_(whole[tuple(
+            slice(o, o + n) for o, n in zip(piece.offsets,
+                                            piece.local.shape))])
+    else:
+        piece.local[:piece.length].copy_(
+            whole.reshape(-1)[piece.offset:piece.offset + piece.length])
+
+
 def _host_snapshot(tree):
     def one(x):
-        if isinstance(x, BlockShard):
-            return BlockShard(x.local.detach().cpu().clone(), x.shape,
-                              x.offsets, x.replicas, x.owner)
-        if isinstance(x, FlatShard):
-            return FlatShard(x.local.detach().cpu().clone(), x.numel,
-                             x.offset, x.length, x.replicas, x.owner)
+        if isinstance(x, _PIECES):
+            x = _gathered(x, load=False)
+            return replace(x, local=x.local.detach().cpu().clone())
         if isinstance(x, torch.Tensor):
             return x.detach().cpu().clone()
         return x

@@ -48,34 +48,43 @@ gradient norm, the same on every rank:
 
 A one-rank mesh runs every collective of its mode on one-rank groups.
 
-Param sharding (FSDP, TP and EP): whenever the rules map a param dim
-onto a mesh axis (JAX's default table: ``embed`` on fsdp, ``heads``/
-``kv_heads``/``mlp``/``vocab`` on tp, ``expert`` on ep; size-1 axes
-count), each rank's ``state.params`` holds its block of each leaf, as
-``NamedSharding(mesh, rules.spec(*logical))`` lays it out, and the step
-calls ``loss(params, tokens, targets, param_shard=...)``, whose model
-gathers each layer over fsdp inside its remat segment and computes its
+Param sharding (FSDP, TP, EP and any other rule table): whenever the
+rules map a param dim onto a mesh axis (JAX's default table: ``embed``
+on fsdp, ``heads``/``kv_heads``/``mlp``/``vocab`` on tp, ``expert`` on
+ep; size-1 axes count), each rank's ``state.params`` holds its block of
+each leaf, as ``NamedSharding(mesh, rules.spec(*logical))`` lays it out,
+and the step calls ``loss(params, tokens, targets, param_shard=...)``,
+whose model gathers each split dim where it uses it and computes its
 local heads, MLP columns and vocabulary rows under tp, and its own
-experts under ep (``parallel.param_shard``). A gather's backward
-reduce-scatters, so a leaf's gradient arrives summed over the data axes
-that split it; the step then averages it over the data axes that do not
-(dp, sp), dividing by the whole data-parallel size, and never over tp
-or ep. Every mode above applies to the local blocks: ``zero1`` takes
-pieces of each block's padded flat view over the data axes that do not
-split the leaf. Under
-``dcn_axes`` (the explicit hierarchy) the gradient and the update run on
-each whole leaf's padded flat view, as JAX's do, so that pieces and int8
-buckets fall at JAX's flat offsets: a leaf's block gradient is placed in
-a zeroed whole leaf (its tp and ep blocks gathered first) and the
-reduce-scatter over the slice sums the ranks' blocks, and the updated
-whole leaf is cut back to the block; one whole leaf at a time is alive,
-and each step moves fsdp times a block's gradient bytes where a reshard
-would move them once (ROADMAP Queue A item 1). The gradient norm is the
-whole gradient's: square sums all-reduced over the axes that split each
-leaf, a leaf replicated over tp or ep counted once. Not done
-(``NotImplementedError``): sp > 1 with a param split over an axis of
-size > 1; checkpointing a param-sharded state under ``zero1`` or
-``dcn_axes``; the layouts ``ParamShard`` refuses.
+experts under ep (``parallel.param_shard``). Three kinds of axis meet in
+a leaf's gradient. A gather over a data axis (one whose ranks hold
+different rows: the batch axes and sp) reduce-scatters, so the gradient
+arrives summed over the data axes that split the leaf; a gather over an
+axis whose ranks hold the same rows (tp, ep or pp splitting a dim the
+model does not compute locally) takes this rank's block and sums
+nothing; a tp- or ep-local dim does neither (experts over ep with the
+batch over ep too arrive summed over ep by the dispatch). The step then
+sums each gradient over the data axes that do not split the leaf and
+divides by the whole data-parallel size. Context parallelism (sp > 1)
+runs under any of these layouts: the ring over sp on the local heads,
+the gathers over their own groups. Every mode above applies to the
+local blocks: ``zero1`` takes pieces of each block's padded flat view
+over the data axes that do not split the leaf. Under ``dcn_axes`` (the
+explicit hierarchy) the gradient and the update run on each whole leaf's
+padded flat view, as JAX's do, so that pieces and int8 buckets fall at
+JAX's flat offsets: a leaf's block gradient is placed in a zeroed whole
+leaf (its tp and ep blocks gathered first) and the reduce-scatter over
+the slice sums the ranks' blocks, and the updated whole leaf is cut back
+to the block; one whole leaf at a time is alive, and each step moves
+fsdp times a block's gradient bytes where a reshard would move them once
+(ROADMAP Queue A item 1). A dim split over an axis outside the slice's
+data axes (a dcn axis, or tp, ep or pp on a dim the model gathers) is
+gathered before the forward instead, outside autograd, so its gradient
+is this rank's on the whole dim, lands at its offset and sums over the
+slice, then over the dcn stage; such a leaf is whole over that dim for
+the step. The gradient norm is the whole gradient's: square sums
+all-reduced over the axes that split each leaf, a leaf replicated over
+tp or ep counted once.
 
 Returns (step_fn, init_state, data_sharder), as the JAX factory does:
 
@@ -115,7 +124,13 @@ from ray_tpu_torch.models.llama import (
     param_logical_axes,
 )
 from ray_tpu_torch.parallel.mesh import AXIS_ORDER, mesh_coords
-from ray_tpu_torch.parallel.param_shard import ParamShard, check_layout
+from ray_tpu_torch.parallel.param_shard import (
+    ParamShard,
+    _all_gather,
+    _order,
+    check_layout,
+    split_dims,
+)
 from ray_tpu_torch.parallel.sharding import (
     ShardingRules,
     at_path,
@@ -154,8 +169,17 @@ class TrainState:
         ``dcn_axes`` this rank's piece of it, so a state saved at one world
         size restores at another). Under param sharding each param and
         (flat mode) each moment is this rank's ``BlockShard`` of the whole
-        leaf, so the state restores at another mesh or with none. Clears
-        ``host_step``, since a restore into it may follow."""
+        leaf, so the state restores at another mesh or with none. Under
+        ``zero1`` without ``dcn_axes`` a moment is this rank's piece of
+        its block's padded flat view, which is no rectangle of the leaf:
+        it is a ``BlockShard`` with a ``gather``, which ``save_pytree``
+        calls one leaf at a time (an all-gather over the update group),
+        and only the block's first holder keeps the block, until the
+        write ends; a restore reads the block, with no gather, and each
+        rank cuts its own piece from it (``after_load``). Under
+        ``dcn_axes`` the moments are pieces of the whole leaf's flat
+        view: ``FlatShard``s. Clears ``host_step``, since a restore into
+        it may follow."""
         from ray_tpu_torch.train.checkpoint import BlockShard, FlatShard
 
         self.host_step = None
@@ -165,18 +189,35 @@ class TrainState:
             b = piece.block
             return BlockShard(t, b.shape, b.offsets, b.replicas, b.owner)
 
+        def gathered(t, piece):
+            import torch.distributed as dist
+
+            c = t.numel()
+            b = piece.block
+
+            def gather():
+                flat = t.new_empty(c * dist.get_world_size(piece.group))
+                dist.all_gather_into_tensor(
+                    flat, t.reshape(-1).contiguous(), group=piece.group)
+                return flat[:piece.numel].view(b.size)
+
+            def put(loaded, off=piece.offset):
+                src = loaded.reshape(-1)[off:off + c]
+                t.view(-1)[:src.numel()].copy_(src)
+                t.view(-1)[src.numel():].zero_()  # the flat view's padding
+
+            return BlockShard(
+                torch.empty(b.size, dtype=t.dtype, device="meta"), b.shape,
+                b.offsets, b.replicas, b.owner, put, gather, t.device)
+
         def moment(t, piece):
-            if piece.block is not None:
-                if piece.sharded:
-                    raise NotImplementedError(
-                        "checkpointing a state whose params are sharded "
-                        "(FSDP/TP) under zero1 or dcn_axes: its moments "
-                        "are pieces of each block's flat view (not "
-                        "ported yet)")
-                return block(t, piece)
+            if piece.group is not None:
+                return gathered(t, piece)
             if piece.sharded:
                 return FlatShard(t, piece.numel, piece.offset, piece.length,
                                  piece.replicas, piece.owner)
+            if piece.block is not None:
+                return block(t, piece)
             return t.view(-1)
 
         def walk(t):
@@ -204,12 +245,14 @@ class TrainState:
 
 class _Block(NamedTuple):
     """A param leaf's block on this rank under param sharding: the whole
-    leaf's ``shape``, the block's ``offsets``, the ranks holding the same
-    block (``replicas``) and whether this one writes it."""
+    leaf's ``shape``, the block's ``offsets`` and ``size``, the ranks
+    holding the same block (``replicas``) and whether this one writes
+    it."""
     shape: tuple
     offsets: tuple
     replicas: Any
     owner: bool
+    size: tuple = ()
 
 
 class _Piece(NamedTuple):
@@ -217,7 +260,9 @@ class _Piece(NamedTuple):
     of its (block's) padded flat view, of which ``length`` fall inside its
     ``numel``; ``replicas`` is the group of ranks holding the same
     piece (None: this rank alone), ``owner`` whether this rank writes it
-    to a checkpoint; ``block`` the leaf's param block (None: whole)."""
+    to a checkpoint; ``block`` the leaf's param block (None: whole);
+    ``group`` the update group whose ranks hold the pieces of the block's
+    flat view, in order (None: the piece is of the whole leaf's)."""
     numel: int
     offset: int
     length: int
@@ -225,6 +270,7 @@ class _Piece(NamedTuple):
     replicas: Any = None
     owner: bool = True
     block: Any = None
+    group: Any = None
 
 
 class _Plan:
@@ -233,7 +279,7 @@ class _Plan:
     of the sharded update."""
 
     def __init__(self, mesh, dev, data_axes, dcn_data, ici_data, zero1,
-                 explicit_hier, dcn_quant, bucket):
+                 explicit_hier, dcn_quant, bucket, sp_axes=None):
         import torch.distributed as dist
 
         from ray_tpu_torch.parallel.mesh import mesh_coords
@@ -253,7 +299,8 @@ class _Plan:
         if coords is None:
             raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
         self.dist = dist
-        sp = ("sp",) if "sp" in sizes else ()
+        sp = (("sp",) if "sp" in sizes else ()) if sp_axes is None \
+            else sp_axes
         self.avg_axes = data_axes + sp
         self.n_avg = math.prod(sizes[a] for a in self.avg_axes)
         self.data_n = math.prod(sizes[a] for a in data_axes)
@@ -385,22 +432,23 @@ class _LeafSync(NamedTuple):
     shard_group: Any
 
 
-def _leaf_syncs(mesh, dev, ps: ParamShard, data_axes,
+def _leaf_syncs(mesh, dev, ps: ParamShard, avg_axes,
                 zero1) -> dict[tuple, _LeafSync]:
-    """Per param leaf path: its gradient's plan over the data axes that do
-    not split it (one ``_Plan`` per distinct set, groups built once, in
-    one order on every rank). Only for the one-level sync: under the
-    explicit hierarchy the step runs on whole leaves."""
+    """Per param leaf path: its gradient's plan over the data axes (the
+    batch axes and sp) that do not split it (one ``_Plan`` per distinct
+    set, groups built once, in one order on every rank). Only for the
+    one-level sync: under the explicit hierarchy the step runs on whole
+    leaves."""
     sizes = axis_sizes(mesh)
     plans: dict = {}
     out = {}
     for path, axes in ps.shard_axes.items():
         axes = tuple(a for a in AXIS_ORDER if a in axes)
-        keep = tuple(a for a in data_axes if a not in axes)
+        keep = tuple(a for a in avg_axes if a not in axes)
         if keep not in plans:
             plans[keep] = _Plan(mesh, dev, keep, (), (), zero1, False, None,
-                                DCN_QUANT_BUCKET)
-        divisor = math.prod(sizes[a] for a in axes if a in data_axes)
+                                DCN_QUANT_BUCKET, sp_axes=())
+        divisor = math.prod(sizes[a] for a in axes if a in avg_axes)
         out[path] = _LeafSync(plans[keep], divisor, axes,
                               axes_group(mesh, axes))
     return out
@@ -421,14 +469,23 @@ def _block_of(path, shape, spec, mesh) -> _Block:
 
     sizes, coords = axis_sizes(mesh), mesh_coords(mesh)
     offsets = [0] * len(shape)
+    size = list(shape)
     used = set()
     for d in leaf_dim_shards(spec, shape, sizes, coords, "/".join(path)):
-        offsets[d.dim] = d.index * (shape[d.dim] // d.n)
+        size[d.dim] = shape[d.dim] // d.n
+        offsets[d.dim] = d.index * size[d.dim]
         used.update(d.axes)
     rest = tuple(a for a in AXIS_ORDER if a not in used)
     return _Block(tuple(shape), tuple(offsets),
                   axes_group(mesh, rest) if rest else None,
-                  all(coords[a] == 0 for a in rest))
+                  all(coords[a] == 0 for a in rest), tuple(size))
+
+
+def _map_paths(tree, fn, path=()):
+    """A nest of dicts with each leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(v, fn, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
 
 
 def _takes_param_shard(loss: Callable) -> bool:
@@ -439,6 +496,39 @@ def _takes_param_shard(loss: Callable) -> bool:
         return False
     return any(p.name == "param_shard" and p.kind != p.POSITIONAL_ONLY
                or p.kind == p.VAR_KEYWORD for p in ps)
+
+
+def _data_domain(sizes: dict, rules: ShardingRules, dcn_axes, zero1,
+                 dcn_quant) -> tuple:
+    """The step's data-parallel domain on a mesh of ``sizes``: (the batch
+    axes, those of them across slices (dcn), those within a slice (ici),
+    the axes the update is sharded over, whether the step runs the
+    explicit hierarchy, the normalised ``dcn_quant``). Under the explicit
+    hierarchy JAX's step maps the loss over the slices, so whatever spans
+    the batch (Mixtral's routing) spans a slice's ici axes only."""
+    names = tuple(sizes)
+    dcn_axes = tuple(dcn_axes or ())
+    unknown = [a for a in dcn_axes if a not in names]
+    if unknown:
+        raise ValueError(f"dcn_axes {unknown} not in mesh {names}")
+    data_axes = tuple(a for a in batch_axes(rules) if a in names)
+    dcn_data = tuple(a for a in data_axes if a in dcn_axes)
+    ici_data = tuple(a for a in data_axes if a not in dcn_axes)
+    if dcn_axes and not dcn_data:
+        raise ValueError(
+            f"dcn_axes {dcn_axes} must name batch (data-parallel) axes; "
+            f"the batch shards over {data_axes}")
+    if dcn_quant in ("", "none"):
+        dcn_quant = None
+    if dcn_quant and not dcn_data:
+        raise ValueError("dcn_quant requires dcn_axes naming a batch axis")
+    if dcn_quant not in (None, "bf16", "int8"):
+        raise ValueError(f"unknown dcn_quant {dcn_quant!r}")
+    update_axes = (ici_data + dcn_data) if zero1 else \
+        (ici_data if dcn_axes else ())
+    explicit_hier = bool(dcn_data) and bool(update_axes or dcn_quant)
+    return data_axes, dcn_data, ici_data, update_axes, explicit_hier, \
+        dcn_quant
 
 
 def make_train_step(
@@ -472,75 +562,80 @@ def make_train_step(
 
     # -- the data-parallel domain: intra-slice (ici) vs cross-slice (dcn) --
     sizes = axis_sizes(mesh) if mesh is not None else {}
-    names = tuple(sizes)
-    dcn_axes = tuple(dcn_axes)
-    unknown = [a for a in dcn_axes if a not in names]
-    if unknown:
-        raise ValueError(f"dcn_axes {unknown} not in mesh {names}")
-    data_axes = tuple(a for a in batch_axes(rules) if a in names)
-    dcn_data = tuple(a for a in data_axes if a in dcn_axes)
-    ici_data = tuple(a for a in data_axes if a not in dcn_axes)
-    if dcn_axes and not dcn_data:
-        raise ValueError(
-            f"dcn_axes {dcn_axes} must name batch (data-parallel) axes; "
-            f"the batch shards over {data_axes}")
-    if dcn_quant in ("", "none"):
-        dcn_quant = None
-    if dcn_quant and not dcn_data:
-        raise ValueError("dcn_quant requires dcn_axes naming a batch axis")
-    if dcn_quant not in (None, "bf16", "int8"):
-        raise ValueError(f"unknown dcn_quant {dcn_quant!r}")
-    update_axes = (ici_data + dcn_data) if zero1 else \
-        (ici_data if dcn_axes else ())
-    explicit_hier = bool(dcn_data) and bool(update_axes or dcn_quant)
+    data_axes, dcn_data, ici_data, update_axes, explicit_hier, dcn_quant = \
+        _data_domain(sizes, rules, dcn_axes, zero1, dcn_quant)
     n_slices = math.prod(sizes[a] for a in dcn_data) if dcn_data else 1
 
     plan = ps = None
     leaf_sync: list[_LeafSync] = []  # in the params' leaf order
     syncs: dict[tuple, _LeafSync] = {}
-    # Per param leaf path, the mesh axes the rules split it over (a layout
-    # the models cannot compute on raises here, before any group exists).
-    layout = check_layout(sizes, logical_axes, rules, data_axes + (
-        ("sp",) if "sp" in sizes else ())) \
+    # Per param leaf path, the mesh axes the rules split it over.
+    layout = check_layout(sizes, logical_axes, rules) \
         if mesh is not None and logical_axes is not None else {}
     split = {p: tuple(a for _, axes in dims for a in axes)
              for p, dims in layout.items()}
-    if any(split.values()):
-        sharding_axes = sorted({a for v in split.values() for a in v})
-        if sizes.get("sp", 1) > 1 and any(sizes[a] > 1
-                                           for a in sharding_axes):
-            raise NotImplementedError(
-                "sp > 1 together with params split over an axis of size > "
-                "1 (context parallel under FSDP/TP) is not ported; pass "
-                "rules that replicate params on this mesh")
-        if not _takes_param_shard(loss):
-            raise NotImplementedError(
-                f"the rules shard params over {sharding_axes} (FSDP/TP), "
-                f"and this loss takes whole params: pass a "
-                f"loss(params, tokens, targets, param_shard=...) whose "
-                f"model gathers and computes on this rank's blocks (as "
-                f"make_llama_train_step and make_vit_train_step do), or "
-                f"rules that replicate params")
+    if any(split.values()) and not _takes_param_shard(loss):
+        raise NotImplementedError(
+            f"the rules shard params over "
+            f"{sorted({a for v in split.values() for a in v})} (FSDP/TP), "
+            f"and this loss takes whole params: pass a "
+            f"loss(params, tokens, targets, param_shard=...) whose "
+            f"model gathers and computes on this rank's blocks (as "
+            f"make_llama_train_step and make_vit_train_step do), or "
+            f"rules that replicate params")
+    pregather: dict = {}  # whole-leaf mode: {path: ((dim, n, group, order),)}
     if mesh is not None:
         plan = _Plan(mesh, dev, data_axes, dcn_data, ici_data, bool(zero1),
                      explicit_hier, dcn_quant, bucket)
         if any(split.values()):
-            ps = ParamShard(mesh, logical_axes, rules, plan.avg_axes)
-            if explicit_hier:
-                dcn_split = {"/".join(p): a for p, a in split.items()
-                             if any(x in dcn_data and sizes[x] > 1
-                                    for x in a)}
-                if dcn_split:
-                    raise NotImplementedError(
-                        f"params split over the cross-slice axes "
-                        f"{dcn_data} under the explicit hierarchy "
-                        f"(dcn_axes): {dcn_split}")
-            else:
-                syncs = _leaf_syncs(mesh, dev, ps, data_axes, bool(zero1))
+            whole_dims = {}
+            if explicit_hier:  # dims split outside the slice's data axes
+                for path, (gathered, _) in split_dims(
+                        layout, logical_axes, plan.avg_axes).items():
+                    whole_dims[path] = tuple(
+                        (d, axes) for d, axes in gathered
+                        if any(a not in plan.ici_axes and sizes[a] > 1
+                               for a in axes))
+            ps = ParamShard(mesh, logical_axes, rules, plan.avg_axes,
+                            {p: [d for d, _ in v]
+                             for p, v in whole_dims.items()})
+            for path, dims in whole_dims.items():
+                if dims:
+                    pregather[path] = tuple(
+                        (d, math.prod(sizes[a] for a in axes), g,
+                         _order(mesh, g, axes))
+                        for d, axes in dims
+                        for g in (axes_group(mesh, axes),))
+            if not explicit_hier:
+                syncs = _leaf_syncs(mesh, dev, ps, plan.avg_axes,
+                                    bool(zero1))
     sharded = plan is not None and plan.sharded
     whole_leaf = ps is not None and explicit_hier  # see the docstring
+    if explicit_hier:  # this rank's slice and its place in the slice
+        coords = mesh_coords(mesh)
+        slice_index, ici_index = (
+            int(np.ravel_multi_index([coords[a] for a in axes],
+                                     [sizes[a] for a in axes]))
+            if axes else 0 for axes in (dcn_data, ici_data))
     if ps is not None:
         loss = partial(loss, param_shard=ps)
+
+    def _model_params(params):
+        """The params the model computes on: in whole-leaf mode the dims
+        split outside the slice's data axes gathered (no gradient into
+        the stored blocks: the update reads these tensors' gradients)."""
+        if not pregather:
+            return params
+
+        def one(path, t):
+            if path not in pregather:
+                return t
+            with torch.no_grad():
+                for dim, n, group, order in pregather[path]:
+                    t = _all_gather(t, dim, n, group, order)
+            return t.requires_grad_(True)
+
+        return _map_paths(params, one)
 
     def _plan_of(i: int):
         return leaf_sync[i].plan if leaf_sync else plan
@@ -600,9 +695,11 @@ def make_train_step(
                         else None
                     n = math.prod(blocks[i].shape) if whole_leaf \
                         else p.numel()
+                    group = lp.upd if blocks[i] is not None and \
+                        not whole_leaf else None
                     layout[path] = _Piece(n, off, max(0, min(n, off + c) - off),
                                           True, replicas, lp.owner(),
-                                          blocks[i])
+                                          blocks[i], group)
             else:
                 opt_state = optimizer.init(params)
                 for (path, p), blk in zip(tree_paths(params), blocks):
@@ -677,13 +774,15 @@ def make_train_step(
             total += sq
         return total.sqrt()
 
-    def _whole_leaf_update(state, params, leaves, due):
+    def _whole_leaf_update(state, params, mparams, leaves, due):
         """The explicit hierarchy under param sharding (see the module
         docstring): each leaf's gradient and update on its whole padded
-        flat view, one whole leaf alive at a time."""
+        flat view, one whole leaf alive at a time. ``mparams`` are the
+        tensors the model ran on (``_model_params``)."""
         blocks = [p.block for p in state.layout.values()]
         shards, p_pieces = [], []
-        for (path, p), blk in zip(tree_paths(params), blocks):
+        for (path, _), p, blk in zip(tree_paths(params),
+                                     tree_leaves(mparams), blocks):
             g, p.grad = p.grad, None
             g = ps.local_full(path, g)
             whole = g.new_zeros(blk.shape)
@@ -719,7 +818,8 @@ def make_train_step(
         leaves = tree_leaves(params)
         if explicit_hier or grad_accum > 1:
             _check_batch(tokens.shape[0])
-        loss_val = _loss_and_grads(params, tokens, targets)
+        mparams = _model_params(params)
+        loss_val = _loss_and_grads(mparams, tokens, targets)
         due = _norm_due(state)
         with torch.no_grad():
             if plan is not None:
@@ -739,7 +839,9 @@ def make_train_step(
                 updates, _ = optimizer.update(grads, state.opt_state, params)
                 apply_updates(params, updates)
             elif whole_leaf:
-                gnorm = _whole_leaf_update(state, params, leaves, due)
+                gnorm = _whole_leaf_update(state, params, mparams, leaves,
+                                           due)
+                del mparams
             else:
                 pieces = _pieces(params)
                 shards = []
@@ -781,7 +883,14 @@ def make_train_step(
                     f"batch {b} not divisible by the {plan.data_n} ranks of "
                     f"the batch axes {data_axes}")
             rows = b // plan.data_n
-            if grad_accum > 1 and not explicit_hier:
+            if explicit_hier:  # slice s's rows, its microbatches i-major
+                _check_batch(rows)
+                ici_dn = plan.data_n // n_slices
+                arr = arr.reshape(n_slices, grad_accum, ici_dn,
+                                  rows // grad_accum, *arr.shape[1:])[
+                    slice_index, :, ici_index]
+                arr = arr.reshape(rows, *arr.shape[2:])
+            elif grad_accum > 1:
                 _check_batch(rows)  # this rank's share of each microbatch
                 mb = rows // grad_accum
                 arr = arr.reshape(grad_accum, plan.data_n, mb,
@@ -841,8 +950,9 @@ def make_llama_train_step(
     ``grad_norm_every``, ``dcn_axes``, ``dcn_quant`` and
     ``dcn_quant_bucket``. A mesh with sp > 1 runs the ring over its sp
     group (context parallel), each sp rank on its chunk of the sequence.
-    Rules that shard params (the default table) run the model on this
-    rank's blocks (FSDP gathers, tp-local heads, MLP and vocabulary)."""
+    Rules that shard params (the default table, or any other) run the
+    model on this rank's blocks (gathers of the split dims, tp-local
+    heads, MLP and vocabulary where the rules allow), with sp > 1 too."""
     dev = resolve_device(device)
     loss = _sp_loss(mesh, lambda p, tokens, targets, pos, sp, **kw: loss_fn(
         cfg, p, tokens, targets, positions=pos, sp_axis=sp,
@@ -869,32 +979,32 @@ def make_mixtral_train_step(
     """Mixtral (``models.mixtral``) specialization of
     :func:`make_train_step`, as JAX's: expert weights shard over ``ep``
     under the default rules (each ep rank runs its own experts on the
-    same tokens, its partial combine summed over ep). Over a mesh the
-    routing spans the global batch (``mixtral.RoutingGroup`` over the
-    batch axes: the capacity, each claim's slot and the aux's statistics
-    are the global batch's, or the global microbatch's under
-    ``grad_accum``). Not ported (``NotImplementedError``): sp > 1, and
-    ``dcn_axes`` (JAX's hierarchical step routes each slice apart)."""
+    same tokens, its partial combine summed over ep; with the batch over
+    ep too, ``rules.override(batch=("dp", "ep"))``, each ep rank routes
+    its own tokens: the all-to-all dispatch of ``models.mixtral``). Over
+    a mesh the routing spans the global batch (``mixtral.RoutingGroup``
+    over the batch axes: the capacity, each claim's slot and the aux's
+    statistics are the global batch's, or the global microbatch's under
+    ``grad_accum``). A mesh with sp > 1 runs the ring over its sp group,
+    each sp rank on its chunk of the sequence, the routing in JAX's token
+    order. Under the explicit hierarchy (``dcn_axes``) JAX's step maps
+    the loss over the slices, so each slice routes its own tokens: the
+    routing spans the slice's batch axes only."""
     dev = resolve_device(device)
     routing = None
     if mesh is not None:
         sizes = axis_sizes(mesh)
-        if sizes.get("sp", 1) > 1:
-            raise NotImplementedError(
-                "make_mixtral_train_step with sp > 1 (context parallel "
-                "Mixtral) is not ported")
-        if step_options.get("dcn_axes"):
-            raise NotImplementedError(
-                "make_mixtral_train_step with dcn_axes: JAX's hierarchical "
-                "step routes each slice's tokens apart; not ported")
-        data_axes = tuple(a for a in batch_axes(rules) if a in sizes)
-        routing = mixtral.RoutingGroup.of_mesh(mesh, data_axes)
+        data_axes, _, ici, _, explicit_hier, _ = _data_domain(
+            sizes, rules or ShardingRules(), step_options.get("dcn_axes"),
+            step_options.get("zero1"), step_options.get("dcn_quant"))
+        routing = mixtral.RoutingGroup.of_mesh(
+            mesh, ici if explicit_hier else data_axes,
+            sp=sizes.get("sp", 1) > 1)
 
-    def loss(p, tokens, targets, param_shard=None):
-        return mixtral.loss_fn(cfg, p, tokens, targets, attn_impl=attn_impl,
-                               remat=remat, param_shard=param_shard,
-                               routing=routing)
-
+    loss = _sp_loss(mesh, lambda p, tokens, targets, pos, sp, **kw:
+                    mixtral.loss_fn(cfg, p, tokens, targets, positions=pos,
+                                    sp_axis=sp, attn_impl=attn_impl,
+                                    remat=remat, routing=routing, **kw))
     return make_train_step(
         mesh, loss=loss,
         init_fn=partial(mixtral.init_params, cfg, device=dev),

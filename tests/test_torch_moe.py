@@ -35,7 +35,7 @@ import pytest
 import torch
 
 from ray_tpu_torch._spawn import run_ranks
-from test_torch_param_shard import _flat, _layout_mesh, _load_tree, _save_tree
+from test_torch_param_shard import _flat, _jax_init, _load_tree, _save_tree
 
 RANK_TIMEOUT_S = 150
 F32_TOL = 1e-5
@@ -315,7 +315,7 @@ def _jax_references(jax_tree) -> dict:
         mesh = build_mesh(MeshSpec(**axes), devs)
         step, init, shard = _jax_step(mesh, _cfg(capacity, jax_side=True),
                                       **kw)
-        state = init()
+        state = _jax_init(init, mesh)
         shapes = {}
         for k, v in _flat(state.params).items():
             for s in v.addressable_shards:
@@ -415,36 +415,6 @@ def test_routing_each_ranks_tokens_apart_is_not_jaxs_loss(runs,
     assert abs(np.mean(halves) - want) > LOCAL_ROUTING_GAP
     got = runs["four"][0]["cases"]["dp2ep2_cap05"]["losses"][0]
     assert abs(got - want) <= F32_TOL
-
-
-
-
-def test_experts_over_ep_with_the_batch_split_over_ep_are_refused():
-    from ray_tpu_torch.models.mixtral import param_logical_axes
-    from ray_tpu_torch.parallel.param_shard import check_layout
-    from ray_tpu_torch.parallel.sharding import ShardingRules, axis_sizes
-
-    sizes = axis_sizes(_layout_mesh(ep=2))
-    logical = param_logical_axes(_cfg())
-    assert check_layout(sizes, logical, ShardingRules(), ("dp", "fsdp"))[
-        ("layers", "we_up")] == [(1, ("ep",)), (2, ("fsdp",)), (3, ("tp",))]
-    with pytest.raises(NotImplementedError, match="all-to-all"):
-        check_layout(sizes, logical, ShardingRules(), ("dp", "ep"))
-    with pytest.raises(NotImplementedError, match="'expert'"):
-        check_layout(sizes, logical,
-                     ShardingRules().override(expert=None, mlp="ep"),
-                     ("dp", "fsdp"))
-
-
-@pytest.mark.parametrize("axes,kw,what", [
-    (dict(sp=2), {}, "sp > 1"),
-    (dict(dp=2), {"dcn_axes": ("dp",)}, "dcn_axes")])
-def test_mixtral_step_refuses_what_is_not_ported(axes, kw, what):
-    from ray_tpu_torch.train.spmd import make_mixtral_train_step
-
-    with pytest.raises(NotImplementedError, match=what):
-        make_mixtral_train_step(_cfg(), _layout_mesh(**axes), device="cpu",
-                                **kw)
 
 
 @pytest.mark.cuda

@@ -34,7 +34,13 @@ import pytest
 import torch
 
 from ray_tpu_torch._spawn import run_ranks
-from test_torch_param_shard import _flat, _layout_mesh, _load_tree, _save_tree
+from test_torch_param_shard import (
+    _flat,
+    _jax_init,
+    _layout_mesh,
+    _load_tree,
+    _save_tree,
+)
 
 RANK_TIMEOUT_S = 120
 F32_TOL = 1e-5
@@ -160,7 +166,7 @@ def _jax_references(tmp) -> dict:
         step, init, shard = make_pp_train_step(
             _cfg(variant, jax_side=True), mesh, m, optimizer=optax.sgd(LR),
             attn_impl="blockwise")
-        state = init()
+        state = _jax_init(init, mesh)
         _save_tree(os.path.join(tmp, f"{name}.npz"), state.params)
         rows = {}
         for k, v in _flat(state.params).items():
@@ -315,18 +321,6 @@ def test_a_mesh_with_no_process_groups_is_refused():
     with pytest.raises(ValueError, match="no process groups"):
         make_pp_train_step(_cfg("tied"), single_device_mesh(), 2,
                            device="cpu")
-
-
-def test_layers_on_a_mesh_axis_is_refused_by_the_rules_step():
-    from ray_tpu_torch.models.llama import param_logical_axes
-    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
-    from ray_tpu_torch.parallel.param_shard import check_layout
-    from ray_tpu_torch.parallel.sharding import ShardingRules
-
-    sizes = {a: 2 if a == "pp" else 1 for a in AXIS_ORDER}
-    with pytest.raises(NotImplementedError, match="make_pp_train_step"):
-        check_layout(sizes, param_logical_axes(_cfg("tied")),
-                     ShardingRules().override(layers="pp"), ("dp", "fsdp"))
 
 
 def test_pp_param_shardings_split_only_the_layer_leaves():

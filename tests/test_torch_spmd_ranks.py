@@ -47,6 +47,7 @@ import pytest
 import torch
 
 from ray_tpu_torch._spawn import run_ranks
+from test_torch_param_shard import _jax_init
 
 RANK_TIMEOUT_S = 90
 F32_TOL = 1e-5
@@ -383,7 +384,7 @@ def _jax_references(tmp) -> dict:
         step, init, shard = make_llama_train_step(
             cfg, mesh, rules=rules, optimizer=optax.adamw(1e-2),
             attn_impl="blockwise", remat=False, **kw)
-        state = init()
+        state = _jax_init(init, mesh)
         if name == "flat":
             _save_tree(os.path.join(tmp, "llama.npz"), state.params)
         losses, norms = [], []
@@ -397,17 +398,17 @@ def _jax_references(tmp) -> dict:
     step, init, shard = make_llama_train_step(
         cfg, one, optimizer=optax.adamw(1e-2), attn_impl="blockwise",
         remat=False)
-    state = init()
+    state = _jax_init(init, one)
     out["sp_losses"], out["sp_norms"] = [], []
     for _ in range(2):
         state, m = step(state, shard(seq), shard(np.roll(seq, -1, axis=1)))
         out["sp_losses"].append(float(m["loss"]))
         out["sp_norms"].append(float(m["grad_norm"]))
     vcfg = jax_vit.ViTConfig.tiny()
+    vmesh = build_mesh(MeshSpec(dp=2), devs[:2])
     step, init, shard = make_vit_train_step(
-        vcfg, build_mesh(MeshSpec(dp=2), devs[:2]),
-        optimizer=optax.adamw(1e-2), attn_impl="xla")
-    state = init()
+        vcfg, vmesh, optimizer=optax.adamw(1e-2), attn_impl="xla")
+    state = _jax_init(init, vmesh)
     _save_tree(os.path.join(tmp, "vit.npz"), state.params)
     out["vit_losses"], out["vit_norms"] = [], []
     for _ in range(STEPS):

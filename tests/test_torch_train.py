@@ -235,11 +235,6 @@ def _layout_mesh(**sizes):
 
 _DDP = dict(vocab=None, embed=None, mlp=None, heads=None, kv_heads=None)
 STILL_RAISE = {
-    # What param sharding does not do: context parallel under FSDP (the
-    # default rules shard "embed" over fsdp), and tp on a dim the model
-    # does not compute locally ("embed").
-    "params_over_fsdp": (dict(fsdp=2, sp=2), {}, {}, NotImplementedError),
-    "params_over_tp": (dict(tp=2), {"embed": "tp"}, {}, NotImplementedError),
     # The JAX factory's ValueErrors (tests compare the message with it).
     "dcn_not_in_mesh": (dict(dp=2), _DDP, {"dcn_axes": ("dcn",)},
                         ValueError),
@@ -254,10 +249,9 @@ STILL_RAISE = {
 
 @pytest.mark.parametrize("case", list(STILL_RAISE))
 def test_multi_device_options_raise(case):
-    """What still raises: FSDP params under sp > 1 and tp on a dim the
-    model does not compute locally (tests/test_torch_param_shard.py trains
-    the default rules over fsdp and tp), and the JAX factory's
-    ValueErrors on the same inputs and with its messages."""
+    """What still raises: the JAX factory's ValueErrors, on the same
+    inputs and with its messages (every rule table trains:
+    tests/test_torch_param_shard.py and tests/test_torch_layouts.py)."""
     from ray_tpu.parallel.mesh import MeshSpec, build_mesh
     from ray_tpu.parallel.sharding import ShardingRules as JaxRules
     from ray_tpu.train.spmd import make_llama_train_step as jax_make
@@ -268,11 +262,6 @@ def test_multi_device_options_raise(case):
         spmd.make_llama_train_step(CFG, _layout_mesh(**sizes),
                                    rules=ShardingRules().override(**over),
                                    device="cpu", **opts)
-    if exc is NotImplementedError:
-        assert "not ported" in str(got.value) and (
-            "sp > 1" in str(got.value) if case == "params_over_fsdp"
-            else "'embed'" in str(got.value))
-        return
     n = int(np.prod(list(sizes.values())))
     with pytest.raises(ValueError) as want:
         jax_make(JCFG, build_mesh(MeshSpec(**sizes), jax.devices("cpu")[:n]),

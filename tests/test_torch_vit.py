@@ -39,6 +39,7 @@ from ray_tpu_torch.accelerators import flops
 from ray_tpu_torch.models import vit
 from ray_tpu_torch.ops import attention as att
 from ray_tpu_torch.train import adamw_lowmem, make_vit_train_step
+from test_torch_param_shard import _jax_init
 
 D64 = dict(image_size=32, patch_size=4, hidden_size=128, intermediate_size=256,
            num_layers=2, num_heads=2, num_classes=10)
@@ -194,7 +195,7 @@ def test_five_step_trajectory_matches_jax_train_step(opt):
     with _interpret():
         jstep, jinit, jshard = jax_make(jcfg, mesh, optimizer=jtx,
                                         attn_impl="flash")
-        jstate = jinit()
+        jstate = _jax_init(jinit, mesh)
         tstep, tinit, tshard = make_vit_train_step(
             cfg, optimizer=ttx, attn_impl="flash", device="cpu")
         tstate = tinit(vit.params_from_jax(jstate.params, "cpu"))
@@ -246,25 +247,6 @@ def test_vit_step_needs_a_card_unless_asked_for_cpu():
     images, labels = _batch(vit.ViTConfig.tiny(), seed=7)
     state, m = step(state, shard(images), shard(labels))
     assert np.isfinite(m["loss"].item()) and int(state.step) == 1
-
-
-def test_vit_step_multi_device_options_raise():
-    """What still raises for ViT under param sharding: tp on the head's
-    classes, a dim the model does not compute locally (the default rules
-    train over fsdp and tp: tests/test_torch_param_shard.py)."""
-    from torch.distributed.device_mesh import DeviceMesh
-
-    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
-    from ray_tpu_torch.parallel.sharding import ShardingRules
-
-    shape = [2 if a == "tp" else 1 for a in AXIS_ORDER]
-    mesh = DeviceMesh("cpu", torch.arange(2).reshape(shape),
-                      mesh_dim_names=AXIS_ORDER, _init_backend=False,
-                      _rank=0)
-    with pytest.raises(NotImplementedError, match="head: tp on dim 1"):
-        make_vit_train_step(vit.ViTConfig.tiny(), mesh, device="cpu",
-                            rules=ShardingRules().override(classes="tp"),
-                            zero1=True)
 
 
 def test_vit_and_train_modules_import_no_jax():
