@@ -280,7 +280,8 @@ failure raises and the script exits non-zero without a result line:
    freed at most P20_CUBLAS_WORKSPACE for each engine thread that ran
    at once (2 in (a)/(b), 3 in (c)); (d)
    the refusals, each at once: placement_group_bundles, grpc_options,
-   tensor_parallel_size 2, num_gpus on a runtime with no "GPU" resource;
+   a replica's tensor_parallel_size above the visible cards (ValueError),
+   num_gpus on a runtime with no "GPU" resource;
    rms_norm's launches counted over the HTTP waves only;
 21. tuning on the card: (a) every remat policy (none, full, attn, attn+,
    dots, dots+ and "dots:8,attn:8") at phase 8's configuration from the
@@ -344,6 +345,32 @@ failure raises and the script exits non-zero without a result line:
    ViT (head_dim 64, 65 tokens) under each backward choice: every
    parameter's gradient of one forward + backward and the losses of 3
    steps, on the card vs on the CPU, agree;
+23. tensor-parallel serving, tp 1: Llama-3-8B (all 32 layers, bf16,
+   seeded random weights) through the engine with phase 7's wave (16
+   greedy prompts, concurrency 8, 64 out): tok/s, TTFT p50, peak memory,
+   K1's launches over the wave; the streams and the first prefill chunk's
+   logits kept for 23b; the card's memory back within P20_MEM_SLACK after
+   shutdown(); then a tensor_parallel_size above the visible cards raises
+   ValueError before any process starts;
+23b. with two or more cards, one a rank (NCCL), phase 23's weights at tp
+   2 and (four cards) tp 4: (a) the first prefill chunk's logits within
+   P23B_LOGIT_FACTOR x tp 1's own move when the chunk is padded, the
+   wave's greedy streams against 23's (equal count; each first divergence
+   a near-tie: within the larger of SPEC_TIE_ULPS bf16 steps and twice
+   that fixed bound), a temperature-0.8, top-p-0.9 wave whose tokens
+   every rank reports equal; (b) the block pool at 16 slots and (c)
+   speculation (k 4, a seeded 2-layer draft) against (a)'s streams under
+   the same rule; (d) at tp 2, the P/D hand-off from one tp-2 engine into
+   another, tokens equal to the prefill engine's own; (e) build_openai_app
+   at the largest tp, a wave over HTTP whose texts equal the direct
+   engine's; (f) at the largest tp, a follower killed mid-burst: the
+   requests fail within P23B_FAIL_S and shutdown() returns within
+   P23B_STOP_S; for each tp tok/s, TTFT p50, per-rank peak, K1's launches
+   on every rank, collectives a decode step against the code's count,
+   NCCL ms a step, rank 0's host us a collective and the header's host us
+   a device call; after each shutdown() no follower alive and every
+   card's memory back within P20_MEM_SLACK; with one card it prints that
+   it skipped;
 12. a JSON line of the kernels, then the JSON result line.
 
 Exits non-zero when no CUDA device is visible or when run outside a
@@ -6477,8 +6504,8 @@ def phase_serve(model="llama3_1b", dtype: str = "bfloat16",
     import torch
     import ray_tpu_torch
     from ray_tpu_torch import serve
-    from ray_tpu_torch.llm import (LLMConfig, LLMEngine, SamplingParams,
-                                   build_openai_app)
+    from ray_tpu_torch.llm import (LLMConfig, LLMEngine, LLMServer,
+                                   SamplingParams, build_openai_app)
     from ray_tpu_torch.ops import norms
 
     t_phase = time.perf_counter()
@@ -6739,8 +6766,12 @@ def phase_serve(model="llama3_1b", dtype: str = "bfloat16",
                 placement_group_bundles=[{"GPU": 1}])(LLMEngine))
     refuses("grpc_options", NotImplementedError,
             lambda: serve.start(grpc_options={"port": 0}))
-    refuses("tensor_parallel_size 2", NotImplementedError,
-            lambda: build_openai_app(replace(cfg, tensor_parallel_size=2)))
+    if cuda:  # tensor parallelism serves (phase 23): past the cards only
+        n_cards = torch.cuda.device_count()
+        refuses(f"tensor_parallel_size {n_cards + 1} on {n_cards} cards",
+                ValueError, lambda: LLMServer(
+                    replace(cfg, tensor_parallel_size=n_cards + 1),
+                    device=device))
     ray_tpu_torch.init(num_cpus=8)  # no "GPU" resource
     try:
         refuses("num_gpus without a GPU resource", ValueError,
@@ -8038,6 +8069,561 @@ def phase_layouts_ranks(world: int) -> dict:
     return res
 
 
+P23_SEQ = 2048            # max_seq_len: 2.15 GB of bf16 KV at 8 slots
+P23_SLOTS = 8             # phase 7's slots; the block pool runs twice as many
+P23_BLOCKS = P23_SLOTS * P23_SEQ // REST_BLOCK  # the dense lines' KV bytes
+P23_SPEC_LAYERS = 2       # the seeded draft's depth (8B widths)
+P23_PD_LENGTHS = REST_PD_LENGTHS
+P23_BURST = 16
+# A tp engine's first-chunk logits may move from tp 1's by this many times
+# tp 1's own move when the chunk is padded (the first four-card run read
+# 0.99x at tp 2 and 1.03x at tp 4); a wrong split moves them far more.
+P23B_LOGIT_FACTOR = 1.5
+P23B_FAIL_S = 60.0   # (f): a killed follower's requests fail within this
+P23B_STOP_S = 30.0   # (f): shutdown() returns within this (10 s kill wait)
+
+
+def p23_config(**kw):
+    """Phase 23's engine: Llama-3-8B at all 32 layers, bf16, seeded random
+    weights (the same on every run and at every tp: rank 0 initialises the
+    whole tree on cuda:0), phase 7's slots and burst."""
+    from ray_tpu_torch.llm import LLMConfig
+
+    base = dict(model="llama3_8b", dtype="bfloat16", max_num_seqs=P23_SLOTS,
+                max_seq_len=P23_SEQ, decode_burst=P23_BURST, seed=SEED)
+    base.update(kw)
+    return LLMConfig(**base)
+
+
+def p23_logits(eng, seq, slot: int = 0, pad: int = 0):
+    """f32 logits after ``seq`` from one prefill chunk into ``slot`` (a
+    line no request holds: before the first request, or after the last),
+    through the engine's own device call on every rank; ``pad`` more
+    masked positions change every product's shape, not its inputs."""
+    import numpy as np
+
+    s = -(-len(seq) // 64) * 64 + pad
+    toks = np.zeros((s,), np.int64)
+    toks[:len(seq)] = seq
+    return eng._call("prefill", toks, 0, len(seq), slot, None).float().cpu()
+
+
+def p23_tie(eng, prompt, ref: list, got: list, noise: float) -> dict:
+    """Where ``got`` first leaves ``ref``: the two tokens' f32 logits with
+    ``ref`` teacher-forced through ``eng`` (a dense engine), against the
+    larger of SPEC_TIE_ULPS bf16 steps at the row's scale (phase 17's
+    rule) and 2 x ``noise``, the most a logit may move between the two
+    arithmetics (two logits that each move by up to ``noise`` swap order
+    only within 2 x ``noise`` of a tie). ``noise`` is fixed by tp 1 alone
+    (p23b_logit_bound), never read from the engine under test."""
+    i = _first_diff(ref, got)
+    if i is None:
+        return {"differs": False}
+    if i >= min(len(ref), len(got)):
+        raise AssertionError(f"stream ended apart at {i} ({len(got)} vs "
+                             f"{len(ref)} tokens)")
+    logits = p23_logits(eng, list(prompt) + list(ref[:i]))
+    gap = abs(float(logits[ref[i]]) - float(logits[got[i]]))
+    ulps = SPEC_TIE_ULPS * 2.0 ** -8 * float(logits.abs().max())
+    return {"differs": True, "at": i, "gap": gap, "ulps_margin": ulps,
+            "margin": max(ulps, 2 * noise), "within_ulps": gap <= ulps,
+            "tie": gap <= max(ulps, 2 * noise)}
+
+
+def p23_against(label: str, eng, prompts, ref: dict, got: dict,
+                noise: float) -> dict:
+    """Streams equal to ``ref``'s, and each divergence a near-tie under
+    ``eng``'s own logits (p23_tie)."""
+    same = sum(got[i] == ref[i] for i in ref)
+    ties = {i: p23_tie(eng, prompts[i], ref[i], got[i], noise)
+            for i in ref if got[i] != ref[i]}
+    firsts = sorted(t["at"] for t in ties.values())
+    in_ulps = sum(t["within_ulps"] for t in ties.values())
+    print(f"{label}: {same}/{len(ref)} streams equal; first divergences at "
+          f"tokens {firsts}; {in_ulps}/{len(ties)} within {SPEC_TIE_ULPS} "
+          f"bf16 steps, gap over 2 x {noise:.4g} "
+          f"{[round(t['gap'] / (2 * noise), 3) for t in ties.values()]}")
+    bad = {i: t for i, t in ties.items() if not t["tie"]}
+    if bad:
+        raise AssertionError(f"{label}: not a near-tie: {bad}")
+    return {"equal": same, "of": len(ref), "within_ulps": in_ulps,
+            "ties": ties}
+
+
+def p23_wave(eng, prompts, sampling, concurrency: int = 8) -> dict:
+    done, wave_s, ttft, out_toks = run_wave(eng, prompts, sampling,
+                                            concurrency)
+    return {"streams": _streams(done), "tok_per_s": out_toks / wave_s,
+            "ttft_p50_ms": statistics.median(ttft) * 1e3,
+            "texts": {i: eng._result(r).text for i, r in done}}
+
+
+def phase_tp_serving() -> dict:
+    """Phase 23: Llama-3-8B at full depth through the engine at tp 1,
+    phase 7's wave (16 greedy prompts, concurrency 8, 64 out): tok/s, TTFT
+    p50, peak memory, K1's launches over the wave; the streams and the
+    first prefill chunk's logits are 23b's reference. Then a
+    tensor_parallel_size above the visible cards raises ValueError before
+    any process starts."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.ops import norms
+
+    _phase("tensor-parallel serving (23): Llama-3-8B, 32 layers, bf16, "
+           "seeded random weights, tp 1 on one card")
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()
+    mem0 = p20_allocated()[0]
+    t0 = time.perf_counter()
+    eng = LLMEngine(p23_config(), device="cuda")
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    short, wave = _wave_prompts(rng)
+    greedy64 = SamplingParams(max_tokens=64, temperature=0.0)
+    try:
+        logits0 = p23_logits(eng, wave[0])
+        shape_noise = float((p23_logits(eng, wave[0], pad=64)
+                             - logits0).abs().max())
+        eng.generate(short, greedy64)  # warm-up (cuBLAS handles, shapes)
+        torch.cuda.reset_peak_memory_stats()
+        norms.rms_norm.launches = 0
+        res = p23_wave(eng, wave, greedy64)
+        launches = norms.rms_norm.launches
+        peak = torch.cuda.max_memory_allocated() / gib
+        busy_ms, wall_ms = p23_burst_ms(eng)
+    finally:
+        eng.shutdown()
+    del eng
+    gap = (p20_allocated()[0] - mem0) / 2 ** 20
+    mc = p23_config().model_config()
+    if launches < 1:
+        raise AssertionError("rms_norm never launched on phase 23's wave")
+    if abs(gap) > P20_MEM_SLACK / 2 ** 20:
+        raise AssertionError(f"allocated after shutdown {gap:+.1f} MiB, "
+                             f"over {P20_MEM_SLACK // 2 ** 20} MiB")
+    print(f"engine up in {up_s:.2f} s ({mc.num_params() / 1e9:.3f}B "
+          f"params); wave of {len(wave)} greedy requests at concurrency 8, "
+          f"64 out: {res['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{res['ttft_p50_ms']:.1f} ms, peak {peak:.3f} GiB; K1 launches "
+          f"over the wave {launches} (65 a forward); allocated after "
+          f"shutdown {gap:+.1f} MiB; the first chunk's logits padded 64 "
+          f"more positions move by up to {shape_noise:.4g}; a 16-step "
+          f"burst: device busy {busy_ms:.3f} of {wall_ms:.3f} ms a step")
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    try:
+        LLMEngine(p23_config(tensor_parallel_size=n + 1), device="cuda")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"tensor_parallel_size={n + 1} on {n} cards "
+                             "did not raise")
+    refuse_s = time.perf_counter() - t0
+    if refuse_s > 5:
+        raise AssertionError(f"the refusal took {refuse_s:.2f} s")
+    print(f"tensor_parallel_size={n + 1} on {n} visible card(s): "
+          f"ValueError in {refuse_s * 1e3:.1f} ms ({refusal})")
+    return {"wave": wave, "short": short, "streams": res["streams"],
+            "logits0": logits0, "shape_noise": shape_noise,
+            "busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
+            "tok_per_s": res["tok_per_s"],
+            "ttft_p50_ms": res["ttft_p50_ms"], "peak_gib": peak,
+            "launches": launches, "up_s": up_s, "refusal": refusal}
+
+
+def p23_cards(tp: int) -> list:
+    """(rank 0's allocated bytes on cuda:0, free bytes on cards 1..tp-1):
+    the readings each shutdown must return to."""
+    import torch
+
+    return [p20_allocated()[0]] + [torch.cuda.mem_get_info(r)[0]
+                                   for r in range(1, tp)]
+
+
+def p23_followers() -> list:
+    """Pids of this process's live children that run a tp follower
+    (``python -m ray_tpu_torch.llm.tp``), read from /proc."""
+    me, out = os.getpid(), []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read()
+        except OSError:
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if (int(ppid) == me and state != "Z"
+                and b"ray_tpu_torch.llm.tp" in cmd):
+            out.append(int(pid))
+    return out
+
+
+def p23_memory_back(label: str, before: list, followers) -> list:
+    """After ``shutdown()``: none of ``followers`` (processes) alive, no
+    child of this process running a follower, and every card within
+    P20_MEM_SLACK of ``before`` (a follower's memory returns when it
+    exits: up to 15 s)."""
+    if any(p.poll() is None for p in followers):
+        raise AssertionError(f"{label}: a follower outlived shutdown()")
+    deadline = time.perf_counter() + 15
+    while True:
+        now = p23_cards(len(before))
+        gaps = [now[0] - before[0]] + [b - a for a, b in
+                                       zip(before[1:], now[1:])]
+        alive = p23_followers()
+        if not alive and all(abs(g) <= P20_MEM_SLACK for g in gaps):
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{label}: after shutdown() followers "
+                                 f"{alive} alive, card memory "
+                                 f"{[g / 2 ** 20 for g in gaps]} MiB off")
+        time.sleep(0.2)
+    print(f"{label}: after shutdown() no follower alive; cards' memory "
+          f"back within {P20_MEM_SLACK // 2 ** 20} MiB "
+          f"({[round(g / 2 ** 20, 2) for g in gaps]} MiB)")
+    return [g / 2 ** 20 for g in gaps]
+
+
+def p23_burst_args(eng) -> tuple:
+    """A 16-step greedy burst over every slot at positions 1000.. (a
+    line's tail no request reads before it writes)."""
+    import numpy as np
+
+    b = eng.max_slots
+    return (np.arange(b, dtype=np.int64), np.full(b, 1000, np.int64),
+            np.ones(b, bool), np.zeros(b, np.float32),
+            np.ones(b, np.float32), P23_BURST, False, None)
+
+
+def p23_burst_ms(eng) -> tuple:
+    """(device-busy ms, wall ms) a decode step over a 16-step burst."""
+    args = p23_burst_args(eng)
+    busy, _ = _busy_ms(lambda: eng._call("burst", *args))
+    wall = _host_ms(lambda: eng._call("burst", *args), reps=3)
+    return busy / P23_BURST, wall / P23_BURST
+
+
+def p23_step_costs(eng) -> dict:
+    """One 16-step burst over every slot: collectives a step against the
+    code's 2 x layers + 2 (one embedding all-reduce, two a layer, the
+    head's all-gather), the NCCL kernels' device ms (rank 0's profiler),
+    the burst's wall, the header's host us a burst call, and rank 0's
+    host us issuing each collective over those bursts."""
+    args = p23_burst_args(eng)
+    b = eng.max_slots
+    c0 = eng._comm.collectives
+    eng._call("burst", *args)
+    per_step = (eng._comm.collectives - c0) / P23_BURST
+    predicted = 2 * eng.model_cfg.num_layers + 2
+    busy, by_name = _busy_ms(lambda: eng._call("burst", *args))
+    nccl = sum(ms for k, ms in by_name.items() if "nccl" in k.lower())
+    tp, comm = eng._tp, eng._comm
+    h0, s0 = tp.headers, tp.header_s
+    n0, cs0 = comm.collectives, comm.collective_s
+    wall = _host_ms(lambda: eng._call("burst", *args), reps=3)
+    header_us = (tp.header_s - s0) / (tp.headers - h0) * 1e6
+    coll_us = (comm.collective_s - cs0) / (comm.collectives - n0) * 1e6
+    st = eng.stats()["tp"]
+    if per_step != predicted:
+        raise AssertionError(f"{per_step} collectives a decode step, the "
+                             f"code predicts {predicted}")
+    out = {"collectives_per_step": per_step, "predicted": predicted,
+           "nccl_ms_per_step": nccl / P23_BURST,
+           "nccl_us_per_call": nccl / P23_BURST / predicted * 1e3,
+           "busy_ms_per_step": busy / P23_BURST,
+           "wall_ms_per_step": wall / P23_BURST,
+           "header_us": header_us, "header_us_engine_mean": st["header_us"],
+           "headers": st["headers"], "collective_host_us": coll_us}
+    print(f"decode step (16-step burst, {b} slots): {per_step:.0f} "
+          f"collectives (predicted {predicted}); NCCL "
+          f"{out['nccl_ms_per_step']:.3f} ms a step = "
+          f"{out['nccl_us_per_call']:.1f} us a call (rank 0's profiler); "
+          f"device busy {out['busy_ms_per_step']:.3f} of "
+          f"{out['wall_ms_per_step']:.3f} ms a step; header {header_us:.1f} "
+          f"us a burst call ({st['header_us']:.1f} over the engine's "
+          f"{st['headers']} calls); rank 0's host {coll_us:.1f} us "
+          f"issuing a collective ({coll_us * per_step / 1e3:.3f} ms a "
+          f"step)")
+    return out
+
+
+def p23b_logit_bound(one: dict) -> float:
+    """The most a tp engine's logits may move from tp 1's on one input:
+    P23B_LOGIT_FACTOR x tp 1's own move when its first chunk is padded
+    (phase 23's ``shape_noise``). Also each near-tie's noise (p23_tie)."""
+    return P23B_LOGIT_FACTOR * one["shape_noise"]
+
+
+def p23b_dense(tp: int, eng, one: dict) -> dict:
+    """(a) on a dense tp engine: its first prefill chunk's logits within
+    p23b_logit_bound of tp 1's, the greedy wave against 23's streams,
+    tok/s, TTFT, per-rank peak and K1's launches, a sampled wave every rank
+    agrees on, the step's costs. The result keeps the wave's streams and
+    texts."""
+    from ray_tpu_torch.llm import SamplingParams
+
+    gib = 2.0 ** 30
+    wave, short = one["wave"], one["short"]
+    greedy64 = SamplingParams(max_tokens=64, temperature=0.0)
+    noise = p23b_logit_bound(one)
+    d = float((p23_logits(eng, wave[0]) - one["logits0"]).abs().max())
+    print(f"(a) first chunk's logits max |tp {tp} - tp 1| {d:.4g} "
+          f"({d / one['shape_noise']:.3f}x one card's own move when padded, "
+          f"{one['shape_noise']:.4g}; limit {P23B_LOGIT_FACTOR}x)")
+    if d > noise:
+        raise AssertionError(f"tp {tp}'s logits move {d:.4g} from tp 1's, "
+                             f"over {noise:.4g}")
+    eng.generate(short, greedy64)
+    eng.tp_query("reset_peak")
+    k0 = eng.tp_query("rms_norm_launches")
+    a = p23_wave(eng, wave, greedy64)
+    k1 = eng.tp_query("rms_norm_launches")
+    peaks = [p / gib for p in eng.tp_query("peak_bytes")]
+    launches = [y - x for x, y in zip(k0, k1)]
+    if min(launches) < 1 or len(set(launches)) != 1:
+        raise AssertionError(f"K1 launches by rank {launches}")
+    print(f"(a) wave {a['tok_per_s']:.1f} tok/s (tp 1 "
+          f"{one['tok_per_s']:.1f}), TTFT p50 {a['ttft_p50_ms']:.1f} ms (tp 1 "
+          f"{one['ttft_p50_ms']:.1f}); peak by rank "
+          f"{[round(p, 3) for p in peaks]} GiB (tp 1 {one['peak_gib']:.3f});"
+          f" K1 launches by rank {launches}")
+    out = {"logits_max_abs": d, "tok_per_s": a["tok_per_s"],
+           "ttft_p50_ms": a["ttft_p50_ms"], "peak_gib": peaks,
+           "launches": launches[0], "texts": a["texts"],
+           "streams": a["streams"],
+           "vs_tp1": p23_against("(a) greedy vs tp 1", eng, wave,
+                                 one["streams"], a["streams"], noise)}
+    eng.tp_query("record")
+    p23_wave(eng, wave, SamplingParams(max_tokens=64, temperature=0.8,
+                                       top_p=0.9))
+    drawn = eng.tp_query("sampled")
+    if not drawn[0] or any(x != drawn[0] for x in drawn):
+        raise AssertionError("ranks sampled different tokens")
+    print(f"(a) temperature 0.8, top-p 0.9 wave: every rank drew the "
+          f"same {len(drawn[0])} tokens")
+    out["sampled_equal_ranks"] = len(drawn[0])
+    out["costs"] = p23_step_costs(eng)
+    return out
+
+
+def p23b_one(tp: int, one: dict) -> dict:
+    """23b at one tp: (a) p23b_dense; (b) the block pool at 16 slots and
+    (c) speculation against (a)'s streams; (d) at tp 2 the P/D hand-off;
+    memory back after each shutdown."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    wave, short = one["wave"], one["short"]
+    greedy64 = SamplingParams(max_tokens=64, temperature=0.0)
+    noise = p23b_logit_bound(one)
+    out: dict = {}
+    blocked = spec = dec = None
+    _phase(f"tensor-parallel serving (23b): tp {tp}, one card a rank "
+           f"(NCCL), phase 23's weights")
+    before = p23_cards(tp)
+    t0 = time.perf_counter()
+    eng = LLMEngine(p23_config(tensor_parallel_size=tp), device="cuda")
+    out["up_s"] = time.perf_counter() - t0
+    print(f"(a) up in {out['up_s']:.2f} s")
+    engines = [eng]
+    try:
+        out["a"] = p23b_dense(tp, eng, one)
+        out["costs"] = out["a"].pop("costs")
+        dense = out["a"].pop("streams")
+
+        blocked = LLMEngine(p23_config(
+            tensor_parallel_size=tp, max_num_seqs=2 * P23_SLOTS,
+            kv_block_size=REST_BLOCK, kv_num_blocks=P23_BLOCKS),
+            device="cuda")
+        engines.append(blocked)
+        blocked.generate(short, greedy64)
+        b = p23_wave(blocked, wave, greedy64, concurrency=2 * P23_SLOTS)
+        print(f"(b) block pool, {2 * P23_SLOTS} slots on {P23_BLOCKS} "
+              f"blocks: {b['tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{b['ttft_p50_ms']:.1f} ms, preemptions "
+              f"{blocked.stats()['preemptions']}")
+        out["b"] = {"tok_per_s": b["tok_per_s"],
+                    "ttft_p50_ms": b["ttft_p50_ms"],
+                    "vs_dense": p23_against("(b) blocked vs dense", eng,
+                                            wave, dense, b["streams"],
+                                            noise)}
+        blocked.shutdown()
+
+        draft = replace(LlamaConfig.llama3_8b(), num_layers=P23_SPEC_LAYERS)
+        spec = LLMEngine(p23_config(
+            tensor_parallel_size=tp, speculative_model=draft,
+            speculative_tokens=REST_SPEC_K), device="cuda")
+        engines.append(spec)
+        spec.generate(short, greedy64)
+        c = p23_wave(spec, wave, greedy64)
+        st = spec.stats()
+        if st["spec_ticks"] < 1:
+            raise AssertionError("no speculative tick ran")
+        print(f"(c) speculation (k {REST_SPEC_K}, {P23_SPEC_LAYERS}-layer "
+              f"seeded draft): {c['tok_per_s']:.1f} tok/s, acceptance "
+              f"{st['spec_acceptance']}, {st['spec_ticks']} ticks")
+        out["c"] = {"tok_per_s": c["tok_per_s"],
+                    "acceptance": st["spec_acceptance"],
+                    "vs_plain": p23_against("(c) speculative vs plain", eng,
+                                            wave, dense, c["streams"],
+                                            noise)}
+        spec.shutdown()
+
+        if tp == 2:
+            dec = LLMEngine(p23_config(tensor_parallel_size=tp),
+                            device="cuda")
+            engines.append(dec)
+            rng = __import__("numpy").random.default_rng(SEED + 23)
+            pd = []
+            for n in P23_PD_LENGTHS:
+                # The decode engine's own stream first: a prefill engine
+                # that served the prompt would re-prefill only its last
+                # token from the cached line (another product shape).
+                prompt = [int(t) for t in rng.integers(0, 256, n)]
+                want = dec.generate(prompt, greedy64).token_ids
+                t1 = time.perf_counter()
+                payload = eng.prefill_only(prompt)
+                export_ms = (time.perf_counter() - t1) * 1e3
+                got = dec._result(_pd_continue(dec, payload, greedy64))
+                if got.token_ids != want:
+                    raise AssertionError(f"P/D at {n} tokens: tokens differ")
+                pd.append({"prompt": n, "export_ms": export_ms,
+                           "kv_bytes": 2 * payload["kv_k"].numel()
+                           * payload["kv_k"].element_size()})
+            print(f"(d) P/D tp {tp} -> tp {tp}: tokens equal to the decode "
+                  f"engine's own at {list(P23_PD_LENGTHS)} prompt tokens; "
+                  f"export ms {[round(x['export_ms'], 2) for x in pd]}")
+            out["d"] = pd
+            dec.shutdown()
+    finally:
+        for e in engines:
+            e.shutdown()
+        e = None
+    followers = [p for x in engines for p in x._tp.procs]
+    eng = blocked = spec = dec = x = None
+    engines.clear()
+    out["mem_gap_mib"] = p23_memory_back(f"tp {tp}", before, followers)
+    return out
+
+
+def _pd_continue(dec, payload, sampling):
+    req = dec.submit_prefilled(payload, sampling)
+    if not req.done.wait(300) or req.error:
+        raise AssertionError(f"P/D decode failed: {req.error}")
+    return req
+
+
+def p23b_http(tp: int, texts: dict, wave) -> dict:
+    """(e) build_openai_app at tp: one wave over HTTP by eight clients,
+    each completion's text equal to the direct engine's."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import build_openai_app
+
+    _phase(f"tensor-parallel serving (23b e): build_openai_app at tp {tp}")
+    before = p23_cards(tp)
+    ray_tpu_torch.init()
+    try:
+        serve.run(build_openai_app(p23_config(tensor_parallel_size=tp),
+                                   device="cuda"), route_prefix="/",
+                  http=True, _blocking_timeout=600)
+        port = serve.http_port()
+        running = p23_followers()
+        if len(running) != tp - 1:
+            raise AssertionError(f"the replica runs {len(running)} "
+                                 f"followers, not {tp - 1}")
+        got, wall, _ = p20_loop(wave, lambda p: p20_post(
+            port, "/v1/completions",
+            {"prompt": p, "max_tokens": 64, "temperature": 0.0}))
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    bad = [i for i in texts if got[i]["choices"][0]["text"] != texts[i]]
+    if bad:
+        raise AssertionError(f"HTTP texts differ from the engine's: {bad}")
+    toks = sum(got[i]["usage"]["completion_tokens"] for i in got)
+    print(f"(e) {len(got)} completions over HTTP at tp {tp}: every text "
+          f"equal to the direct engine's; {toks / wall:.1f} tok/s; the "
+          f"replica ran followers {running}")
+    return {"tok_per_s": toks / wall,
+            "mem_gap_mib": p23_memory_back(f"HTTP tp {tp}", before, [])}
+
+
+def p23b_kill(tp: int, one: dict) -> dict:
+    """(f) a follower killed mid-burst: every slotted request fails with
+    the engine's error within P23B_FAIL_S, a later request fails too,
+    ``shutdown()`` returns within P23B_STOP_S, no follower is left and
+    every card's memory comes back. Runs last in 23b: the engine's NCCL
+    communicator is aborted."""
+    from ray_tpu_torch.llm import LLMEngine, SamplingParams
+
+    _phase(f"tensor-parallel serving (23b f): a follower killed mid-burst "
+           f"at tp {tp}")
+    before = p23_cards(tp)
+    eng = LLMEngine(p23_config(tensor_parallel_size=tp), device="cuda")
+    procs = list(eng._tp.procs)
+    try:
+        reqs = [eng.submit(p, SamplingParams(max_tokens=512,
+                                             temperature=0.0))
+                for p in one["wave"][:P23_SLOTS]]
+        deadline = time.perf_counter() + 120
+        while eng.decode_bursts < 2 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        if eng.decode_bursts < 2:
+            raise AssertionError("no decode burst within 120 s")
+        decoded = sum(len(r.out_tokens) for r in reqs)
+        t0 = time.perf_counter()
+        procs[-1].kill()
+        for r in reqs:
+            if not r.done.wait(max(0.0, t0 + P23B_FAIL_S
+                                   - time.perf_counter())):
+                raise AssertionError(f"a request still runs {P23B_FAIL_S} s"
+                                     f" after rank {tp - 1} was killed")
+        fail_s = time.perf_counter() - t0
+        if not all(r.error for r in reqs) or eng.error is None:
+            raise AssertionError(f"errors {[r.error for r in reqs]}, engine "
+                                 f"{eng.error}")
+        late = eng.submit(one["short"], SamplingParams(max_tokens=4))
+        if not late.done.wait(P23B_FAIL_S) or not late.error:
+            raise AssertionError("a request after the failure did not fail")
+    finally:
+        t1 = time.perf_counter()
+        eng.shutdown()
+        stop_s = time.perf_counter() - t1
+    error = eng.error
+    eng = None
+    print(f"(f) rank {tp - 1} killed after {decoded} tokens: "
+          f"{len(reqs)} requests failed in {fail_s:.2f} s (limit "
+          f"{P23B_FAIL_S:.0f}), a later one too; shutdown() in {stop_s:.2f} "
+          f"s (limit {P23B_STOP_S:.0f}); error: {error.splitlines()[0]}")
+    if stop_s > P23B_STOP_S:
+        raise AssertionError(f"shutdown() took {stop_s:.2f} s")
+    return {"fail_s": fail_s, "shutdown_s": stop_s,
+            "mem_gap_mib": p23_memory_back(f"(f) tp {tp}", before, procs)}
+
+
+def phase_tp_serving_ranks(world: int, one: dict) -> dict:
+    """Phase 23b: phase 23's weights at tp 2 and, with four cards, tp 4;
+    (e) HTTP and (f) a killed follower at the largest."""
+    out = {}
+    sizes = [t for t in (2, 4) if t <= world]
+    for tp in sizes:
+        out[tp] = p23b_one(tp, one)
+    out["e"] = p23b_http(sizes[-1], out[sizes[-1]]["a"].pop("texts"),
+                         one["wave"])
+    for tp in sizes[:-1]:
+        out[tp]["a"].pop("texts")
+    out["f"] = p23b_kill(sizes[-1], one)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8073,6 +8659,7 @@ def main() -> int:
     serve_ = phase_serve()
     tuning = phase_tuning()
     layouts = phase_layouts(train8b, moe)
+    tp_one = phase_tp_serving()
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -8083,13 +8670,17 @@ def main() -> int:
         pipe_ranks = phase_pipeline_ranks(min(world, 4), pipe)
         moe_ranks = phase_mixtral_ranks(min(world, 4))
         rl_ranks = phase_rl_ranks(world)
+        tp_ranks = phase_tp_serving_ranks(world, tp_one)
     else:
         _phase("ring over ranks: skipped (one card visible)")
         _phase("data-parallel train over ranks: skipped (one card visible)")
         _phase("pipeline train over ranks: skipped (one card visible)")
         _phase("Mixtral train over ranks: skipped (one card visible)")
         _phase("RL over ranks: skipped (one card visible)")
+        _phase("tensor-parallel serving over ranks (23b): skipped (one card "
+               "visible)")
         ranks = train_ranks = pipe_ranks = moe_ranks = rl_ranks = None
+        tp_ranks = None
     if world >= 4:
         layouts_ranks = phase_layouts_ranks(4)
     else:
@@ -8132,7 +8723,12 @@ def main() -> int:
                                  for k_ in P15_MODES},
                              **{k_: v_["rms_norm"] for k_, v_ in
                                 tuning["launches"].items()},
-                             "layouts": layout_launches["rms_norm"]},
+                             "layouts": layout_launches["rms_norm"],
+                             "tp_serving": tp_one["launches"],
+                             "tp_serving_ranks": {
+                                 tp_: tp_ranks[tp_]["a"]["launches"]
+                                 for tp_ in (2, 4) if tp_ranks
+                                 and tp_ in tp_ranks}},
         "max_abs_err": max_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -8276,7 +8872,11 @@ def main() -> int:
                                 if k != "launches"},
                       "tuning": tuning,
                       "layouts": {"one_card": layouts,
-                                  "four_cards": layouts_ranks}}))
+                                  "four_cards": layouts_ranks},
+                      "tp_serving": {k: v for k, v in tp_one.items()
+                                     if k not in ("wave", "short", "streams",
+                                                  "logits0")},
+                      "tp_serving_ranks": tp_ranks}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

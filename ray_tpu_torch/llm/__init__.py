@@ -2,6 +2,7 @@
 ray_tpu.llm): continuous batching over a dense slot KV cache or a block
 pool with preemption, chunked prefill, burst decode with pipelined
 chaining, on-device sampling, prefix-cache reuse, speculative decoding,
+tensor parallelism over processes (llm/tp.py),
 the prefill/decode KV hand-off (llm/pd.py) and checkpoint loading
 (llm/hf.py for HF Llama directories), and the OpenAI-compatible serve app
 (``build_openai_app``, ``build_llm_deployment``)."""

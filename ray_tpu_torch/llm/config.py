@@ -2,10 +2,10 @@
 
 Port of ray_tpu/llm/config.py. Not served yet, each raising
 ``NotImplementedError`` when the engine is built (and at once in
-``build_llm_deployment``): ``tensor_parallel_size > 1``, a
-``placement_group_config`` (gang placement groups, ROADMAP Queue A item
-7(b)) and a non-empty ``engine_kwargs`` (the engine takes its options as
-the fields below; the JAX package's engine reads none either).
+``build_llm_deployment``): a ``placement_group_config`` (gang placement
+groups, ROADMAP Queue A item 7(b)) and a non-empty ``engine_kwargs`` (the
+engine takes its options as the fields below; the JAX package's engine
+reads none either). ``tensor_parallel_size > 1`` serves: llm/tp.py.
 """
 
 from __future__ import annotations
@@ -32,7 +32,9 @@ class LLMConfig:
     max_num_seqs: int = 8              # continuous-batching slots
     max_seq_len: int | None = None     # default: model.max_seq_len
     dtype: str | None = None           # default: model.dtype
-    tensor_parallel_size: int = 1      # >1 not ported yet (raises)
+    # Ranks the model is split over (heads, MLP, vocabulary): rank r a
+    # process on cuda:r (llm/tp.py); > the visible cards raises ValueError.
+    tensor_parallel_size: int = 1
     # An HF Llama directory (config.json + weights, through llm/hf.py; its
     # geometry replaces ``model``) or a save_pytree (DCP) directory;
     # None → seeded random init.

@@ -37,8 +37,11 @@ output equal to plain greedy), the prefill/decode KV hand-off
 (``prefill_only``, ``submit_prefilled``, ``release_slot``; llm/pd.py
 carries it between engines) and checkpoint loading (an HF Llama directory
 through llm/hf.py, or a DCP directory of train/checkpoint.py in place of
-orbax). Not ported: tensor parallelism (raises NotImplementedError).
-Tracing spans are not recorded (``GenerationRequest.trace_ctx`` is None).
+orbax). Tensor parallelism (``tensor_parallel_size > 1``) runs the
+engine's tp ranks as processes under this one scheduler (llm/tp.py): the
+device functions take a ``PreparedParams`` whose ``tp`` carries the
+group, and every scheduler call goes through ``LLMEngine._call``. Tracing
+spans are not recorded (``GenerationRequest.trace_ctx`` is None).
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from ray_tpu_torch._device import resolve_device, tree_map
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.tokenizer import get_tokenizer
 from ray_tpu_torch.models.llama import LlamaConfig, init_params, params_to
+from ray_tpu_torch.ops.loss import _mm_f32
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope_cs, rope_cos_sin, rope_frequencies
 from ray_tpu_torch.serve.prefix import block_hashes
@@ -161,15 +165,21 @@ class PreparedParams:
     stacked weights, the lm head in f32 (one copy, made once: casting the
     tied [2048, 128256] head per call would move 1 GB per step) and the
     rope frequencies. The device functions take a raw tree or this; the
-    engine prepares once."""
+    engine prepares once. Under tensor parallelism the tree is one rank's
+    blocks (llm/tp.py ``rank_blocks``) and ``tp`` its group: the embedding
+    holds vocabulary rows ``vocab_lo`` on, the head those columns."""
     embed: torch.Tensor
     final_norm: torch.Tensor
     layers: list
     head_f32: torch.Tensor
     inv_freq: torch.Tensor
+    tp: Any = None  # llm/tp.py's Comm, None on one rank
+    vocab_lo: int = 0
 
 
-def prepare_params(cfg: LlamaConfig, params) -> PreparedParams:
+def prepare_params(cfg: LlamaConfig, params, tp=None) -> PreparedParams:
+    """``cfg`` is the geometry the blocks have (llm/tp.py
+    ``local_config`` under tensor parallelism), ``tp`` the group."""
     if isinstance(params, PreparedParams):
         return params
     stacked = params["layers"]
@@ -182,10 +192,27 @@ def prepare_params(cfg: LlamaConfig, params) -> PreparedParams:
         layers=layers, head_f32=head.float(),
         inv_freq=rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                   cfg.rope_scaling,
-                                  device=params["embed_tokens"].device))
+                                  device=params["embed_tokens"].device),
+        tp=tp, vocab_lo=tp.rank * params["embed_tokens"].shape[0]
+        if tp is not None else 0)
+
+
+def _embed(w: PreparedParams, tokens):
+    """Token embeddings; vocabulary-parallel under tp: each rank looks up
+    the ids among its rows, zeros elsewhere, and one all-reduce sums them
+    (exact: every row has one non-zero term)."""
+    if w.tp is None:
+        return w.embed[tokens]
+    n = w.embed.shape[0]
+    local = tokens - w.vocab_lo
+    inside = ((local >= 0) & (local < n))[..., None]
+    x = torch.where(inside, w.embed[local.clamp(0, n - 1)], 0)
+    return w.tp.all_reduce(x)
 
 
 def _project_qkv(cfg: LlamaConfig, lp, xn, b, s):
+    """q/k/v [B, heads, S, D] (a rank's heads under tp: ``cfg`` is its
+    ``local_config``)."""
     q = (xn @ lp["wq"]).view(b, s, cfg.num_heads, cfg.head_dim)
     k = (xn @ lp["wk"]).view(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = (xn @ lp["wv"]).view(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -210,22 +237,36 @@ def _attention(cfg: LlamaConfig, q, k, v, blocked):
     return o.view(b, h, nq, d)
 
 
-def _attn_out(lp, o, x):
+def _row_parallel(a, w, tp):
+    """``a @ w``; under tp a row-parallel product: each rank's partial
+    product in f32 (accumulated from a and w's own dtype), summed over the
+    ranks in f32, so the sum is rounded once, as one rank's product is."""
+    if tp is None:
+        return a @ w
+    y = _mm_f32(a.reshape(-1, a.shape[-1]), w)
+    return tp.all_reduce(y).view(*a.shape[:-1], w.shape[-1])
+
+
+def _attn_out(lp, o, x, tp=None):
     b, _, s, _ = o.shape
-    return x + (o.transpose(1, 2).reshape(b, s, -1) @ lp["wo"]).to(x.dtype)
+    y = _row_parallel(o.transpose(1, 2).reshape(b, s, -1), lp["wo"], tp)
+    return x + y.to(x.dtype)
 
 
-def _mlp(cfg: LlamaConfig, lp, x):
+def _mlp(cfg: LlamaConfig, lp, x, tp=None):
     dt = x.dtype
     xn = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     gate = F.silu((xn @ lp["w_gate"]).float()).to(dt)
     up = xn @ lp["w_up"]
-    return x + ((gate * up) @ lp["w_down"]).to(dt)
+    return x + _row_parallel(gate * up, lp["w_down"], tp).to(dt)
 
 
 def _lm_head(cfg: LlamaConfig, w: PreparedParams, x):
+    """f32 logits over the whole vocabulary (under tp each rank's columns,
+    all-gathered)."""
     x = rms_norm(x, w.final_norm, cfg.norm_eps)
-    return x.float() @ w.head_f32
+    logits = x.float() @ w.head_f32
+    return logits if w.tp is None else w.tp.all_gather_last(logits)
 
 
 def _as_tokens(tokens, device: torch.device) -> torch.Tensor:
@@ -253,7 +294,7 @@ def prefill(cfg: LlamaConfig, params, cache, tokens, length: int,
     tokens = _as_tokens(tokens, dev)
     s = tokens.shape[0]
     _check_window(cache, 0, s)
-    x = w.embed[tokens][None]  # [1, S, H]
+    x = _embed(w, tokens)[None]  # [1, S, H]
     positions = torch.arange(s, device=dev)
     cos, sin = rope_cos_sin(positions, w.inv_freq)
     blocked = ~((positions[None, :] <= positions[:, None])
@@ -265,8 +306,8 @@ def prefill(cfg: LlamaConfig, params, cache, tokens, length: int,
         k = apply_rope_cs(k, cos, sin)
         cache["k"][l, slot, :, :s] = k[0]
         cache["v"][l, slot, :, :s] = v[0]
-        x = _attn_out(lp, _attention(cfg, q, k, v, blocked), x)
-        x = _mlp(cfg, lp, x)
+        x = _attn_out(lp, _attention(cfg, q, k, v, blocked), x, w.tp)
+        x = _mlp(cfg, lp, x, w.tp)
     last = min(max(length - 1, 0), s - 1)
     # Only the row that is returned goes through the head (rows are
     # independent: same arithmetic as the JAX [S, V] product, row picked).
@@ -281,7 +322,7 @@ def _prefill_chunk_impl(cfg: LlamaConfig, w: PreparedParams, tokens,
     last real token's logits [V] f32."""
     dev = tokens.device
     c = tokens.shape[0]
-    x = w.embed[tokens][None]  # [1, C, H]
+    x = _embed(w, tokens)[None]  # [1, C, H]
     positions = torch.arange(kv_len, kv_len + c, device=dev)
     cos, sin = rope_cos_sin(positions, w.inv_freq)
     kpos = torch.arange(max_seq, device=dev)
@@ -294,8 +335,9 @@ def _prefill_chunk_impl(cfg: LlamaConfig, w: PreparedParams, tokens,
         q = apply_rope_cs(q, cos, sin)
         k = apply_rope_cs(k, cos, sin)
         k_line, v_line = store(l, k[0], v[0])
-        x = _attn_out(lp, _attention(cfg, q, k_line, v_line, blocked), x)
-        x = _mlp(cfg, lp, x)
+        x = _attn_out(lp, _attention(cfg, q, k_line, v_line, blocked), x,
+                      w.tp)
+        x = _mlp(cfg, lp, x, w.tp)
     last = min(max(length - 1 - kv_len, 0), c - 1)
     return _lm_head(cfg, w, x[0, last:last + 1])[0]
 
@@ -451,7 +493,7 @@ def _multi_token_impl(cfg: LlamaConfig, w: PreparedParams, cache, tokens,
     Returns (cache, logits [B, K, V] f32)."""
     b, k = tokens.shape
     positions, rows, blocked = idx.at(j)
-    x = w.embed[tokens]  # [B, K, H]
+    x = _embed(w, tokens)  # [B, K, H]
     cos, sin = rope_cos_sin(positions, w.inv_freq)
     for l, lp in enumerate(w.layers):
         xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -464,8 +506,8 @@ def _multi_token_impl(cfg: LlamaConfig, w: PreparedParams, cache, tokens,
         if idx.tables is not None:
             k_l = _gather_batch_kv(k_l, idx.tables)
             v_l = _gather_batch_kv(v_l, idx.tables)
-        x = _attn_out(lp, _attention(cfg, q, k_l, v_l, blocked), x)
-        x = _mlp(cfg, lp, x)
+        x = _attn_out(lp, _attention(cfg, q, k_l, v_l, blocked), x, w.tp)
+        x = _mlp(cfg, lp, x, w.tp)
     return cache, _lm_head(cfg, w, x)
 
 
@@ -704,10 +746,6 @@ class GenerationResult:
 
 
 def _unported(config: LLMConfig) -> None:
-    if config.tensor_parallel_size > 1:
-        raise NotImplementedError(
-            "tensor parallelism (tensor_parallel_size > 1) is not ported "
-            "to ray_tpu_torch yet")
     if config.placement_group_config is not None:
         raise NotImplementedError(
             "placement_group_config: gang placement groups need the "
@@ -716,6 +754,22 @@ def _unported(config: LLMConfig) -> None:
         raise NotImplementedError(
             f"engine_kwargs {sorted(config.engine_kwargs)}: the engine "
             "takes its options as LLMConfig fields")
+
+
+def _check_tp_devices(tp: int, device: torch.device) -> None:
+    """A tp engine's ranks sit on cards 0..tp-1, rank 0 on cuda:0 (JAX's on
+    ``jax.devices()[:tp]``); on the CPU they are processes."""
+    if device.type != "cuda":
+        return
+    n = torch.cuda.device_count()
+    if tp > n:
+        raise ValueError(
+            f"tensor_parallel_size={tp} but only {n} CUDA devices are "
+            "visible")
+    if device.index != 0:
+        raise ValueError(
+            f"a tensor-parallel engine's rank 0 runs on cuda:0 (ranks on "
+            f"cards 0..{tp - 1}), not {device}")
 
 
 def _load_checkpoint(path: str, dtype: str | None):
@@ -751,7 +805,258 @@ def _kv_tensor(a, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dtype)
 
 
-class LLMEngine:
+def _leaf_specs(tree) -> list:
+    """(path, shape, dtype name) of every leaf: what a follower allocates
+    before rank 0 sends it the leaves."""
+    from ray_tpu_torch.parallel.sharding import tree_paths
+
+    return [(path, tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for path, t in tree_paths(tree)]
+
+
+def _empty_tree(specs, device: torch.device) -> dict:
+    out: dict = {}
+    for path, shape, dtype in specs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.empty(shape, dtype=getattr(torch, dtype),
+                                     device=device)
+    return out
+
+
+class _RankCalls:
+    """The scheduler's device calls: each a method on host arguments that
+    every tensor-parallel rank runs on its own blocks (rank 0 through
+    ``LLMEngine._call``, which hands the call to the followers first). A
+    result that a later call consumes stays on each rank: the last logits
+    (``_c_sample`` samples them) and the last burst's tokens (a chained
+    burst starts from them). State: ``model_cfg`` (the whole geometry),
+    ``_rank_cfg`` (this rank's), ``_weights``, ``cache``, ``draft_cfg``,
+    ``_draft_weights``, ``draft_cache``, ``_generator`` and ``_comm``
+    (llm/tp.py's group; None on one rank)."""
+
+    _comm = None
+    _logits = None
+    _toks = None
+    _sampled = None  # the sampled tokens while a query records them
+
+    def _tp_layout(self) -> None:
+        """This rank's kv heads and, for an export, the first rank holding
+        each kv head (a head tp does not split is on several)."""
+        from ray_tpu_torch.llm.tp import rank_layout
+
+        n = self._comm.size
+        layouts = [rank_layout(self.model_cfg, n, r) for r in range(n)]
+        self._kv_range = layouts[self._comm.rank].kv_heads
+        self._kv_owners = []
+        for h in range(self.model_cfg.num_kv_heads):
+            r = next(r for r, lay in enumerate(layouts)
+                     if lay.kv_heads[0] <= h < lay.kv_heads[1])
+            self._kv_owners.append((r, h - layouts[r].kv_heads[0]))
+
+    def _new_cache(self) -> dict:
+        if self.blocked:
+            return init_kv_cache_blocked(self._rank_cfg, self.num_blocks,
+                                         self.block_size, self.device)
+        return init_kv_cache(self._rank_cfg, self.max_slots, self.max_seq,
+                             self.device)
+
+    def _record(self, tok: torch.Tensor) -> None:
+        if self._sampled is not None:
+            self._sampled.append(tok.cpu().numpy().reshape(-1))
+
+    def _c_prefill(self, toks, kv_len: int, length: int, slot: int,
+                   table_row):
+        """One prefill chunk (``table_row``: the slot's block table, or
+        None for a dense line); returns the last real token's logits."""
+        tok = _h2d(toks, self.device)
+        if table_row is not None:
+            self.cache, logits = prefill_chunk_blocked(
+                self._rank_cfg, self._weights, self.cache, table_row, tok,
+                kv_len, length)
+        else:
+            self.cache, logits = prefill_chunk(
+                self._rank_cfg, self._weights, self.cache, tok, kv_len,
+                length, slot)
+        self._logits = logits[None]
+        return logits
+
+    def _c_decode(self, tokens, positions, write, tables):
+        """One decode step for every slot (``tables``: the block pool's, or
+        None); returns logits [B, V]."""
+        tok = _h2d(tokens, self.device)
+        if tables is not None:
+            self.cache, logits = decode_step_blocked(
+                self._rank_cfg, self._weights, self.cache, tables, tok,
+                positions, write)
+        else:
+            self.cache, logits = decode_step(
+                self._rank_cfg, self._weights, self.cache, tok, positions,
+                write)
+        self._logits = logits
+        return logits
+
+    def _c_sample(self, temps, top_ps, top_k: int):
+        """Sample the last call's logits; every rank draws from equal
+        logits with a generator seeded alike, so the tokens agree."""
+        tok = sample_tokens(self._logits.float(), _h2d(temps, self.device),
+                            _h2d(top_ps, self.device), top_k,
+                            self._generator, bool((top_ps < 1.0).any()))
+        self._record(tok)
+        return tok
+
+    def _c_burst(self, token0, positions0, write, temps, top_ps, steps: int,
+                 need_top_p: bool, tables):
+        """A decode burst from ``token0`` (a host array; None chains from
+        the last burst's final tokens on the device)."""
+        tok = self._toks[-1] if token0 is None else _h2d(token0, self.device)
+        if tables is not None:
+            self.cache, toks = decode_burst_blocked(
+                self._rank_cfg, self._weights, self.cache, tables, tok,
+                positions0, write, temps, top_ps, self._generator, steps,
+                need_top_p)
+        else:
+            self.cache, toks = decode_burst(
+                self._rank_cfg, self._weights, self.cache, tok, positions0,
+                write, temps, top_ps, self._generator, steps, need_top_p)
+        self._toks = toks
+        self._record(toks)
+        return toks
+
+    def _c_spec(self, token0, positions0, k: int, write):
+        """The draft's k proposals (the draft whole on every rank), then the
+        target's verify forward; returns (proposals, logits [B, k+1, V])."""
+        tok0 = _h2d(token0, self.device)
+        self.draft_cache, proposals = draft_propose(
+            self.draft_cfg, self._draft_weights, self.draft_cache, tok0,
+            positions0, k, write)
+        verify = torch.cat([tok0[:, None], proposals], dim=1)  # [B, k+1]
+        self.cache, logits = spec_verify_step(
+            self._rank_cfg, self._weights, self.cache, verify, positions0,
+            write)
+        return proposals, logits
+
+    def _c_draft_prefill(self, toks, start: int, length: int, slot: int):
+        self.draft_cache, _ = prefill_chunk(
+            self.draft_cfg, self._draft_weights, self.draft_cache,
+            _h2d(toks, self.device), start, length, slot)
+
+    def _c_copy_prefix(self, src: int, dst: int) -> None:
+        self.cache = copy_prefix_kv(self._rank_cfg, self.cache, src, dst)
+
+    def _c_copy_blocks(self, src, dst) -> None:
+        self.cache = copy_blocks(self.cache, src, dst)
+
+    def _c_new_cache(self) -> None:
+        self.cache = None  # release the old pool before allocating anew
+        self.cache = self._new_cache()
+
+    def _c_new_draft_cache(self) -> None:
+        self.draft_cache = None
+        self.draft_cache = init_kv_cache(self.draft_cfg, self.max_slots,
+                                         self.max_seq, self.device)
+
+    def _c_import_kv(self, slot: int, p: int, kv_k, kv_v) -> None:
+        """Write a payload's KV [L, Hkv, p, D] (CPU tensors, all kv heads)
+        into ``slot``'s line. Under tp rank 0 broadcasts it (a follower is
+        passed None) and each rank keeps its own heads."""
+        cfg = self.model_cfg
+        for name, t in (("k", kv_k), ("v", kv_v)):
+            if t is None:
+                t = torch.empty((cfg.num_layers, cfg.num_kv_heads, p,
+                                 cfg.head_dim), dtype=cfg.torch_dtype,
+                                device=self.device)
+            elif self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            if self._comm is not None:
+                t = self._comm.broadcast(t.contiguous())
+                t = t[:, self._kv_range[0]:self._kv_range[1]]
+            self.cache[name][:, slot, :, :p] = t
+
+    def _c_export_kv(self, slot: int, p: int):
+        """Under tp: every rank's heads of ``slot``'s first ``p`` positions,
+        all-gathered; rank 0 returns the whole (kv_k, kv_v) [L, Hkv, p, D]
+        on the CPU, the followers None."""
+        out = []
+        for name in ("k", "v"):
+            g = self._comm.all_gather(self.cache[name][:, slot, :, :p])
+            if self._comm.rank == 0:
+                t = torch.stack([g[r, :, i] for r, i in self._kv_owners],
+                                dim=1)
+                out.append(_HostFetch(t).tensor() if t.is_cuda else t)
+        return tuple(out) if out else None
+
+    def _c_set_draft(self, params) -> None:
+        """The draft's weights, whole on every rank: under tp rank 0
+        broadcasts each leaf (a follower is passed their specs)."""
+        if self._comm is not None:
+            from ray_tpu_torch.parallel.sharding import tree_paths
+
+            if isinstance(params, list):
+                params = _empty_tree(params, self.device)
+            for _, t in tree_paths(params):
+                self._comm.broadcast(t)
+        self._draft_params = params
+        self._draft_weights = prepare_params(self.draft_cfg, params)
+
+    def _c_query(self, what: str):
+        """A reading of this rank: "peak_bytes" (the card's allocator),
+        "reset_peak", "record" (start keeping every sampled token),
+        "sampled" (them, and stop), "rms_norm_launches" (K1's count in
+        this process)."""
+        cuda = self.device.type == "cuda"
+        if what == "peak_bytes":
+            return torch.cuda.max_memory_allocated(self.device) if cuda else 0
+        if what == "reset_peak":
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(self.device)
+            return None
+        if what == "record":
+            self._sampled = []
+            return None
+        if what == "sampled":
+            out = [int(t) for a in (self._sampled or ()) for t in a]
+            self._sampled = None
+            return out
+        if what == "rms_norm_launches":
+            return rms_norm.launches
+        raise ValueError(f"unknown rank query {what!r}")
+
+
+class TPFollower(_RankCalls):
+    """A follower rank of a tensor-parallel engine (``python -m
+    ray_tpu_torch.llm.tp`` builds it): its weight blocks (scattered by rank
+    0, leaf by leaf), its share of the KV cache, the whole draft and a
+    generator seeded as rank 0's, driven by rank 0's calls."""
+
+    def __init__(self, comm, cfg: LlamaConfig, draft_cfg, max_slots: int,
+                 max_seq: int, block_size: int, num_blocks: int, seed: int,
+                 leaves: list):
+        from ray_tpu_torch.llm.tp import local_config, rank_layout
+        from ray_tpu_torch.parallel.sharding import tree_paths
+
+        self.device, self._comm, self.model_cfg = comm.device, comm, cfg
+        self._rank_cfg = local_config(cfg, rank_layout(cfg, comm.size,
+                                                       comm.rank))
+        self._tp_layout()
+        self.params = _empty_tree(leaves, self.device)
+        for _, t in tree_paths(self.params):
+            comm.scatter(t)
+        self._weights = prepare_params(self._rank_cfg, self.params, comm)
+        self.max_slots, self.max_seq = max_slots, max_seq
+        self.block_size, self.num_blocks = block_size, num_blocks
+        self.blocked = block_size > 0
+        self.cache = self._new_cache()
+        self.draft_cfg = draft_cfg
+        self._draft_params = self._draft_weights = self.draft_cache = None
+        if draft_cfg is not None:
+            self._c_new_draft_cache()
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(seed + 1)
+
+
+class LLMEngine(_RankCalls):
     """The continuous-batching engine. Thread-safe: ``generate``/``submit``
     may be called concurrently (they only enqueue); one background
     scheduler thread owns the device (it selects it and issues every
@@ -768,6 +1073,9 @@ class LLMEngine:
         _unported(config)
         self.device = resolve_device(device)
         self.config = config
+        self.tp_size = int(config.tensor_parallel_size or 1)
+        if self.tp_size > 1:
+            _check_tp_devices(self.tp_size, self.device)
         self.model_cfg = config.model_config()
         self.tokenizer = get_tokenizer(config.tokenizer)
         self.max_slots = config.max_num_seqs
@@ -781,17 +1089,11 @@ class LLMEngine:
         self.max_seq = config.max_seq_len or self.model_cfg.max_seq_len
         if self.tokenizer.vocab_size > self.model_cfg.vocab_size:
             raise ValueError("tokenizer vocab exceeds model vocab")
-        if params is None:
-            params = init_params(self.model_cfg, generator=config.seed,
-                                 device=self.device)
-        else:
-            params = params_to(params, self.device)
-        self.params = params
-        self._weights = prepare_params(self.model_cfg, params)
 
         # KV layout: dense [slots, max_seq] lines or the block pool.
         self.block_size = int(config.kv_block_size or 0)
         self.blocked = self.block_size > 0
+        self.num_blocks = 0
         if self.blocked:
             if config.speculative_model is not None:
                 raise ValueError(
@@ -811,10 +1113,9 @@ class LLMEngine:
             self._free_blocks: list[int] = list(range(self.num_blocks))
             self._slot_nblk = [0] * self.max_slots
             self.preemptions = 0
-        self.cache = self._new_cache()
 
         # Speculative decoding: a draft model with its own dense cache,
-        # in the target's vocab space.
+        # in the target's vocab space (whole on every tp rank).
         self.draft_cfg = config.draft_model_config()
         self.spec_k = max(1, int(config.speculative_tokens))
         self._draft_params = self._draft_weights = None
@@ -822,8 +1123,8 @@ class LLMEngine:
         self.spec_ticks = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        dp = None
         if self.draft_cfg is not None:
-            dp = None
             if config.speculative_checkpoint_path:
                 ck_cfg, dp = _load_checkpoint(
                     config.speculative_checkpoint_path, config.dtype)
@@ -834,6 +1135,25 @@ class LLMEngine:
                     "speculative draft must share the target's vocab "
                     f"({self.draft_cfg.vocab_size} != "
                     f"{self.model_cfg.vocab_size})")
+
+        if params is None:
+            params = init_params(self.model_cfg, generator=config.seed,
+                                 device=self.device)
+        else:
+            params = params_to(params, self.device)
+        # Tensor parallelism: the followers start here and take their
+        # blocks; this process keeps rank 0's.
+        self._tp = None
+        self._tp_lock = threading.RLock()
+        self._dead: str | None = None  # why a tp engine stopped serving
+        self._rank_cfg = self.model_cfg
+        self._work = threading.Event()
+        if self.tp_size > 1:
+            params = self._start_tp(params)
+        self.params = params
+        self._weights = prepare_params(self._rank_cfg, params, self._comm)
+        self.cache = self._new_cache()
+        if self.draft_cfg is not None:
             if dp is None:
                 dp = init_params(self.draft_cfg, generator=config.seed + 7,
                                  device=self.device)
@@ -875,7 +1195,6 @@ class LLMEngine:
         # burst awaiting resolution at the next tick's start.
         self._pending_burst = None
         self._stop = threading.Event()
-        self._work = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -886,18 +1205,94 @@ class LLMEngine:
     @draft_params.setter
     def draft_params(self, params) -> None:
         """Swap the draft's weights (a test hands the target's own for a
-        perfect draft); they move to the engine's device and are prepared
-        once, here."""
-        self._draft_params = params_to(params, self.device)
-        self._draft_weights = prepare_params(self.draft_cfg,
-                                             self._draft_params)
+        perfect draft); they move to the engine's device (every tp rank's)
+        and are prepared once, here."""
+        params = tree_map(lambda t: t.to(self.device).contiguous(), params)
+        self._call("set_draft", params, remote=(_leaf_specs(params),))
 
-    def _new_cache(self) -> dict:
-        if self.blocked:
-            return init_kv_cache_blocked(self.model_cfg, self.num_blocks,
-                                         self.block_size, self.device)
-        return init_kv_cache(self.model_cfg, self.max_slots, self.max_seq,
-                             self.device)
+    # ---- tensor parallelism (llm/tp.py) ----
+
+    def _start_tp(self, params: dict) -> dict:
+        """Start the followers, scatter every leaf's blocks (rank 0
+        initialised, loaded or converted the whole tree) and return rank
+        0's. The split is checked first: a dim tp does not divide raises
+        ValueError before any process starts."""
+        from ray_tpu_torch.llm import tp as tpmod
+
+        n, cfg = self.tp_size, self.model_cfg
+        meta = tree_map(lambda t: t.to("meta"), params)
+        leaves = [(path, tuple(b[0].shape),
+                   str(b[0].dtype).removeprefix("torch."))
+                  for path, b in tpmod.rank_blocks(cfg, meta, n)]
+        self._rank_cfg = tpmod.local_config(cfg, tpmod.rank_layout(cfg, n, 0))
+        self._tp = tpmod.TPGroup(n, self.device, on_broken=self._tp_broken)
+        try:
+            self._comm = self._tp.comm
+            self._tp_layout()
+            self._tp.send("init", (dict(
+                cfg=cfg, draft_cfg=self.draft_cfg, max_slots=self.max_slots,
+                max_seq=self.max_seq, block_size=self.block_size,
+                num_blocks=self.num_blocks, seed=self.config.seed,
+                leaves=leaves),))
+            mine: dict = {}
+            for path, b in tpmod.rank_blocks(cfg, params, n):
+                node = mine
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                node[path[-1]] = self._comm.scatter(torch.empty_like(b[0]), b)
+            del params, b
+            self._tp.wait_ready()
+        except BaseException:
+            self._tp.close()
+            raise
+        return mine
+
+    def _tp_broken(self, err: str) -> None:
+        """The monitor's word that a follower exited: wake the scheduler,
+        whose next tick fails every request."""
+        self._work.set()
+
+    def _call(self, name: str, *args, remote: tuple | None = None):
+        """Run device call ``name`` (``_RankCalls._c_<name>``) here; under tp
+        hand it to every follower first (``remote``: their arguments where
+        they differ). A call that fails under tp ends the engine: its ranks
+        can no longer be known to be in step."""
+        fn = getattr(self, "_c_" + name)
+        if self._tp is None:
+            return fn(*args)
+        with self._tp_lock:
+            if self._dead is not None:
+                raise RuntimeError(self._dead)
+            try:
+                self._tp.send(name, args if remote is None else remote)
+                return fn(*args)
+            except BaseException as e:
+                self._die(self._tp.broken or f"{name} failed: {e!r}")
+                raise
+
+    def _die(self, err: str) -> None:
+        """A tp engine stops serving: its followers end (killed if they
+        hang); requests fail with ``err`` from the next tick on."""
+        if self._dead is None:
+            self._dead = f"tensor-parallel engine stopped: {err}"
+            self._tp.close()
+            self._work.set()
+
+    def tp_query(self, what: str) -> list:
+        """One reading per rank, in rank order (``_RankCalls._c_query``:
+        peak memory, recorded samples, K1's launches); a one-element list
+        at tp 1."""
+        if self._tp is None:
+            return [self._c_query(what)]
+        with self._tp_lock:
+            mine = self._call("query", what)
+            return [mine, *self._tp.replies()]
+
+    @property
+    def error(self) -> str | None:
+        """Why a tensor-parallel engine stopped serving (None while it
+        serves)."""
+        return self._dead
 
     # ---- public API ----
 
@@ -978,12 +1373,16 @@ class LLMEngine:
             # hold_slot kept the slot reserved: no admit overwrote its
             # line. The copies queue on the device's current stream behind
             # the prefill that wrote it.
-            lines = [cache[n][:, req.last_slot, :, :p] for n in ("k", "v")]
-            if self.device.type == "cuda":
-                fetches = [_HostFetch(t) for t in lines]
-                kv_k, kv_v = (f.tensor() for f in fetches)
+            if self._tp is not None:  # every rank's heads, gathered
+                kv_k, kv_v = self._call("export_kv", req.last_slot, p)
             else:
-                kv_k, kv_v = (t.clone() for t in lines)
+                lines = [cache[n][:, req.last_slot, :, :p]
+                         for n in ("k", "v")]
+                if self.device.type == "cuda":
+                    fetches = [_HostFetch(t) for t in lines]
+                    kv_k, kv_v = (f.tensor() for f in fetches)
+                else:
+                    kv_k, kv_v = (t.clone() for t in lines)
             if self._cache_gen != gen or req.error:
                 raise RuntimeError(
                     req.error or "KV cache lost during prefill export")
@@ -1058,10 +1457,13 @@ class LLMEngine:
         req.cancelled = True
 
     def shutdown(self) -> None:
+        """Stop the scheduler thread and, under tp, every follower."""
         self._stop.set()
         self._work.set()
         if threading.current_thread() is not self._thread:
             self._thread.join(timeout=5)
+        if self._tp is not None:
+            self._tp.close()
 
     def prefix_block_hashes(self) -> tuple[int, ...]:
         """Chain hashes (serve/prefix.py) of every prompt prefix whose KV
@@ -1114,6 +1516,14 @@ class LLMEngine:
             out["spec_acceptance"] = (
                 round(self.spec_accepted / self.spec_proposed, 3)
                 if self.spec_proposed else 0.0)
+        if self._tp is not None:
+            tp = self._tp
+            out["tp"] = {
+                "size": self.tp_size, "headers": tp.headers,
+                "header_us": (tp.header_s / tp.headers * 1e6
+                              if tp.headers else 0.0),
+                "collectives": self._comm.collectives,
+                "followers_alive": sum(tp.alive()), "error": self._dead}
         return out
 
     # ---- scheduler ----
@@ -1144,6 +1554,8 @@ class LLMEngine:
         decoding slots. Admission into currently-empty slots runs BEFORE
         the pipelined burst is resolved: such a slot was free at that
         burst's dispatch, so its write mask excludes it."""
+        if self._tp is not None and (self._dead or self._tp.broken):
+            return self._fail_dead()
         self._process_releases()
         worked = self._admit()
         deferred: list = []
@@ -1153,6 +1565,26 @@ class LLMEngine:
             # Whatever was dispatched, resolve it: a stranded deferred
             # fetch would leave its request prefilled but never decoding.
             self._resolve_prefills(deferred)
+
+    def _fail_dead(self) -> bool:
+        """A stopped tp engine fails what it holds and what arrives."""
+        self._die(self._tp.broken or "a rank failed")
+        self._pending_burst = None
+        failed = False
+        for req in list(self._slots.values()):
+            if req is not None and not req.done.is_set():
+                self._fail(req, self._dead)
+                failed = True
+        self._slots = {i: None for i in range(self.max_slots)}
+        self._prefix_live.clear()
+        self._prefix_cached.clear()
+        while True:
+            try:
+                req = self._next_waiting()
+            except queue.Empty:
+                return failed
+            self._fail(req, self._dead)
+            failed = True
 
     def _tick_inner(self, deferred: list) -> bool:
         worked = False
@@ -1265,8 +1697,7 @@ class LLMEngine:
                     # Content copy from the donor line (live OR retired)
                     # into the fresh slot, preserving the donor.
                     try:
-                        self.cache = copy_prefix_kv(self.model_cfg,
-                                                    self.cache, donor, slot)
+                        self._call("copy_prefix", donor, slot)
                         self._adopted(req, adopt)
                         if donor in self._prefix_cached:
                             self._prefix_cached[donor] = (
@@ -1308,8 +1739,8 @@ class LLMEngine:
                 and self._ensure_blocks(slot, adopt - 1, preempt=False)):
             nb = adopt // self.block_size
             try:
-                self.cache = copy_blocks(self.cache, self._tables[donor, :nb],
-                                         self._tables[slot, :nb])
+                self._call("copy_blocks", self._tables[donor, :nb],
+                           self._tables[slot, :nb])
                 self._adopted(req, adopt)
             except Exception as e:  # noqa: BLE001
                 logger.exception("block prefix copy failed")
@@ -1473,10 +1904,8 @@ class LLMEngine:
                 f"payload KV shape {tuple(kv_k.shape)} incompatible with "
                 f"this engine (layers/kv_heads/head_dim {want}, max_seq "
                 f"{self.max_seq})")
-        for name, t in (("k", kv_k), ("v", kv_v)):
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            self.cache[name][:, slot, :, :p] = t
+        self._call("import_kv", slot, p, kv_k, kv_v,
+                   remote=(slot, p, None, None))
         req.preloaded = None
         req.next_pos = p
         req.last_slot = slot
@@ -1519,22 +1948,15 @@ class LLMEngine:
                                 f"{self.block_size} tokens)")
                 return True
             try:
-                if self.blocked:
-                    self.cache, logits = prefill_chunk_blocked(
-                        self.model_cfg, self._weights, self.cache,
-                        self._tables[slot], _h2d(toks, self.device),
-                        req.prefilled_len, p)
-                else:
-                    self.cache, logits = prefill_chunk(
-                        self.model_cfg, self._weights, self.cache,
-                        _h2d(toks, self.device), req.prefilled_len, p, slot)
+                self._call("prefill", toks, req.prefilled_len, p, slot,
+                           self._tables[slot] if self.blocked else None)
                 req.prefilled_len += take
                 self.prefill_chunks += 1
                 if req.prefilled_len >= p:  # final chunk: sample 1st token
                     # The slot now holds the full prompt's KV: it becomes a
                     # prefix donor for later shared-prefix requests.
                     self._prefix_live[slot] = tuple(req.prompt_ids)
-                    out = self._sample_dispatch(logits[None], [req])
+                    out = self._sample_dispatch([req])
                     deferred.append((req, req.prefill_gen, _HostFetch(out)))
             except Exception as e:  # noqa: BLE001 - e.g. OOM on long prompt
                 logger.exception("prefill failed for %s", req.request_id)
@@ -1546,7 +1968,11 @@ class LLMEngine:
         """After a failed prefill/decode dispatch the KV cache is suspect
         (a half-written pass): fail every slotted request, then rebuild
         fresh caches (the draft's too) so the engine keeps serving NEW
-        traffic."""
+        traffic. A tp engine instead stops (``_die``): its ranks may have
+        parted mid-call."""
+        if self._tp is not None:
+            self._die(err)
+            err = self._dead
         self._cache_gen += 1  # invalidates in-flight prefill_only exports
         self._pending_burst = None  # chained into the lost cache
         for req in list(self._slots.values()):
@@ -1561,16 +1987,15 @@ class LLMEngine:
         self._slots = {i: None for i in range(self.max_slots)}
         self._prefix_live.clear()
         self._prefix_cached.clear()
-        self.cache = None  # release the old pool before allocating anew
+        if self._dead is not None:
+            return
         if self.blocked:
             self._tables[:] = 0
             self._free_blocks = list(range(self.num_blocks))
             self._slot_nblk = [0] * self.max_slots
-        self.cache = self._new_cache()
+        self._call("new_cache")
         if self.draft_cfg is not None:
-            self.draft_cache = None
-            self.draft_cache = init_kv_cache(self.draft_cfg, self.max_slots,
-                                             self.max_seq, self.device)
+            self._call("new_draft_cache")
 
     def _burst_len(self, active: dict[int, GenerationRequest]) -> int:
         """Largest safe burst length for this decode batch, rounded down to
@@ -1618,21 +2043,15 @@ class LLMEngine:
             return self._decode_burst(active, burst, tokens, positions,
                                       write)
         try:
-            if self.blocked:
-                self.cache, logits = decode_step_blocked(
-                    self.model_cfg, self._weights, self.cache, self._tables,
-                    _h2d(tokens, self.device), positions, write)
-            else:
-                self.cache, logits = decode_step(
-                    self.model_cfg, self._weights, self.cache,
-                    _h2d(tokens, self.device), positions, write)
+            self._call("decode", tokens, positions, write,
+                       self._tables if self.blocked else None)
         except Exception as e:  # noqa: BLE001 - cache state suspect
             logger.exception("decode step failed (%d active)", len(active))
             self._recover_device_failure(f"decode failed: {e!r}")
             return False
         try:
             reqs = [active.get(s) for s in range(self.max_slots)]
-            sampled = self._sample_one(logits, reqs)
+            sampled = self._sample_one(reqs)
         except Exception as e:  # noqa: BLE001 - cache survived; only this
             # batch's requests lack tokens — fail them, keep other contexts.
             logger.exception("sampling failed (%d active)", len(active))
@@ -1646,14 +2065,10 @@ class LLMEngine:
 
     def _burst_call(self, token0, positions0, write, temps, top_ps,
                     burst: int, need_top_p: bool):
-        if self.blocked:
-            return decode_burst_blocked(
-                self.model_cfg, self._weights, self.cache, self._tables,
-                token0, positions0, write, temps, top_ps, self._generator,
-                burst, need_top_p)
-        return decode_burst(
-            self.model_cfg, self._weights, self.cache, token0, positions0,
-            write, temps, top_ps, self._generator, burst, need_top_p)
+        """``token0``: a host array, or None to chain from the last burst."""
+        return self._call("burst", token0, positions0, write, temps, top_ps,
+                          burst, need_top_p,
+                          self._tables if self.blocked else None)
 
     def _decode_burst(self, active: dict[int, GenerationRequest],
                       burst: int, tokens, positions, write) -> bool:
@@ -1668,9 +2083,8 @@ class LLMEngine:
             top_ps[slot] = req.sampling.top_p
         need_top_p = bool((top_ps < 1.0).any())
         try:
-            self.cache, toks = self._burst_call(
-                _h2d(tokens, self.device), positions, write, temps, top_ps,
-                burst, need_top_p)
+            toks = self._burst_call(tokens, positions, write, temps, top_ps,
+                                    burst, need_top_p)
             fetch = _HostFetch(toks)  # copy queued behind the burst
             self.decode_bursts += 1
             chain = self._should_chain(active, burst)
@@ -1681,9 +2095,8 @@ class LLMEngine:
                     s, r.next_pos + 2 * burst - 1, preempt=False)
                     for s, r in active.items())
             if chain:
-                self.cache, toks2 = self._burst_call(
-                    toks[burst - 1], positions + burst, write, temps,
-                    top_ps, burst, need_top_p)
+                toks2 = self._burst_call(None, positions + burst, write,
+                                         temps, top_ps, burst, need_top_p)
                 self._pending_burst = (dict(active), burst,
                                        _HostFetch(toks2))
                 self.decode_bursts += 1
@@ -1783,14 +2196,7 @@ class LLMEngine:
             pos0[slot] = req.next_pos
             write[slot] = True
         try:
-            tok0 = _h2d(token0, self.device)
-            self.draft_cache, proposals = draft_propose(
-                self.draft_cfg, self._draft_weights, self.draft_cache, tok0,
-                pos0, k, write)
-            verify = torch.cat([tok0[:, None], proposals], dim=1)  # [B, k+1]
-            self.cache, logits = spec_verify_step(
-                self.model_cfg, self._weights, self.cache, verify, pos0,
-                write)
+            proposals, logits = self._call("spec", token0, pos0, k, write)
             both = _HostFetch(torch.cat(
                 [proposals, torch.argmax(logits, dim=-1)], dim=1)).numpy()
         except Exception as e:  # noqa: BLE001 - caches state suspect
@@ -1844,37 +2250,37 @@ class LLMEngine:
                                                   req.next_pos - start)
                 toks = np.zeros((bucket,), np.int64)
                 toks[:take] = seq[start:start + take]
-                self.draft_cache, _ = prefill_chunk(
-                    self.draft_cfg, self._draft_weights, self.draft_cache,
-                    _h2d(toks, self.device), start, start + take, slot)
+                self._call("draft_prefill", toks, start, start + take, slot)
                 start += take
             req.draft_len = req.next_pos
             req.draft_fail_count = 0
             return True
-        except Exception:  # noqa: BLE001 - draft trouble must not kill
-            # the request; the caller decodes plainly. The draft cache is
-            # suspect: rebuild it and mark every request's draft state
+        except Exception as e:  # noqa: BLE001 - draft trouble must not
+            # kill the request; the caller decodes plainly. The draft cache
+            # is suspect: rebuild it and mark every request's draft state
             # cold. A request failing three times in a row is excluded
             # from speculation, so it stops resetting everyone's.
             logger.exception("draft catch-up failed for %s", req.request_id)
+            if self._tp is not None:
+                self._recover_device_failure(f"draft catch-up failed: {e!r}")
+                return False
             req.draft_fail_count += 1
             if req.draft_fail_count >= 3:
                 req.spec_disabled = True
                 logger.warning("disabling speculation for %s after %d "
                                "failed draft catch-ups", req.request_id,
                                req.draft_fail_count)
-            self.draft_cache = None
-            self.draft_cache = init_kv_cache(self.draft_cfg, self.max_slots,
-                                             self.max_seq, self.device)
+            self._call("new_draft_cache")
             for r in self._slots.values():
                 if r is not None:
                     r.draft_len = 0
             return False
 
-    def _sample_dispatch(self, logits, reqs) -> torch.Tensor:
-        """Sample on the device; returns the (unfetched) token tensor so
+    def _sample_dispatch(self, reqs) -> torch.Tensor:
+        """Sample the last device call's logits (one row per entry of
+        ``reqs``) on the device; returns the (unfetched) token tensor so
         callers can defer the host roundtrip."""
-        b = logits.shape[0]
+        b = len(reqs)
         temps = np.zeros((b,), np.float32)
         top_ps = np.ones((b,), np.float32)
         top_k = 0
@@ -1885,12 +2291,10 @@ class LLMEngine:
             top_ps[i] = r.sampling.top_p
             if r.sampling.top_k:
                 top_k = max(top_k, r.sampling.top_k)
-        return sample_tokens(logits.float(), _h2d(temps, self.device),
-                             _h2d(top_ps, self.device), top_k,
-                             self._generator, bool((top_ps < 1.0).any()))
+        return self._call("sample", temps, top_ps, top_k)
 
-    def _sample_one(self, logits, reqs) -> np.ndarray:
-        return _HostFetch(self._sample_dispatch(logits, reqs)).numpy()
+    def _sample_one(self, reqs) -> np.ndarray:
+        return _HostFetch(self._sample_dispatch(reqs)).numpy()
 
     def _emit(self, req: GenerationRequest, token: int) -> None:
         req.out_tokens.append(token)

@@ -20,8 +20,10 @@ engine then.
 Out, for a later PR: ``PDServer``, ``build_pd_openai_app`` and the
 ``"store"`` transfer (ROADMAP Queue A item 6); the prefill/decode servers
 of llm/pd.py run without serve. Raising at once, with the engine's own
-check: ``tensor_parallel_size > 1``, a ``placement_group_config`` (item
-7(b)) and a non-empty ``engine_kwargs``.
+check: a ``placement_group_config`` (item 7(b)) and a non-empty
+``engine_kwargs``. A ``tensor_parallel_size > 1`` replica starts its
+engine's followers on cards 1..n-1 (rank 0 on cuda:0) and ends them in
+``shutdown()``.
 """
 
 from __future__ import annotations
@@ -156,10 +158,13 @@ class LLMServer:
     def check_health(self) -> None:
         if not self.engine._thread.is_alive():
             raise RuntimeError("engine scheduler thread died")
+        if self.engine.error is not None:  # a tp rank failed
+            raise RuntimeError(self.engine.error)
 
     def shutdown(self) -> None:
-        """Stop the engine's scheduler thread (a serve replica calls this
-        when the controller stops it, so the card memory comes back)."""
+        """Stop the engine's scheduler thread and its tp followers (a serve
+        replica calls this when the controller stops it, so the card
+        memory comes back)."""
         self.engine.shutdown()
 
     # -- HTTP ingress (OpenAI surface) --

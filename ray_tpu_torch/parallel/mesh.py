@@ -9,7 +9,8 @@ JAX's ``mesh.devices`` stands: rank r is device r.
 - ``hybrid_mesh``: the dcn axes outermost (slice-major), then transposed
   back to ``AXIS_ORDER``, so each slice's ranks stay contiguous;
 - ``mesh_layout``/``hybrid_layout``: those rank layouts as numpy arrays,
-  pure functions that need no process group.
+  pure functions that need no process group; ``tp_mesh``: one rank's
+  place on a tp-only mesh without one (tensor-parallel serving).
 
 Building a ``DeviceMesh`` creates one process group per axis, once (with
 NCCL a communicator comes up at a group's first collective, so a size-1
@@ -154,6 +155,18 @@ def hybrid_mesh(spec: MeshSpec, num_slices: int, devices_per_slice: int):
     a slice (JAX's ``hybrid_mesh``'s device order, see
     :func:`hybrid_layout`)."""
     return _device_mesh(hybrid_layout(spec, num_slices, devices_per_slice))
+
+
+def tp_mesh(tp: int, rank: int) -> tuple[dict[str, int], dict[str, int]]:
+    """(axis sizes, ``rank``'s coordinates) of ``build_mesh(MeshSpec(dp=1,
+    fsdp=1, tp=tp))``, the pair ``shard_params`` takes in place of a
+    ``DeviceMesh``: a tensor-parallel serving engine's ranks form no mesh
+    of the default group."""
+    spec = MeshSpec(tp=tp)
+    hit = np.argwhere(mesh_layout(spec) == rank)
+    if not len(hit):
+        raise ValueError(f"rank {rank} is not in a tp={tp} mesh")
+    return spec.axis_sizes(), dict(zip(AXIS_ORDER, (int(i) for i in hit[0])))
 
 
 def mesh_coords(mesh, rank: int | None = None) -> dict[str, int] | None:

@@ -535,9 +535,15 @@ def test_llm_server_handle_surface():
         srv.shutdown()
 
 
-@pytest.mark.parametrize("kw", [dict(tensor_parallel_size=2)])
+@pytest.mark.parametrize("kw", [
+    dict(placement_group_config={"bundles": [{"GPU": 1}]}),
+    dict(engine_kwargs={"block_size": 16})])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
+    """The refusals that stand (tensor parallelism serves: see
+    tests/test_torch_llm_tp.py)."""
+    match = "7\\(b\\)" if "placement_group_config" in kw else \
+        "engine_kwargs"
+    with pytest.raises(NotImplementedError, match=match):
         LLMEngine(_cfg(**kw), device="cpu")
 
 
@@ -557,6 +563,7 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 def test_import_loads_neither_jax_nor_ray_tpu():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.llm, "
             "ray_tpu_torch.llm.pd, ray_tpu_torch.llm.hf, "
+            "ray_tpu_torch.llm.tp, "
             "ray_tpu_torch.ops.norms, ray_tpu_torch.ops.rope\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'ray_tpu' or "

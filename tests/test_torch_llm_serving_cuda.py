@@ -1,4 +1,5 @@
-"""The serving engine's blocked, speculative and P/D paths on a CUDA card.
+"""The serving engine's blocked, speculative, P/D and tensor-parallel
+paths on a CUDA card (tp 2 needs two).
 
 Marked ``cuda``: they skip without a card. On one, they run each path with
 ``device="cuda"`` (f32 at tiny width, TF32 off, PyTorch's default), hold
@@ -99,3 +100,39 @@ def test_pd_handoff_across_card_and_cpu():
         finally:
             pre.shutdown()
             dec.shutdown()
+
+
+@pytest.mark.cuda
+def test_tp_above_the_visible_cards_raises():
+    """Before any follower starts, naming both counts (JAX's
+    ``_shard_for_tp`` refuses as much devices as it lacks)."""
+    _need_card()
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"tensor_parallel_size={n + 1} "
+                                         f"but only {n} CUDA"):
+        LLMEngine(LLMConfig(model="tiny", tensor_parallel_size=n + 1))
+
+
+@pytest.mark.cuda
+def test_tp2_on_two_cards_gives_one_cards_tokens():
+    """f32 tiny over NCCL, rank r on cuda:r: one card's greedy tokens, K1
+    launched, and no follower left after shutdown()."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    base = dict(model="tiny", max_num_seqs=4, max_seq_len=128)
+    params = init_params(LLMConfig(**base).model_config(), generator=0,
+                         device="cpu")
+    one = LLMEngine(LLMConfig(**base), params=params)
+    try:
+        want = _tokens(one, PROMPTS)
+    finally:
+        one.shutdown()
+    two = LLMEngine(LLMConfig(**base, tensor_parallel_size=2), params=params)
+    try:
+        norms.rms_norm.launches = 0
+        assert _tokens(two, PROMPTS) == want
+        assert norms.rms_norm.launches > 0
+    finally:
+        two.shutdown()
+    assert not any(two._tp.alive())

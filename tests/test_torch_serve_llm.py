@@ -128,8 +128,7 @@ def test_openai_app_matches_ray_tpu_over_http(checkpoints):
 
 
 def test_build_functions_refuse_what_no_replica_could_serve():
-    for kw, match in ((dict(tensor_parallel_size=2), "tensor parallel"),
-                      (dict(placement_group_config={"bundles": [{"GPU": 1}]}),
+    for kw, match in ((dict(placement_group_config={"bundles": [{"GPU": 1}]}),
                        "7\\(b\\)"),
                       (dict(engine_kwargs={"block_size": 16}), "engine_kwargs")):
         with pytest.raises(NotImplementedError, match=match):
