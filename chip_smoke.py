@@ -371,6 +371,23 @@ failure raises and the script exits non-zero without a result line:
    a device call; after each shutdown() no follower alive and every
    card's memory back within P20_MEM_SLACK; with one card it prints that
    it skipped;
+24. Ray Data on the port's runtime (ray_tpu_torch.data): (a) batch
+   inference through build_llm_processor at phase 7's engine (llama3_1b,
+   bf16, its seeded weights; 64 slots), 256 seeded ASCII prompts of 128-512 bytes
+   in blocks of 64 through one pool actor (num_gpus=1): every row back
+   once, each generation's token ids equal to a direct engine's on the
+   same prompts, K1 launched on the pool's engine, the GPU resource and
+   the card's memory back after the pool's shutdown; rows/s, tok/s beside
+   phase 7's, the card's busy share over a profiler window; (b)
+   TorchTrainer(datasets=) at phase 8's 1.1B geometry (b4 s2048, attn+,
+   adamw_lowmem), one worker on the card reading 4096 seeded rows of
+   2049 token ids (64 blocks, a map_batches splitting tokens and targets)
+   through get_dataset_shard and iter_torch_batches(prefetch=2) for 5
+   steps: losses bit-equal to the same step fed the same batches
+   directly, K1-K3 launches as predicted; step ms beside the direct
+   step's and the host ms each step waited for its batch; (c)
+   range(65536) over two workers through streaming_split(2, equal=True):
+   every row once, equal splits, rows/s;
 12. a JSON line of the kernels, then the JSON result line.
 
 Exits non-zero when no CUDA device is visible or when run outside a
@@ -3111,12 +3128,12 @@ def train_run(cfg, mesh, params, tokens, opts: dict, warmup: int,
 
 def timed_steps(step, init, params, tok, tgt, warmup: int, steps: int,
                 counters=None, profile: bool = False,
-                quiet: bool = False) -> dict:
+                quiet: bool = False, finish=None) -> dict:
     """``init(params)``, then ``warmup`` + ``steps`` steps of ``step`` on
     (``tok``, ``tgt``), the counts reset right before the first step and
     read right after the last; ``train_run``'s readings (and a profiler
-    split of one more step with ``profile``, printed unless ``quiet``).
-    The state dies here."""
+    split of one more step with ``profile``, printed unless ``quiet``,
+    and ``finish(state)``'s readings). The state dies here."""
     import gc
 
     import torch
@@ -3155,6 +3172,8 @@ def timed_steps(step, init, params, tok, tgt, warmup: int, steps: int,
     if profile:
         state, out["profile"] = profile_steps(step, state, tok, tgt, 1,
                                               step_s, counters, quiet)
+    if finish is not None:
+        out.update(finish(state))
     gc.unfreeze()
     del state
     torch.cuda.empty_cache()
@@ -3447,7 +3466,8 @@ PIPELINE_TIMEOUT_S = 600
 
 
 def pipeline_run(cfg, mesh, params, tokens, micro: int, warmup: int,
-                 steps: int, counters=None, profile: bool = False) -> dict:
+                 steps: int, counters=None, profile: bool = False,
+                 finish=None) -> dict:
     """``timed_steps`` of make_pp_train_step (flash attention, JAX's
     default adamw) over ``mesh`` with ``micro`` microbatches a rank."""
     import numpy as np
@@ -3460,7 +3480,23 @@ def pipeline_run(cfg, mesh, params, tokens, micro: int, warmup: int,
         device=torch.device("cuda", torch.cuda.current_device()))
     return timed_steps(step, init, params, shard(tokens),
                        shard(np.roll(tokens, -1, axis=1)), warmup, steps,
-                       counters, profile)
+                       counters, profile, finish=finish)
+
+
+def param_checksums(state) -> dict:
+    """{"checksums": one exact integer per param leaf: the sum of its
+    elements' bit patterns (as int16 or int32), in int64, chunk by
+    chunk}. Equal bits give equal sums."""
+    import torch
+    from ray_tpu_torch.parallel.sharding import tree_paths
+
+    out = []
+    for _, p in tree_paths(state.params):
+        t = p.detach().contiguous().view(-1)
+        t = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        out.append(int(sum(c.to(torch.int64).sum() for c in
+                           t.split(1 << 26))))
+    return {"checksums": out}
 
 
 def bubble_share(pp: int, micro: int) -> float:
@@ -3531,7 +3567,7 @@ def phase_pipeline() -> dict:
 
 
 def _rank_pipeline(rank: int, world: int, store: str, out_path: str,
-                   port: int) -> None:
+                   port: int, only=None) -> None:
     """One rank of ``phase_pipeline_ranks`` on card ``rank``."""
     import numpy as np
     import torch
@@ -3549,15 +3585,28 @@ def _rank_pipeline(rank: int, world: int, store: str, out_path: str,
     # name -> (mesh, microbatches a rank: one row each)
     modes = {"pp2": (MeshSpec(pp=2), P14_MICRO)} if world == 2 else {
         "pp2dp2": (MeshSpec(pp=2, dp=2), P14_MICRO // 2),
-        "pp4": (MeshSpec(pp=4), P14_MICRO)}
+        "pp4": (MeshSpec(pp=4), P14_MICRO),
+        # JAX's shard_map replicates the pipeline over another axis: each
+        # coordinate of tp or fsdp runs its own replica pipeline.
+        "pp2tp2": (MeshSpec(pp=2, tp=2), P14_MICRO),
+        "pp2fsdp2": (MeshSpec(pp=2, fsdp=2), P14_MICRO)}
     res = {}
     for name, (spec, micro) in modes.items():
+        if only and name not in only:
+            continue
+        replicated = spec.tp > 1 or spec.fsdp > 1
         r = pipeline_run(cfg, build_mesh(spec), params, tokens, micro,
-                         P14_WARMUP, P14_STEPS, counters)
+                         P14_WARMUP, P14_STEPS, counters,
+                         finish=param_checksums if replicated else None)
         peaks = [None] * world
         dist.all_gather_object(peaks, r["peak_gib"])
+        if replicated:  # every rank's checksums and losses
+            sums = [None] * world
+            dist.all_gather_object(sums, (r.pop("checksums"),
+                                          r["losses"]))
+            r["rank_checksums"] = sums
         r.update(per_rank_peak_gib=peaks, pp=spec.pp, dp=spec.dp,
-                 micro=micro)
+                 micro=micro, replica=spec.tp * spec.fsdp)
         res[name] = r
     if rank == 0:
         with open(out_path, "w") as f:
@@ -3565,11 +3614,14 @@ def _rank_pipeline(rank: int, world: int, store: str, out_path: str,
     dist.destroy_process_group()
 
 
-def phase_pipeline_ranks(world: int, one_card: dict) -> dict:
+def phase_pipeline_ranks(world: int, one_card: dict, only=None) -> dict:
     """Phase 14b: the pipeline over ``world`` NCCL ranks (2 or 4), one
     card each, at phase 14's model and global batch: pp2 on two cards
-    (4 layers a stage); pp2 x dp2 and pp4 on four. Losses step by step
-    against phase 14's one card."""
+    (4 layers a stage); pp2 x dp2, pp4, pp2 x tp2 and pp2 x fsdp2 on four
+    (the last two replicate the pipeline over tp or fsdp: the ranks of a
+    stage along it must hold the same params, bit for bit). Losses step
+    by step against phase 14's one card. ``only`` runs those modes
+    alone."""
     import tempfile
 
     from ray_tpu_torch._spawn import run_ranks
@@ -3579,8 +3631,8 @@ def phase_pipeline_ranks(world: int, one_card: dict) -> dict:
     cfg = cfg_8b(P13_LAYERS)
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "rank0.json")
-        run_ranks(_rank_pipeline, world, tmp, (out_path, free_port()),
-                  PIPELINE_TIMEOUT_S)
+        run_ranks(_rank_pipeline, world, tmp,
+                  (out_path, free_port(), only), PIPELINE_TIMEOUT_S)
         with open(out_path) as f:
             res = json.load(f)
     for name, r in res.items():
@@ -3598,6 +3650,18 @@ def phase_pipeline_ranks(world: int, one_card: dict) -> dict:
                   f"{k} {v}" for k, v in r["launches"].items() if v))
         _check_losses(f"{name} over {world} ranks", r["losses"],
                       one_card["run"]["losses"], P14B_TOL, False)
+        if "rank_checksums" in r:
+            # ranks r and r' of one stage differ only on the replica axis
+            per = r["replica"]
+            for first in range(0, world, per):
+                group = r["rank_checksums"][first:first + per]
+                if any(g != group[0] for g in group[1:]):
+                    raise AssertionError(
+                        f"{name}: ranks {first}-{first + per - 1} (one "
+                        f"stage, replicas over tp/fsdp) differ in params "
+                        f"or losses")
+            print(f"{name}: the {per} ranks of each stage hold the same "
+                  f"params (every leaf's bit checksum) and losses")
     return res
 
 
@@ -6440,7 +6504,9 @@ def p20_allocated() -> tuple[int, int]:
     return after, before - after
 
 
-def p20_memory_back(mem0: int, engine_threads: int) -> float:
+def p20_memory_back(mem0: int, engine_threads: int,
+                    after: str = "serve.shutdown()",
+                    before: str = "serve.run") -> float:
     """Wait (up to 15 s: killed replicas' threads end on their own) until
     the card's allocated memory, cuBLAS workspaces aside, is back within
     P20_MEM_SLACK of mem0, and check that the workspaces freed for the
@@ -6456,17 +6522,17 @@ def p20_memory_back(mem0: int, engine_threads: int) -> float:
             break
         if time.perf_counter() > deadline:
             raise AssertionError(
-                f"card memory after serve.shutdown() {gap / 2 ** 20:+.1f} "
-                f"MiB from before serve.run")
+                f"card memory after {after} {gap / 2 ** 20:+.1f} "
+                f"MiB from before {before}")
         time.sleep(0.2)
     bound = engine_threads * P20_CUBLAS_WORKSPACE
     if freed > bound:
         raise AssertionError(
             f"{freed / 2 ** 20:.2f} MiB of cuBLAS workspaces freed after "
-            f"serve.shutdown(), above {bound / 2 ** 20:.0f} MiB for "
+            f"{after}, above {bound / 2 ** 20:.0f} MiB for "
             f"{engine_threads} engine threads: a handle left behind")
-    print(f"after serve.shutdown(): allocated {gap / 2 ** 20:+.2f} MiB from "
-          f"before serve.run (slack {P20_MEM_SLACK // 2 ** 20} MiB), cuBLAS "
+    print(f"after {after}: allocated {gap / 2 ** 20:+.2f} MiB from "
+          f"before {before} (slack {P20_MEM_SLACK // 2 ** 20} MiB), cuBLAS "
           f"workspaces aside ({freed / 2 ** 20:.2f} MiB of them freed "
           f"for the reading, at most {bound / 2 ** 20:.0f} MiB for "
           f"{engine_threads} engine threads)")
@@ -7896,6 +7962,61 @@ def _p22b_checkpoint(rank, world, res) -> None:
     torch.cuda.empty_cache()
 
 
+# ViT-S/16 (DeiT-S's geometry: 384 wide, 12 layers, 6 heads, MLP 1536,
+# 224 px, patch 16) at tp 4, whose 6 heads do not split over 4 ranks: the
+# attention weights are gathered over tp, the MLP and classes tp-local.
+P22B_VIT = dict(image_size=224, patch_size=16, hidden_size=384,
+                intermediate_size=1536, num_layers=12, num_heads=6,
+                num_classes=1000, dtype="bfloat16")
+P22B_VIT_BATCH = 128
+P22B_VIT_WARMUP, P22B_VIT_STEPS = 1, 3
+# Its losses against one card's, absolute: the tp ranks' bf16 partial MLP
+# outputs are summed (another rounding), as phase 14b's dp sums are.
+P22B_VIT_TOL = 2e-2
+
+
+def _p22b_vit(rank, world, counters, res) -> None:
+    """ViT-S/16 at tp = world (6 heads: not a multiple), the global b128
+    whole on every rank: one card's run (rank 0, mesh=None), then the tp
+    mesh under the default rules, from the same params."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.train import adamw_lowmem, make_vit_train_step
+
+    cfg = vit.ViTConfig(**P22B_VIT)
+    rng = np.random.default_rng(SEED + 22)
+    images = rng.uniform(0, 1, (P22B_VIT_BATCH, cfg.image_size,
+                                cfg.image_size, 3)).astype(np.float32)
+    labels = rng.integers(0, cfg.num_classes, P22B_VIT_BATCH)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params = vit.init_params(cfg, generator=SEED, device=dev)
+
+    def run(mesh):
+        torch.cuda.empty_cache()
+        step, init, shard = make_vit_train_step(
+            cfg, mesh, optimizer=adamw_lowmem(3e-4, weight_decay=0.1),
+            seed=SEED, device=dev)
+        return timed_steps(step, init, params, shard(images),
+                           shard(labels), P22B_VIT_WARMUP, P22B_VIT_STEPS,
+                           counters)
+
+    if rank == 0:
+        res["vit_one_card"] = run(None)
+    dist.barrier()
+    r = run(build_mesh(MeshSpec(tp=world)))
+    peaks = [None] * world
+    dist.all_gather_object(peaks, r["peak_gib"])
+    losses = [None] * world
+    dist.all_gather_object(losses, r["losses"])
+    r.update(per_rank_peak_gib=peaks, rank_losses=losses)
+    res[f"vit_tp{world}"] = r
+    del params
+    torch.cuda.empty_cache()
+
+
 def _rank_layouts(rank: int, world: int, store: str, out_path: str,
                   port: int, part: str) -> None:
     """One rank of one part of ``phase_layouts_ranks`` on card ``rank``;
@@ -7908,15 +8029,18 @@ def _rank_layouts(rank: int, world: int, store: str, out_path: str,
     if part == "checkpoint":
         _p22b_checkpoint(rank, world, res)
     else:
-        {"llama": _p22b_llama, "mixtral": _p22b_mixtral}[part](
-            rank, world, _counters(), res)
+        {"llama": _p22b_llama, "mixtral": _p22b_mixtral,
+         "vit": _p22b_vit}[part](rank, world, _counters(), res)
     if rank == 0:
         with open(out_path, "w") as f:
             json.dump(res, f)
     dist.destroy_process_group()
 
 
-def phase_layouts_ranks(world: int) -> dict:
+P22B_PARTS = ("llama", "mixtral", "checkpoint", "vit")
+
+
+def phase_layouts_ranks(world: int, parts=P22B_PARTS) -> dict:
     """Phase 22b (four cards, one a rank): context parallelism under FSDP
     and TP (fsdp2 x sp2, tp2 x sp2) at the Llama-3-8B width, P22B_LAYERS
     layers, global b2 s8192, losses step by step and the first grad norm
@@ -7925,8 +8049,9 @@ def phase_layouts_ranks(world: int) -> dict:
     sp2 x ep2 (the ring), each beside dp2 x ep2 as phase 15b runs it and
     held against one card's training run under adamw and under SGD; an
     FSDP + zero1 state saved
-    at fsdp2 x dp2 and restored at tp2 x dp2. Every gate is read before
-    the phase fails."""
+    at fsdp2 x dp2 and restored at tp2 x dp2; ViT-S/16 at tp 4 (6 heads,
+    gathered) against one card's run. Every gate is read before the
+    phase fails. ``parts`` runs those alone."""
     import tempfile
 
     from ray_tpu_torch._spawn import run_ranks
@@ -7940,7 +8065,7 @@ def phase_layouts_ranks(world: int) -> dict:
     # Each part in fresh processes: the NCCL communicators of the earlier
     # parts' meshes would keep their card memory (an out-of-memory in
     # the first run that held all three in one process).
-    for part in ("llama", "mixtral", "checkpoint"):
+    for part in parts:
         with tempfile.TemporaryDirectory() as tmp:
             out_path = os.path.join(tmp, "rank0.json")
             run_ranks(_rank_layouts, world, tmp,
@@ -7977,6 +8102,15 @@ def phase_layouts_ranks(world: int) -> dict:
             failures.append(f"{name}: the one-card losses {losses} do not "
                             f"fall step by step")
 
+    launches: dict = {}
+    if "vit" in parts:
+        _p22b_vit_gates(res, world, failures, launches)
+    if "llama" not in parts:  # a partial run: the parts it ran
+        if failures:
+            raise AssertionError("phase 22b: " + "; ".join(failures))
+        res["launches"] = launches
+        res["seconds"] = time.perf_counter() - t_phase
+        return res
     one = res["one_card"]
     cfg = cfg_8b(P22B_LAYERS)
     print(f"one card, mesh=None, global b{P22B_BATCH} s{P22B_SEQ}, "
@@ -7986,7 +8120,6 @@ def phase_layouts_ranks(world: int) -> dict:
           + " ".join(f"{x:.4f}" for x in one["norms"]))
     falls("Llama", one["losses"])
     cp_want = predicted_launches("attn+", cfg.num_layers, ring=2)
-    launches: dict = {}
     for name in P22B_CP:
         r = res[name]
         steps = len(r["losses"])
@@ -8067,6 +8200,46 @@ def phase_layouts_ranks(world: int) -> dict:
     res["seconds"] = time.perf_counter() - t_phase
     print(f"phase 22b took {res['seconds']:.1f} s")
     return res
+
+
+def _p22b_vit_gates(res, world, failures, launches) -> None:
+    """ViT-S/16 at tp = world against one card: each step's loss within
+    P22B_VIT_TOL, every rank the same losses, launches a rank a step as
+    predicted; images/s per card and per-rank peak."""
+    one, r = res["vit_one_card"], res[f"vit_tp{world}"]
+    cfg_layers = P22B_VIT["num_layers"]
+    steps = len(r["losses"])
+    per_step = {k: n / steps for k, n in r["launches"].items()}
+    for k, n in r["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    want = predicted_launches(False, cfg_layers)
+    r["images_per_s_per_card"] = P22B_VIT_BATCH / (r["step_ms"] / 1e3) \
+        / world
+    one["images_per_s"] = P22B_VIT_BATCH / (one["step_ms"] / 1e3)
+    gaps = [abs(a - b) for a, b in zip(r["losses"], one["losses"])]
+    r["loss_gaps"] = gaps
+    print(f"ViT-S/16 one card, mesh=None, b{P22B_VIT_BATCH}: "
+          f"{one['step_ms']:.2f} ms a step, {one['images_per_s']:.1f} "
+          f"images/s, peak {one['peak_gib']:.3f} GiB; loss "
+          + " ".join(f"{x:.6f}" for x in one["losses"]))
+    print(f"ViT-S/16 tp{world} (6 heads gathered over tp): "
+          f"{r['step_ms']:.2f} ms a step on rank 0's host clock, "
+          f"{r['images_per_s_per_card']:.1f} images/s per card; peak GiB "
+          f"per rank {[round(p, 3) for p in r['per_rank_peak_gib']]}; loss "
+          + " ".join(f"{x:.6f}" for x in r["losses"]) + "; off one card's "
+          + ", ".join(f"{d:.3e}" for d in gaps)
+          + f" (limit {P22B_VIT_TOL}); launches a rank a step "
+          + ", ".join(f"{k} {v:g}" for k, v in per_step.items() if v))
+    if not all(math.isfinite(x) for x in r["losses"]) \
+            or max(gaps) > P22B_VIT_TOL:
+        failures.append(f"vit_tp{world}: losses {r['losses']} against one "
+                        f"card's {one['losses']}")
+    if any(x != r["rank_losses"][0] for x in r["rank_losses"]):
+        failures.append(f"vit_tp{world}: the ranks' losses differ "
+                        f"{r['rank_losses']}")
+    if per_step != {k: float(v) for k, v in want.items()}:
+        failures.append(f"vit_tp{world}: launches per step {per_step} != "
+                        f"the prediction {want}")
 
 
 P23_SEQ = 2048            # max_seq_len: 2.15 GB of bf16 KV at 8 slots
@@ -8624,6 +8797,350 @@ def phase_tp_serving_ranks(world: int, one: dict) -> dict:
     return out
 
 
+# Phase 24: Ray Data on the port's runtime. (a) batch inference through
+# build_llm_processor at phase 7's engine, (b) TorchTrainer(datasets=) at
+# phase 8's 1.1B geometry, (c) ingest over two workers.
+P24_PROMPTS = 256
+P24_PROMPT_BYTES = (128, 512)   # seeded printable ASCII, the byte tokenizer
+P24_BATCH = 64                  # ProcessorConfig(batch_size=64)
+# The pool's engine runs a block's 64 prompts in 64 slots (phase 7's
+# engine otherwise); at phase 7's 8 the first run read 217.7 tok/s, 75 s.
+P24_SLOTS = 64
+P24_MAX_TOKENS = 64
+P24_BUSY_WINDOW_S = 1.0         # the profiler's window in mid-run
+P24_ROWS, P24_BLOCKS = 4096, 64  # (b): 4096 rows x 2049 int32, 64 blocks
+P24_STEPS = 5
+P24_INGEST_ROWS = 65536          # (c): range(65536) over two workers
+P24_TIMEOUT_S = 600
+
+
+def p24_prompts(n: int, lo: int, hi: int, seed: int = SEED + 24) -> list:
+    """``n`` seeded printable-ASCII strings of ``lo``-``hi`` bytes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return ["".join(chr(c) for c in rng.integers(32, 127, int(k)))
+            for k in rng.integers(lo, hi + 1, n)]
+
+
+def p24_direct(eng, prompts: list, sampling, batch: int) -> list:
+    """Each prompt's greedy token ids from ``eng``, submitted ``batch`` at a
+    time as the pool's stage submits them."""
+    out = []
+    for i in range(0, len(prompts), batch):
+        reqs = [eng.submit(p, sampling) for p in prompts[i:i + batch]]
+        for r in reqs:
+            if not r.done.wait(600) or r.error:
+                raise AssertionError(f"direct request: {r.error}")
+            out.append(list(eng._result(r).token_ids))
+    return out
+
+
+def p24_batch_inference(llm_cfg, device: str, prompts: list,
+                        sampling: dict, batch: int, num_gpus: float,
+                        busy_window_s: float) -> dict:
+    """(a): the prompts through build_llm_processor (one pool actor holding
+    an LLMEngine); the rows as they come back, wall time, K1's launches
+    (reset right before, read right after), the device's busy share over
+    a profiler window once the first block is back (None on the CPU)."""
+    import ray_tpu_torch.data as rdata
+    from ray_tpu_torch.data.llm import ProcessorConfig, build_llm_processor
+    from ray_tpu_torch.ops import norms
+
+    proc = build_llm_processor(
+        llm_cfg, device=device, num_gpus=num_gpus,
+        config=ProcessorConfig(batch_size=batch, concurrency=1,
+                               sampling=sampling, include_token_ids=True))
+    ds = proc(rdata.from_items([{"id": i, "prompt": p}
+                                for i, p in enumerate(prompts)]))
+    rows, busy = [], None
+    norms.rms_norm.launches = 0
+    t0 = time.perf_counter()
+    for b in ds.iter_batches(batch_size=None):
+        rows.extend({k: b[k][j] for k in b} for j in range(len(b["id"])))
+        if busy is None and device != "cpu":
+            busy = _busy_share(busy_window_s)
+    wall = time.perf_counter() - t0
+    return {"rows": rows, "wall_s": wall,
+            "launches": norms.rms_norm.launches, "busy": busy}
+
+
+def _busy_share(window_s: float) -> float:
+    """The card's busy share over ``window_s`` of wall time: the summed
+    durations of the kernels the profiler saw in the window (every thread
+    of the process) over the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        time.sleep(window_s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return kern / wall
+
+
+def p24_rows(n: int, width: int, blocks: int, vocab: int):
+    """(b)'s data: ``n`` seeded int32 rows of ``width`` token ids (tokens
+    and the targets' last one) as ``blocks`` blocks."""
+    import numpy as np
+
+    rows = np.random.default_rng(SEED + 24).integers(
+        0, vocab, (n, width), dtype=np.int32)
+    return rows, [{"row": b} for b in np.split(rows, blocks)]
+
+
+def p24_split(batch):
+    return {"tokens": batch["row"][:, :-1], "targets": batch["row"][:, 1:]}
+
+
+def p24_train_fn(make_step, steps: int, batch: int, prefetch: int):
+    """(b)'s train function: the step fed by get_dataset_shard("train")
+    through the device-prefetching iterator; each step's loss, its time
+    (the loss read back) and the host time it waited for its batch."""
+    def train_fn(config):
+        import ray_tpu_torch.train as train
+
+        dev = train.get_context().get_device()
+        step, init, _ = make_step(dev)
+        state = init()
+        it = iter(train.get_dataset_shard("train").iter_torch_batches(
+            batch_size=batch, device=dev, prefetch=prefetch))
+        for i in range(steps):
+            t0 = time.perf_counter()
+            b = next(it)
+            t1 = time.perf_counter()
+            state, m = step(state, b["tokens"], b["targets"])
+            loss = float(m["loss"])
+            train.report({"step": i, "loss": loss,
+                          "wait_s": t1 - t0,
+                          "step_s": time.perf_counter() - t1})
+        it.close()
+    return train_fn
+
+
+def p24_direct_steps(make_step, rows, steps: int, batch: int,
+                     device) -> dict:
+    """(b)'s reference: the same step fed the same batches directly."""
+    step, init, shard = make_step(device)
+    state = init()
+    losses, secs = [], []
+    for i in range(steps):
+        r = rows[i * batch:(i + 1) * batch]
+        t0 = time.perf_counter()
+        state, m = step(state, shard(r[:, :-1]), shard(r[:, 1:]))
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_s": secs}
+
+
+def p24_ingest_fn(batch: int):
+    """(c)'s train function: read this worker's split whole."""
+    def train_fn(config):
+        import numpy as np
+        import ray_tpu_torch.train as train
+
+        t0 = time.perf_counter()
+        ids = [b["id"] for b in train.get_dataset_shard("train")
+               .iter_batches(batch_size=batch)]
+        ids = np.concatenate(ids) if ids else np.zeros(0, np.int64)
+        train.report({"rank": train.get_context().get_world_rank(),
+                      "n": int(len(ids)), "sum": int(ids.sum()),
+                      "ids": ids.tolist(),
+                      "read_s": time.perf_counter() - t0})
+    return train_fn
+
+
+def p24_ingest(n: int, workers: int, batch: int, device: str,
+               storage: str) -> dict:
+    """(c): range(n) through streaming_split(workers, equal=True) under a
+    TorchTrainer of ``workers`` workers; every row once, equal splits."""
+    import ray_tpu_torch.data as rdata
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig,
+                                     TorchBackendConfig, TorchTrainer)
+
+    res = _fit_in_time(TorchTrainer(
+        p24_ingest_fn(batch), datasets={"train": rdata.range(n)},
+        scaling_config=ScalingConfig(num_workers=workers),
+        backend_config=TorchBackendConfig(device=device),
+        run_config=RunConfig(name="p24-ingest", storage_path=storage)),
+        P24_TIMEOUT_S)
+    if not res.ok:
+        raise AssertionError(f"ingest fit failed: {res.error}")
+    per = sorted(res.metrics_history, key=lambda m: m["rank"])
+    seen = sorted(i for m in per for i in m["ids"])
+    if seen != list(range(n)):
+        raise AssertionError(f"ingest: {len(seen)} rows seen, not each of "
+                             f"range({n}) once")
+    counts = [m["n"] for m in per]
+    if len(set(counts)) != 1:
+        raise AssertionError(f"ingest: unequal splits {counts}")
+    read_s = max(m["read_s"] for m in per)
+    return {"counts": counts, "read_s": read_s, "rows_per_s": n / read_s}
+
+
+def phase_data(engine: dict | None = None) -> dict:
+    """Phase 24: Ray Data on the port's runtime. (a) batch inference at
+    phase 7's engine through build_llm_processor, one pool actor on the
+    card; (b) TorchTrainer(datasets=) at phase 8's 1.1B geometry through
+    get_dataset_shard and the device-prefetching iterator; (c) ingest of
+    range(65536) over two workers."""
+    import gc
+    import shutil
+
+    import torch
+    import ray_tpu_torch
+    import ray_tpu_torch.data as rdata
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig, TorchTrainer)
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    storage = os.path.join(root, "ray_tpu_torch", "_native", "_build",
+                           "phase24")
+    shutil.rmtree(storage, ignore_errors=True)
+    os.makedirs(storage)
+
+    _phase(f"Ray Data (a): batch inference, build_llm_processor at "
+           f"llama3_1b width (bf16, phase 7's seeded weights), "
+           f"{P24_PROMPTS} prompts of {P24_PROMPT_BYTES[0]}-"
+           f"{P24_PROMPT_BYTES[1]} bytes, batch_size {P24_BATCH}, one pool "
+           f"actor with num_gpus=1 ({P24_SLOTS} slots), greedy, max_tokens "
+           f"{P24_MAX_TOKENS}")
+    llm_cfg = LLMConfig(model="llama3_1b", dtype="bfloat16",
+                        max_num_seqs=P24_SLOTS, max_seq_len=1024,
+                        decode_burst=16, seed=SEED)
+    prompts = p24_prompts(P24_PROMPTS, *P24_PROMPT_BYTES)
+    sampling = {"max_tokens": P24_MAX_TOKENS, "temperature": 0.0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = p20_allocated()[0]
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=8, resources={"GPU": 1})
+    try:
+        a = p24_batch_inference(llm_cfg, "cuda", prompts, sampling,
+                                P24_BATCH, 1, P24_BUSY_WINDOW_S)
+        gpu_back = ray_tpu_torch.available_resources()["GPU"]
+    finally:
+        ray_tpu_torch.shutdown()
+    if gpu_back != 1.0:
+        raise AssertionError(f"the pool's GPU not back: {gpu_back}")
+    gap_mib = p20_memory_back(mem0, 2, "the pool's shutdown",
+                              "the processor")
+    ids = sorted(int(r["id"]) for r in a["rows"])
+    if ids != list(range(P24_PROMPTS)):
+        raise AssertionError(f"{len(ids)} rows back, not each prompt once")
+    if a["launches"] < 1:
+        raise AssertionError("rms_norm never launched on the pool actor's "
+                             "engine")
+    eng = LLMEngine(llm_cfg, device="cuda")
+    try:
+        want = p24_direct(eng, prompts, SamplingParams(**sampling),
+                          P24_BATCH)
+    finally:
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    got = {int(r["id"]): list(r["generated_token_ids"]) for r in a["rows"]}
+    bad = [i for i in range(P24_PROMPTS) if got[i] != want[i]]
+    if bad:
+        raise AssertionError(f"{len(bad)} generations differ from the direct"
+                             f" engine's (first: prompt {bad[0]})")
+    out_toks = sum(len(v) for v in got.values())
+    a_res = {"rows_per_s": P24_PROMPTS / a["wall_s"],
+             "tok_per_s": out_toks / a["wall_s"], "wall_s": a["wall_s"],
+             "output_tokens": out_toks, "launches": a["launches"],
+             "busy_share": a["busy"], "memory_gap_mib": gap_mib,
+             "phase7_tok_per_s": (engine or {}).get("tok_per_s")}
+    out["batch_inference"] = a_res
+    p7 = a_res["phase7_tok_per_s"]
+    print(f"{P24_PROMPTS} rows back once each in {a['wall_s']:.2f} s: "
+          f"{a_res['rows_per_s']:.1f} rows/s, {out_toks} output tokens = "
+          f"{a_res['tok_per_s']:.1f} tok/s (phase 7's direct waves "
+          + (f"{p7:.1f} tok/s" if p7 else "not run") + "); device busy "
+          f"{100 * a['busy']:.1f}% of a {P24_BUSY_WINDOW_S:.1f} s profiler "
+          f"window in mid-run; every generation equal to the direct "
+          f"engine's token ids; rms_norm launches on the pool's engine "
+          f"{a['launches']}; GPU resource back, card memory "
+          f"{gap_mib:+.2f} MiB from before")
+
+    _phase(f"Ray Data (b): TorchTrainer(datasets=) at the 1.1B geometry, "
+           f"b4 s2048, attn+, adamw_lowmem, one worker on the card; "
+           f"{P24_ROWS} rows x 2049 int32 in {P24_BLOCKS} blocks, "
+           f"{P24_STEPS} steps through get_dataset_shard and "
+           f"iter_torch_batches(prefetch=2)")
+    cfg = LlamaConfig(**BENCH_GEOMETRY, max_seq_len=2048)
+    rows, blocks = p24_rows(P24_ROWS, 2049, P24_BLOCKS, cfg.vocab_size)
+    print(f"dataset {rows.nbytes / 1e6:.1f} MB")
+    direct = p24_direct_steps(lambda d: _p19_step(cfg, d), rows, P24_STEPS,
+                              4, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0  # count the trainer's run only
+    ray_tpu_torch.init(num_cpus=8, resources={"GPU": 1})
+    try:
+        ds = rdata.from_blocks(blocks).map_batches(p24_split)
+        res = _fit_in_time(TorchTrainer(
+            p24_train_fn(lambda d: _p19_step(cfg, d), P24_STEPS, 4, 2),
+            datasets={"train": ds},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="p24-train", storage_path=storage)),
+            P24_TIMEOUT_S)
+    finally:
+        ray_tpu_torch.shutdown()
+    launches = {k: c.launches for k, c in counters.items()}
+    if not res.ok:
+        raise AssertionError(f"fit failed: {res.error}")
+    hist = res.metrics_history
+    losses = [m["loss"] for m in hist]
+    if losses != direct["losses"]:
+        raise AssertionError(f"losses under datasets= {losses} != the "
+                             f"direct step's {direct['losses']} (bit for "
+                             f"bit)")
+    want_launch = {k: v * P24_STEPS for k, v in
+                   predicted_launches("attn+", cfg.num_layers).items()}
+    for k in ("rms_norm", "flash_fwd", "flash_bwd"):
+        if launches[k] != want_launch[k]:
+            raise AssertionError(f"{k} launched {launches[k]} times under "
+                                 f"datasets=, not {want_launch[k]}")
+    ds_ms = 1e3 * statistics.median(m["step_s"] for m in hist[1:])
+    direct_ms = 1e3 * statistics.median(direct["step_s"][1:])
+    waits = [1e3 * m["wait_s"] for m in hist]
+    out["trainer"] = {"losses": losses, "step_ms": ds_ms,
+                      "direct_step_ms": direct_ms, "wait_ms": waits,
+                      "launches": launches}
+    print(f"losses " + " ".join(f"{x:.6f}" for x in losses) + " bit-equal "
+          f"to the direct step's; median step {ds_ms:.2f} ms under "
+          f"datasets= against {direct_ms:.2f} ms direct (steps 1-"
+          f"{P24_STEPS - 1}); host ms each step waited for its batch "
+          + " ".join(f"{w:.3f}" for w in waits) + "; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+
+    _phase(f"Ray Data (c): range({P24_INGEST_ROWS}) over two workers "
+           f"through streaming_split(2, equal=True)")
+    ray_tpu_torch.init(num_cpus=8)
+    try:
+        c_res = p24_ingest(P24_INGEST_ROWS, 2, 1024, "cpu", storage)
+    finally:
+        ray_tpu_torch.shutdown()
+    out["ingest"] = c_res
+    print(f"every row seen once, splits {c_res['counts']}; "
+          f"{c_res['rows_per_s']:.1f} rows/s (the slower worker's read "
+          f"{c_res['read_s']:.3f} s)")
+    shutil.rmtree(storage, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 24 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8660,6 +9177,7 @@ def main() -> int:
     tuning = phase_tuning()
     layouts = phase_layouts(train8b, moe)
     tp_one = phase_tp_serving()
+    data = phase_data(eng)
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -8725,6 +9243,10 @@ def main() -> int:
                                 tuning["launches"].items()},
                              "layouts": layout_launches["rms_norm"],
                              "tp_serving": tp_one["launches"],
+                             "data_batch_inference":
+                                 data["batch_inference"]["launches"],
+                             "data_trainer":
+                                 data["trainer"]["launches"]["rms_norm"],
                              "tp_serving_ranks": {
                                  tp_: tp_ranks[tp_]["a"]["launches"]
                                  for tp_ in (2, 4) if tp_ranks
@@ -8762,7 +9284,8 @@ def main() -> int:
                 "mixtral": {k_: moe["runs"][k_]["launches"][name]
                             for k_ in P15_MODES},
                 **{k_: v_[name] for k_, v_ in tuning["launches"].items()},
-                "layouts": layout_launches[name]},
+                "layouts": layout_launches[name],
+                "data_trainer": data["trainer"]["launches"][name]},
             "max_abs_err": max(row["max_abs_err"],
                                vit["attention"][name]["max_abs_err"]),
             "ms": row["ms"],
@@ -8876,7 +9399,8 @@ def main() -> int:
                       "tp_serving": {k: v for k, v in tp_one.items()
                                      if k not in ("wave", "short", "streams",
                                                   "logits0")},
-                      "tp_serving_ranks": tp_ranks}, default=str))
+                      "tp_serving_ranks": tp_ranks, "data": data},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,12 +14,15 @@ kernels, ring attention over a ``torch.distributed`` group, RoPE, the
 fused cross-entropy); the int8 gradient format (``collective``); the RL
 library (``rl``: batched torch envs, PPO with the fused Anakin loop, DQN,
 SAC, IMPALA, APPO, the offline BC, MARWIL and CQL, multi-agent PPO,
-Dreamer) on the ``Trainable`` of ``tune``, with the in-memory datasets
-offline RL reads (``data``); peak rates for MFU
+Dreamer) on the ``Trainable`` of ``tune``; Ray Data on the runtime
+(``data``: the lazy plan, the streaming executor and its actor pools,
+shuffles, datasources, ``streaming_split`` and batch LLM inference;
+``TorchTrainer(datasets=)`` reads through it); peak rates for MFU
 (``accelerators``); the head-packing profiler and paired timings
 (``devbench``); the in-process runtime (``init``, ``remote``, ``get``,
-``put``, ``wait``, actors: ``core``), the host collective (``collective``)
-and the trainer on it (``train.TorchTrainer``).
+``put``, ``wait``, actors: ``core``), the host collective (``collective``),
+the trainer on it (``train.TorchTrainer``) and the metrics API
+(``util.metrics``).
 Importing the package is cheap: it starts no thread (``init`` starts the
 runtime's), and CUDA kernels are built from ``csrc/`` at their first
 launch.

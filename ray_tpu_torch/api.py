@@ -104,6 +104,14 @@ def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
     global_worker.runtime.kill_actor(actor.actor_id)
 
 
+def wait_released(actor: ActorHandle, timeout: float | None = 30.0) -> bool:
+    """Wait until a killed actor's thread has ended: its resources are back
+    and its instance is dropped (``kill`` itself returns at once). False if
+    ``timeout`` passed first."""
+    global_worker.check_connected()
+    return global_worker.runtime.wait_actor_released(actor.actor_id, timeout)
+
+
 def cancel(ref: ObjectRef, *, force: bool = False) -> None:
     """Cancel a task no thread has picked up yet (it then raises
     TaskCancelledError at get); a started task runs on."""

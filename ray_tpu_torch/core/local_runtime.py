@@ -20,7 +20,8 @@ registry, compiled-graph hooks and the state API's snapshot. Added:
 threads and their pools and event loops): waiting ``get``s and ``wait``s
 end, pending coroutines of async actors are cancelled, and the threads are
 joined within a deadline. A killed or ended actor's instance is dropped, so
-what it holds (device memory) can be freed. A stream whose consumer
+what it holds (device memory) can be freed; ``wait_actor_released`` waits
+until its thread has given its resources back and dropped it. A stream whose consumer
 dropped its generator stops at the producer's next yield (``close_stream``).
 """
 
@@ -34,7 +35,7 @@ import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 from ray_tpu_torch.core.events import global_event_buffer, task_execution
@@ -124,6 +125,9 @@ class _ActorState:
     restarts_used: int = 0
     loop: asyncio.AbstractEventLoop | None = None
     pool: ThreadPoolExecutor | None = None
+    # Set once the actor's thread has released its resources and dropped
+    # its instance (wait_actor_released).
+    ended: threading.Event = field(default_factory=threading.Event)
 
 
 async def _cancel_all_tasks() -> None:
@@ -467,6 +471,12 @@ class LocalRuntime:
             self._actor_main, (state,), f"actor-{spec.actor_id.hex()[:8]}")
 
     def _actor_main(self, state: _ActorState) -> None:
+        try:
+            self._actor_run(state)
+        finally:
+            state.ended.set()
+
+    def _actor_run(self, state: _ActorState) -> None:
         spec = state.spec
         try:
             if not self.resources.acquire(spec.resources, timeout=None):
@@ -547,6 +557,7 @@ class LocalRuntime:
                 self._store_error(return_ids, TaskError(e, task_desc=f"{spec.method_name}"))
             finally:
                 set_task_context(None, None, None)
+                self.refs.on_task_finished(spec.arg_ref_ids)
 
         if state.loop is not None and inspect.iscoroutinefunction(
             getattr(state.instance, spec.method_name, None)
@@ -568,6 +579,9 @@ class LocalRuntime:
             worker_id=self.worker_id.hex(),
             actor_id=spec.actor_id.hex() if spec.actor_id else "",
             job_id=spec.job_id.hex())
+        # The call's ref arguments stay alive until it has run (as a
+        # task's do), whatever the caller drops meanwhile.
+        self.refs.on_task_submitted(spec.arg_ref_ids)
         with self._lock:
             state = self._actors.get(spec.actor_id)
         if state is None or state.dead:
@@ -576,6 +590,7 @@ class LocalRuntime:
             err = ActorDiedError(spec.actor_id.hex() if spec.actor_id else "",
                                  reason, never_sent=True)
             self._store_error(return_ids, err)
+            self.refs.on_task_finished(spec.arg_ref_ids)
         else:
             state.mailbox.put(spec)
         return [ObjectRef.counted(oid, self.worker_id) for oid in return_ids]
@@ -587,6 +602,17 @@ class LocalRuntime:
             return
         self._mark_actor_dead(state, "killed via kill()")
         state.mailbox.put(None)
+
+    def wait_actor_released(self, actor_id: ActorID,
+                            timeout: float | None = None) -> bool:
+        """Block until the actor's thread has ended: its resources are back
+        in the pool and its instance is dropped. ``kill`` stays
+        asynchronous; callers that hand the resources on (Serve's
+        controller, the data executor's pools) wait here after it. False
+        if ``timeout`` passed first (a call still running on the actor)."""
+        with self._lock:
+            state = self._actors.get(actor_id)
+        return state is None or state.ended.wait(timeout)
 
     def _mark_actor_dead(self, state: _ActorState, reason: str) -> None:
         state.dead = True
@@ -605,6 +631,7 @@ class LocalRuntime:
                         ActorDiedError(state.spec.actor_id.hex(), reason,
                                        never_sent=True)
                     )
+                    self.refs.on_task_finished(item.arg_ref_ids)
         except queue.Empty:
             pass
 

@@ -22,41 +22,16 @@ import torch
 from ray_tpu_torch.llm.config import LLMConfig
 from ray_tpu_torch.llm.engine import LLMEngine
 from ray_tpu_torch.llm.serving import _sampling_from
+from ray_tpu_torch.util.metrics import Counter
 
 _MODES = ("store", "inline")
 
 
-class _Counter:
-    """A monotonically increasing count, per tag set."""
-
-    def __init__(self, name: str, description: str, tag_keys=()):
-        self.name, self.description, self.tag_keys = name, description, \
-            tuple(tag_keys)
-        self._lock = threading.Lock()
-        self._values: dict[tuple, float] = {}
-
-    def inc(self, n: float = 1.0, tags: dict | None = None) -> None:
-        key = tuple((tags or {}).get(k) for k in self.tag_keys)
-        with self._lock:
-            self._values[key] = self._values.get(key, 0.0) + n
+class _Counter(Counter):
+    """A ``util.metrics`` counter that also reads one series back."""
 
     def value(self, tags: dict | None = None) -> float:
-        key = tuple((tags or {}).get(k) for k in self.tag_keys)
-        with self._lock:
-            return self._values.get(key, 0.0)
-
-    def bound(self, tags: dict | None = None) -> "_Bound":
-        return _Bound(self, dict(tags or {}))
-
-
-class _Bound:
-    """A counter with its tags bound once."""
-
-    def __init__(self, counter: _Counter, tags: dict):
-        self._counter, self._tags = counter, tags
-
-    def inc(self, n: float = 1.0) -> None:
-        self._counter.inc(n, self._tags)
+        return self._points().get(self._series_key(tags), 0.0)
 
 
 _kv_metrics = None

@@ -224,11 +224,21 @@ def check_layout(sizes: dict, logical_axes,
     return out
 
 
-def local_units(layout: dict, logical_axes,
-                data_axes: tuple[str, ...]) -> tuple[dict, bool]:
+def tp_indivisible(unit_counts: dict | None, tp_n: int) -> frozenset:
+    """The tp units whose counts (``{"attn": (num_heads, num_kv_heads)}``,
+    say) tp does not divide: they cannot be computed locally, so their
+    split dims are gathered, as JAX computes them."""
+    return frozenset(u for u, counts in (unit_counts or {}).items()
+                     if any(int(n) % tp_n for n in counts))
+
+
+def local_units(layout: dict, logical_axes, data_axes: tuple[str, ...],
+                indivisible: frozenset = frozenset()) -> tuple[dict, bool]:
     """({tp unit: computed locally}, experts computed locally): a unit is
     local when every dim it names splits over its axis alone (and, for
-    tp, tp is not a batch axis: tp ranks must hold the same rows)."""
+    tp, tp is not a batch axis: tp ranks must hold the same rows, and tp
+    divides the unit's counts: ``indivisible`` names those it does
+    not)."""
     seen: dict[str, list] = {}
     for path, logical in tree_paths(logical_axes):
         split = dict(layout[path])
@@ -239,17 +249,18 @@ def local_units(layout: dict, logical_axes,
         found = [a for n in names for a in seen.get(n, [])]
         return bool(found) and all(a == (axis,) for a in found)
 
-    tp = {u: "tp" not in data_axes and local(names, "tp")
-          for u, names in TP_UNITS.items()}
+    tp = {u: u not in indivisible and "tp" not in data_axes
+          and local(names, "tp") for u, names in TP_UNITS.items()}
     return tp, local((EP_LOGICAL,), "ep")
 
 
-def split_dims(layout: dict, logical_axes,
-               data_axes: tuple[str, ...]) -> dict:
+def split_dims(layout: dict, logical_axes, data_axes: tuple[str, ...],
+               indivisible: frozenset = frozenset()) -> dict:
     """Per leaf path, (the dims the model gathers, the dims it computes
     on locally), each as (dim, mesh axes), from ``check_layout``'s
     ``layout``."""
-    tp_local, ep_local = local_units(layout, logical_axes, data_axes)
+    tp_local, ep_local = local_units(layout, logical_axes, data_axes,
+                                     indivisible)
     unit_of = {n: u for u, names in TP_UNITS.items() for n in names}
     out = {}
     for path, logical in tree_paths(logical_axes):
@@ -271,10 +282,13 @@ class ParamShard:
     the module docstring), and the tp and ep groups. ``data_axes`` are
     the axes whose ranks hold different rows (the batch axes and sp);
     ``whole_dims`` ({path: dims}) names dims the caller hands the model
-    whole, which it then neither gathers nor computes on locally."""
+    whole, which it then neither gathers nor computes on locally;
+    ``unit_counts`` ({tp unit: counts}, the model's head counts) makes a
+    unit whose counts tp does not divide non-local (gathered)."""
 
     def __init__(self, mesh, logical_axes, rules: ShardingRules,
-                 data_axes: tuple[str, ...], whole_dims: dict | None = None):
+                 data_axes: tuple[str, ...], whole_dims: dict | None = None,
+                 unit_counts: dict | None = None):
         from ray_tpu_torch.parallel.mesh import mesh_coords
 
         sizes = axis_sizes(mesh)
@@ -284,8 +298,9 @@ class ParamShard:
                       if d not in whole_dims.get(p, ())]
                   for p, dims in check_layout(sizes, logical_axes,
                                               rules).items()}
+        indivisible = tp_indivisible(unit_counts, sizes["tp"])
         self.tp_local, self.ep_local = local_units(layout, logical_axes,
-                                                   data_axes)
+                                                   data_axes, indivisible)
         self.data_axes = tuple(data_axes)
         # Experts over ep with the batch over ep too: each ep rank routes
         # its own tokens (models.mixtral's all-to-all dispatch).
@@ -299,7 +314,7 @@ class ParamShard:
         self.local_dims: dict[tuple, tuple] = {}
         self.shard_axes: dict[tuple, tuple[str, ...]] = {}
         specs: dict = {}
-        split = split_dims(layout, logical_axes, data_axes)
+        split = split_dims(layout, logical_axes, data_axes, indivisible)
         for path, logical in tree_paths(logical_axes):
             gathered, local = split[path]
             gathers = []
@@ -427,12 +442,15 @@ class ParamShard:
 
     def local(self, n: int, what: str, unit: str) -> int:
         """This rank's share of ``n`` (heads, say) in ``unit``: n / tp
-        where the unit is local; raises where tp does not divide it."""
+        where the unit is local, else n (a unit whose counts tp does not
+        divide is never local when its counts were given)."""
         if not self.tp_local[unit]:
             return n
         if n % self.tp_n:
-            raise NotImplementedError(
-                f"{n} {what} do not split over tp={self.tp_n} ranks")
+            raise ValueError(
+                f"{n} {what} do not split over tp={self.tp_n} ranks: give "
+                f"ParamShard unit_counts={{{unit!r}: ...}} so the unit is "
+                f"gathered")
         return n // self.tp_n
 
     def embed(self, tokens: torch.Tensor,

@@ -33,10 +33,13 @@ Semantics kept from the reference:
 - the default optimizer is JAX's, ``adamw(3e-4, weight_decay=0.1)``,
   moments in the params' dtype; layers run with no remat.
 
-The mesh names ``pp`` (which may be 1) and optionally ``dp``. JAX's
-``shard_map`` names only these two axes and so replicates the work over
-any other; the port raises ``NotImplementedError`` for another axis of
-size > 1 instead of running every stage that many times.
+The mesh names ``pp`` (which may be 1) and optionally ``dp`` and any
+other axis. JAX's ``shard_map`` names only pp and dp and so replicates
+the work over any other (fsdp, tp, sp, ep): its params are ``P("pp")`` or
+replicated and its batch ``P("dp")``, so the ranks along another axis
+run the same stage on the same rows. The port does the same: each
+coordinate of the other axes is a replica pipeline whose sends, receives
+and sums (the pp, dp and shared-param groups) stay within it.
 
 ``make_pp_train_step`` returns ``(step_fn, init_state, data_sharder)``
 as ``train.spmd.make_train_step`` does; ``state.checkpoint_tree()``
@@ -124,14 +127,6 @@ def make_pp_train_step(
     dev = resolve_device(device)
     sizes = axis_sizes(mesh)
     specs = pp_param_shardings(cfg, mesh)
-    other = {a: n for a, n in sizes.items()
-             if a not in PIPELINE_AXES and n > 1}
-    if other:
-        raise NotImplementedError(
-            f"make_pp_train_step on a mesh with {other}: the pipeline "
-            f"uses only {PIPELINE_AXES} (JAX's shard_map replicates its "
-            f"work over any other axis); pipelines with fsdp, tp, sp or "
-            f"ep are not ported")
     if mesh.device_type != dev.type:
         raise ValueError(f"mesh of {mesh.device_type} ranks, step on {dev}")
     try:
@@ -153,7 +148,8 @@ def make_pp_train_step(
     ranks = mesh.mesh.cpu().numpy()
 
     def rank_of(k: int) -> int:
-        """The global rank of stage ``k`` with this rank's dp index."""
+        """The global rank of stage ``k`` with this rank's coordinates on
+        every other axis (its replica pipeline)."""
         idx = [coords[a] for a in names]
         idx[names.index("pp")] = k
         return int(ranks[tuple(idx)])

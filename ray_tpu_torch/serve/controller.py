@@ -10,7 +10,10 @@ long-poll host.
 ``ray_actor_options["num_gpus"]`` is the counterpart of the JAX package's
 ``num_tpus``: it demands the runtime's ``"GPU"`` resource. A stopped
 replica is drained, then its ``stop`` releases what its callable holds
-(serve/replica.py), then it is killed. The reconcile thread carries the
+(serve/replica.py), then it is killed, and it leaves the deployment's
+list only once its thread has given its resources back (so
+``serve.shutdown()`` returns with them available). The reconcile thread
+carries the
 runtime's thread-name prefix and ends when the runtime shuts down.
 
 Out: gang placement groups (refused where a deployment is declared,
@@ -42,6 +45,10 @@ STARTING, RUNNING, STOPPING = "STARTING", "RUNNING", "STOPPING"
 # joins its scheduler thread) before the replica is killed regardless.
 STOP_TIMEOUT_S = 60.0
 
+# How long a killed replica's thread may take to give its resources back
+# before the controller drops it regardless.
+RELEASE_TIMEOUT_S = 10.0
+
 # How often the controller collects each replica's prefix-cache hashes.
 PREFIX_PUBLISH_PERIOD_S = 0.5
 
@@ -60,6 +67,8 @@ class _Replica:
     drain_ref: Any = None
     stop_ref: Any = None  # the replica's stop() call, before the kill
     stop_deadline: float = 0.0
+    # Killed: kept (STOPPING) until its thread has released its resources.
+    killed: bool = False
     # Prefix-cache publication (KV-block-aware routing): last collected
     # router_meta state. prefix_capable None = not yet probed; False =
     # replica answered None once, never polled again (non-LLM deployment).
@@ -543,13 +552,22 @@ class ServeController:
                 self._send_stop(r)
                 keep.append(r)
                 continue
-            done, _ = ray_tpu_torch.wait([r.stop_ref], num_returns=1,
-                                         timeout=0)
-            if not done and now < r.stop_deadline:
+            if not r.killed:
+                done, _ = ray_tpu_torch.wait([r.stop_ref], num_returns=1,
+                                             timeout=0)
+                if not done and now < r.stop_deadline:
+                    keep.append(r)
+                    continue
+                try:
+                    ray_tpu_torch.kill(r.actor)
+                except Exception:
+                    pass
+                r.killed = True
+                r.stop_deadline = now + RELEASE_TIMEOUT_S
+            # Drop the replica only once its resources are back, so that
+            # graceful_shutdown (which waits for an empty list) returns
+            # with them available.
+            if (not ray_tpu_torch.api.wait_released(r.actor, 0)
+                    and now < r.stop_deadline):
                 keep.append(r)
-                continue
-            try:
-                ray_tpu_torch.kill(r.actor)
-            except Exception:
-                pass
         ds.replicas = keep

@@ -15,8 +15,10 @@ capacity forced a smaller world: there are no in-cluster replicas here
 (ROADMAP Queue A item 7). With no cluster, a failure's trigger is
 ``worker_error`` (a train function raised), ``worker_dead`` (its actor is
 gone) or ``controller_error`` (setup failed). Out: the flight recorder,
-the goodput downtime window, the restart/failure/world-size metrics and
-``datasets=``.
+the goodput downtime window and the restart/failure/world-size metrics.
+``datasets=`` are split over the group (``streaming_split(world,
+equal=True)``) at every (re)start; the splits' producers are closed when
+that group ends.
 """
 
 from __future__ import annotations
@@ -65,13 +67,29 @@ class _GroupFailure(RuntimeError):
         self.detected_ts = time.time()  # stamped at observation
 
 
+def _close_splits(splits: dict) -> None:
+    """Stop each split's producer (its executor's pools are shut down: a
+    run that ended before reading all of its data leaves them waiting),
+    then its coordinator actor."""
+    import ray_tpu_torch
+
+    for its in splits.values():
+        try:
+            its[0].close()
+            ray_tpu_torch.kill(its[0]._coord)
+        except Exception:  # noqa: BLE001 - the run's result stands
+            pass
+
+
 class TrainController:
     """Runs as an actor (created by the Trainer); drives the worker group."""
 
     def __init__(self, train_fn: Callable, train_loop_config: dict | None,
                  scaling_config: ScalingConfig, run_config: RunConfig,
-                 backend_config: TorchBackendConfig | None = None):
+                 backend_config: TorchBackendConfig | None = None,
+                 datasets: dict | None = None):
         self.train_fn = train_fn
+        self.datasets = datasets or {}
         self.train_loop_config = train_loop_config
         self.scaling = scaling_config
         self.run_config = run_config
@@ -142,6 +160,7 @@ class TrainController:
         try:
             while True:
                 group = None
+                splits: dict = {}
                 try:
                     world = policy.decide_world_size(restart_count)
                     recycled: list = []
@@ -165,6 +184,15 @@ class TrainController:
                                 latest.path if latest else None)
                     self.backend_config.make_backend().on_start(group,
                                                                 coordinator)
+                    if self.datasets:
+                        # Split per (re)start so elastic world-size changes
+                        # get fresh equal splits (reference: datasets= are
+                        # streaming_split across the current worker group).
+                        splits = {name: ds.streaming_split(world, equal=True)
+                                  for name, ds in self.datasets.items()}
+                        group.assign_dataset_shards([
+                            {name: its[rank] for name, its in splits.items()}
+                            for rank in range(world)])
                     group.run(self.train_fn, self.train_loop_config)
                     # Replenish the spare pool only once the group is up:
                     # the run's own workers always get capacity first.
@@ -198,6 +226,7 @@ class TrainController:
                 finally:
                     if group is not None:
                         group.shutdown()
+                    _close_splits(splits)
         finally:
             self._spares.shutdown()
 

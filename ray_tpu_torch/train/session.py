@@ -9,9 +9,9 @@ the backend (``TorchBackendConfig``).
 
 Out: the goodput ledger, the chaos probe, the throughput gauges and the
 straggler step window (no metrics registry in the port), ``replicate`` and
-``get_replica_state`` (the replica tier, ROADMAP Queue A item 7);
-``get_dataset_shard`` raises: a Trainer's ``datasets=`` needs the
-streaming split (ROADMAP Queue A item 7).
+``get_replica_state`` (the replica tier, ROADMAP Queue A item 7).
+``get_dataset_shard(name)`` is this worker's streaming split of the
+Trainer's ``datasets=`` (a ``ray_tpu_torch.data.DataIterator``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ class TrainContext:
     # None where the backend chose none); on a card, the worker thread's
     # current CUDA device.
     device: Any = None
+    dataset_shards: dict = field(default_factory=dict)  # name -> DataIterator
 
     _reports: list[dict] = field(default_factory=list)
     _report_lock: threading.Lock = field(default_factory=threading.Lock)
@@ -58,9 +59,14 @@ class TrainContext:
         return self.device
 
     def get_dataset_shard(self, name: str = "train"):
-        raise NotImplementedError(
-            "get_dataset_shard: a Trainer's datasets= need the streaming "
-            "split across the worker group (ROADMAP Queue A item 7)")
+        """This worker's streaming split of a Trainer dataset (reference:
+        ray.train.get_dataset_shard — v2 DataParallelTrainer datasets= are
+        streaming_split across the worker group)."""
+        if name not in self.dataset_shards:
+            raise KeyError(
+                f"no dataset {name!r}; Trainer(datasets={{...}}) keys: "
+                f"{sorted(self.dataset_shards)}")
+        return self.dataset_shards[name]
 
 
 _local = threading.local()

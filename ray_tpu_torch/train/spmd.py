@@ -130,6 +130,7 @@ from ray_tpu_torch.parallel.param_shard import (
     _order,
     check_layout,
     split_dims,
+    tp_indivisible,
 )
 from ray_tpu_torch.parallel.sharding import (
     ShardingRules,
@@ -547,10 +548,13 @@ def make_train_step(
     dcn_quant: str | None = None,
     dcn_quant_bucket: int | None = None,
     device: torch.device | str = "cuda",
+    unit_counts: dict | None = None,
 ) -> tuple[Callable, Callable, Callable]:
     """Model-agnostic step factory (see the module docstring). When the
     rules shard params, ``loss`` must take ``param_shard`` (a keyword) and
-    compute on this rank's param blocks."""
+    compute on this rank's param blocks. ``unit_counts`` gives the
+    model's head counts (``{"attn": (num_heads, num_kv_heads)}``): where
+    tp does not divide them, the heads are gathered, not tp-local."""
     dev = resolve_device(device)
     rules = rules or ShardingRules()
     optimizer = optimizer or adamw(3e-4, weight_decay=0.1,
@@ -591,14 +595,15 @@ def make_train_step(
             whole_dims = {}
             if explicit_hier:  # dims split outside the slice's data axes
                 for path, (gathered, _) in split_dims(
-                        layout, logical_axes, plan.avg_axes).items():
+                        layout, logical_axes, plan.avg_axes,
+                        tp_indivisible(unit_counts, sizes["tp"])).items():
                     whole_dims[path] = tuple(
                         (d, axes) for d, axes in gathered
                         if any(a not in plan.ici_axes and sizes[a] > 1
                                for a in axes))
             ps = ParamShard(mesh, logical_axes, rules, plan.avg_axes,
                             {p: [d for d, _ in v]
-                             for p, v in whole_dims.items()})
+                             for p, v in whole_dims.items()}, unit_counts)
             for path, dims in whole_dims.items():
                 if dims:
                     pregather[path] = tuple(
@@ -961,7 +966,9 @@ def make_llama_train_step(
         mesh, loss=loss,
         init_fn=partial(init_params, cfg, device=dev),
         logical_axes=param_logical_axes(cfg), rules=rules,
-        optimizer=optimizer, seed=seed, device=dev, **step_options,
+        optimizer=optimizer, seed=seed, device=dev,
+        unit_counts={"attn": (cfg.num_heads, cfg.num_kv_heads)},
+        **step_options,
     )
 
 
@@ -1009,7 +1016,9 @@ def make_mixtral_train_step(
         mesh, loss=loss,
         init_fn=partial(mixtral.init_params, cfg, device=dev),
         logical_axes=mixtral.param_logical_axes(cfg), rules=rules,
-        optimizer=optimizer, seed=seed, device=dev, **step_options,
+        optimizer=optimizer, seed=seed, device=dev,
+        unit_counts={"attn": (cfg.num_heads, cfg.num_kv_heads)},
+        **step_options,
     )
 
 
@@ -1035,5 +1044,6 @@ def make_vit_train_step(
             param_shard=param_shard),
         init_fn=partial(vit.init_params, cfg, device=dev),
         logical_axes=vit.param_logical_axes(cfg), rules=rules,
-        optimizer=optimizer, seed=seed, device=dev, **step_options,
+        optimizer=optimizer, seed=seed, device=dev,
+        unit_counts={"attn": (cfg.num_heads,)}, **step_options,
     )

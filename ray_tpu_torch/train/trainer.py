@@ -7,8 +7,9 @@ actor of the in-process runtime and waits for its ``Result``.
 refuses what would fail or hang later: the backend's refusals
 (``TorchBackendConfig.validate``) and a per-worker demand the runtime does
 not have at all (``use_gpu=True`` on a runtime started without a
-``"GPU"`` resource, say). ``datasets=`` raises ``NotImplementedError``:
-the streaming split is ROADMAP Queue A item 7.
+``"GPU"`` resource, say). ``datasets=`` (name -> ``ray_tpu_torch.data``
+Dataset) are split over the worker group at every (re)start; a worker
+reads its split through ``get_dataset_shard(name)``.
 """
 
 from __future__ import annotations
@@ -33,15 +34,12 @@ class DataParallelTrainer:
                  run_config: RunConfig | None = None,
                  backend_config: Any = None,
                  datasets: dict | None = None):
-        if datasets:
-            raise NotImplementedError(
-                "datasets=: the streaming split of a dataset across the "
-                "worker group is not ported (ROADMAP Queue A item 7)")
         self.train_fn = train_loop_per_worker
         self.train_loop_config = train_loop_config
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
         self.backend_config = backend_config or self.backend_config_cls()
+        self.datasets = datasets
 
     def _check_feasible(self) -> None:
         totals = ray_tpu_torch.cluster_resources()
@@ -62,7 +60,7 @@ class DataParallelTrainer:
             max_concurrency=2,
         ).remote(
             self.train_fn, self.train_loop_config, self.scaling_config,
-            self.run_config, self.backend_config,
+            self.run_config, self.backend_config, self.datasets,
         )
         try:
             return ray_tpu_torch.get(controller.run.remote(), timeout=None)

@@ -75,6 +75,10 @@ class TrainWorker:
         self.ctx.latest_checkpoint = latest_checkpoint
         return True
 
+    def set_dataset_shards(self, shards: dict) -> bool:
+        self.ctx.dataset_shards = dict(shards)
+        return True
+
     def set_device(self, device) -> bool:
         """The device the train function runs on (the backend's choice)."""
         self.ctx.device = device
@@ -198,6 +202,11 @@ class WorkerGroup:
                                latest_checkpoint)
             for w in self.workers
         ], timeout=120)
+
+    def assign_dataset_shards(self, per_rank: list[dict]) -> None:
+        """per_rank[i] = {name: DataIterator} for worker rank i."""
+        ray_tpu_torch.get([w.set_dataset_shards.remote(per_rank[i])
+                           for i, w in enumerate(self.workers)], timeout=120)
 
     def run(self, train_fn: Callable, config: dict | None):
         ray_tpu_torch.get([w.run.remote(train_fn, config) for w in self.workers],

@@ -1,8 +1,10 @@
 """The runtime flags the in-process runtime reads.
 
-Port of the part of ray_tpu/utils/config.py that ``core/store.py`` reads:
+Port of the part of ray_tpu/utils/config.py that the port reads:
 ``object_store_memory_bytes``, ``object_spilling_threshold`` and
-``temp_dir``. Each is overridden from the same environment variable as
+``temp_dir`` (``core/store.py``), ``data_split_prefetch_blocks`` (the
+streaming split's queue bound) and ``metrics_exemplar_count``
+(``util/metrics.py``). Each is overridden from the same environment variable as
 there (``RTPU_<NAME>``; ``temp_dir`` also from ``RTPU_TEMP_DIR``), so one
 setting drives both packages.
 """
@@ -33,6 +35,12 @@ class Config:
     # --- object store (reference: plasma + spilling thresholds, ray_config_def.h:680-697) ---
     object_store_memory_bytes: int = 2 * 1024**3
     object_spilling_threshold: float = 0.8
+
+    # --- data: blocks queued per streaming_split consumer (backpressure) ---
+    data_split_prefetch_blocks: int = 8
+
+    # --- metrics: exemplars kept per histogram series (0 disables) ---
+    metrics_exemplar_count: int = 4
 
     # --- misc ---
     temp_dir: str = field(default_factory=lambda: os.environ.get("RTPU_TEMP_DIR", "/tmp/ray_tpu"))

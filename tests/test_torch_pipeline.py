@@ -13,7 +13,10 @@ Cases (f32, ``sgd(0.1)`` as JAX's own pipeline tests use, blockwise
 attention, 3 steps): Llama tiny (2 layers) with tied embeddings (the
 lookup's gradient on stage 0, the head's on the last) on pp2 x dp2 with
 2 microbatches and on pp2 with 4; tiny's own untied head at 4 layers on
-pp4 with 2.
+pp4 with 2; the tied model on pp2 x {fsdp2, tp2, sp2, ep2} with 2 (JAX's
+shard_map replicates the pipeline over the other axis: each coordinate
+of it is a replica pipeline, and the ranks along it must agree bit for
+bit).
 Losses, grad norms and the params after step 3 (each stage's rows
 gathered over pp) within 1e-5 (rtol and atol) of JAX's; the losses
 within 1e-5 of the port's one-device step (``make_llama_train_step``,
@@ -53,6 +56,8 @@ CASES = {
     "pp2dp2_m2": ("tied", dict(pp=2, dp=2), 2, 4),
     "pp2_m4": ("tied", dict(pp=2), 4, 2),
     "pp4_untied_m2": ("untied4", dict(pp=4), 2, 4),
+    **{f"pp2{a}2_m2": ("tied", {"pp": 2, a: 2}, 2, 4)
+       for a in ("fsdp", "tp", "sp", "ep")},
 }
 
 
@@ -136,6 +141,8 @@ def _rank_main(rank, world, store, tmp, port, names):
             losses, norms = l1 + l2, n1 + n2
         else:
             state, losses, norms = _run(step, state, shard)
+        _save_tree(os.path.join(tmp, f"after_{name}_{rank}.npz"),
+                   state.params)
         full = _gather_stages(state.params, mesh)
         if rank == 0:
             _save_tree(os.path.join(tmp, f"params_{name}.npz"), full)
@@ -240,10 +247,13 @@ def runs():
         rows = {n: {r: _flat(_load_tree(os.path.join(
             tmp, f"rows_{n}_{r}.npz"))) for r in range(c[3])}
             for n, c in CASES.items()}
+        after = {n: {r: _flat(_load_tree(os.path.join(
+            tmp, f"after_{n}_{r}.npz"))) for r in range(c[3])}
+            for n, c in CASES.items()}
         one = _one_device(tmp)
         restored = _restore_at_one(tmp)
     return {"want": want, "got": got, "params": params, "rows": rows,
-            "one": one, "restored": restored}
+            "after": after, "one": one, "restored": restored}
 
 
 def test_ranks_import_no_jax(runs):
@@ -286,8 +296,11 @@ def test_each_rank_holds_jaxs_stage_rows(runs, name):
     JAX's addressable shard on the device at r's mesh position."""
     want = runs["want"][name]
     axes = CASES[name][1]
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+
     for r, mine in runs["rows"][name].items():
-        pos = {"pp": r // axes.get("dp", 1), "dp": r % axes.get("dp", 1)}
+        pos = dict(zip(AXIS_ORDER, np.unravel_index(
+            r, [axes.get(a, 1) for a in AXIS_ORDER])))
         dev = next(d for d, p in want["pos"].items()
                    if all(p[a] == pos.get(a, 0) for a in p))
         assert sorted(mine) == sorted(want["rows"][dev])
@@ -304,14 +317,24 @@ def test_pipeline_checkpoint_resumes_at_mesh_none(runs):
 
 
 @pytest.mark.parametrize("axis", ["fsdp", "tp", "sp", "ep"])
-def test_another_axis_of_size_two_raises_naming_itself(axis):
-    """JAX's shard_map would run every stage twice over the axis; the
-    port refuses the mesh instead."""
-    from ray_tpu_torch.parallel.pipeline import make_pp_train_step
+def test_another_axis_of_size_two_replicates_the_pipeline(runs, axis):
+    """pp2 x {axis}2: the two ranks of each stage along the other axis (a
+    replica pipeline each) hold the same rows after 3 steps, bit for bit,
+    and report the same losses (JAX's shard_map replicates the work)."""
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
 
-    with pytest.raises(NotImplementedError, match=f"'{axis}': 2"):
-        make_pp_train_step(_cfg("tied"), _layout_mesh(pp=2, **{axis: 2}),
-                           2, device="cpu")
+    name = f"pp2{axis}2_m2"
+    shape = [CASES[name][1].get(a, 1) for a in AXIS_ORDER]
+    after = runs["after"][name]
+    for stage in range(2):
+        pair = [r for r in range(4)
+                if np.unravel_index(r, shape)[0] == stage]
+        a, b = (after[r] for r in pair)
+        assert sorted(a) == sorted(b) and a
+        for k in a:
+            assert np.array_equal(a[k], b[k]), (stage, k)
+    losses = {json.dumps(r["cases"][name]) for r in runs["got"][4]}
+    assert len(losses) == 1
 
 
 def test_a_mesh_with_no_process_groups_is_refused():

@@ -726,3 +726,26 @@ def test_num_gpus_replicas_take_the_gpu_resource():
     finally:
         serve.shutdown()
         ray_tpu_torch.shutdown()
+
+
+def test_shutdown_gives_the_replicas_gpu_back_20_times():
+    """serve.shutdown() returns only once its replicas' resources are back
+    (the controller drops a killed replica when its thread has released
+    them): right after each of 20 shutdowns the GPU is whole."""
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=4, resources={"GPU": 1})
+    try:
+        for i in range(20):
+            @serve.deployment(num_replicas=2,
+                              ray_actor_options={"num_gpus": 0.5})
+            class OnCard:
+                def __call__(self):
+                    return 1
+
+            h = serve.run(OnCard.bind(), route_prefix=None)
+            assert h.remote().result() == 1
+            serve.shutdown()
+            assert ray_tpu_torch.available_resources()["GPU"] == 1.0, i
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()

@@ -8,7 +8,12 @@ restart records (tier, trigger) and errors must agree. A tiny Llama trains
 4 steps under each trainer with an injected failure and a checkpoint
 restore in between; the losses agree within test_torch_train.py's
 trajectory tolerance (1e-4), and the port's run with the restart equals
-its run without one bit for bit. Every ``fit`` runs in a thread joined
+its run without one bit for bit. ``datasets=``: tests/test_train.py's
+ingest and tests/test_data.py's multimodal ingest run under both
+trainers (each worker's rows, in order, must agree), and a tiny Llama
+trains 3 steps on the rows of ``get_dataset_shard`` under each trainer
+(the port's worker reads them through ``iter_torch_batches(prefetch=2)``;
+losses within 1e-4). Every ``fit`` runs in a thread joined
 with a 60 s deadline, so a deadlock fails the test instead of hanging the
 run.
 """
@@ -24,9 +29,11 @@ import torch
 
 import ray_tpu
 import ray_tpu.collective as jax_col
+import ray_tpu.data as jdata
 import ray_tpu.train as jtrain
 import ray_tpu_torch
 import ray_tpu_torch.collective as torch_col
+import ray_tpu_torch.data as tdata
 import ray_tpu_torch.train as ttrain
 from ray_tpu_torch.core.worker import global_worker
 from ray_tpu_torch.train.session import TrainContext
@@ -34,6 +41,7 @@ from ray_tpu_torch.train.session import TrainContext
 FIT_DEADLINE_S = 60
 LOSS_TOL = 1e-4  # test_torch_train.py's 5-step trajectory tolerance
 
+_DATA = {"jax": jdata, "torch": tdata}
 SIDES = (("jax", ray_tpu, jtrain, jax_col), ("torch", ray_tpu_torch, ttrain,
                                              torch_col))
 
@@ -66,9 +74,10 @@ def _init(side, rt):
 
 
 def fit_both(make_fn, tmp_path, name, *, num_workers=1, max_failures=0,
-             config=None):
+             config=None, datasets=None):
     """make_fn(train_module, collective_module) -> train_fn, fitted under
-    each trainer; config(side_dir) -> train_loop_config."""
+    each trainer; config(side_dir) -> train_loop_config;
+    datasets(data_module) -> the trainer's datasets=."""
     out = {}
     for side, rt, train, col in SIDES:
         side_dir = tmp_path / side
@@ -87,6 +96,7 @@ def fit_both(make_fn, tmp_path, name, *, num_workers=1, max_failures=0,
                     name=name, storage_path=str(side_dir),
                     failure_config=train.FailureConfig(
                         max_failures=max_failures)),
+                datasets=datasets(_DATA[side]) if datasets else None,
                 **extra)
             out[side] = fit_in_time(trainer)
         finally:
@@ -334,6 +344,150 @@ def test_tiny_llama_restart_matches_jax_and_its_own_straight_run(tmp_path):
     assert _restarts(runs["torch_straight"]) == []
 
 
+# -- datasets= ------------------------------------------------------------------
+
+def test_dataset_ingest_matches_jax(tmp_path):
+    """tests/test_train.py's ingest: range(64) in 8 blocks, split over 2
+    workers; each worker's rows (in order) agree, and together they are
+    every row once, 32 each."""
+    def make(train, col):
+        def loop(config):
+            it = train.get_dataset_shard("train")
+            seen = [int(v) for b in it.iter_batches(batch_size=8)
+                    for v in b["id"]]
+            train.report({"rank": train.get_context().get_world_rank(),
+                          "seen": seen})
+        return loop
+
+    want, got = fit_both(make, tmp_path, "ingest", num_workers=2,
+                         datasets=lambda rd: {
+                             "train": rd.range(64, parallelism=8)})
+    assert got.ok and want.ok, (got.error, want.error)
+    by_rank = lambda r: {m["rank"]: m["seen"] for m in r.metrics_history}  # noqa: E731
+    assert by_rank(got) == by_rank(want)
+    assert sorted(sum(by_rank(got).values(), [])) == list(range(64))
+    assert {len(v) for v in by_rank(got).values()} == {32}
+
+
+def test_multimodal_ingest_matches_jax(tmp_path):
+    """tests/test_data.py's multimodal ingest: read_images, then a split
+    over 2 workers; counts and pixel sums agree per worker."""
+    from PIL import Image
+
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
+    for i in range(8):
+        Image.fromarray(np.full((6, 6, 3), i, dtype=np.uint8)).save(
+            img_dir / f"class{i % 2}_{i}.png")
+
+    def make(train, col):
+        def loop(config):
+            n, px = 0, 0.0
+            for b in train.get_dataset_shard("train").iter_batches(
+                    batch_size=4):
+                n += len(b["image"])
+                px += float(np.sum(b["image"][..., 0], dtype=np.float64))
+            train.report({"rank": train.get_context().get_world_rank(),
+                          "n": n, "px": px})
+        return loop
+
+    want, got = fit_both(make, tmp_path, "mm", num_workers=2,
+                         datasets=lambda rd: {"train": rd.read_images(
+                             str(img_dir), size=(6, 6))})
+    assert got.ok and want.ok, (got.error, want.error)
+    rows = lambda r: sorted((m["rank"], m["n"], m["px"])  # noqa: E731
+                            for m in r.metrics_history)
+    assert rows(got) == rows(want)
+    assert sum(m["px"] for m in got.metrics_history) == sum(
+        i * 36 for i in range(8))
+
+
+def _llama_rows(vocab):
+    tokens = np.concatenate([np.concatenate(
+        [_batch(i, vocab)[0], _batch(i, vocab)[0][:, :1]], axis=1)
+        for i in range(3)])
+    return tokens.astype(np.int32)  # [6, 33]: tokens + one more
+
+
+def _split_row(b):
+    return {"tokens": b["row"][:, :-1], "targets": b["row"][:, 1:]}
+
+
+def test_tiny_llama_on_its_dataset_shard_matches_jax(tmp_path):
+    """A tiny Llama trains 3 steps on rows read through get_dataset_shard
+    under each trainer; the port's worker reads them through the
+    device-prefetching iterator. Losses agree within 1e-4."""
+    from ray_tpu.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.models import llama
+
+    jparams = init_params(LlamaConfig.tiny(), jax.random.PRNGKey(0))
+    tparams = llama.params_from_jax(jparams, "cpu")
+    rows = _llama_rows(LlamaConfig.tiny().vocab_size)
+
+    def make(train, col):
+        if train is jtrain:
+            def loop(config):
+                from ray_tpu.parallel.mesh import MeshSpec, build_mesh
+                from ray_tpu.train import optim
+                from ray_tpu.train.spmd import make_llama_train_step
+
+                cfg = LlamaConfig.tiny()
+                mesh = build_mesh(MeshSpec(dp=1), jax.devices("cpu")[:1])
+                step, init, shard = make_llama_train_step(
+                    cfg, mesh, optimizer=optim.adamw_lowmem(
+                        1e-3, weight_decay=0.1),
+                    attn_impl="flash", remat="attn+")
+                state = init()
+                for b in train.get_dataset_shard("train").iter_batches(
+                        batch_size=2):
+                    state, m = step(state, shard(b["tokens"]),
+                                    shard(b["targets"]))
+                    train.report({"loss": float(m["loss"])})
+            return loop
+
+        def loop(config):
+            from ray_tpu_torch.train import optim, spmd
+
+            dev = train.get_context().get_device()
+            step, init, shard = spmd.make_llama_train_step(
+                llama.LlamaConfig.tiny(), optimizer=optim.adamw_lowmem(
+                    1e-3, weight_decay=0.1),
+                attn_impl="flash", remat="attn+", device=dev)
+            state = init(config["params"])
+            for b in train.get_dataset_shard("train").iter_torch_batches(
+                    batch_size=2, device=dev, prefetch=2):
+                state, m = step(state, b["tokens"], b["targets"])
+                train.report({"loss": m["loss"].item()})
+        return loop
+
+    def datasets(rd):
+        return {"train": rd.from_numpy({"row": rows}).map_batches(
+            _split_row)}
+
+    out = {}
+    for side, rt, train, col in SIDES:
+        _init(side, rt)
+        try:
+            kw = {} if side == "jax" else {
+                "backend_config": ttrain.TorchBackendConfig(device="cpu"),
+                "train_loop_config": {"params": tparams}}
+            cls = jtrain.JaxTrainer if side == "jax" else ttrain.TorchTrainer
+            out[side] = fit_in_time(cls(
+                make(train, col), datasets=datasets(_DATA[side]),
+                run_config=train.RunConfig(name="llama_ds",
+                                           storage_path=str(tmp_path / side)),
+                **kw))
+        finally:
+            rt.shutdown()
+    losses = {k: [m["loss"] for m in r.metrics_history]
+              for k, r in out.items()}
+    assert out["torch"].ok and out["jax"].ok, (out["torch"].error,
+                                               out["jax"].error)
+    assert len(losses["torch"]) == len(losses["jax"]) == 3
+    np.testing.assert_allclose(losses["torch"], losses["jax"], rtol=LOSS_TOL,
+                               atol=LOSS_TOL)
+
+
 # -- the port's own ------------------------------------------------------------
 
 @pytest.fixture
@@ -356,8 +510,9 @@ def test_refusals_raise_before_any_worker_starts(port_rt, tmp_path,
         ttrain.TorchTrainer(_noop, scaling_config=ttrain.ScalingConfig(
             num_workers=2), run_config=run, backend_config=ttrain.
             TorchBackendConfig(distributed=True, device="cpu")).fit()
-    with pytest.raises(NotImplementedError, match="streaming split"):
-        ttrain.TorchTrainer(_noop, datasets={"train": [1, 2]})
+    ds = tdata.range(4)
+    assert ttrain.TorchTrainer(_noop, datasets={"train": ds}).datasets == {
+        "train": ds}
     with pytest.raises(NotImplementedError, match="replica"):
         ttrain.CheckpointConfig(replicate_every=2)
     with pytest.raises(ValueError, match="infeasible resource demand GPU"):
@@ -368,8 +523,10 @@ def test_refusals_raise_before_any_worker_starts(port_rt, tmp_path,
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.TorchTrainer(_noop, run_config=run,
                                 backend_config=backend).fit()
-    with pytest.raises(NotImplementedError, match="streaming split"):
-        TrainContext().get_dataset_shard("train")
+    ctx = TrainContext(dataset_shards={"train": "its split"})
+    assert ctx.get_dataset_shard("train") == "its split"
+    with pytest.raises(KeyError, match="no dataset 'eval'"):
+        ctx.get_dataset_shard("eval")
     assert global_worker.runtime._actors == {}  # no worker, no controller
 
 
