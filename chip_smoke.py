@@ -224,7 +224,7 @@ failure raises and the script exits non-zero without a result line:
    MultiAgentPPO on CoordinationGame (shared policy) and ChaseGame (pred
    and prey policies), 3 steps each (env-steps/s), one policy's GAE and
    update on the card against the CPU; (c) Dreamer at DreamerConfig()'s
-   defaults on CartPole-v1 for 24 iterations: the return by iteration
+   defaults on CartPole-v1 for 12 iterations: the return by iteration
    beside the JAX test's bar (a finding: the random stream is not JAX's),
    env-steps/s, peak memory; dreamer_update timed on CUDA events and the
    host clock with one profiled update (kernels, device busy share) at
@@ -388,6 +388,33 @@ failure raises and the script exits non-zero without a result line:
    step's and the host ms each step waited for its batch; (c)
    range(65536) over two workers through streaming_split(2, equal=True):
    every row once, equal splits, rows/s;
+25. tracing, profiling and the goodput ledger (util/tracing.py,
+   profiling/, observability/goodput.py, util/state): (a) phase 19's
+   TorchTrainer at the 1.1B geometry (b4 s2048, attn+, K1-K3) with
+   tracing on, one worker for P25_STEPS steps with profile_cluster
+   (P25_CAPTURE_S, from the main thread) mid-fit: the merged chrome trace
+   must hold K1-K3's kernels by name, the goodput.* lane and the workers'
+   task spans; device_memory()'s cuda:0 bytes equal to memory_allocated
+   read around it; the rank's goodput snapshot (mid-fit and final) with
+   unattributed_s at most P25_UNATTRIBUTED_S and phases + open tail
+   within P25_WALL_SLACK_S of its wall clock; the step_compute share and
+   the ledger's self-cost; then two workers on the host collective
+   (phase 19 (b)'s quadratic and a bf16 matmul a step), each rank's
+   snapshot held alike and stragglers() ranking both; (b) phase 20's
+   LLMServer (seeded Llama-3.2-1B, bf16, 8 slots) behind two deployments,
+   trace_sample_rate 1.0 and 0.0: waves of P25_WAVE prompts (phase 7's
+   lengths, 64 greedy tokens, concurrency 8) through the handle, tracing
+   off and on in turns: tok/s and the engine's TTFT p50 of each; at 1.0
+   every request one trace serve.request -> serve.attempt ->
+   handle_request -> engine.queue/prefill/decode, parent by parent; at
+   0.0 no request span in the main buffer but the one request ended by
+   its P25_DEADLINE_S deadline, kept by the tail; (c) with four cards,
+   phase 13b's step (P25C_LAYERS of its layers, flat and ZeRO-1) on four
+   ranks, each rank
+   capturing on a side thread over the same steps, merged into one
+   gzipped chrome trace per mode under chiprun_out/p25c: per rank the
+   GEMM, attention (K2/K3), elementwise and NCCL ms, the idle share and
+   the top host frames;
 12. a JSON line of the kernels, then the JSON result line.
 
 Exits non-zero when no CUDA device is visible or when run outside a
@@ -396,6 +423,7 @@ checkout. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -412,8 +440,11 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 SEED = 0
 
 
+_T0 = time.monotonic()  # the script's start: each phase line says how far in
+
+
 def _phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.monotonic() - _T0:.1f} s)", flush=True)
 
 
 def device_ms(fn, iters: int = 200, reps: int = 5) -> float:
@@ -679,7 +710,7 @@ def _spread(vals):
             f"[min {min(vals):.1f}, max {max(vals):.1f}]")
 
 
-WAVES = 5  # timed waves after the warm-up wave
+WAVES = 3  # timed waves after the warm-up wave
 
 
 def phase_engine(rms_host_us: float):
@@ -4557,7 +4588,7 @@ def phase_rl_ranks(world: int) -> dict:
 RL18_EPISODES, RL18_MAX_STEPS = 30, 200
 BC_STEPS, BC_EPOCHS, BC_ACC_BAR = 5, 3, 0.8
 RL18_STEPS = 3            # MARWIL, CQL and each multi-agent run
-DREAMER_ITERS = 24        # (c): DreamerConfig() on CartPole-v1
+DREAMER_ITERS = 12        # (c): DreamerConfig() on CartPole-v1
 DREAMER_BAR = 30.0        # tests/test_rl.py: max of the last 6 >= 30
 DREAMER_TIMED = 20        # updates timed on CUDA events
 # DreamerV3's published training geometry (batch 16 x length 64,
@@ -5437,8 +5468,7 @@ def rest_blocked_timed(mc, params, prompts, greedy64, rng) -> dict:
             run_wave(eng, prompts, greedy64, concurrency=conc)
         rates = {k: [] for k in runs}
         p50s = {k: [] for k in runs}
-        order = ["dense", "blocked", "blocked", "dense"] * 2 + \
-            ["dense", "blocked"]
+        order = ["dense", "blocked", "blocked", "dense", "dense", "blocked"]
         for name in order:
             eng, conc = runs[name]
             fresh = [[int(t) for t in rng.integers(0, 256, len(p))]
@@ -6328,7 +6358,7 @@ def phase_trainer() -> dict:
 
 # Phase 20: Serve on the card. Phase 7's configuration behind a serve
 # replica, driven over HTTP.
-P20_WAVES = 5  # timed HTTP waves, each in turn with a direct one
+P20_WAVES = 3  # timed HTTP waves, each in turn with a direct one
 P20_STREAM_WAVES = 1  # more streaming waves, each in turn with a direct one
 # Greedy outputs are kept in ASCII: the seeded embedding's rows from this
 # id up are zeroed (tied head, so those logits are 0 and never the
@@ -9141,6 +9171,791 @@ def phase_data(engine: dict | None = None) -> dict:
     return out
 
 
+# Phase 25: tracing, profiling and the goodput ledger on the card.
+P25_STEPS = 14  # 25a's steps under one worker
+P25_CAPTURE_AFTER = 3  # steps reported before profile_cluster starts
+P25_CAPTURE_S = 2.0  # profile_cluster's window, mid-fit
+P25_GATE_S = 120.0  # the most the fit waits for the capture's device session
+P25_MEM_AT = 2  # the step after which device_memory() is read
+P25_DDP_STEPS = 24  # 25a two workers: the host collective's quadratic
+P25_DDP_MATMUL = 4096  # and one bf16 square matmul a step on the card
+# Each rank's goodput snapshot: classified + open tail against the elapsed
+# monotonic clock (the residual), and against its wall clock (t0 and ts
+# are time.time() stamps, the ledger's own clock is monotonic).
+P25_UNATTRIBUTED_S = 1e-6
+P25_WALL_SLACK_S = 5e-3
+P25_WAVE = 16  # 25b: prompts a wave, phase 7's lengths, 64 tokens out
+P25_PAIRS = 1  # tracing off/on waves: off, on, on, off, repeated
+P25_DEADLINE_S = 0.05  # 25b at rate 0.0: a request ended by its deadline
+P25_DEADLINE_TOKENS = 256  # it asks for more than its deadline allows
+P25_KEPT_WAIT_S = 0.5  # before the buffers are read
+P25C_WARMUP = 2
+P25C_CAPTURE_S = 2.0  # 25c: each rank's capture over the same steps
+# 25c's depth: phase 13b's 8 layers under flat ran out of memory on a
+# rank with the capture on (68.33 GiB allocated in the update's f32
+# transients; NVIDIA H100 80GB HBM3), so four layers of its width.
+P25C_LAYERS = 4
+P25C_TIMEOUT_S = 600
+# 25c's split of a rank's device time by kernel name (demangled, lower
+# case): attention = the flash kernels, NCCL, GEMM (cuBLAS's nvjet and
+# sm90 xmma kernels, CUTLASS), elementwise = every other kernel (K1
+# with them), memcpy/memset apart.
+P25_CLASSES = (("attention", ("flash_fwd_kernel", "flash_bwd_kernel",
+                              "flash_bwd_dq", "flash_bwd_dkv",
+                              "flash_chunk")),
+               ("nccl", ("nccl",)),
+               ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas",
+                         "matmul")))
+K_NAMES = {"rms_norm": "rms_norm_", "flash_fwd": "flash_fwd_kernel",
+           "flash_bwd": "flash_bwd_kernel"}
+
+
+def p25_snapshot_ok(label: str, gp: dict, live: bool) -> dict:
+    """One rank's goodput snapshot: the residual at most
+    P25_UNATTRIBUTED_S, and (live) classified + open tail within
+    P25_WALL_SLACK_S of its wall clock; returns its shares."""
+    total = sum(gp["phase_s"].values()) + gp["open_s"]
+    if gp["unattributed_s"] > P25_UNATTRIBUTED_S:
+        raise AssertionError(f"{label}: unattributed {gp['unattributed_s']}"
+                             f" s > {P25_UNATTRIBUTED_S}")
+    wall = gp["ts"] - gp["t0"]
+    if live and abs(total - wall) > P25_WALL_SLACK_S:
+        raise AssertionError(f"{label}: phases + open tail {total:.6f} s "
+                             f"against a wall clock of {wall:.6f} s")
+    return {"total_s": total, "wall_s": wall,
+            "unattributed_s": gp["unattributed_s"],
+            "step_compute_share": gp["phase_s"].get("step_compute", 0.0)
+            / total if total else 0.0,
+            "self_cost": gp["spent_s"] / total if total else 0.0,
+            "phase_s": gp["phase_s"]}
+
+
+def p25_train_fn(cfg, batch: int, seq: int, marks: dict):
+    """25a's train function: phase 19's step (the 1.1B geometry), each
+    step reported with its tokens, FLOPs and compute seconds; after step
+    P25_MEM_AT it reads device_memory() between two memory_allocated()
+    readings on this (the only allocating) thread; step P25_CAPTURE_AFTER
+    waits for the capture's device session to begin."""
+
+    def train_fn(config):
+        import torch
+        from ray_tpu_torch.accelerators.flops import llama_train_flops
+        from ray_tpu_torch.train import get_context, report
+        from ray_tpu_torch.util import state as ustate
+
+        ctx = get_context()
+        dev = ctx.get_device()
+        step, init, shard = _p19_step(cfg, dev)
+        state = init()
+        flops = llama_train_flops(cfg, batch, seq)
+        for i in range(P25_STEPS):
+            if i == P25_CAPTURE_AFTER and dev.type == "cuda":
+                # Hold the step until the capture's device session is up:
+                # a session starts slowly while another thread launches,
+                # and its window must meet the steps after this one.
+                t_wait = time.monotonic()
+                while not torch.autograd.profiler._is_profiler_enabled:
+                    if time.monotonic() - t_wait > P25_GATE_S:
+                        raise AssertionError("no device session began in "
+                                             f"{P25_GATE_S} s")
+                    time.sleep(0.001)
+                marks["gate_s"] = time.monotonic() - t_wait
+            tok, tgt = _p19_batch(i, cfg.vocab_size, batch, seq)
+            w0 = time.time()
+            t0 = time.perf_counter()
+            state, m = step(state, shard(tok), shard(tgt))
+            loss = float(m["loss"])
+            dt = time.perf_counter() - t0
+            marks.setdefault("steps", []).append((w0, w0 + dt))
+            if i == P25_MEM_AT and dev.type == "cuda":
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                snap = ustate.device_memory()
+                after = torch.cuda.memory_allocated()
+                marks["memory"] = (before, snap, after)
+            report({"step": i, "loss": loss, "tokens": batch * seq,
+                    "flops": flops, "compute_time_s": dt})
+            marks["reported"] = i + 1
+
+    return train_fn
+
+
+def p25_ddp_fn(matmul: int, steps: int, marks: dict, gate):
+    """25a's two workers: phase 19 (b)'s quadratic through the host
+    collective, plus one matmul a step on the worker's device; each step
+    reports its compute and collective seconds. Half-way, each rank marks
+    its step and waits on ``gate`` (the main thread reads the live
+    ledgers meanwhile)."""
+
+    def train_fn(config):
+        import torch
+        import ray_tpu_torch.collective as col
+        from ray_tpu_torch.train import get_context, report
+
+        ctx = get_context()
+        rank, world, dev = ctx.get_world_rank(), ctx.get_world_size(), \
+            ctx.get_device()
+        g = col.init_collective_group(world_size=world, rank=rank,
+                                      backend="host", group_name="p25-ddp")
+        a = torch.randn(matmul, matmul, device=dev,
+                        dtype=torch.bfloat16 if dev.type == "cuda"
+                        else torch.float32,
+                        generator=torch.Generator(dev).manual_seed(
+                            SEED + rank))
+        w = torch.zeros(4, dtype=torch.float32, device=dev)
+        for step in range(steps):
+            if step == steps // 2:
+                marks[rank] = step
+                if not gate.wait(60):
+                    raise AssertionError("the live ledgers were not read")
+            t0 = time.perf_counter()
+            float((a @ a).float().mean())
+            target = torch.full((4,), 3.0 + 0.1 * rank, dtype=torch.float32,
+                                device=dev)
+            grad = 2 * (w - target)
+            t1 = time.perf_counter()
+            grad = g.allreduce(grad) / world
+            t2 = time.perf_counter()
+            w -= 0.3 * grad
+            report({"step": step, "rank": rank, "compute_time_s": t1 - t0,
+                    "sync_time_s": t2 - t1})
+
+    return train_fn
+
+
+def p25_kernel_rows(trace: dict) -> list:
+    return [e for e in trace["traceEvents"] if e.get("ph") == "X"
+            and str(e.get("pid", "")).startswith("device ")]
+
+
+def p25_trainer(cfg, batch: int, seq: int, device: str, storage: str,
+                out_dir: str) -> dict:
+    """25a: phase 19's trainer, traced, under one worker with
+    profile_cluster mid-fit, then two workers on the host collective."""
+    import torch
+    import torch.distributed as dist
+    import ray_tpu_torch
+    from ray_tpu_torch.train import (RunConfig, ScalingConfig,
+                                     TorchBackendConfig, TorchTrainer,
+                                     session)
+    from ray_tpu_torch.util import state as ustate
+    from ray_tpu_torch.util import tracing
+
+    cuda = device == "cuda"
+    out: dict = {}
+    _phase("tracing (25a): TorchTrainer traced, one worker, a capture "
+           "mid-fit")
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    marks: dict = {}
+    tracing.clear()
+    tracing.enable_tracing()
+    ray_tpu_torch.init(num_cpus=8,
+                       resources={"GPU": torch.cuda.device_count()}
+                       if cuda else None)
+    result: dict = {}
+    try:
+        trainer = TorchTrainer(
+            p25_train_fn(cfg, batch, seq, marks),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=cuda),
+            backend_config=TorchBackendConfig(
+                device=device, distributed=cuda),
+            run_config=RunConfig(name="p25-one", storage_path=storage))
+        fit = threading.Thread(target=lambda: result.update(
+            res=trainer.fit()), daemon=True, name="p25-fit")
+        t_fit = time.perf_counter()
+        fit.start()
+        while marks.get("reported", 0) < P25_CAPTURE_AFTER:
+            if not fit.is_alive():
+                raise AssertionError(f"fit() ended early: {result}")
+            time.sleep(0.01)
+        live = session.collect_train_stats()
+        prof = ustate.profile_cluster(P25_CAPTURE_S,
+                                      out_dir=os.path.join(out_dir, "p25a"))
+        fit.join(P19_FIT_DEADLINE_S)
+        if fit.is_alive():
+            raise AssertionError(f"fit() did not end in {P19_FIT_DEADLINE_S}"
+                                 " s")
+        fit_s = time.perf_counter() - t_fit
+        final = session.collect_train_stats()
+    finally:
+        tracing.disable_tracing()
+        ray_tpu_torch.shutdown()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    res = result["res"]
+    if not res.ok:
+        raise AssertionError(f"25a fit failed: {res.error}")
+    launches = {k: c.launches for k, c in counters.items()}
+    if live["0"]["goodput"]["finished"]:
+        raise AssertionError("25a: the mid-fit ledger had finished")
+    live_gp = p25_snapshot_ok("25a rank 0 (mid-fit)",
+                              live["0"]["goodput"], True)
+    final_gp = p25_snapshot_ok("25a rank 0 (final)", final["0"]["goodput"],
+                               False)
+    trace = prof["chrome_trace"]
+    events = trace["traceEvents"]
+    pids = {e.get("pid") for e in events}
+    lanes = {"goodput": [e["name"] for e in events
+                         if e.get("pid") == "goodput" and e.get("ph") == "X"],
+             "spans": [e["name"] for e in events
+                       if e.get("pid") == "spans" and e.get("ph") == "X"]}
+    if not any(n.startswith("goodput.") for n in lanes["goodput"]):
+        raise AssertionError("the merged trace has no goodput.* lane")
+    if "poll" not in lanes["spans"]:
+        raise AssertionError(f"no worker's task span in the merged trace: "
+                             f"{sorted(set(lanes['spans']))[:20]}")
+    cap = prof["captures"][0] if prof["captures"] else {}
+    dev_trace = {k: v for k, v in (cap.get("xla_trace") or {}).items()
+                 if k != "events"}
+    kernel_ms = {}
+    if cuda:
+        if dev_trace.get("status") != "captured":
+            raise AssertionError(f"25a device trace: {dev_trace}")
+        rows = p25_kernel_rows(trace)
+        for k, pat in K_NAMES.items():
+            hits = [e for e in rows if pat in e["name"]]
+            if not hits:
+                lo_ = min((e["ts"] for e in rows), default=0.0) / 1e6
+                hi_ = max((e["ts"] + e["dur"] for e in rows),
+                          default=0.0) / 1e6
+                top = collections.Counter(e["name"][:48] for e in rows)
+                raise AssertionError(
+                    f"{k} ({pat}) not in the merged trace's {len(rows)} "
+                    f"device rows: device trace {dev_trace}; rows "
+                    f"{lo_:.3f}..{hi_:.3f} s, capture "
+                    f"{cap.get('started_at')}..{cap.get('ended_at')}, "
+                    f"steps {marks.get('steps')}, gate "
+                    f"{marks.get('gate_s')} s; top {top.most_common(8)}")
+            kernel_ms[k] = (len(hits), sum(e["dur"] for e in hits) / 1e3)
+        before, snap, after = marks["memory"]
+        dev_bytes = snap["nodes"]["local"]["daemon"]["device"]["devices"][
+            "cuda:0"]["bytes"]
+        if not before == dev_bytes == after:
+            raise AssertionError(f"device_memory() {dev_bytes} bytes against"
+                                 f" memory_allocated {before} / {after}")
+        out["device_memory_bytes"] = dev_bytes
+        for k in K_NAMES:
+            if launches[k] <= 0:
+                raise AssertionError(f"{k} did not launch in 25a's fit()")
+    steps = list(res.metrics_history)
+    print(f"25a: {len(steps)} steps in fit() {fit_s:.2f} s; launches "
+          + ", ".join(f"{k} {launches[k]}" for k in K_NAMES)
+          + f"; capture {cap.get('duration_s', 0):.3f} s, "
+          f"{cap.get('samples', 0)} stack samples, device trace "
+          f"{dev_trace.get('status')} ({dev_trace.get('kernels')} kernels"
+          f" of {dev_trace.get('launches')} launches, "
+          f"{dev_trace.get('missing')} missing; the fit waited "
+          f"{marks.get('gate_s') or 0.0:.3f} s for it), "
+          + ", ".join(f"{k} {n} kernels {ms:.2f} ms"
+                      for k, (n, ms) in kernel_ms.items())
+          + f"; merged trace {len(events)} events, lanes "
+          f"{sorted(str(p) for p in pids)[:6]}, goodput spans "
+          f"{len(lanes['goodput'])}, task spans {len(lanes['spans'])}")
+    # Each step against the capture window: before it, overlapping it,
+    # after it (the first step, which builds, left out).
+    lo, hi = cap.get("started_at", 0.0), cap.get("ended_at", 0.0)
+    by_window = {"before": [], "during": [], "after": []}
+    for a, b in marks["steps"][1:]:
+        key = "before" if b <= lo else "after" if a >= hi else "during"
+        by_window[key].append(1e3 * (b - a))
+    print("25a step ms (host, to the loss on the host) against the capture "
+          "window: " + "; ".join(
+              f"{k} " + " ".join(f"{x:.1f}" for x in v)
+              for k, v in by_window.items()))
+    for label, gp in (("mid-fit", live_gp), ("final", final_gp)):
+        print(f"25a rank 0 goodput ({label}): phases + open "
+              f"{gp['total_s']:.6f} s, wall {gp['wall_s']:.6f} s, "
+              f"unattributed {gp['unattributed_s']:.3e} s, step_compute "
+              f"share {100 * gp['step_compute_share']:.2f}%, ledger "
+              f"self-cost {100 * gp['self_cost']:.4f}% of the wall; "
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          sorted(gp["phase_s"].items())))
+    if cuda:
+        print(f"25a device_memory(): cuda:0 {out['device_memory_bytes']} "
+              f"bytes = torch.cuda.memory_allocated at the same moment")
+    out["one"] = {"launches": launches, "fit_s": fit_s, "live": live_gp,
+                  "step_ms_by_window": by_window,
+                  "final": final_gp, "kernels_in_trace": kernel_ms,
+                  "trace_events": len(events),
+                  "capture_s": cap.get("duration_s"),
+                  "samples": cap.get("samples"), "paths": prof.get("paths")}
+
+    _phase("tracing (25a): two workers, the host collective, traced")
+    cards = torch.cuda.device_count() if cuda else 0
+    ddp_marks: dict = {}
+    gate = threading.Event()
+    tracing.clear()
+    tracing.enable_tracing()
+    ray_tpu_torch.init(num_cpus=8, resources={"GPU": cards} if cuda else None)
+    result = {}
+    try:
+        use_gpu = cards >= 2
+        trainer = TorchTrainer(
+            p25_ddp_fn(P25_DDP_MATMUL if cuda else 64, P25_DDP_STEPS,
+                       ddp_marks, gate),
+            scaling_config=ScalingConfig(
+                num_workers=2, use_gpu=use_gpu,
+                resources_per_worker={} if use_gpu else {"CPU": 1}),
+            run_config=RunConfig(name="p25-ddp", storage_path=storage),
+            backend_config=TorchBackendConfig(device=device))
+        fit = threading.Thread(target=lambda: result.update(
+            res=trainer.fit()), daemon=True, name="p25-ddp-fit")
+        fit.start()
+        while len(ddp_marks) < 2:
+            if not fit.is_alive():
+                raise AssertionError(f"fit() ended early: {result}")
+            time.sleep(0.005)
+        live = session.collect_train_stats()
+        gate.set()
+        fit.join(P19_FIT_DEADLINE_S)
+        if fit.is_alive():
+            raise AssertionError("the two-worker fit() did not end")
+        final = session.collect_train_stats()
+        strag = ustate.stragglers()
+    finally:
+        gate.set()
+        tracing.disable_tracing()
+        tracing.clear()
+        ray_tpu_torch.shutdown()
+    if not result["res"].ok:
+        raise AssertionError(f"25a two workers: {result['res'].error}")
+    ranked = sorted(w["rank"] for w in strag["workers"])
+    if ranked != [0, 1]:
+        raise AssertionError(f"stragglers() ranked {ranked}, not [0, 1]")
+    ddp = {"ranks": {}}
+    for r in ("0", "1"):
+        lg = p25_snapshot_ok(f"25a rank {r} (mid-fit)", live[r]["goodput"],
+                             True)
+        fg = p25_snapshot_ok(f"25a rank {r} (final)", final[r]["goodput"],
+                             False)
+        ddp["ranks"][r] = {"live": lg, "final": fg}
+        print(f"25a two workers, rank {r}: mid-fit phases + open "
+              f"{lg['total_s']:.6f} s vs wall {lg['wall_s']:.6f} s, "
+              f"unattributed {lg['unattributed_s']:.3e} s; final "
+              f"step_compute share {100 * fg['step_compute_share']:.2f}%, "
+              f"collective_wait {fg['phase_s'].get('collective_wait', 0):.4f}"
+              f" s, ledger self-cost {100 * fg['self_cost']:.4f}%")
+    print("25a stragglers(): " + "; ".join(
+        f"rank {w['rank']} median {w['median_step_s'] * 1e3:.2f} ms "
+        f"x{w['vs_fleet']:.3f} {w['cause']}" for w in strag["workers"]))
+    ddp["stragglers"] = [{k: w[k] for k in ("rank", "median_step_s",
+                                            "vs_fleet", "cause")}
+                         for w in strag["workers"]]
+    out["two"] = ddp
+    return out
+
+
+def _p25_server_cls():
+    """Phase 20's LLMServer with one more method, ``timed``: a greedy
+    completion of token ids that returns the tokens made and the
+    engine's own TTFT (submit to first token)."""
+    from ray_tpu_torch.llm import LLMServer, SamplingParams
+
+    class P25Server(LLMServer):
+        def timed(self, prompt_ids, max_tokens: int = 64) -> dict:
+            req = self.engine.submit(
+                [int(t) for t in prompt_ids],
+                SamplingParams(max_tokens=max_tokens, temperature=0.0))
+            if not req.done.wait(300):
+                raise TimeoutError("no answer in 300 s")
+            if req.error:
+                raise RuntimeError(req.error)
+            return {"tokens": len(req.out_tokens),
+                    "ttft_s": req.first_token_ts - req.submit_ts}
+
+    return P25Server
+
+
+def p25_request_traces(spans: list, dep: str) -> dict:
+    """{trace id: names of its spans} for the requests of ``dep``: each
+    must run root -> attempt -> the replica's span -> the engine's
+    queue, prefill and decode spans, parent by parent."""
+    by_id = {s["span_id"]: s for s in spans}
+    out = {}
+    for root in (s for s in spans if s["name"] == f"serve.request.{dep}"):
+        tid = root["trace_id"]
+        mine = [s for s in spans if s["trace_id"] == tid]
+        chain = {}
+        for s in mine:
+            chain.setdefault(s["name"], []).append(s)
+        att = chain.get(f"serve.attempt.{dep}", [])
+        rep = chain.get("handle_request", [])
+        eng = [chain.get(n, []) for n in ("engine.queue", "engine.prefill",
+                                           "engine.decode")]
+        ok = (len(att) == 1 and att[0]["parent_id"] == root["span_id"]
+              and len(rep) == 1 and rep[0]["parent_id"] == att[0]["span_id"]
+              and all(len(e) == 1 and e[0]["parent_id"] == rep[0]["span_id"]
+                      for e in eng))
+        if not ok:
+            raise AssertionError(
+                f"trace {tid[:8]}: " + ", ".join(
+                    f"{s['name']}<-{by_id.get(s['parent_id'], {}).get('name')}"
+                    for s in mine))
+        out[tid] = sorted(chain)
+    return out
+
+
+def p25_serve(model: str = "llama3_1b", dtype: str = "bfloat16",
+              device: str = "cuda", wave: int = P25_WAVE,
+              max_tokens: int = 64,
+              deadline_s: float = P25_DEADLINE_S) -> dict:
+    """25b: phase 20's OpenAI app behind Serve, traced: at rate 1.0 every
+    request one whole trace; at 0.0 the main buffer without any request
+    span, but a request ended by its deadline kept by the tail; tok/s and
+    TTFT p50 with tracing off and on over the same waves, in turns."""
+    import numpy as np
+    import torch
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.serve import resilience
+    from ray_tpu_torch.util import tracing
+
+    cuda = device == "cuda"
+    _phase("tracing (25b): Serve at Llama-3.2-1B width, traced")
+    cfg = LLMConfig(model=model, dtype=dtype, max_num_seqs=8,
+                    max_seq_len=1024, decode_burst=16, prefill_chunk=512,
+                    seed=SEED)
+    rng = np.random.default_rng(SEED + 25)
+    prompts = [[int(t) for t in rng.integers(1, 256, int(n))]
+               for n in rng.integers(32, 201, wave)]
+    server = _p25_server_cls()
+    out: dict = {}
+    counters = _counters()
+    ray_tpu_torch.init(num_cpus=8)
+    tracing.clear()
+    try:
+        apps = {}
+        for name, rate in (("p25on", 1.0), ("p25off", 0.0)):
+            dep = serve.deployment(
+                name=name, max_ongoing_requests=8,
+                trace_sample_rate=rate)(server)
+            apps[name] = serve.run(dep.bind(cfg, device=device), name=name,
+                                   route_prefix=None, _blocking_timeout=300)
+
+        def wave_of(h):
+            res, wall, _ = p20_loop(prompts, lambda p: h.timed.remote(
+                p, max_tokens).result(timeout=300))
+            toks = sum(r["tokens"] for r in res.values())
+            ttft = [r["ttft_s"] * 1e3 for r in res.values()]
+            return toks / wall, statistics.median(ttft)
+
+        wave_of(apps["p25on"])  # warm-up, untraced
+        wave_of(apps["p25off"])
+        rates = {"off": [], "on": []}
+        ttfts = {"off": [], "on": []}
+        norms_before = counters["rms_norm"].launches
+        for _ in range(P25_PAIRS):
+            for mode in ("off", "on", "on", "off"):
+                if mode == "on":
+                    tracing.enable_tracing()
+                r, t = wave_of(apps["p25on"])
+                tracing.disable_tracing()
+                rates[mode].append(r)
+                ttfts[mode].append(t)
+        launches = counters["rms_norm"].launches - norms_before
+        spans = tracing.export()
+        traces = p25_request_traces(spans, "p25on")
+        want = P25_PAIRS * 2 * wave
+        if len(traces) != want:
+            raise AssertionError(f"{len(traces)} whole traces at rate 1.0, "
+                                 f"not {want}")
+        med = {m: statistics.median(v) for m, v in rates.items()}
+        med_t = {m: statistics.median(v) for m, v in ttfts.items()}
+        print(f"25b rate 1.0: {len(traces)} requests, each one trace "
+              f"serve.request -> serve.attempt -> handle_request -> "
+              f"engine.queue/prefill/decode ({len(spans)} spans in all); "
+              f"K1 {launches} launches in the waves")
+        print(f"25b tok/s tracing off {_spread(rates['off'])}, on "
+              f"{_spread(rates['on'])} (medians {med['off']:.1f} / "
+              f"{med['on']:.1f}, on/off {med['on'] / med['off']:.4f}); TTFT "
+              f"p50 off {med_t['off']:.1f} ms, on {med_t['on']:.1f} ms "
+              f"({wave} prompts a wave, concurrency 8, {max_tokens} out, "
+              f"waves in turns off, on, on, off)")
+        out["rate1"] = {"requests": len(traces), "spans": len(spans),
+                        "tok_s": rates, "ttft_p50_ms": ttfts,
+                        "tok_s_median": med, "ttft_p50_ms_median": med_t,
+                        "launches": launches}
+
+        tracing.clear()
+        tracing.enable_tracing()
+        h = apps["p25off"]
+        unsampled = prompts[:8]
+        res, _, _ = p20_loop(unsampled, lambda p: h.timed.remote(
+            p, max_tokens).result(timeout=300))
+        try:
+            h.options(method_name="timed", timeout_s=deadline_s).remote(
+                prompts[0], P25_DEADLINE_TOKENS).result(timeout=300)
+            raise AssertionError("the deadline request answered")
+        except Exception as e:  # noqa: BLE001 - its kind is checked
+            # Expired in the handle's wait, or dropped by the replica
+            # before it ran: either way the request ended by its deadline.
+            if resilience.classify(e) != "expired":
+                raise
+        time.sleep(P25_KEPT_WAIT_S)  # the kept request's engine ends
+        keeps = tracing.drain_keeps()
+        tail = tracing.tail_stats()
+        tracing.disable_tracing()
+        kept = {k["trace_id"] for k in keeps}
+        main = [s for s in tracing.export()
+                if s["name"].startswith(("serve.", "engine.",
+                                         "handle_request"))]
+        stray = [s["name"] for s in main if s["trace_id"] not in kept]
+        if stray or len(kept) != 1 or [k["reason"] for k in keeps] != \
+                ["expired"]:
+            raise AssertionError(f"rate 0.0: main buffer {stray}, keeps "
+                                 f"{keeps}")
+        kept_names = sorted(s["name"] for s in main)
+        print(f"25b rate 0.0: {len(unsampled)} requests, none in the main "
+              f"buffer (tail "
+              f"{tail['traces']} traces, {tail['spans']} spans); the "
+              f"request ended by its {deadline_s} s deadline kept "
+              f"({keeps[0]['reason']}): {kept_names}")
+        out["rate0"] = {"tail": tail, "kept": kept_names}
+    finally:
+        tracing.disable_tracing()
+        tracing.clear()
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def p25_split(cap: dict, window: tuple) -> dict:
+    """One rank's device time over its capture: ms by class
+    (P25_CLASSES, else elementwise; memcpy/memset apart), the idle share
+    of the capture window (1 - the union of its kernels' intervals over
+    the window) and the top host frames (the stack sampler's leaves of
+    the main thread)."""
+    from ray_tpu_torch.profiling.merge import device_events
+
+    rows = [e for e in device_events(cap, "d") if e.get("ph") == "X"]
+    ms = {"gemm": 0.0, "attention": 0.0, "elementwise": 0.0, "nccl": 0.0,
+          "memcpy": 0.0}
+    for e in rows:
+        name = e["name"].lower()
+        if e["cat"] != "kernel":
+            ms["memcpy"] += e["dur"] / 1e3
+            continue
+        cls = next((c for c, pats in P25_CLASSES
+                    if any(p in name for p in pats)), "elementwise")
+        ms[cls] += e["dur"] / 1e3
+    lo, hi = window
+    spans = sorted((max(lo, e["ts"]), min(hi, e["ts"] + e["dur"]))
+                   for e in rows if e["ts"] + e["dur"] > lo and e["ts"] < hi)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    leaves: dict = {}
+    for line in (cap.get("collapsed") or "").splitlines():
+        stack, _, n = line.rpartition(" ")
+        if stack.startswith("MainThread;") and n.isdigit():
+            leaf = stack.rsplit(";", 1)[-1]
+            leaves[leaf] = leaves.get(leaf, 0) + int(n)
+    top = sorted(leaves.items(), key=lambda kv: -kv[1])[:3]
+    return {"ms": ms, "kernels": len(rows),
+            "idle_share": 1.0 - busy / (hi - lo) if hi > lo else None,
+            "top_host_frames": top}
+
+
+def _rank_p25c(rank: int, world: int, store: str, out_dir: str,
+               port: int, device: str = "cuda") -> None:
+    """One rank of 25c on card ``rank``: phase 13b's step (flat, then
+    ZeRO-1), a capture_profile on a side thread over the same steps; each
+    rank writes its bundles for the parent to merge. ``device="cpu"`` runs
+    the tiny Llama over gloo (a CPU rehearsal: no device trace)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+    from ray_tpu_torch.profiling import capture_profile
+    from ray_tpu_torch.train import adamw_lowmem, make_llama_train_step
+    from ray_tpu_torch.train.backend import init_distributed
+
+    cuda = device == "cuda"
+    init_distributed(f"127.0.0.1:{port}", world, rank, device=device)
+    cfg = cfg_8b(P25C_LAYERS) if cuda else LlamaConfig.tiny()
+    rows, seq = (P13_BATCH, P13_SEQ) if cuda else (world, 32)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (rows, seq), dtype=np.int32)
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    params = init_params(cfg, generator=SEED, device=dev)
+    for mode, opts in (("flat", {}), ("zero1", {"zero1": True})):
+        if cuda:
+            torch.cuda.empty_cache()
+        step, init, shard = make_llama_train_step(
+            cfg, build_mesh(MeshSpec(dp=world)),
+            rules=ShardingRules().override(**DDP_RULES),
+            optimizer=adamw_lowmem(3e-4, weight_decay=0.1),
+            attn_impl="flash", remat="attn+", seed=SEED, device=dev, **opts)
+        tok, tgt = shard(tokens), shard(np.roll(tokens, -1, axis=1))
+        state = init(params)
+        for _ in range(P25C_WARMUP):
+            state, m = step(state, tok, tgt)
+        float(m["loss"])
+        dist.barrier()
+        box: dict = {}
+        t = threading.Thread(target=lambda: box.update(cap=capture_profile(
+            P25C_CAPTURE_S if cuda else 0.3,
+            meta={"kind": "rank", "source": f"rank{rank}",
+                  "node_id": f"r{rank}"})), name="p25c-cap")
+        t.start()
+        steps, losses = 0, []
+        more = torch.ones(1, device=dev)
+        while more.item():
+            state, m = step(state, tok, tgt)
+            losses.append(float(m["loss"]))
+            steps += 1
+            # Every rank takes as many steps (their collectives pair up):
+            # on while any rank's capture runs.
+            more.fill_(float(t.is_alive() or steps < 2))
+            dist.all_reduce(more, op=dist.ReduceOp.MAX)
+        t.join()
+        cap = box["cap"]
+        dev_trace = {k: v for k, v in (cap.get("xla_trace") or {}).items()
+                     if k != "events"}
+        if cap.get("error") or (cuda and dev_trace.get("status")
+                                != "captured"):
+            raise AssertionError(f"rank {rank} {mode} capture: "
+                                 f"{cap.get('error') or dev_trace}")
+        cap["steps"] = steps
+        cap["losses"] = losses
+        with open(os.path.join(out_dir, f"{mode}_rank{rank}.json"), "w") as f:
+            json.dump(cap, f, default=str)
+        del state, step, init, shard, m
+        gc.collect()
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+def p25_ranks(world: int, root: str, device: str = "cuda") -> dict:
+    """25c: one capture per rank on ``world`` cards, merged into one
+    gzipped chrome trace per mode next to the run's output
+    (chiprun_out/p25c)."""
+    import gzip
+    import tempfile
+
+    from ray_tpu_torch._spawn import run_ranks
+    from ray_tpu_torch.profiling import merge_chrome_trace
+    from ray_tpu_torch.train.backend import free_port
+
+    cuda = device == "cuda"
+    layers = P25C_LAYERS if cuda else 2
+    _phase(f"tracing (25c): one capture per rank on {world} cards, phase "
+           f"13b's step at {layers} layers, flat and ZeRO-1")
+    out_dir = os.path.join(root, "chiprun_out", "p25c")
+    os.makedirs(out_dir, exist_ok=True)
+    res: dict = {"layers": layers}
+    from ray_tpu_torch.utils.config import get_config
+
+    with tempfile.TemporaryDirectory(dir=get_config().temp_dir) as tmp:
+        run_ranks(_rank_p25c, world, tmp, (tmp, free_port(), device),
+                  P25C_TIMEOUT_S)
+        for mode in ("flat", "zero1"):
+            caps = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"{mode}_rank{r}.json")) as f:
+                    caps.append(json.load(f))
+            trace = merge_chrome_trace(caps)
+            path = os.path.join(out_dir, f"trace_{mode}.json.gz")
+            with gzip.open(path, "wt") as f:
+                json.dump(trace, f)
+            ranks_seen = sorted({e["pid"] for e in trace["traceEvents"]
+                                 if str(e.get("pid", "")).startswith(
+                                     "device ") and e.get("ph") == "X"})
+            if cuda and len(ranks_seen) != world:
+                raise AssertionError(f"{mode}: device rows of {ranks_seen}")
+            res[mode] = {"trace": path, "events": len(trace["traceEvents"]),
+                         "ranks": {}}
+            print(f"25c {mode} ({layers} layers, {P13_BATCH // world if cuda else 1}"
+                  f" row a rank): merged trace {path} "
+                  f"({len(trace['traceEvents'])} events, "
+                  f"{os.path.getsize(path) / 2 ** 20:.1f} MiB gzipped), "
+                  f"device rows of {len(ranks_seen)} ranks")
+            for r, cap in enumerate(caps):
+                window = (cap["started_at"] * 1e6, cap["ended_at"] * 1e6)
+                sp = p25_split(cap, window)
+                res[mode]["ranks"][r] = {**sp, "steps": cap["steps"],
+                                         "duration_s": cap["duration_s"]}
+                idle = (f"{100 * sp['idle_share']:.2f}%"
+                        if sp["idle_share"] is not None else "n/a")
+                print(f"  rank {r}: {cap['steps']} steps in "
+                      f"{cap['duration_s']:.3f} s; GEMM "
+                      f"{sp['ms']['gemm']:.1f} ms, attention (K2/K3) "
+                      f"{sp['ms']['attention']:.1f} ms, elementwise "
+                      f"{sp['ms']['elementwise']:.1f} ms, NCCL "
+                      f"{sp['ms']['nccl']:.1f} ms, memcpy "
+                      f"{sp['ms']['memcpy']:.1f} ms; idle {idle}; top host "
+                      f"frames " + "; ".join(f"{n} x{c}" for n, c in
+                                             sp["top_host_frames"]))
+    return res
+
+
+@contextlib.contextmanager
+def p25_scratch():
+    """Phase 25's scratch directory (device traces, rank bundles, trainer
+    storage) inside the checkout's build directory: RTPU_TEMP_DIR (for
+    spawned ranks) and this process's config point at it for the phase,
+    and are restored, the directory removed, after it."""
+    import shutil
+
+    from ray_tpu_torch.utils.config import get_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "ray_tpu_torch", "_native", "_build", "p25tmp")
+    os.makedirs(path, exist_ok=True)
+    cfg = get_config()
+    old = cfg.temp_dir, os.environ.get("RTPU_TEMP_DIR")
+    os.environ["RTPU_TEMP_DIR"] = cfg.temp_dir = path
+    try:
+        yield path
+    finally:
+        cfg.temp_dir = old[0]
+        if old[1] is None:
+            os.environ.pop("RTPU_TEMP_DIR", None)
+        else:
+            os.environ["RTPU_TEMP_DIR"] = old[1]
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def phase_tracing() -> dict:
+    """Phase 25: tracing, profiling and the goodput ledger on the card.
+    (a) phase 19's TorchTrainer traced (one worker with profile_cluster
+    mid-fit; two workers on the host collective); (b) Serve traced at
+    rates 1.0 and 0.0; (c) with four cards, one capture per rank."""
+    import torch
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = LlamaConfig(**BENCH_GEOMETRY, max_seq_len=2048)
+    with p25_scratch() as tmp:
+        storage = os.path.join(tmp, "storage")
+        os.makedirs(storage)
+        out = {"trainer": p25_trainer(cfg, 4, 2048, "cuda", storage,
+                                      os.path.join(root, "chiprun_out"))}
+        torch.cuda.empty_cache()
+        out["serve"] = p25_serve()
+        if torch.cuda.device_count() >= 4:
+            torch.cuda.empty_cache()
+            out["ranks"] = p25_ranks(4, root)
+        else:
+            _phase("tracing (25c): skipped (fewer than four cards visible)")
+            out["ranks"] = None
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 25: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9178,6 +9993,7 @@ def main() -> int:
     layouts = phase_layouts(train8b, moe)
     tp_one = phase_tp_serving()
     data = phase_data(eng)
+    tracing = phase_tracing()
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -9250,7 +10066,11 @@ def main() -> int:
                              "tp_serving_ranks": {
                                  tp_: tp_ranks[tp_]["a"]["launches"]
                                  for tp_ in (2, 4) if tp_ranks
-                                 and tp_ in tp_ranks}},
+                                 and tp_ in tp_ranks},
+                             "tracing_trainer": tracing["trainer"]["one"][
+                                 "launches"]["rms_norm"],
+                             "tracing_serve":
+                                 tracing["serve"]["rate1"]["launches"]},
         "max_abs_err": max_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -9285,7 +10105,9 @@ def main() -> int:
                             for k_ in P15_MODES},
                 **{k_: v_[name] for k_, v_ in tuning["launches"].items()},
                 "layouts": layout_launches[name],
-                "data_trainer": data["trainer"]["launches"][name]},
+                "data_trainer": data["trainer"]["launches"][name],
+                "tracing_trainer": tracing["trainer"]["one"]["launches"][
+                    name]},
             "max_abs_err": max(row["max_abs_err"],
                                vit["attention"][name]["max_abs_err"]),
             "ms": row["ms"],
@@ -9399,7 +10221,8 @@ def main() -> int:
                       "tp_serving": {k: v for k, v in tp_one.items()
                                      if k not in ("wave", "short", "streams",
                                                   "logits0")},
-                      "tp_serving_ranks": tp_ranks, "data": data},
+                      "tp_serving_ranks": tp_ranks, "data": data,
+                      "tracing": tracing},
                      default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -9408,5 +10231,31 @@ def main() -> int:
     return 0
 
 
+def _end(rc: int) -> None:
+    """End the process once its last line is out. A whole run on one card
+    (PR 22's proof, NVIDIA H100 80GB HBM3, 700.00 W) wrote its last line
+    and then took ~300 s more to exit, a stall in the interpreter's
+    teardown that no phase run alone shows. The threads still alive are
+    named with their stacks on stderr, as a finding; the child processes
+    are stopped; and the process ends without that teardown."""
+    import multiprocessing
+    import traceback
+
+    frames = sys._current_frames()
+    alive = [t for t in threading.enumerate()
+             if t is not threading.main_thread() and not t.daemon]
+    for t in alive:
+        stack = "".join(traceback.format_stack(frames.get(t.ident)))[-1500:] \
+            if t.ident in frames else ""
+        print(f"chip_smoke: thread {t.name!r} still alive at the end:\n"
+              f"{stack}", file=sys.stderr)
+    for child in multiprocessing.active_children():
+        child.terminate()
+        child.join(10)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    _end(main())

@@ -6,8 +6,9 @@ the shared headers (``csrc/*.cuh``), the compiler and the flags. Libraries
 are loaded with ``ctypes`` at first use; a missing or stale one is
 rebuilt then, so a fresh checkout needs no separate build step.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits for
-them (the build counts against a caller's time limit).
-A failed build raises with the compiler's output.
+them (the build counts against a caller's time limit); the seconds a
+build took land in the calling train rank's goodput ledger as its
+``compile`` phase. A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -92,6 +94,7 @@ def build_all(names: list[str] | None = None) -> list[str]:
         nvcc = nvcc_path()
         os.makedirs(BUILD_DIR, exist_ok=True)
         paths = {n: _so_path(n, nvcc) for n in names}
+        t0 = time.perf_counter()
         running = [(n, *_start(n, nvcc, p)) for n, p in paths.items()
                    if not os.path.exists(p)]
         errors = []
@@ -100,6 +103,12 @@ def build_all(names: list[str] | None = None) -> list[str]:
                 _finish(n, proc, tmp, paths[n])
             except RuntimeError as e:
                 errors.append(str(e))
+        if running:
+            # The port's compile phase: a build a train step waited for
+            # lands in the calling rank's goodput ledger as "compile".
+            from ray_tpu_torch.observability import goodput
+
+            goodput.add_active_pending("compile", time.perf_counter() - t0)
         if errors:
             raise RuntimeError("\n".join(errors))
         return [paths[n] for n in names]

@@ -76,3 +76,23 @@ def vit_train_flops(cfg, batch: int) -> float:
     attn = 3.0 * L * attention_flops(batch, cfg.num_heads, n + 1,
                                      cfg.head_dim, causal=False)
     return dense + attn
+
+
+def resolve_peak_flops(dtype: str = "bf16") -> float:
+    """The per-card peak the train MFU gauge divides by: ``RTPU_PEAK_FLOPS``
+    when set, else the table's entry for the card this process has
+    initialized CUDA on; 0.0 when neither is known (no MFU is published)."""
+    import os
+    import sys
+
+    env = os.environ.get("RTPU_PEAK_FLOPS")
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            pass
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return 0.0
+    gen = generation_of(torch.cuda.get_device_name())
+    return peak_flops(gen, dtype) if gen else 0.0

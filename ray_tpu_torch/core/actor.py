@@ -7,8 +7,8 @@ actors, max_restarts (of ``__init__``), max_concurrency, async actors and
 options() per-instantiation overrides; ``num_gpus`` demands the ``"GPU"``
 resource; ``method.options(num_returns="streaming")`` streams a generator
 method's yields. Out: DAG ``.bind`` and the internal ``__rtpu_call_fn__`` hook
-(compiled graphs, ROADMAP Queue A item 7's MPMD pipelines); method calls
-carry no tracing context; ``max_task_retries`` and ``lifetime`` (a process
+(compiled graphs, ROADMAP Queue A item 7's MPMD pipelines);
+``max_task_retries`` and ``lifetime`` (a process
 runtime's notions) are unknown options; ``runtime_env`` and
 placement-group strategies raise as for tasks.
 """
@@ -23,6 +23,7 @@ from ray_tpu_torch.core.object_ref import ObjectRefGenerator
 from ray_tpu_torch.core.remote_function import _build_resources, check_options
 from ray_tpu_torch.core.task_spec import ActorCreationSpec, TaskSpec
 from ray_tpu_torch.core.worker import global_worker
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.utils import serialization
 from ray_tpu_torch.utils.ids import ActorID, TaskID
 
@@ -100,6 +101,7 @@ class ActorHandle:
             actor_id=self._actor_id,
             method_name=method_name,
             name=f"{method_name}",
+            trace_ctx=tracing.inject(),
         )
         refs = worker.runtime.submit_actor_task(spec)
         if num_returns == "streaming":

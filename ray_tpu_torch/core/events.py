@@ -2,9 +2,11 @@
 
 Port of ray_tpu/core/events.py for the in-process runtime: the runtime
 records state transitions per task attempt into a bounded buffer, and
-``timeline`` exports them in chrome://tracing's JSON shape. Out: the
-dropped-events metrics counter (``buffer.dropped`` still counts), the
-tracing span around each task, and the cluster-wide event fetch.
+``timeline`` exports them in chrome://tracing's JSON shape, and every
+task and actor method runs inside a worker span (``util/tracing.py``)
+parented under its submitter's context. Out: the dropped-events metrics
+counter (``buffer.dropped`` still counts) and the cluster-wide event
+fetch (process workers, ROADMAP Queue A item (iv)).
 """
 
 from __future__ import annotations
@@ -86,8 +88,10 @@ def chrome_trace(events: list[TaskEvent]) -> list[dict]:
 
 @contextlib.contextmanager
 def task_execution(spec, worker_id: str, node_id: str = ""):
-    """RUNNING event → user code → FINISHED/FAILED event, around every
-    task and actor method the runtime executes."""
+    """RUNNING event → traced user code → FINISHED/FAILED event, around
+    every task and actor method the runtime executes."""
+    from ray_tpu_torch.util import tracing
+
     buf = global_event_buffer()
     tid = spec.task_id.hex()
     aid = spec.actor_id.hex() if spec.actor_id else ""
@@ -95,7 +99,9 @@ def task_execution(spec, worker_id: str, node_id: str = ""):
                   job_id=spec.job_id.hex() if spec.job_id else "")
     buf.record(tid, spec.name, "RUNNING", **common)
     try:
-        yield
+        with tracing.task_span(spec.name, spec.trace_ctx,
+                               attributes={"task_id": tid}):
+            yield
         buf.record(tid, spec.name, "FINISHED", **common)
     except BaseException:
         buf.record(tid, spec.name, "FAILED", **common)

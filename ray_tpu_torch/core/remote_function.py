@@ -9,7 +9,8 @@ num_returns and retries per call site. ``num_gpus`` is the counterpart of
 Out (each raises ``NotImplementedError``): ``runtime_env`` and
 placement-group strategies (process workers, ROADMAP Queue A item 7(b)).
 ``num_returns="streaming"`` returns an ObjectRefGenerator over the task's
-yields. Tasks carry no tracing context.
+yields. Each task carries the submitter's tracing context
+(``util.tracing.inject()``), which the worker span parents under.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Any
 from ray_tpu_torch.core.object_ref import ObjectRefGenerator
 from ray_tpu_torch.core.task_spec import TaskSpec
 from ray_tpu_torch.core.worker import global_worker
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.utils import serialization
 from ray_tpu_torch.utils.ids import TaskID
 
@@ -108,6 +110,7 @@ class RemoteFunction:
             max_retries=opts["max_retries"],
             retry_exceptions=bool(opts["retry_exceptions"]),
             name=opts["name"] or self._fn.__name__,
+            trace_ctx=tracing.inject(),
         )
         refs = worker.runtime.submit_task(spec)
         if opts["num_returns"] == "streaming":

@@ -86,6 +86,17 @@ class LocalObjectStore:
                 return entry.data
             return self._restore_locked(object_id, entry)
 
+    def stats(self) -> dict:
+        """Occupancy, as ray_tpu's store reports it (profiling/memory.py)."""
+        with self._lock:
+            spilled = sum(1 for e in self._objects.values() if e.data is None)
+            return {
+                "num_objects": len(self._objects),
+                "num_spilled": spilled,
+                "used_bytes": self._used,
+                "capacity_bytes": self._capacity,
+            }
+
     def close(self) -> None:
         """Wake every waiting ``get``: its object will never be sealed."""
         with self._lock:

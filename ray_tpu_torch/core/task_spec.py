@@ -2,7 +2,8 @@
 
 Port of ray_tpu/core/task_spec.py for the in-process runtime: a task names
 a serialized function, serialized args with out-of-band ObjectRefs, a
-resource-shape demand and a retry policy. Out: the cluster's scheduling
+resource-shape demand, a retry policy and the submitter's tracing context
+(``trace_ctx``). Out: the cluster's scheduling
 strategies, runtime envs and the function registry's content ids (the
 in-process runtime places every task on its one node).
 """
@@ -10,6 +11,7 @@ in-process runtime places every task on its one node).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Any
 
 from ray_tpu_torch.utils.ids import ActorID, JobID, ObjectID, TaskID
 
@@ -26,6 +28,7 @@ class TaskSpec:
     max_retries: int = 3
     retry_exceptions: bool = False
     name: str = ""
+    trace_ctx: dict[str, Any] | None = None  # propagated tracing context
 
     # actor-task fields
     actor_id: ActorID | None = None

@@ -4,4 +4,6 @@ ray_tpu_torch.devbench.<name>``.
 
 - ``prof_flash_pack``: the head-packed flash-attention forward kernels
   (K8, K9, K10: three mask schedules) against K2, checked and timed.
+- ``capture_cost``: what a ``capture_profile`` costs the 1.1B training
+  step it watches (the stack sampler, the device trace, the GC).
 """

@@ -40,8 +40,12 @@ through llm/hf.py, or a DCP directory of train/checkpoint.py in place of
 orbax). Tensor parallelism (``tensor_parallel_size > 1``) runs the
 engine's tp ranks as processes under this one scheduler (llm/tp.py): the
 device functions take a ``PreparedParams`` whose ``tp`` carries the
-group, and every scheduler call goes through ``LLMEngine._call``. Tracing
-spans are not recorded (``GenerationRequest.trace_ctx`` is None).
+group, and every scheduler call goes through ``LLMEngine._call``. With
+tracing on, each request carries its submitter's trace context
+(``GenerationRequest.trace_ctx``, taken on the submitting thread) and the
+scheduler stamps its ``engine.queue``, ``engine.prefill`` (or
+``engine.kv_import``) and ``engine.decode`` spans onto that trace; tp
+ranks other than 0 run no scheduler and record nothing.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ from ray_tpu_torch.ops.loss import _mm_f32
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope_cs, rope_cos_sin, rope_frequencies
 from ray_tpu_torch.serve.prefix import block_hashes
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -728,7 +733,10 @@ class GenerationRequest:
     arrival_seq: int = 0  # admission order: preemption evicts later ones
     prefill_gen: int = 0  # bumped on preemption: stale deferred fetches no-op
     n_prompt: int = -1  # the submitted prompt's length, once preempted
-    trace_ctx: dict | None = None  # tracing is not ported: always None
+    # Request tracing: the submitter's propagated context (None = untraced)
+    # — the scheduler thread stamps this request's queue/prefill/decode
+    # phase spans onto it.
+    trace_ctx: dict | None = None
     cancelled: bool = False  # its reader is gone: finish at the next token
     submit_ts: float = 0.0
     admit_ts: float = 0.0
@@ -1310,6 +1318,11 @@ class LLMEngine(_RankCalls):
         return self._enqueue(req)
 
     def _enqueue(self, req: GenerationRequest) -> GenerationRequest:
+        # Capture the submitter's trace context while its thread-local is
+        # live: the scheduler thread stamps the engine phase spans onto
+        # the REQUEST's trace from a thread that never entered it.
+        req.trace_ctx = tracing.inject() if tracing.current_context() \
+            else None
         req.submit_ts = time.time()
         with self._submit_lock:
             self._arrival_seq += 1
@@ -1457,13 +1470,19 @@ class LLMEngine(_RankCalls):
         req.cancelled = True
 
     def shutdown(self) -> None:
-        """Stop the scheduler thread and, under tp, every follower."""
+        """Stop the scheduler thread and, under tp, every follower. A
+        request still held ends with an error: a replica here is a thread
+        of the process (a process in ray_tpu, whose exit ends its
+        waiters), and a handler left waiting would hold its pool thread,
+        and the process's exit, for its whole timeout."""
         self._stop.set()
         self._work.set()
         if threading.current_thread() is not self._thread:
             self._thread.join(timeout=5)
         if self._tp is not None:
             self._tp.close()
+        if not self._thread.is_alive():
+            self._fail_held("the engine was shut down")
 
     def prefix_block_hashes(self) -> tuple[int, ...]:
         """Chain hashes (serve/prefix.py) of every prompt prefix whose KV
@@ -1570,20 +1589,25 @@ class LLMEngine(_RankCalls):
         """A stopped tp engine fails what it holds and what arrives."""
         self._die(self._tp.broken or "a rank failed")
         self._pending_burst = None
-        failed = False
-        for req in list(self._slots.values()):
-            if req is not None and not req.done.is_set():
-                self._fail(req, self._dead)
-                failed = True
+        failed = self._fail_held(self._dead)
         self._slots = {i: None for i in range(self.max_slots)}
         self._prefix_live.clear()
         self._prefix_cached.clear()
+        return failed
+
+    def _fail_held(self, err: str) -> bool:
+        """Fail every request in a slot or waiting; True if there was one."""
+        failed = False
+        for req in list(self._slots.values()):
+            if req is not None and not req.done.is_set():
+                self._fail(req, err)
+                failed = True
         while True:
             try:
                 req = self._next_waiting()
             except queue.Empty:
                 return failed
-            self._fail(req, self._dead)
+            self._fail(req, err)
             failed = True
 
     def _tick_inner(self, deferred: list) -> bool:
@@ -2299,7 +2323,24 @@ class LLMEngine(_RankCalls):
     def _emit(self, req: GenerationRequest, token: int) -> None:
         req.out_tokens.append(token)
         if len(req.out_tokens) == 1:
-            req.first_token_ts = time.time()
+            now = req.first_token_ts = time.time()
+            if req.trace_ctx is not None:
+                # First token: stamp the TTFT phase breakdown onto the
+                # request's trace — queue wait (submit→admit) and the
+                # prefill (or P/D KV import) interval ending here.
+                if req.admit_ts and req.submit_ts:
+                    tracing.record_span(
+                        "engine.queue", req.submit_ts, req.admit_ts,
+                        ctx=req.trace_ctx,
+                        attributes={"request_id": req.request_id})
+                tracing.record_span(
+                    "engine.kv_import" if req.kv_imported
+                    else "engine.prefill",
+                    req.admit_ts or req.submit_ts or now, now,
+                    ctx=req.trace_ctx,
+                    attributes={"request_id": req.request_id,
+                                "prompt_tokens": len(req.prompt_ids),
+                                "prefix_adopted": req.prefilled_len})
         if req.stream_queue is not None:
             req.stream_queue.put(token)
         eos = {self.tokenizer.eos_id, *req.sampling.stop_token_ids}
@@ -2325,6 +2366,13 @@ class LLMEngine(_RankCalls):
 
     def _finish(self, req: GenerationRequest, reason: str) -> None:
         req.finish_reason = reason
+        if req.trace_ctx is not None and req.first_token_ts:
+            tracing.record_span(
+                "engine.decode", req.first_token_ts, time.time(),
+                ctx=req.trace_ctx,
+                attributes={"request_id": req.request_id,
+                            "tokens": len(req.out_tokens),
+                            "finish_reason": reason})
         for slot, r in self._slots.items():
             if r is req:
                 req.last_slot = slot

@@ -22,6 +22,7 @@ import torch
 from ray_tpu_torch.llm.config import LLMConfig
 from ray_tpu_torch.llm.engine import LLMEngine
 from ray_tpu_torch.llm.serving import _sampling_from
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.metrics import Counter
 
 _MODES = ("store", "inline")
@@ -98,10 +99,15 @@ def export_kv_payload(payload: dict, mode: str) -> dict:
     _check_mode(mode)
     mtr = kv_bound(mode)
     nbytes = _nbytes(payload["kv_k"]) + _nbytes(payload["kv_v"])
-    mtr["bytes"].inc(nbytes)
-    mtr["serialized"].inc(nbytes)  # rides the call inside the payload
-    mtr["handoffs"].inc()
-    return payload
+    # KV hand-off phase span: nests under the prefill replica's worker
+    # span (same thread), so the trace shows the export side of the P/D
+    # hop and its transport.
+    with tracing.span("llm.kv_export",
+                      attributes={"path": mode, "bytes": nbytes}):
+        mtr["bytes"].inc(nbytes)
+        mtr["serialized"].inc(nbytes)  # rides the call inside the payload
+        mtr["handoffs"].inc()
+        return payload
 
 
 def resolve_kv_payload(payload: dict) -> dict:

@@ -1,0 +1,596 @@
+"""Goodput ledger: attribute every wall-clock second — and chip-second —
+of a run to exactly one phase.
+
+Port of ray_tpu/observability/goodput.py: the phase taxonomy,
+``classify_interval``, ``RankLedger``, the thread-local hooks
+(``input_wait``, ``add_active_pending``), the run-level event buffer and
+``GoodputStore``'s rollup. Two differences:
+
+- ``RankLedger.snapshot`` reads the clock once, so the open tail and the
+  elapsed time come from one instant and ``unattributed_s`` is exactly 0
+  on an open ledger (ray_tpu reads it twice and leaves the gap between the
+  reads in the residual);
+- the ``compile`` phase is the ``nvcc`` build of the card's kernels at
+  first use (``_native/build.py`` stamps its seconds through
+  ``add_active_pending``): the port has no jit compile for a listener to
+  hear.
+
+This module classifies every interval of every rank's wall clock into an
+exhaustive, non-overlapping phase taxonomy and rolls it up into goodput %
+and a badput breakdown per run and per fleet, with chip-seconds as the
+unit.
+
+- **No new calls on the hot loop.** Rank ledgers ride the per-rank rows
+  ``session.collect_train_stats()`` builds; run-level events (restart
+  downtime) buffer here for ``collect_for_flush``.
+- **Exhaustive by construction.** ``classify_interval`` decomposes each
+  report-to-report interval so the parts always sum to the interval, and
+  ``snapshot()`` publishes the residual (0) so a zero-unattributed gate is
+  measured, not assumed.
+- **Self-metered.** Ledger bookkeeping time accumulates into
+  ``spent_s`` and ``goodput_ledger_seconds``.
+
+Worker side: :class:`RankLedger` (one per live TrainContext, attached by
+``train.session.set_context``). Head side: :class:`GoodputStore`, whose
+rollup is pure; the head that would feed it from many processes waits for
+the process workers (ROADMAP Queue A item (iv)).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import time
+from collections import deque
+
+# The exhaustive phase taxonomy. Every classified second lands in exactly
+# one of these; `step_compute` is the only goodput phase.
+PHASES = (
+    "init",             # worker bring-up before the first step (fresh run)
+    "compile",          # kernel builds (nvcc at first use) or a
+                        # compile_time_s report key
+    "input_wait",       # dataset iterator stall (data plane can't feed)
+    "step_compute",     # the goodput: device compute inside steps
+    "collective_wait",  # waiting on peers (sync_time_s share)
+    "checkpoint",       # sync portion of AsyncCheckpointWriter.save
+    "replication_push", # inline snapshot cost of session.replicate
+    "restart_downtime", # failure detection + tier + time-to-first-step
+                        # (the controller's restart records)
+    "head_outage",      # control-plane downtime (head incarnation bumps)
+    "idle",             # attributed-but-unproductive remainder
+                        # (straggler-induced wait when compute_time_s is
+                        # reported, post-run tail otherwise)
+)
+GOOD_PHASE = "step_compute"
+# time.monotonic's resolution: a snapshot residual below it is float
+# rounding of the phase sums.
+_CLOCK_RESOLUTION_S = 1e-9
+# Phases measured inside a step interval; the interval remainder goes to
+# step_compute (steady state), init (first interval), or idle.
+_MEASURED = ("compile", "input_wait", "collective_wait", "checkpoint",
+             "replication_push")
+
+
+def _enabled() -> bool:
+    try:
+        from ray_tpu_torch.utils.config import get_config
+
+        return bool(get_config().goodput_enabled)
+    except Exception:  # noqa: BLE001 - config not importable: stay off
+        return False
+
+
+def classify_interval(dur: float, parts: dict | None,
+                      first: bool = False,
+                      first_phase: str = "init",
+                      remainder: str | None = None) -> dict[str, float]:
+    """Decompose one wall interval into phases. Exhaustive and
+    non-overlapping BY CONSTRUCTION: measured parts are clamped into the
+    interval in a fixed priority order and the remainder goes to exactly
+    one bucket, so the returned values always sum to ``dur``.
+
+    ``parts`` carries measured seconds for any of the ``_MEASURED``
+    phases plus an optional ``step_compute`` (from a ``compute_time_s``
+    report key); when present, the remainder beyond measured compute is
+    ``idle`` — the straggler-induced wait the sync/compute shares expose.
+    ``first`` intervals (context start → first report) put their
+    remainder in ``first_phase`` (``init`` for a fresh run,
+    ``restart_downtime`` for a restarted context — that time exists
+    because of the failure, and classifying it here keeps it out of the
+    fresh-run init bucket). An explicit ``remainder`` phase overrides
+    both (the finish() tail is idle, not compute)."""
+    dur = max(0.0, float(dur))
+    out: dict[str, float] = {}
+    budget = dur
+    for phase in _MEASURED:
+        v = parts.get(phase) if parts else None
+        if not v:
+            continue
+        v = min(budget, max(0.0, float(v)))
+        if v > 0.0:
+            out[phase] = out.get(phase, 0.0) + v
+            budget -= v
+    if budget <= 0.0:
+        return out
+    if remainder is not None:
+        out[remainder] = out.get(remainder, 0.0) + budget
+        return out
+    if first:
+        out[first_phase] = out.get(first_phase, 0.0) + budget
+        return out
+    compute = parts.get("step_compute") if parts else None
+    if compute is None:
+        out[GOOD_PHASE] = out.get(GOOD_PHASE, 0.0) + budget
+        return out
+    c = min(budget, max(0.0, float(compute)))
+    if c > 0.0:
+        out[GOOD_PHASE] = out.get(GOOD_PHASE, 0.0) + c
+    if budget - c > 0.0:
+        out["idle"] = out.get("idle", 0.0) + (budget - c)
+    return out
+
+
+class RankLedger:
+    """One rank's goodput ledger: anchored when its TrainContext attaches,
+    closed interval-by-interval from ``session.report()`` (no extra clock
+    reads on the step path beyond the two perf_counter stamps of the
+    self-meter). Thread-safe: the telemetry flusher snapshots from its
+    own thread while the train thread closes intervals."""
+
+    def __init__(self, run: str, rank: int, chips: float = 1.0,
+                 restarted: bool = False):
+        self.run = run or "train"
+        self.rank = int(rank)
+        self.chips = max(1.0, float(chips))
+        self._first_phase = "restart_downtime" if restarted else "init"
+        self._lock = threading.Lock()
+        self._t0_wall = time.time()
+        self._t0_mono = time.monotonic()
+        self._mark = self._t0_mono  # last classified boundary (monotonic)
+        self.phase_s: dict[str, float] = {}
+        self._pending: dict[str, float] = {}
+        self._closed_any = False
+        self._finished = False
+        self.spent_s = 0.0  # ledger self-cost (duty-cycle numerator)
+        self._unmetered_s = 0.0
+
+    # ------------------------------------------------------------ hooks
+    def add_pending(self, phase: str, seconds: float) -> None:
+        """Stamp measured seconds (compile / input_wait / checkpoint /
+        replication_push hooks) to be consumed by the next interval
+        close. Unknown phases are dropped, not raised — instrumentation
+        must never fail a training step."""
+        if phase not in PHASES or not seconds or seconds < 0:
+            return
+        with self._lock:
+            self._pending[phase] = self._pending.get(phase, 0.0) \
+                + float(seconds)
+
+    # ---------------------------------------------------------- closing
+    def close_interval(self, parts: dict | None = None,
+                       remainder: str | None = None) -> dict | None:
+        """Classify [last boundary → now]. Called from
+        ``_instrument_report`` on every report (and from ``finish()`` for
+        the tail). Returns the classified parts (tests/trace lane)."""
+        t0 = time.perf_counter()
+        try:
+            with self._lock:
+                if self._finished:
+                    return None
+                now = time.monotonic()
+                dur = max(0.0, now - self._mark)
+                start_mono, self._mark = self._mark, now
+                merged = self._pending
+                self._pending = {}
+                first = not self._closed_any
+                self._closed_any = True
+            if parts:
+                for k, v in parts.items():
+                    if v:
+                        merged[k] = merged.get(k, 0.0) + max(0.0, float(v))
+            classified = classify_interval(dur, merged, first=first,
+                                           first_phase=self._first_phase,
+                                           remainder=remainder)
+            with self._lock:
+                for phase, v in classified.items():
+                    self.phase_s[phase] = self.phase_s.get(phase, 0.0) + v
+            self._trace(classified, start_mono)
+            return classified
+        finally:
+            dt = time.perf_counter() - t0
+            self.spent_s += dt
+            self._unmetered_s += dt
+            self._meter()
+
+    def finish(self, phase: str = "idle") -> None:
+        """Close the tail [last boundary → now] as ``phase`` and freeze
+        the ledger; its final snapshot rides the finished-rank grace row
+        session.collect_train_stats keeps streaming."""
+        self.close_interval(remainder=phase)
+        with self._lock:
+            self._finished = True
+
+    # --------------------------------------------------------- exports
+    def snapshot(self) -> dict:
+        """The wire row that rides this rank's train-stats summary. The
+        ``unattributed_s`` residual is computed here, worker-side, so a
+        zero-unattributed gate reads a measured number: classified + open
+        tail vs. the elapsed monotonic clock, both from ONE clock read."""
+        with self._lock:
+            total = sum(self.phase_s.values())
+            now = self._mark if self._finished else time.monotonic()
+            open_s = max(0.0, now - self._mark)
+            elapsed = now - self._t0_mono
+            residual = elapsed - total - open_s
+            # Below the clock's nanosecond the residual is the rounding of
+            # the float sums above, not time: it reads 0.
+            if residual < _CLOCK_RESOLUTION_S:
+                residual = 0.0
+            return {
+                "run": self.run,
+                "rank": self.rank,
+                "chips": self.chips,
+                "t0": self._t0_wall,
+                "ts": time.time(),
+                "phase_s": dict(self.phase_s),
+                "open_s": open_s,
+                "unattributed_s": residual,
+                "spent_s": self.spent_s,
+                "finished": self._finished,
+            }
+
+    # -------------------------------------------------------- internals
+    def _meter(self) -> None:
+        """Move accumulated self-cost into the registry counter. Only on
+        interval closes (which already mutate the train gauges), so an
+        idle process's snapshot stays byte-identical and the flushers'
+        idle skip survives — same discipline as the watchdog sampler."""
+        try:
+            _ledger_metrics()["seconds"].inc(self._unmetered_s)
+            self._unmetered_s = 0.0
+        except Exception:  # noqa: BLE001 - metrics must never fail a step
+            pass
+
+    def _trace(self, classified: dict, start_mono: float) -> None:
+        """Goodput lane in the chrome-trace timeline: one span per phase
+        chunk, laid sequentially inside the closed interval (sub-phase
+        ordering within an interval is not observed, only its total).
+        Only when tracing is on, and only chunks big enough to see."""
+        from ray_tpu_torch.util import tracing
+
+        if not tracing.tracing_enabled():
+            return
+        wall = self._t0_wall + (start_mono - self._t0_mono)
+        for phase, v in classified.items():
+            if v < 0.005:
+                wall += v
+                continue
+            tracing.record_span(
+                f"goodput.{phase}", wall, wall + v, kind="goodput",
+                attributes={"run": self.run, "rank": self.rank,
+                            "phase": phase})
+            wall += v
+
+
+_ledger_metrics_obj = None
+_ledger_metrics_lock = threading.Lock()
+
+
+def _ledger_metrics():
+    global _ledger_metrics_obj
+    with _ledger_metrics_lock:
+        if _ledger_metrics_obj is None:
+            from ray_tpu_torch.util.metrics import Counter
+
+            _ledger_metrics_obj = {
+                "seconds": Counter(
+                    "goodput_ledger_seconds",
+                    "cumulative wall time this process spent classifying "
+                    "goodput intervals (duty-cycle numerator for the "
+                    "<0.5% overhead gate)"),
+            }
+        return _ledger_metrics_obj
+
+
+# ------------------------------------------------------- worker-side glue
+# The active ledger is thread-local (same thread that runs train_fn /
+# session.report); hooks called from other threads no-op, by design.
+
+_active = threading.local()
+
+
+def set_active(ledger: RankLedger | None) -> None:
+    _active.ledger = ledger
+
+
+def get_active() -> RankLedger | None:
+    return getattr(_active, "ledger", None)
+
+
+def add_active_pending(phase: str, seconds: float) -> None:
+    """Hook entry for the checkpoint / replicate / input instrumentation:
+    stamp seconds on the calling thread's ledger, if any."""
+    led = get_active()
+    if led is not None:
+        led.add_pending(phase, seconds)
+
+
+@contextlib.contextmanager
+def input_wait():
+    """Time a block as dataset-iterator stall::
+
+        with goodput.input_wait():
+            batch = next(it)
+
+    No-op (one thread-local read) when no ledger is active."""
+    led = get_active()
+    if led is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        led.add_pending("input_wait", time.perf_counter() - t0)
+
+
+def attach(ctx) -> None:
+    """Create this context's RankLedger and make it the thread's active
+    one (called by ``train.session.set_context``)."""
+    if not _enabled():
+        return
+    led = RankLedger(
+        run=getattr(ctx, "experiment_name", "train"),
+        rank=getattr(ctx, "world_rank", 0),
+        chips=_local_chips(ctx),
+        restarted=bool(getattr(ctx, "restart_count", 0)))
+    ctx._goodput = led
+    set_active(led)
+
+
+def detach(ctx) -> None:
+    """Finalize the context's ledger (tail → idle) at teardown; the final
+    snapshot rides the finished-rank grace row."""
+    led = getattr(ctx, "_goodput", None)
+    if led is not None:
+        led.finish()
+    if get_active() is led:
+        set_active(None)
+
+
+def _local_chips(ctx) -> float:
+    """The devices this rank computes on. Each of the port's train
+    workers drives one card (its ``device``) or the CPU: 1."""
+    return 1.0
+
+
+# ------------------------------------------------ run-level event buffer
+# restart_downtime (controller) and head_outage (head) are process-level
+# facts, not rank intervals. They buffer here and piggyback the process's
+# existing telemetry flush as an optional `goodput` leg — requeued on
+# push failure, deduplicated head-side by event id, so exactly-once lands
+# without a new RPC.
+
+_events_lock = threading.Lock()
+_events: deque = deque(maxlen=256)
+_event_seq = 0
+
+
+def record_event(kind: str, run: str | None, seconds: float,
+                 chips: float = 0.0, detail: dict | None = None,
+                 start_ts: float | None = None) -> dict:
+    """Buffer one run-level badput event for the next telemetry flush.
+    ``kind`` is a PHASES member (restart_downtime / head_outage);
+    ``chips`` scales seconds into chip-seconds head-side (0 = unknown,
+    the rollup falls back to 1)."""
+    global _event_seq
+    with _events_lock:
+        _event_seq += 1
+        ev = {
+            "id": f"{os.getpid():x}-{_event_seq:x}-{os.urandom(4).hex()}",
+            "kind": kind,
+            "run": run,
+            "seconds": max(0.0, float(seconds)),
+            "chips": max(0.0, float(chips)),
+            "ts": time.time(),
+            "start_ts": float(start_ts) if start_ts else None,
+            "detail": dict(detail or {}),
+        }
+        _events.append(ev)
+        return ev
+
+
+def collect_for_flush() -> dict | None:
+    """One flush tick's goodput leg: drains buffered events (None when
+    idle or the gate is off). The flusher passes the result straight to
+    report_telemetry's ``goodput`` kwarg and hands it back to
+    :func:`flush_failed` when the push raised."""
+    if not _enabled():
+        return None
+    with _events_lock:
+        if not _events:
+            return None
+        out = list(_events)
+        _events.clear()
+    return {"events": out}
+
+
+def flush_failed(payload: dict | None) -> None:
+    """Requeue a drained leg whose push never reached the head (bounded:
+    the deque cap sheds oldest first — same loss discipline as spans)."""
+    if not payload:
+        return
+    with _events_lock:
+        for ev in reversed(payload.get("events") or []):
+            _events.appendleft(ev)
+
+
+def _reset_for_tests() -> None:
+    global _event_seq
+    with _events_lock:
+        _events.clear()
+        _event_seq = 0
+    set_active(None)
+
+
+# ------------------------------------------------------- head-side store
+class GoodputStore:
+    """Head-side aggregator: ingests event legs (dedup by id), stamps the
+    head's own outages and rolls the fleet up from a train-stats table.
+    The badput-over-threshold rule and the ``goodput_*`` gauges need the
+    head's watchdog and come with it."""
+
+    MAX_EVENTS = 512
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._events: deque = deque(maxlen=self.MAX_EVENTS)
+        self._seen: deque = deque(maxlen=2 * self.MAX_EVENTS)
+        self._seen_set: set[str] = set()
+
+    # --------------------------------------------------------- ingest
+    def ingest(self, source: str, node_id: str, payload: dict) -> None:
+        for ev in (payload or {}).get("events") or ():
+            eid = ev.get("id")
+            with self._lock:
+                if eid in self._seen_set:
+                    continue  # flusher retry after a half-landed push
+                if len(self._seen) == self._seen.maxlen:
+                    self._seen_set.discard(self._seen[0])
+                self._seen.append(eid)
+                self._seen_set.add(eid)
+                self._events.append({**ev, "source": source,
+                                     "node_id": node_id})
+
+    def stamp(self, kind: str, run: str | None, seconds: float,
+              chips: float = 0.0, detail: dict | None = None,
+              start_ts: float | None = None) -> None:
+        """The head's own events (head_outage at boot) — no transport."""
+        with self._lock:
+            self._events.append({
+                "id": f"head-{os.urandom(6).hex()}", "kind": kind,
+                "run": run, "seconds": max(0.0, float(seconds)),
+                "chips": max(0.0, float(chips)), "ts": time.time(),
+                "start_ts": start_ts, "detail": dict(detail or {}),
+                "source": "head", "node_id": "",
+            })
+
+    def events(self, run: str | None = None) -> list[dict]:
+        with self._lock:
+            evs = list(self._events)
+        if run:
+            evs = [e for e in evs if e.get("run") in (run, None)]
+        return evs
+
+    # --------------------------------------------------------- rollup
+    def rollup(self, train_stats: dict, run: str | None = None) -> dict:
+        """Fleet goodput: per-run chip-second phase totals from every
+        rank-ledger snapshot in the train-stats table (entries are
+        cumulative per context incarnation, keyed (source, rank) — a
+        restarted rank's old and new incarnations both count, which is
+        exactly the run's history), plus the run-level events. The
+        restart_downtime phase takes max(rank-side, event-side): the
+        event window [detection → first post-restart report] CONTAINS the
+        restarted context's first interval, so summing both would double
+        count; max() keeps the fuller measure."""
+        runs: dict[str, dict] = {}
+
+        def bucket(r: str) -> dict:
+            return runs.setdefault(r, {
+                "phase_s": {}, "chip_s": {}, "ranks": set(),
+                "entries": 0, "open_s": 0.0, "unattributed_s": 0.0,
+                "spent_s": 0.0, "chips_live": {},
+            })
+
+        for source, row in (train_stats or {}).items():
+            for rank_key, stats in (row.get("stats") or {}).items():
+                gp = (stats or {}).get("goodput")
+                if not gp:
+                    continue
+                b = bucket(gp.get("run") or "train")
+                chips = max(1.0, float(gp.get("chips") or 1.0))
+                b["entries"] += 1
+                b["ranks"].add(int(gp.get("rank", rank_key)))
+                b["chips_live"][int(gp.get("rank", rank_key))] = chips
+                for phase, v in (gp.get("phase_s") or {}).items():
+                    b["phase_s"][phase] = b["phase_s"].get(phase, 0.0) + v
+                    b["chip_s"][phase] = b["chip_s"].get(phase, 0.0) \
+                        + v * chips
+                b["open_s"] += float(gp.get("open_s") or 0.0)
+                b["unattributed_s"] += float(gp.get("unattributed_s") or 0.0)
+                b["spent_s"] += float(gp.get("spent_s") or 0.0)
+
+        fleet_events: dict[str, float] = {}   # kind -> seconds (run=None)
+        fleet_event_chip: dict[str, float] = {}
+        for ev in self.events():
+            kind = ev.get("kind") or "idle"
+            secs = float(ev.get("seconds") or 0.0)
+            chips = float(ev.get("chips") or 0.0) or 1.0
+            r = ev.get("run")
+            if r is None:
+                fleet_events[kind] = fleet_events.get(kind, 0.0) + secs
+                fleet_event_chip[kind] = fleet_event_chip.get(kind, 0.0) \
+                    + secs * chips
+                continue
+            b = bucket(r)
+            ev_s = b.setdefault("event_s", {})
+            ev_c = b.setdefault("event_chip_s", {})
+            ev_s[kind] = ev_s.get(kind, 0.0) + secs
+            ev_c[kind] = ev_c.get(kind, 0.0) + secs * chips
+
+        out_runs: dict[str, dict] = {}
+        fleet = {"phase_chip_s": dict(fleet_event_chip),
+                 "phase_s": dict(fleet_events)}
+        for r, b in runs.items():
+            chip_s = dict(b["chip_s"])
+            phase_s = dict(b["phase_s"])
+            # Event-vs-rank overlap resolution (see docstring). Both run
+            # domains are PER-RANK seconds summed across ranks, so the
+            # event window (one wall interval) enters as seconds x chips
+            # — the controller's chips proxy is one chip per rank — in
+            # phase_s too, or a 2-rank outage would compare half-sized
+            # against the two rank ledgers it contains.
+            for kind in ("restart_downtime", "head_outage"):
+                ev_c = (b.get("event_chip_s") or {}).get(kind, 0.0)
+                if ev_c:
+                    chip_s[kind] = max(chip_s.get(kind, 0.0), ev_c)
+                    phase_s[kind] = max(phase_s.get(kind, 0.0), ev_c)
+            total = sum(chip_s.values())
+            good = chip_s.get(GOOD_PHASE, 0.0)
+            badput = {p: v for p, v in sorted(
+                chip_s.items(), key=lambda kv: -kv[1]) if p != GOOD_PHASE}
+            out_runs[r] = {
+                "ranks": len(b["ranks"]),
+                "entries": b["entries"],
+                "chips": sum(b["chips_live"].values()),
+                "wall_s": sum(phase_s.values()),
+                "chip_seconds": total,
+                "good_chip_s": good,
+                "goodput_pct": (100.0 * good / total) if total else None,
+                "phase_s": phase_s,
+                "phase_chip_s": chip_s,
+                "badput_chip_s": badput,
+                "open_s": b["open_s"],
+                "unattributed_s": b["unattributed_s"],
+                "ledger_spent_s": b["spent_s"],
+                "events": [e for e in self.events(r) if e.get("run") == r],
+            }
+            for p, v in chip_s.items():
+                fleet["phase_chip_s"][p] = \
+                    fleet["phase_chip_s"].get(p, 0.0) + v
+            for p, v in phase_s.items():
+                fleet["phase_s"][p] = fleet["phase_s"].get(p, 0.0) + v
+        ftotal = sum(fleet["phase_chip_s"].values())
+        fgood = fleet["phase_chip_s"].get(GOOD_PHASE, 0.0)
+        fleet["chip_seconds"] = ftotal
+        fleet["goodput_pct"] = (100.0 * fgood / ftotal) if ftotal else None
+        fleet["unattributed_s"] = sum(
+            b["unattributed_s"] for b in runs.values())
+        fleet["events"] = [e for e in self.events() if e.get("run") is None]
+        if run is not None:
+            out_runs = {r: v for r, v in out_runs.items() if r == run}
+        # Request goodput per deployment reads the head's telemetry
+        # series, which come with the process workers: none in-process.
+        return {"enabled": True, "runs": out_runs, "fleet": fleet,
+                "serve": {}}

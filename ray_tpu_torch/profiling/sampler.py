@@ -1,0 +1,169 @@
+"""In-process Python stack sampler — the ``ray stack`` / py-spy capability
+without the external dependency.
+
+Port of ray_tpu/profiling/sampler.py, a straight copy.
+
+A daemon thread walks ``sys._current_frames()`` at a fixed rate and
+aggregates whole-thread stacks into collapsed-stack flamegraph lines
+(``root;child;leaf count``). Sampling is cooperative-with-the-GIL: each
+sample briefly holds the GIL while copying frame references, so the cost is
+O(stack depth × threads) per tick — at the default rate this stays well
+under the 2%% overhead budget PERF_PROFILER.json tracks.
+
+Frames are keyed by declaration line (``co_firstlineno``), not the executing
+line: per-sample line numbers would explode one logical frame into hundreds
+of distinct stacks and destroy flamegraph aggregation.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import threading
+import time
+import traceback
+import weakref
+from collections import deque
+
+_MAX_DEPTH = 128
+# Rate ceiling (guardrail, pairs with the duration/concurrency clamps): a
+# sample costs tens of µs of GIL time, so an unbounded hz request would
+# fan a ~100% duty-cycle busy loop out to every process in the cluster.
+_MAX_HZ = 1000.0
+
+# Code-object -> rendered label. Formatting dominates the per-sample cost
+# (an f-string + basename per frame per tick); code objects are immutable,
+# so memoizing on the object itself is safe. Weak keys: a worker that
+# re-deserializes task functions mints fresh code objects each time, and a
+# strong cache would pin every one ever sampled for the process lifetime.
+# Shared across samplers (labels are pure).
+_label_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _frame_label(code) -> str:
+    label = _label_cache.get(code)
+    if label is None:
+        label = (f"{code.co_name} "
+                 f"({os.path.basename(code.co_filename)}:"
+                 f"{code.co_firstlineno})")
+        _label_cache[code] = label
+    return label
+
+
+def dump_stacks() -> str:
+    """Immediate formatted dump of every thread's current stack (the
+    ``ray stack`` one-shot; also the SIGUSR2 last-words payload)."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = []
+    for ident, frame in sorted(sys._current_frames().items()):
+        out.append(f"--- Thread {ident} ({names.get(ident, '?')}) ---")
+        out.extend(line.rstrip("\n")
+                   for line in traceback.format_stack(frame))
+    return "\n".join(out)
+
+
+class StackSampler:
+    """Periodic whole-process stack sampler.
+
+    ``collapsed()`` returns flamegraph input (one ``stack count`` line per
+    distinct stack, root-first, thread name as the root frame);
+    ``sample_events()`` returns a bounded per-sample timeline
+    (ts, thread, leaf frame) the chrome-trace merge renders as a sampling
+    track alongside the spans.
+    """
+
+    def __init__(self, hz: float = 100.0, max_events: int = 5000):
+        self.hz = min(max(1.0, float(hz)), _MAX_HZ)
+        self._interval = 1.0 / self.hz
+        self._counts: dict[tuple, int] = {}
+        self._events: deque = deque(maxlen=max_events)
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._names: dict | None = None
+        self.samples = 0
+        self.started_at = 0.0
+        self.ended_at = 0.0
+
+    # ------------------------------------------------------------- lifecycle
+    def start(self) -> "StackSampler":
+        if self._thread is not None:
+            raise RuntimeError("sampler already started")
+        self.started_at = time.time()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="rtpu-prof-sampler")
+        self._thread.start()
+        return self
+
+    def stop(self) -> "StackSampler":
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+        self.ended_at = time.time()
+        return self
+
+    def _run(self) -> None:
+        own = threading.get_ident()
+        next_t = time.monotonic()
+        while not self._stop.is_set():
+            self._sample_once(own)
+            next_t += self._interval
+            delay = next_t - time.monotonic()
+            if delay <= 0:
+                # Fell behind (contended core): skip the missed ticks AND
+                # still wait one full interval — catching up by sampling
+                # back-to-back would turn the sampler into a GIL-stealing
+                # busy loop exactly when the host is most loaded.
+                next_t = time.monotonic() + self._interval
+                delay = self._interval
+            self._stop.wait(delay)
+
+    # -------------------------------------------------------------- sampling
+    def _sample_once(self, skip_ident: int) -> None:
+        now = time.time()
+        frames = sys._current_frames()
+        # Thread names change ~never; re-enumerating every tick costs more
+        # than the frame walk. Refresh on a coarse cadence and on misses —
+        # without the miss path a just-spawned thread would root under the
+        # fallback label for up to 63 ticks, splitting its stacks across
+        # two flamegraph roots.
+        names = self._names
+        if self.samples % 64 == 0 or names is None:
+            names = self._names = {
+                t.ident: t.name for t in threading.enumerate()}
+        missing = [i for i in frames if i not in names]
+        if missing:
+            names = self._names = {
+                t.ident: t.name for t in threading.enumerate()}
+            for i in missing:
+                # Still unnamed after a refresh (non-threading C thread):
+                # cache the fallback so it can't force an enumerate every
+                # tick. The periodic refresh above drops stale entries.
+                names.setdefault(i, f"thread-{i}")
+        with self._lock:
+            for ident, frame in frames.items():
+                if ident == skip_ident:
+                    continue
+                stack = []
+                f = frame
+                while f is not None and len(stack) < _MAX_DEPTH:
+                    stack.append(_frame_label(f.f_code))
+                    f = f.f_back
+                stack.reverse()
+                key = (names.get(ident, f"thread-{ident}"), *stack)
+                self._counts[key] = self._counts.get(key, 0) + 1
+                self._events.append(
+                    {"ts": now, "thread": key[0],
+                     "leaf": stack[-1] if stack else ""})
+            self.samples += 1
+
+    # --------------------------------------------------------------- exports
+    def collapsed(self) -> str:
+        with self._lock:
+            items = sorted(self._counts.items(),
+                           key=lambda kv: (-kv[1], kv[0]))
+        return "\n".join(f"{';'.join(key)} {n}" for key, n in items)
+
+    def sample_events(self) -> list[dict]:
+        with self._lock:
+            return list(self._events)

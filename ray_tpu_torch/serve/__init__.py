@@ -8,7 +8,9 @@ control, retries, hedging, circuit breakers and prefix-aware placement;
 replicas batch (``@serve.batch``), multiplex models and stream generator
 results; the HTTP proxy serves JSON and SSE. Out: the gRPC proxy (the
 machine with the card has no ``grpcio``), gang placement groups, and the
-metrics, tracing and chaos hooks. Importing it starts no thread.
+metrics and chaos hooks. Requests are traced (``util/tracing.py``) once
+``enable_tracing()`` is on, at the deployment's ``trace_sample_rate``.
+Importing it starts no thread.
 """
 
 from ray_tpu_torch.serve.api import (

@@ -5,14 +5,16 @@ are queued and executed as one underlying call on a list, results fanned
 back out. Thread-based: replicas run requests on a thread pool
 (max_concurrency), so concurrent callers park on futures while one batcher
 thread drains the queue; items whose deadline passed while queued are
-dropped before the batch runs. Out: the per-item batch spans (tracing is
-not ported).
+dropped before the batch runs, and each traced item gets its own
+``serve.batch_item`` span under its own request's trace. Out: the
+batcher's expiry counter (the serve metrics, ROADMAP Queue A item (iv)).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import Future
 from functools import wraps
 from typing import Any, Callable
@@ -22,6 +24,7 @@ from ray_tpu_torch.serve.resilience import (
     current_deadline,
     expired,
 )
+from ray_tpu_torch.util import tracing
 
 
 class _BatchQueue:
@@ -38,9 +41,15 @@ class _BatchQueue:
         # The request's deadline rides along (thread-local, stamped by the
         # replica before the user method ran): the batch loop sheds items
         # that expire while queued instead of spending a batch slot on
-        # them.
+        # them. The trace context is captured HERE too — batching fans
+        # many requests into ONE execution, so each item's batch span must
+        # parent to its own request's trace, not to whichever request
+        # happened to trigger the batch (captured per-item while the
+        # caller's thread-local context is still live).
         fut: Future = Future()
-        self.q.put((instance, item, fut, current_deadline()))
+        ctx = tracing.inject() if tracing.current_context() else None
+        self.q.put((instance, item, fut, current_deadline(), ctx,
+                    time.time()))
         with self._lock:
             if self._thread is None or not self._thread.is_alive():
                 self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -80,6 +89,7 @@ class _BatchQueue:
             instance = batch[0][0]
             items = [b[1] for b in batch]
             futs = [b[2] for b in batch]
+            status = "OK"
             try:
                 results = (self.fn(instance, items) if instance is not None
                            else self.fn(items))
@@ -90,9 +100,22 @@ class _BatchQueue:
                 for f, r in zip(futs, results):
                     f.set_result(r)
             except BaseException as e:  # noqa: BLE001
+                status = f"ERROR: {type(e).__name__}"
                 for f in futs:
                     if not f.done():
                         f.set_exception(e)
+            # One batch execution, many requests: each item with a
+            # propagated context gets its own span (queue wait + execute)
+            # parented under ITS request's trace — the batch loop thread
+            # never entered any of them, so the context rides explicitly.
+            end = time.time()
+            for entry in batch:
+                if entry[4] is not None:
+                    tracing.record_span(
+                        "serve.batch_item", entry[5], end,
+                        attributes={"batch_size": len(items),
+                                    "status": status},
+                        ctx=entry[4])
 
 
 def batch(_fn: Callable | None = None, *, max_batch_size: int = 8,

@@ -1,9 +1,8 @@
 """Serve configuration types.
 
-Port of ray_tpu/serve/config.py. Out: the per-deployment request-tracing
-sample rate (tracing is not ported) and the gang placement-group fields
-(ROADMAP Queue A item 7(b); serve/deployment.py refuses them where a
-deployment is declared).
+Port of ray_tpu/serve/config.py, with the per-deployment request-tracing
+sample rate. Out: the gang placement-group fields (ROADMAP Queue A item
+7(b); serve/deployment.py refuses them where a deployment is declared).
 """
 
 from __future__ import annotations
@@ -65,6 +64,11 @@ class DeploymentConfig:
     # → blacklist with half-open recovery probes).
     circuit_breaker: CircuitBreakerConfig = field(
         default_factory=CircuitBreakerConfig)
+    # Head-sampling rate for request tracing, per deployment: fraction of
+    # requests whose trace is recorded up front (the rest ride the tail
+    # ring, promotable retroactively). None inherits the process default
+    # (Config.trace_sample_rate).
+    trace_sample_rate: float | None = None
 
     def resilience_settings(self) -> ResilienceSettings:
         """The router-facing view of these knobs (published with every
@@ -73,7 +77,8 @@ class DeploymentConfig:
             request_timeout_s=self.request_timeout_s,
             max_queued_requests=self.max_queued_requests,
             retry=self.retry_policy,
-            breaker=self.circuit_breaker)
+            breaker=self.circuit_breaker,
+            trace_sample_rate=self.trace_sample_rate)
 
     # resources per replica: num_cpus, num_gpus (the "GPU" resource, the
     # counterpart of the JAX package's num_tpus) and custom resources

@@ -6,8 +6,8 @@ deploy time (model composition); ``.options(...)`` overrides the config.
 
 Refused where the deployment is declared, so the error does not surface
 later as a serve.run timeout: ``placement_group_bundles`` (gang placement
-groups, ROADMAP Queue A item 7(b)) and ``trace_sample_rate`` (request
-tracing is not ported).
+groups, ROADMAP Queue A item 7(b)). ``trace_sample_rate`` is the
+deployment's request-tracing head-sampling rate.
 """
 
 from __future__ import annotations
@@ -121,14 +121,12 @@ def deployment(_func_or_class: Callable | None = None, *,
     budget, ``max_queued_requests`` bounds the router queue (shed with
     Overloaded beyond it), ``replica_queue_slack`` bounds replica-side
     admission, ``retry_policy`` configures assignment retries and tail
-    hedging, ``circuit_breaker`` the per-replica blacklist.
+    hedging, ``circuit_breaker`` the per-replica blacklist,
+    ``trace_sample_rate`` the deployment's request-tracing head-sampling
+    rate (None = the process default Config.trace_sample_rate).
     ``ray_actor_options={"num_gpus": n}`` gives each replica n of the
     runtime's ``"GPU"`` resource."""
     _refuse_pg(placement_group_bundles, placement_group_strategy)
-    if trace_sample_rate is not None:
-        raise NotImplementedError(
-            "trace_sample_rate: request tracing is not ported to "
-            "ray_tpu_torch (ROADMAP Queue A item 7's seams)")
 
     def deco(func_or_class: Callable) -> Deployment:
         if isinstance(autoscaling_config, dict):
@@ -154,6 +152,7 @@ def deployment(_func_or_class: Callable | None = None, *,
             replica_queue_slack=replica_queue_slack,
             retry_policy=rp,
             circuit_breaker=cb,
+            trace_sample_rate=trace_sample_rate,
         )
         return Deployment(func_or_class,
                           name or func_or_class.__name__, cfg)

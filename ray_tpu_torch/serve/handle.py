@@ -11,8 +11,11 @@ shared router excluding replicas already tried. Requests that provably
 never reached a replica (``ActorDiedError.never_sent``) get one transparent
 re-resolve + retry even with the policy disabled.
 
-Out: request tracing (its root spans, sampling and tail-keep verdicts;
-tracing is not ported).
+With tracing on (``util.tracing.enable_tracing()``), each request gets a
+root span here: the head-sampling verdict is drawn once per request at the
+deployment's ``trace_sample_rate``, every attempt parents under the root,
+and a request that ends slow, shed, expired, errored or on a
+breaker-open replica is kept by the tail even when the draw said no.
 """
 
 from __future__ import annotations
@@ -25,11 +28,60 @@ import ray_tpu_torch
 from ray_tpu_torch.serve import resilience
 from ray_tpu_torch.serve.long_poll import LongPollClient
 from ray_tpu_torch.serve.router import Router
+from ray_tpu_torch.util import tracing
 
 CONTROLLER_NAME = "SERVE_CONTROLLER"
 SERVE_NAMESPACE = "serve"
 
 _UNSET = object()
+
+# Per-deployment rolling p99 of request latency — the "ended slow"
+# tail-keep verdict (every request observes, sampled or not, so the
+# window reflects real traffic).
+_LAT_WINDOWS: dict[str, tracing.LatencyWindow] = {}
+_LAT_LOCK = threading.Lock()
+
+
+def _latency_window(deployment: str) -> tracing.LatencyWindow:
+    w = _LAT_WINDOWS.get(deployment)
+    if w is None:
+        with _LAT_LOCK:
+            w = _LAT_WINDOWS.get(deployment)
+            if w is None:
+                try:
+                    from ray_tpu_torch.utils.config import get_config
+
+                    cfg = get_config()
+                    w = tracing.LatencyWindow(
+                        size=int(cfg.trace_slow_window),
+                        min_samples=int(cfg.trace_slow_min_samples))
+                except Exception:  # noqa: BLE001 - config unavailable
+                    w = tracing.LatencyWindow()
+                _LAT_WINDOWS[deployment] = w
+    return w
+
+
+def _sample_rate(router: Router) -> float:
+    """Per-deployment head-sampling rate: the deployment override rides
+    the resilience settings snapshot; Config.trace_sample_rate otherwise.
+    Cached against the settings object — it is replaced wholesale on a
+    config update, and this runs once per request."""
+    settings = router.settings
+    cache = getattr(router, "_trace_rate_cache", None)
+    if cache is not None and cache[0] is settings:
+        return cache[1]
+    rate = getattr(settings, "trace_sample_rate", None)
+    if rate is not None:
+        rate = float(rate)
+    else:
+        try:
+            from ray_tpu_torch.utils.config import get_config
+
+            rate = float(get_config().trace_sample_rate)
+        except Exception:  # noqa: BLE001 - config unavailable
+            rate = 0.01
+    router._trace_rate_cache = (settings, rate)
+    return rate
 
 class DeploymentResponse:
     """Future-like result of a handle call, with the retry/hedge loop.
@@ -64,6 +116,19 @@ class DeploymentResponse:
         self._born = time.time()
         self._outcome = _UNSET
         self._outcome_err: BaseException | None = None
+        # Request-root span: one trace for the whole request lifecycle —
+        # every attempt (retries, hedges) parents under it, and the replica/
+        # engine spans ride the propagated context. The head-sampling
+        # verdict is drawn HERE, once, and inherited everywhere downstream.
+        self._span = None
+        self._sampled: bool | None = None
+        self._attempt_no = 0
+        if ref is None and router is not None and tracing.tracing_enabled():
+            self._sampled = tracing.sample_request(_sample_rate(router))
+            self._span = tracing.start_span(
+                router._trace_req_name, kind="client",
+                attributes={"deployment": router._deployment,
+                            "method": method_name})
         if ref is not None:  # pre-resolved (composition/back-compat)
             self._attempts.append((ref, ""))
         else:
@@ -75,18 +140,29 @@ class DeploymentResponse:
             except BaseException as err:
                 if not self._maybe_retry(err, self._policy(),
                                          self._deadline):
+                    self._settle_trace(err)
                     raise
 
     # ------------------------------------------------------------- attempts
 
     def _submit_attempt(self):
+        self._attempt_no += 1
+        tctx = tattrs = None
+        if self._span is not None:
+            tctx = tracing.ctx_for(self._span, self._sampled)
+            tattrs = {"attempt": self._attempt_no}
         ref, rid = self._router.assign_request(
             self._method, self._args, self._kwargs,
             deadline=self._deadline, route_hint=self._hint,
             prefix_hashes=self._prefix_hashes,
-            exclude=frozenset(self._tried))
+            exclude=frozenset(self._tried),
+            trace_ctx=tctx, trace_attrs=tattrs)
         if rid:
             self._tried.add(rid)
+            if self._span is not None:
+                # Last-tried replica on the root: the elided unsampled
+                # first attempt has no attempt span to carry it.
+                self._span.attributes["replica"] = rid
         self._attempts.append((ref, rid))
         self._last_submit = time.time()  # hedge timer anchor
         return ref
@@ -115,8 +191,10 @@ class DeploymentResponse:
                              and not resilience.expired(self._deadline))
                 if not transient:
                     self._outcome, self._outcome_err = None, e
+                    self._settle_trace(e)
                 raise
             self._outcome = value
+            self._settle_trace(None)
             return value
 
     def _drive(self, timeout: float | None) -> Any:
@@ -149,8 +227,14 @@ class DeploymentResponse:
                     self._launch_hedge()
                 continue
             ref = done[0]
+            rid = next(r for f, r in self._attempts if f is ref)
             try:
-                return ray_tpu_torch.get(ref, timeout=0)
+                value = ray_tpu_torch.get(ref, timeout=0)
+                if self._span is not None and self._hedged:
+                    # Which attempt answered — losers run to completion on
+                    # their replicas and their spans stay in the trace.
+                    self._span.add_event("hedge_winner", {"replica": rid})
+                return value
             except BaseException as err:  # noqa: BLE001 - classified below
                 self._attempts = [(f, r) for f, r in self._attempts
                                   if f is not ref]
@@ -166,12 +250,22 @@ class DeploymentResponse:
         inject a guaranteed-wasted duplicate the moment the original's
         completion frees capacity."""
         self._hedged = True
+        tctx = tattrs = None
+        if self._span is not None:
+            self._attempt_no += 1
+            tctx = tracing.ctx_for(self._span, self._sampled)
+            tattrs = {"attempt": self._attempt_no, "hedge": True}
+            self._span.add_event("hedge_launched",
+                                 {"attempt": self._attempt_no})
         try:
             ref, rid = self._router.assign_request(
                 self._method, self._args, self._kwargs,
                 deadline=self._deadline, route_hint=None,
-                exclude=frozenset(self._tried), no_park=True)
+                exclude=frozenset(self._tried), no_park=True,
+                trace_ctx=tctx, trace_attrs=tattrs)
         except Exception:
+            if self._span is not None:
+                self._span.add_event("hedge_shed")
             return
         if rid:
             self._tried.add(rid)
@@ -208,11 +302,53 @@ class DeploymentResponse:
                 time.sleep(pause)
         else:
             return False
+        if self._span is not None:
+            self._span.add_event("retry", {"attempt": self._attempt_no + 1,
+                                           "kind": kind})
         try:
             self._submit_attempt()
         except Exception:
             return False  # shed/expired on resubmit: surface the original
         return True
+
+    def _settle_trace(self, err: BaseException | None) -> None:
+        """Close the request-root span once the outcome is terminal, and
+        decide the tail-sampling keep verdict: a trace that ended slow
+        (above the deployment's rolling p99), shed, expired, errored, or
+        touched a breaker-open replica is retroactively kept even when the
+        head-sampling draw said no. Idempotent; settlement may happen on
+        whichever thread drives result()."""
+        s = self._span
+        if s is None:
+            return
+        self._span = None
+        latency = time.time() - self._born
+        s.attributes["latency_s"] = round(latency, 6)
+        if self._retries_used or self._never_sent_used:
+            s.attributes["retries"] = \
+                self._retries_used + int(self._never_sent_used)
+        keep = None
+        if err is not None:
+            kind = resilience.classify(err)
+            s.status = f"ERROR: {type(resilience.unwrap(err)).__name__}"
+            keep = {"overloaded_replica": "shed",
+                    "overloaded_router": "shed",
+                    "expired": "expired"}.get(kind, "error")
+        dep = s.attributes.get("deployment", "")
+        if _latency_window(dep).observe(latency) and keep is None:
+            keep = "slow"
+        if keep is None and self._router is not None:
+            try:
+                if any(self._router.breaker.is_open(r)
+                       for r in self._tried):
+                    keep = "breaker"
+            except Exception:  # noqa: BLE001 - keep probe is best-effort
+                pass
+        if keep:
+            s.add_event("tail_keep", {"reason": keep})
+        tracing.finish_span(s, self._sampled)
+        if keep and self._sampled is False:
+            tracing.mark_keep(s.trace_id, keep)
 
     def _to_object_ref(self):
         # Composition: downstream calls consume the CURRENT attempt's ref.

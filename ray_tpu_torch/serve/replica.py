@@ -16,8 +16,12 @@ drops the callable. A replica killed without ``stop`` (``kill()``, or a
 ``stop`` that timed out) only drops its instance; the port's ``LLMServer``
 then stops its engine when it is collected.
 
-Out: the replica's metrics (TTFT/TPOT histograms, counters), the chaos
-injector, request tracing and the per-replica profiler (none is ported).
+Each request runs inside the runtime's worker span (core/events.py),
+parented under the router's attempt span, so what the callable submits
+(an engine request) joins the request's trace; ``profile(seconds)`` takes
+a capture from inside the replica. Out: the replica's metrics (TTFT/TPOT
+histograms and counters, whose exemplars would carry the request's trace
+id) and the chaos injector (ROADMAP Queue A item (iv)).
 """
 
 from __future__ import annotations
@@ -147,6 +151,20 @@ class ServeReplica:
             self._end_request()
 
     # -- control plane --
+
+    def profile(self, seconds: float = 2.0, sample_hz: float = 0.0) -> dict:
+        """Per-replica capture: sample this replica's process while it
+        serves (called through the actor handle, so it runs concurrently
+        with the data plane under max_concurrency), with the card's device
+        trace where the replica's engine has initialized CUDA."""
+        from ray_tpu_torch.profiling import capture_profile
+
+        return capture_profile(
+            seconds, sample_hz=sample_hz or None,
+            meta={"kind": "serve_replica",
+                  "deployment": self.deployment_name,
+                  "source": self.replica_id,
+                  "replica_id": self.replica_id})
 
     def get_metrics(self) -> dict:
         with self._lock:

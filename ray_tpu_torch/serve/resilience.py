@@ -448,12 +448,17 @@ class ResilienceSettings:
     max_queued_requests: int = 256
     retry: RetryPolicy = field(default_factory=RetryPolicy)
     breaker: CircuitBreakerConfig = field(default_factory=CircuitBreakerConfig)
+    # Head-sampling rate for request traces on this deployment; None
+    # falls back to Config.trace_sample_rate. Inert until the tracing
+    # master gate (tracing.enable_tracing) is on.
+    trace_sample_rate: float | None = None
 
     def to_dict(self) -> dict:
         return {"request_timeout_s": self.request_timeout_s,
                 "max_queued_requests": self.max_queued_requests,
                 "retry": self.retry.to_dict(),
-                "breaker": self.breaker.to_dict()}
+                "breaker": self.breaker.to_dict(),
+                "trace_sample_rate": self.trace_sample_rate}
 
     @classmethod
     def from_dict(cls, d: dict | None) -> "ResilienceSettings":
@@ -462,4 +467,5 @@ class ResilienceSettings:
         return cls(request_timeout_s=d.get("request_timeout_s", 30.0),
                    max_queued_requests=d.get("max_queued_requests", 256),
                    retry=RetryPolicy.from_dict(d.get("retry")),
-                   breaker=CircuitBreakerConfig.from_dict(d.get("breaker")))
+                   breaker=CircuitBreakerConfig.from_dict(d.get("breaker")),
+                   trace_sample_rate=d.get("trace_sample_rate"))

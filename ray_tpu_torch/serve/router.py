@@ -21,11 +21,16 @@ Entries age out (TTL) and dead/draining replicas are dropped from the map
 on every snapshot.
 
 Completion watching is one reaper thread over all in-flight refs of a
-router. Out: the router's metrics and request tracing (neither is ported).
+router. Each attempt is a client span under the handle's request root
+(or, unsampled, only propagates the root's context), and routing decisions
+that end an attempt (shed, expiry, a vanished replica) are stamped onto
+the request's trace; tracing off, the submit takes the null fast path.
+Out: the router's metrics (ROADMAP Queue A item (iv)).
 """
 
 from __future__ import annotations
 
+import contextlib
 import random
 import threading
 import time
@@ -36,6 +41,7 @@ import ray_tpu_torch
 from ray_tpu_torch.core.exceptions import ActorDiedError
 from ray_tpu_torch.serve.config import ReplicaInfo
 from ray_tpu_torch.serve.prefix import match_len
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.serve.resilience import (
     DEADLINE_KEY,
     CircuitBreaker,
@@ -187,6 +193,9 @@ class Router:
                  get_replicas: Callable[[], list[ReplicaInfo]],
                  report_unhealthy: Callable[[str, str], None] | None = None):
         self._deployment = deployment_name
+        # Span names interned once — these are stamped per request.
+        self._trace_req_name = f"serve.request.{deployment_name}"
+        self._trace_att_name = f"serve.attempt.{deployment_name}"
         self._get_replicas = get_replicas
         self._inflight: dict[str, int] = {}  # replica_id -> local in-flight
         self._lock = threading.Lock()
@@ -264,7 +273,9 @@ class Router:
                        deadline: float | None = None,
                        exclude: set[str] | frozenset[str] | None = None,
                        no_park: bool = False,
-                       prefix_hashes: tuple | None = None):
+                       prefix_hashes: tuple | None = None,
+                       trace_ctx: dict | None = None,
+                       trace_attrs: dict | None = None):
         """Pick a replica, submit, and return ``(result, replica_id)``
         where result is the ObjectRef (or ``(gen, on_done)`` when
         streaming). One attempt — retry/hedge loops live in the handle,
@@ -286,7 +297,13 @@ class Router:
         is notified on request completion and on replica-set changes — no
         sleep-poll — but only ``settings.max_queued_requests`` callers may
         park: beyond that, :class:`Overloaded` sheds the request
-        immediately (admission control)."""
+        immediately (admission control).
+
+        ``trace_ctx`` (a tracing propagation dict) parents this attempt
+        under the handle's request-root span; routing decisions that end
+        the attempt (shed, expiry, replica vanished) are stamped onto the
+        trace as zero-duration point spans, and ``trace_attrs`` (attempt
+        number, hedge flag) land on the attempt span."""
         t_enter = time.time()
         if deadline is None:
             budget = timeout if timeout is not None \
@@ -309,6 +326,8 @@ class Router:
                         # instead of a full-budget park that also occupies
                         # an admission slot (a 0.5s retry-after shed must
                         # not become a 30s stall on a 1-replica app).
+                        self._trace_point(trace_ctx, "router.shed",
+                                          reason="exhausted")
                         raise Overloaded(
                             f"{self._deployment!r}: every replica already "
                             f"tried by this request", retry_after_s=0.5,
@@ -323,6 +342,9 @@ class Router:
                         break
                     remaining = deadline - time.time()
                     if remaining <= 0:
+                        self._trace_point(trace_ctx, "router.expired",
+                                          waited_s=round(
+                                              time.time() - t_enter, 6))
                         raise DeadlineExceeded(
                             f"no available replica for {self._deployment!r} "
                             f"within the request budget "
@@ -343,6 +365,8 @@ class Router:
                         if cap >= 0 and self._waiting >= cap:
                             # Bounded router queue: shed instead of joining
                             # an unbounded wait (the client owns backoff).
+                            self._trace_point(trace_ctx, "router.shed",
+                                              reason="queue_full")
                             raise Overloaded(
                                 f"{self._deployment!r} router queue full "
                                 f"({cap} waiting)",
@@ -356,6 +380,7 @@ class Router:
             finally:
                 if parked:
                     self._waiting -= 1
+        wait_s = time.time() - t_enter
 
         # Propagate the budget: the replica drops the request if it expires
         # before execution starts (and exposes it to user code / batcher).
@@ -384,13 +409,52 @@ class Router:
             if is_probe:
                 self.breaker.cancel_probe(rid)
             self.breaker.record_failure(rid)
+            self._trace_point(trace_ctx, "router.never_sent", replica=rid)
             raise ActorDiedError(
                 rid, f"replica {rid} vanished before submit: {e!r}",
                 never_sent=True) from e
+        # Client span around submission: inject() rides the TaskSpec, so
+        # the replica's execution shows up as a child of this span — one
+        # trace. When the handle propagated a request-root context
+        # (trace_ctx), this becomes the per-ATTEMPT span (retries and
+        # hedges each get their own, numbered via trace_attrs) nested
+        # under serve.request.<dep>; standalone callers keep the
+        # request-named root. Skipped entirely (nullcontext) when tracing
+        # is off.
+        traced = tracing.tracing_enabled() or trace_ctx is not None
+        # Unsampled FIRST attempts propagate the context without
+        # materializing the attempt span: it would cover only the submit
+        # call and duplicate the root's attributes. Retries, hedges,
+        # breaker probes, and head-sampled traces keep their numbered
+        # attempt spans; the handle stamps the chosen replica onto the
+        # root.
+        if (trace_ctx is not None and not is_probe
+                and (not trace_attrs or trace_attrs.get("attempt", 1) == 1)
+                and "sampled" in trace_ctx
+                and tracing._coerce_sampled(trace_ctx["sampled"]) is False):
+            span = tracing.propagate_only(trace_ctx)
+        elif traced:
+            name = (self._trace_att_name if trace_ctx is not None
+                    else self._trace_req_name)
+            attrs = {"method": method_name, "replica": rid}
+            if trace_attrs:
+                attrs.update(trace_attrs)
+            if is_probe:
+                attrs["breaker_probe"] = True
+            if wait_s > 0.001:
+                attrs["queue_wait_s"] = round(wait_s, 6)
+            if stream:
+                attrs["stream"] = "true"
+            span = tracing.span(name, kind="client", attributes=attrs,
+                                ctx=trace_ctx)
+        else:
+            span = contextlib.nullcontext()
         if stream:
             try:
-                gen = handle.handle_request_streaming.options(
-                    num_returns="streaming").remote(method_name, args, kwargs)
+                with span:
+                    gen = handle.handle_request_streaming.options(
+                        num_returns="streaming").remote(
+                            method_name, args, kwargs)
             except Exception:
                 self._submit_failed(rid, is_probe)
                 raise
@@ -412,13 +476,25 @@ class Router:
 
             return (gen, on_stream_done), rid
         try:
-            ref = handle.handle_request.remote(method_name, args, kwargs)
+            with span:
+                ref = handle.handle_request.remote(method_name, args, kwargs)
         except Exception:
             self._submit_failed(rid, is_probe)
             raise
 
         self._get_reaper().add(ref, rid, time.perf_counter(), is_probe)
         return ref, rid
+
+    def _trace_point(self, trace_ctx: dict | None, name: str,
+                     **attrs) -> None:
+        """Zero-duration span stamping a routing decision (shed, expiry,
+        vanished replica) onto the request's trace. No-op without a
+        propagated context — untraced hot-path requests pay nothing."""
+        if trace_ctx is None:
+            return
+        now = time.time()
+        tracing.record_span(name, now, now, attributes=attrs,
+                            ctx=trace_ctx)
 
     def _submit_failed(self, rid: str, is_probe: bool) -> None:
         self._actors.pop(rid, None)  # handle may be bound to a corpse

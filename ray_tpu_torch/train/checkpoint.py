@@ -374,8 +374,19 @@ class AsyncCheckpointWriter:
                     f"save_pytree on every rank")
             if dist.get_rank() != 0:
                 return directory  # rank 0 writes the replicated state
+        t0 = time.perf_counter()
         self.wait()  # barrier on (and surface errors from) the last write
         host_tree = _host_snapshot(tree)
+        # Goodput: the barrier + host snapshot above is the SYNC portion
+        # the train step pays for checkpointing (the write runs behind);
+        # stamp it on the calling thread's ledger, if any.
+        try:
+            from ray_tpu_torch.observability import goodput as _goodput
+
+            _goodput.add_active_pending(
+                "checkpoint", time.perf_counter() - t0)
+        except Exception:
+            pass
 
         def work():
             try:

@@ -14,8 +14,10 @@ The restore tier is ``checkpoint``, or ``elastic_shrink`` when lost
 capacity forced a smaller world: there are no in-cluster replicas here
 (ROADMAP Queue A item 7). With no cluster, a failure's trigger is
 ``worker_error`` (a train function raised), ``worker_dead`` (its actor is
-gone) or ``controller_error`` (setup failed). Out: the flight recorder,
-the goodput downtime window and the restart/failure/world-size metrics.
+gone) or ``controller_error`` (setup failed). A restart's downtime (failure
+detected → the restarted group's first report) is a ``restart_downtime``
+goodput event (observability/goodput.py). Out: the flight recorder and the
+restart/failure/world-size metrics.
 ``datasets=`` are split over the group (``streaming_split(world,
 equal=True)``) at every (re)start; the splits' producers are closed when
 that group ends.
@@ -106,6 +108,9 @@ class TrainController:
         self._callbacks = list(run_config.callbacks)
         self._run_name = name
         self._rank0_reports = 0  # callback iteration counter (rank-0 only)
+        # An open restart-downtime window, closed by the restarted group's
+        # first report (goodput's restart_downtime event).
+        self._goodput_pending: dict | None = None
 
     def _cb(self, hook: str, *args) -> None:
         for cb in self._callbacks:
@@ -139,6 +144,18 @@ class TrainController:
             "checkpoint": latest.path if latest else None,
             "spares_promoted": spares_taken,
         })
+        decision = self.restart_log[-1]
+        if tier != "abort":
+            # Chips proxy: one chip per rank of the NEW world (each of
+            # the port's ranks drives one card).
+            self._goodput_pending = {
+                "start_ts": decision["detected_ts"],
+                "tier": tier,
+                "restart_index": restart_index,
+                "chips": float(world_after or 0),
+                "trigger": decision["trigger"],
+                "detection_latency_s": decision["detection_latency_s"],
+            }
 
     # --------------------------------------------------------------- run
     def run(self) -> Result:
@@ -238,6 +255,25 @@ class TrainController:
         last_ok = time.monotonic()
         while True:
             status = group.poll_status(timeout=60)
+            if status.reports and self._goodput_pending is not None:
+                # First post-restart report: the run is stepping again —
+                # close the downtime window [failure detected → the
+                # earliest worker-stamped report instant].
+                pg, self._goodput_pending = self._goodput_pending, None
+                try:
+                    from ray_tpu_torch.observability import goodput as _goodput
+
+                    end_ts = min((r.get("ts") for r in status.reports
+                                  if r.get("ts")), default=None) or time.time()
+                    _goodput.record_event(
+                        "restart_downtime", run=self._run_name,
+                        seconds=max(0.0, end_ts - pg["start_ts"]),
+                        chips=pg["chips"], start_ts=pg["start_ts"],
+                        detail={k: pg[k] for k in
+                                ("tier", "restart_index", "trigger",
+                                 "detection_latency_s")})
+                except Exception:  # noqa: BLE001 - never break the poll
+                    pass
             for rep in status.reports:
                 self.metrics_history.append(rep["metrics"])
                 if rep.get("rank", 0) == 0:

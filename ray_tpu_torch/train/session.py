@@ -7,10 +7,16 @@ controller, which drains it on its next poll. Added: the worker's
 ``device`` (``get_device()``), the card its train function runs on, set by
 the backend (``TorchBackendConfig``).
 
-Out: the goodput ledger, the chaos probe, the throughput gauges and the
-straggler step window (no metrics registry in the port), ``replicate`` and
-``get_replica_state`` (the replica tier, ROADMAP Queue A item 7).
-``get_dataset_shard(name)`` is this worker's streaming split of the
+Every report also feeds the train gauges (``train_step_time_s``,
+``train_tokens_per_s``, ``train_mfu``, ``train_reports_total``), the
+rank's step-time window that ``collect_train_stats`` summarizes for
+straggler attribution (``util.state.stragglers``), and the rank's goodput
+ledger (observability/goodput.py), attached and detached by
+``set_context``. Input stalls reach the ledger through
+``report(..., input_wait_s=...)``, as in ray_tpu. Out: the chaos probe
+(``chaos/injector.py``), ``replicate`` and ``get_replica_state`` (the
+replica tier), all waiting for the process workers (ROADMAP Queue A item
+(iv)). ``get_dataset_shard(name)`` is this worker's streaming split of the
 Trainer's ``datasets=`` (a ``ray_tpu_torch.data.DataIterator``).
 """
 
@@ -18,9 +24,12 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any
 
+# Per-worker step-time window feeding straggler attribution.
+_STEP_WINDOW = 256
 
 @dataclass
 class TrainContext:
@@ -40,8 +49,18 @@ class TrainContext:
     device: Any = None
     dataset_shards: dict = field(default_factory=dict)  # name -> DataIterator
 
+    # Goodput RankLedger (observability/goodput.py), attached by
+    # set_context when the ledger gate is on; its snapshot rides this
+    # rank's train-stats row.
+    _goodput: Any = None
     _reports: list[dict] = field(default_factory=list)
     _report_lock: threading.Lock = field(default_factory=threading.Lock)
+    _last_report_ts: float = 0.0  # monotonic ts of the previous report()
+    # Rolling per-step timing window: (step_time, sync_s, compute_s) per
+    # report(); summarized into deciles for straggler attribution.
+    _step_window: deque = field(
+        default_factory=lambda: deque(maxlen=_STEP_WINDOW))
+    _steps_total: int = 0
 
     def get_world_rank(self) -> int:
         return self.world_rank
@@ -71,9 +90,56 @@ class TrainContext:
 
 _local = threading.local()
 
+# rank -> its LIVE TrainContext (last-write-wins across restarts):
+# collect_train_stats reads step-stat summaries from here without holding
+# a reference into any particular worker thread. Only live contexts are held
+# strongly — a finished run is summarized into a plain row at
+# set_context(None) time (below), never pinned (a TrainContext holds the
+# run's dataset shards).
+_stats_registry: dict[int, TrainContext] = {}
+# rank -> (monotonic finish time, final summary row). The final window
+# stays readable for a bounded grace (a short run can end before anyone
+# reads it), then the rank is evicted so it ages out of the straggler
+# report instead of being re-stamped forever.
+_stats_final: dict[int, tuple[float, dict]] = {}
+_FINISHED_GRACE_S = 60.0
+_stats_lock = threading.Lock()
+
+
+def _prune_final_locked(now_m: float) -> None:
+    for rank, (t0, _row) in list(_stats_final.items()):
+        if now_m - t0 > _FINISHED_GRACE_S:
+            _stats_final.pop(rank)
+
 
 def set_context(ctx: TrainContext | None) -> None:
+    prev = getattr(_local, "ctx", None)
     _local.ctx = ctx
+    # Goodput ledger lifecycle, BEFORE the final-row summarize below so a
+    # finishing run's row carries its closed (tail → idle) ledger.
+    try:
+        from ray_tpu_torch.observability import goodput as _goodput
+
+        if prev is not None and prev is not ctx:
+            _goodput.detach(prev)
+        if ctx is not None and ctx is not prev and ctx._goodput is None:
+            _goodput.attach(ctx)
+    except Exception:
+        pass  # the ledger must never break context setup
+    now_m = time.monotonic()
+    with _stats_lock:
+        _prune_final_locked(now_m)
+        if ctx is not None:
+            _stats_registry[ctx.world_rank] = ctx
+            _stats_final.pop(ctx.world_rank, None)
+        elif prev is not None and \
+                _stats_registry.get(prev.world_rank) is prev:
+            # Guarded so a restart that already took the rank
+            # (last-write-wins) isn't evicted by the old run's cleanup.
+            _stats_registry.pop(prev.world_rank)
+            row = _summarize_steps(prev)
+            if row is not None:
+                _stats_final[prev.world_rank] = (now_m, row)
 
 
 def get_context() -> TrainContext:
@@ -83,14 +149,120 @@ def get_context() -> TrainContext:
     return ctx
 
 
+_train_metrics = None
+_train_metrics_lock = threading.Lock()
+
+
+def _get_train_metrics():
+    """Lazy singletons: the gauges every report() updates. Created on the
+    worker that actually trains, so the federated /metrics shows them under
+    that worker's node_id (reference capability: the per-chip tokens/sec and
+    MFU numbers papers headline — PAPERS.md Gemma-on-TPU — readable off one
+    endpoint instead of living in code comments)."""
+    global _train_metrics
+    with _train_metrics_lock:
+        if _train_metrics is None:
+            from ray_tpu_torch.util.metrics import Counter, Gauge
+
+            _train_metrics = {
+                "step_time": Gauge(
+                    "train_step_time_s",
+                    "seconds between consecutive session.report() calls "
+                    "(the per-step wall time when reporting per step)",
+                    tag_keys=("rank",)),
+                "tokens_per_s": Gauge(
+                    "train_tokens_per_s",
+                    "training throughput: reported tokens / step time",
+                    tag_keys=("rank",)),
+                "mfu": Gauge(
+                    "train_mfu",
+                    "achieved model FLOPs utilization (0..1): reported "
+                    "flops / step time / peak_flops",
+                    tag_keys=("rank",)),
+                "reports": Counter(
+                    "train_reports_total", "session.report() calls",
+                    tag_keys=("rank",)),
+            }
+        return _train_metrics
+
+
+def _instrument_report(ctx: TrainContext, metrics: dict[str, Any]) -> None:
+    """Derive step-time / tokens-per-sec / MFU gauges from a report.
+    Recognized keys: ``tokens`` (or ``tokens_per_step``) per step, ``flops``
+    (or ``flops_per_step``) per step, ``peak_flops`` (else
+    accelerators/flops.py's ``resolve_peak_flops``: RTPU_PEAK_FLOPS or
+    the table's entry for this process's card), and direct
+    ``tokens_per_s`` / ``mfu`` passthroughs. Goodput keys (all optional,
+    seconds within this step): ``sync_time_s`` → collective_wait,
+    ``compute_time_s`` → step_compute (remainder → idle),
+    ``input_wait_s``, ``compile_time_s``, ``checkpoint_time_s``."""
+    import time
+
+    m = _get_train_metrics()
+    rank = {"rank": str(ctx.world_rank)}
+    m["reports"].inc(tags=rank)
+    now = time.monotonic()
+    last, ctx._last_report_ts = ctx._last_report_ts, now
+    step_time = (now - last) if last else 0.0
+    sync = metrics.get("sync_time_s")
+    compute = metrics.get("compute_time_s")
+    if step_time > 0:
+        m["step_time"].set(step_time, tags=rank)
+        # _report_lock: collect_train_stats snapshots this window from
+        # another thread, and list(deque) raises if an append lands
+        # mid-iteration once the window is full.
+        with ctx._report_lock:
+            ctx._step_window.append((
+                step_time,
+                float(sync) if sync is not None else None,
+                float(compute) if compute is not None else None,
+            ))
+            ctx._steps_total += 1
+    if ctx._goodput is not None:
+        # Close this report's ledger interval: explicit per-step keys
+        # merge with seconds the hooks (kernel builds, checkpoint writer,
+        # input_wait) stamped since the last close.
+        ctx._goodput.close_interval(parts={
+            "collective_wait": sync,
+            "step_compute": compute,
+            "input_wait": metrics.get("input_wait_s"),
+            "compile": metrics.get("compile_time_s"),
+            "checkpoint": metrics.get("checkpoint_time_s"),
+        })
+    if "tokens_per_s" in metrics:
+        m["tokens_per_s"].set(float(metrics["tokens_per_s"]), tags=rank)
+    elif step_time > 0:
+        tokens = metrics.get("tokens", metrics.get("tokens_per_step"))
+        if tokens:
+            m["tokens_per_s"].set(float(tokens) / step_time, tags=rank)
+    if "mfu" in metrics:
+        m["mfu"].set(float(metrics["mfu"]), tags=rank)
+    elif step_time > 0:
+        flops = metrics.get("flops", metrics.get("flops_per_step"))
+        peak = metrics.get("peak_flops")
+        if flops and not peak:
+            from ray_tpu_torch.accelerators.flops import resolve_peak_flops
+
+            peak = resolve_peak_flops()
+        if flops and peak:
+            m["mfu"].set(float(flops) / step_time / float(peak), tags=rank)
+
+
 def report(metrics: dict[str, Any], checkpoint: str | None = None) -> None:
     """Report metrics (and optionally a checkpoint directory the worker has
     already written) to the controller. Non-blocking; the controller
     collects reports when it polls. The metrics travel through the object
-    store: send numbers, not device tensors (utils/serialization.py)."""
+    store: send numbers, not device tensors (utils/serialization.py). Also
+    feeds the train gauges and this rank's goodput ledger."""
     ctx = get_context()
+    try:
+        _instrument_report(ctx, metrics)
+    except Exception:
+        pass  # metrics must never fail a training step
     with ctx._report_lock:
-        # "ts" is the worker-stamped report instant.
+        # "ts" is the worker-stamped report instant: the controller closes
+        # restart-downtime windows on it instead of its own observation
+        # time, so poll delivery lag never inflates the attribution.
         ctx._reports.append({"metrics": dict(metrics), "checkpoint": checkpoint,
                              "ts": time.time()})
 
@@ -99,6 +271,71 @@ def drain_reports(ctx: TrainContext) -> list[dict]:
     with ctx._report_lock:
         out, ctx._reports = ctx._reports, []
     return out
+
+
+def collect_train_stats() -> dict:
+    """Per-rank step-time/sync-time summaries (the straggler table of
+    ``util.state.stragglers``), each with its goodput ledger snapshot. Deciles are computed over
+    the rolling window (p0..p100 inclusive, 11 values); sync/compute shares
+    come from ``sync_time_s``/``compute_time_s`` keys passed to report()
+    when the train loop measures them (None when it doesn't)."""
+    out: dict[str, dict] = {}
+    now_m = time.monotonic()
+    with _stats_lock:
+        _prune_final_locked(now_m)
+        contexts = dict(_stats_registry)
+        finals = {rank: row for rank, (_t0, row) in _stats_final.items()}
+    for rank, ctx in contexts.items():
+        row = _summarize_steps(ctx)
+        if row is not None:
+            out[str(rank)] = row
+    for rank, row in finals.items():
+        out.setdefault(str(rank), row)
+    return out
+
+
+def _summarize_steps(ctx: TrainContext) -> dict | None:
+    """One rank's summary row from its rolling step window (None when the
+    run never reported a timed step)."""
+    with ctx._report_lock:  # pairs with the append in _instrument_report
+        window = list(ctx._step_window)
+    if not window:
+        return None
+    ts = sorted(t for t, _, _ in window)
+    n = len(ts)
+    deciles = [ts[min(n - 1, round(q * (n - 1) / 10))]
+               for q in range(11)]
+    # Shares are ratios over only the steps that REPORTED the numerator
+    # — a loop that instruments sync_time_s every Nth step must not get
+    # its share diluted by the uninstrumented steps' time (which would
+    # misattribute a collective-wait victim as compute-bound).
+    syncs = [(t, s) for t, s, _ in window if s is not None]
+    computes = [(t, c) for t, _, c in window if c is not None]
+
+    def share(pairs):
+        denom = sum(t for t, _ in pairs)
+        return (sum(v for _, v in pairs) / denom) if denom else None
+
+    total = sum(ts)
+    row = {
+        "world_size": ctx.world_size,
+        "steps": ctx._steps_total,
+        "mean_step_s": total / n,
+        "median_step_s": deciles[5],
+        "deciles": deciles,
+        "sync_share": share(syncs),
+        "compute_share": share(computes),
+        "run": ctx.experiment_name,
+        "ts": time.time(),
+    }
+    # Goodput piggyback: the rank's cumulative ledger snapshot rides the
+    # same row (GoodputStore.rollup reads it from there).
+    if ctx._goodput is not None:
+        try:
+            row["goodput"] = ctx._goodput.snapshot()
+        except Exception:  # noqa: BLE001 - accounting never breaks stats
+            pass
+    return row
 
 
 def get_dataset_shard(name: str = "train"):

@@ -1,0 +1,716 @@
+"""Distributed tracing: spans around every task/actor call, with context
+propagated through task metadata.
+
+Port of ray_tpu/util/tracing.py, unchanged in behaviour: the same spans,
+``inject``/``adopt`` propagation, head sampling (``sample_request``), the
+tail ring with ``mark_keep``/``apply_keeps``/``drain_keeps``,
+``LatencyWindow``, ``record_span``, ``task_span``, ``propagate_only``, the
+flush cursor and the OTLP export. ``profile(logdir)`` wraps a
+``torch.profiler`` session (CPU and, where a card is present, CUDA
+activity) in place of ``jax.profiler``.
+
+Submission creates a client span whose context rides in
+``TaskSpec.trace_ctx``; the executing worker opens a child span around the
+user function (core/events.py). No OpenTelemetry dependency: spans land in
+an in-process buffer exportable as dicts (the span fields an OTLP exporter
+would see) and into the chrome timeline.
+
+Request tracing adds two sampling layers:
+
+* **head sampling**: the serve ingress draws a per-request verdict
+  (``sample_request(rate)``); the verdict rides the context dict as
+  ``sampled`` and every downstream span inherits it, so one decision at
+  the handle covers the router, replica, batcher and engine hops.
+* **tail sampling**: spans of unsampled traces are not discarded: they
+  land in a bounded per-trace tail ring and die quietly with it, unless
+  the trace is retroactively *kept* (``mark_keep``) because it ended
+  slow, shed, expired, errored or breaker-implicated. A keep promotes the
+  ring's spans into the main buffer and queues the trace id for
+  ``drain_keeps``.
+
+The master gate stays ``enable_tracing()``: with it off every helper is a
+no-op and the hot paths keep their null-context fast path.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import time
+from collections import OrderedDict, deque
+from dataclasses import asdict, dataclass, field
+from random import random as _rand  # per-request sampling draw
+
+
+@dataclass(slots=True)
+class Span:
+    trace_id: str
+    span_id: str
+    parent_id: str | None
+    name: str
+    kind: str  # "client" | "worker" | "internal"
+    start_ts: float
+    end_ts: float = 0.0
+    status: str = "OK"
+    attributes: dict = field(default_factory=dict)
+    events: list = field(default_factory=list)
+
+    def add_event(self, name: str, attributes: dict | None = None) -> None:
+        """Timestamped point event on this span (routing decisions —
+        shed, breaker skip, hedge fired — that have no duration)."""
+        ev = {"name": name, "ts": time.time()}
+        if attributes:
+            ev.update(attributes)
+        self.events.append(ev)
+
+
+_enabled = False
+_ctx = threading.local()  # .trace_id, .span_id, .sampled
+_spans: deque[Span] = deque(maxlen=100_000)
+_spans_total = 0  # monotone append count (flush cursor base)
+_dropped_metered = 0  # drops already exported to the registry counter
+_lock = threading.Lock()
+
+# Tail-sampling state, all guarded by _lock. The ring maps
+# trace_id -> (created_monotonic, [spans]) in insertion order so TTL and
+# max-traces eviction both pop from the front.
+_tail: OrderedDict[str, tuple[float, list[Span]]] = OrderedDict()
+_tail_dropped = 0  # tail spans evicted unkept (visibility, not an error)
+_kept_ids: set[str] = set()  # traces promoted (late spans go straight in)
+_kept_order: deque[str] = deque()  # bounds _kept_ids FIFO
+_KEPT_MAX = 4096
+_keep_queue: deque = deque(maxlen=1024)  # {"trace_id","reason"} to flush
+_tail_cfg: tuple[int, int, float] | None = None
+_tail_scan_ts = 0.0  # last amortized TTL sweep (monotonic)
+
+_drop_metrics = None
+_drop_metrics_lock = threading.Lock()
+
+
+def _get_drop_metrics():
+    """Lazy: the module must stay importable without the registry."""
+    global _drop_metrics
+    with _drop_metrics_lock:
+        if _drop_metrics is None:
+            from ray_tpu_torch.util.metrics import Counter
+
+            _drop_metrics = {
+                "dropped": Counter(
+                    "tracing_spans_dropped",
+                    "finished spans silently discarded by this process's "
+                    "bounded span buffer (deque wraparound / clear) — "
+                    "nonzero means the timeline has holes"),
+            }
+        return _drop_metrics
+
+
+def dropped_spans() -> int:
+    """Spans this process has discarded (wraparound + clear), cumulative."""
+    with _lock:
+        return _spans_total - len(_spans)
+
+
+def enable_tracing() -> None:
+    """Turn span recording on for this process (reference: _enable_tracing)."""
+    global _enabled
+    _enabled = True
+
+
+def disable_tracing() -> None:
+    global _enabled
+    _enabled = False
+
+
+def tracing_enabled() -> bool:
+    return _enabled
+
+
+_idbuf = threading.local()
+
+
+def _new_id(nbytes: int = 8) -> str:
+    # One urandom syscall per ~KB of ids, not per id: ids stay
+    # crypto-random (fork-safe unique across worker processes — a seeded
+    # PRNG would collide after fork) at a fraction of the hot-path cost.
+    buf = getattr(_idbuf, "buf", b"")
+    if len(buf) < nbytes:
+        buf = os.urandom(1024)
+    _idbuf.buf = buf[nbytes:]
+    return buf[:nbytes].hex()
+
+
+def current_context() -> tuple[str, str] | None:
+    tid = getattr(_ctx, "trace_id", None)
+    sid = getattr(_ctx, "span_id", None)
+    return (tid, sid) if tid else None
+
+
+def current_trace_id() -> str | None:
+    """The thread's live trace id, if any — the exemplar hook: metric
+    observes attach it so histogram buckets link back to traces."""
+    return getattr(_ctx, "trace_id", None)
+
+
+def current_sampled() -> bool | None:
+    """The thread's head-sampling verdict: True (main buffer), False
+    (tail ring, promotable), None (no verdict — legacy task tracing)."""
+    return getattr(_ctx, "sampled", None)
+
+
+def inject() -> dict | None:
+    """Context dict to ship inside a TaskSpec (reference: _DictPropagator.inject)."""
+    if not _enabled:
+        return None
+    cur = current_context()
+    if cur is None:
+        # Root: submitting from untraced code still starts a trace.
+        return {"trace_id": _new_id(16), "parent_span_id": None}
+    out = {"trace_id": cur[0], "parent_span_id": cur[1]}
+    samp = getattr(_ctx, "sampled", None)
+    if samp is not None:
+        out["sampled"] = samp
+    return out
+
+
+def adopt(ctx: dict | None) -> None:
+    """Set this thread's context from a propagated dict. DAG actor loops
+    use this at each hop: the channel read adopts the frame's context so
+    the loop's downstream write (its own inject()) chains the NEXT hop
+    onto the same trace. ``adopt(None)`` clears the slots — an untraced
+    frame must not inherit the previous frame's trace."""
+    if ctx is None:
+        _ctx.trace_id = None
+        _ctx.span_id = None
+        _ctx.sampled = None
+        return
+    _ctx.trace_id = ctx.get("trace_id")
+    _ctx.span_id = ctx.get("parent_span_id")
+    _ctx.sampled = _coerce_sampled(ctx.get("sampled")) \
+        if "sampled" in ctx else None
+
+
+def _coerce_sampled(value) -> bool | None:
+    # Wire contexts may round-trip through stringified metadata.
+    if value is None:
+        return None
+    if isinstance(value, str):
+        return value not in ("False", "false", "0", "")
+    return bool(value)
+
+
+def _tail_limits() -> tuple[int, int, float]:
+    """(max traces, max spans per trace, ttl seconds) — read from Config
+    once, with import-safe fallbacks matching the Config defaults."""
+    global _tail_cfg
+    if _tail_cfg is None:
+        try:
+            from ray_tpu_torch.utils.config import get_config
+
+            cfg = get_config()
+            _tail_cfg = (int(cfg.trace_tail_traces),
+                         int(cfg.trace_tail_spans_per_trace),
+                         float(cfg.trace_tail_ttl_s))
+        except Exception:  # noqa: BLE001 - config not importable yet
+            _tail_cfg = (512, 64, 30.0)
+    return _tail_cfg
+
+
+def configure_tail(max_traces: int | None = None,
+                   max_spans_per_trace: int | None = None,
+                   ttl_s: float | None = None) -> None:
+    """Override the tail-ring bounds for this process (tests, benches)."""
+    global _tail_cfg
+    cur = _tail_limits()
+    _tail_cfg = (max_traces if max_traces is not None else cur[0],
+                 max_spans_per_trace if max_spans_per_trace is not None
+                 else cur[1],
+                 ttl_s if ttl_s is not None else cur[2])
+
+
+def _append_locked(s: Span) -> None:
+    global _spans_total
+    _spans.append(s)
+    _spans_total += 1
+
+
+def _tail_put_locked(s: Span) -> None:
+    global _tail_dropped, _tail_scan_ts
+    max_traces, max_spans, ttl_s = _tail_limits()
+    now = time.monotonic()
+    # Lazy TTL expiry from the front (insertion order == age order),
+    # amortized: at production RPS the put runs thousands of times per
+    # second and the scan only needs sub-TTL granularity.
+    if now - _tail_scan_ts >= min(0.5, ttl_s / 8.0):
+        _tail_scan_ts = now
+        while _tail:
+            tid, (created, ring) = next(iter(_tail.items()))
+            if now - created < ttl_s:
+                break
+            _tail.popitem(last=False)
+            _tail_dropped += len(ring)
+    entry = _tail.get(s.trace_id)
+    if entry is None:
+        while len(_tail) >= max(1, max_traces):
+            _, (_, ring) = _tail.popitem(last=False)
+            _tail_dropped += len(ring)
+        _tail[s.trace_id] = (now, [s])
+        return
+    ring = entry[1]
+    if len(ring) >= max_spans:
+        _tail_dropped += 1
+        return
+    ring.append(s)
+
+
+def _finish(s: Span, sampled: bool | None) -> None:
+    """Route a finished span: unsampled traces go to the tail ring unless
+    already kept; everything else lands in the main buffer."""
+    with _lock:
+        if sampled is False and s.trace_id not in _kept_ids:
+            _tail_put_locked(s)
+        else:
+            _append_locked(s)
+
+
+def sample_request(rate: float) -> bool:
+    """Head-sampling draw for one ingress request. rate >= 1 keeps all,
+    <= 0 sends everything to the tail ring (pure tail sampling)."""
+    if rate >= 1.0:
+        return True
+    if rate <= 0.0:
+        return False
+    return _rand() < rate
+
+
+def mark_keep(trace_id: str, reason: str = "") -> None:
+    """Retroactively keep a tail-sampled trace: promote its ringed spans
+    into the main buffer and enqueue the id for the telemetry flusher so
+    every other process holding fragments promotes them too."""
+    if not trace_id:
+        return
+    with _lock:
+        _keep_locked(trace_id)
+        _keep_queue.append({"trace_id": trace_id, "reason": reason})
+
+
+def apply_keeps(trace_ids) -> None:
+    """Promote head-gossiped keeps locally WITHOUT re-queueing them (the
+    head already has them; re-queueing would echo forever)."""
+    if not trace_ids:
+        return
+    with _lock:
+        for tid in trace_ids:
+            _keep_locked(tid)
+
+
+def _keep_locked(trace_id: str) -> None:
+    if trace_id in _kept_ids:
+        entry = _tail.pop(trace_id, None)
+        if entry is not None:  # late spans ringed after the first keep
+            for s in entry[1]:
+                _append_locked(s)
+        return
+    _kept_ids.add(trace_id)
+    _kept_order.append(trace_id)
+    while len(_kept_order) > _KEPT_MAX:
+        _kept_ids.discard(_kept_order.popleft())
+    entry = _tail.pop(trace_id, None)
+    if entry is not None:
+        for s in entry[1]:
+            _append_locked(s)
+
+
+def drain_keeps() -> list[dict]:
+    """Locally-decided keeps awaiting shipment (telemetry flusher)."""
+    with _lock:
+        if not _keep_queue:
+            return []
+        out = list(_keep_queue)
+        _keep_queue.clear()
+        return out
+
+
+def requeue_keeps(keeps: list[dict]) -> None:
+    """Put drained keeps back after a failed flush (head outage): the
+    trace stays promotable once the head returns — partial, not lost."""
+    with _lock:
+        for k in keeps:
+            _keep_queue.append(k)
+
+
+def tail_stats() -> dict:
+    with _lock:
+        return {"traces": len(_tail),
+                "spans": sum(len(r) for _, r in _tail.values()),
+                "dropped": _tail_dropped,
+                "kept": len(_kept_ids),
+                "keep_queue": len(_keep_queue)}
+
+
+class LatencyWindow:
+    """Rolling p99 over the last ``size`` request latencies — the "ended
+    slow" tail-keep verdict. O(1) observe; the quantile is refreshed every
+    ``refresh`` observes from a sorted copy (a 512-sample sort every 64
+    requests is noise next to one RPC)."""
+
+    def __init__(self, size: int = 512, min_samples: int = 64,
+                 quantile: float = 0.99, refresh: int = 64):
+        self._vals: deque[float] = deque(maxlen=size)
+        self._min = min_samples
+        self._q = quantile
+        self._refresh = refresh
+        self._since = 0
+        self._p: float | None = None
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> bool:
+        """Record one latency; True iff it exceeds the current p99 AND
+        the window has enough history to mean anything."""
+        with self._lock:
+            self._vals.append(value)
+            self._since += 1
+            if self._p is None or self._since >= self._refresh:
+                if len(self._vals) >= self._min:
+                    ordered = sorted(self._vals)
+                    idx = min(len(ordered) - 1,
+                              int(self._q * len(ordered)))
+                    self._p = ordered[idx]
+                self._since = 0
+            return self._p is not None and value > self._p
+
+    def p99(self) -> float | None:
+        with self._lock:
+            return self._p
+
+
+def start_span(name: str, kind: str = "internal",
+               attributes: dict | None = None,
+               ctx: dict | None = None,
+               sampled: bool | None = None) -> Span:
+    """Manually-managed span for lifecycles that cross threads (a serve
+    request is born on the caller thread and settles on whichever thread
+    drives ``result()``): pair with :func:`finish_span`. Does NOT touch
+    the thread-local context — use :func:`ctx_for` to parent children."""
+    if ctx is not None:
+        trace_id = ctx.get("trace_id") or _new_id(16)
+        parent_id = ctx.get("parent_span_id")
+    else:
+        cur = current_context()
+        trace_id = cur[0] if cur else _new_id(16)
+        parent_id = cur[1] if cur else None
+    # The span takes ownership of ``attributes`` (every caller builds a
+    # fresh per-call dict) — a defensive copy here ran once per request.
+    return Span(trace_id=trace_id, span_id=_new_id(), parent_id=parent_id,
+                name=name, kind=kind, start_ts=time.time(),
+                attributes=attributes if attributes is not None else {})
+
+
+def finish_span(s: Span, sampled: bool | None = None,
+                status: str | None = None) -> None:
+    if s.end_ts == 0.0:
+        s.end_ts = time.time()
+    if status is not None:
+        s.status = status
+    _finish(s, sampled)
+
+
+def ctx_for(s: Span, sampled: bool | None = None) -> dict:
+    """Propagation context dict parenting children under ``s``."""
+    out = {"trace_id": s.trace_id, "parent_span_id": s.span_id}
+    if sampled is not None:
+        out["sampled"] = sampled
+    return out
+
+
+class _NullSpanCM:
+    """Shared no-op context manager for the tracing-off fast path."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, etype, exc, tb):
+        return False
+
+
+_NULL_SPAN = _NullSpanCM()
+
+
+class _SpanCM:
+    """Hand-rolled context manager for :func:`span` — the request hot
+    path enters/exits several of these per call, and the generator
+    machinery behind ``@contextlib.contextmanager`` is measurable there."""
+
+    __slots__ = ("_span", "_sampled", "_prev")
+
+    def __init__(self, s: Span, sampled: bool | None):
+        self._span = s
+        self._sampled = sampled
+
+    def __enter__(self) -> Span:
+        s = self._span
+        # Save the raw thread-local slots (not current_context(), which
+        # collapses partial state to None): executor pool threads are
+        # reused across unrelated work, and an inexact restore leaks this
+        # span's ids into the next task on the same thread.
+        self._prev = (getattr(_ctx, "trace_id", None),
+                      getattr(_ctx, "span_id", None),
+                      getattr(_ctx, "sampled", None))
+        _ctx.trace_id, _ctx.span_id = s.trace_id, s.span_id
+        _ctx.sampled = self._sampled
+        return s
+
+    def __exit__(self, etype, exc, tb):
+        s = self._span
+        if etype is not None:
+            s.status = f"ERROR: {etype.__name__}"
+            s.attributes["exception.type"] = etype.__name__
+            s.attributes["exception.message"] = str(exc)
+        s.end_ts = time.time()
+        _ctx.trace_id, _ctx.span_id, _ctx.sampled = self._prev
+        _finish(s, self._sampled)
+        return False
+
+
+class _CtxOnlyCM:
+    """Propagation without materialization: pushes a propagated context
+    onto the thread-local slots (so ``inject()`` inside the block chains
+    children correctly) but records NO span. The unsampled happy path
+    uses this where a span would carry no information beyond its parent —
+    the tail ring keeps one fewer span per request and the hot path skips
+    a Span + id mint + buffer insert."""
+
+    __slots__ = ("_ctxd", "_prev")
+
+    def __init__(self, ctxd: dict):
+        self._ctxd = ctxd
+
+    def __enter__(self):
+        self._prev = (getattr(_ctx, "trace_id", None),
+                      getattr(_ctx, "span_id", None),
+                      getattr(_ctx, "sampled", None))
+        c = self._ctxd
+        _ctx.trace_id = c.get("trace_id")
+        _ctx.span_id = c.get("parent_span_id")
+        _ctx.sampled = _coerce_sampled(c.get("sampled")) \
+            if "sampled" in c else None
+        return None
+
+    def __exit__(self, etype, exc, tb):
+        _ctx.trace_id, _ctx.span_id, _ctx.sampled = self._prev
+        return False
+
+
+def propagate_only(ctx: dict) -> _CtxOnlyCM:
+    """Context manager that propagates ``ctx`` without recording a span."""
+    return _CtxOnlyCM(ctx)
+
+
+def span(name: str, kind: str = "internal", attributes: dict | None = None,
+         ctx: dict | None = None):
+    """Record a span; nests under the thread's current span unless ``ctx``
+    (a propagated context) is given."""
+    if not _enabled and ctx is None:
+        return _NULL_SPAN
+    if ctx is not None:
+        trace_id = ctx.get("trace_id") or _new_id(16)
+        parent_id = ctx.get("parent_span_id")
+        sampled = _coerce_sampled(ctx.get("sampled")) \
+            if "sampled" in ctx else getattr(_ctx, "sampled", None)
+    else:
+        cur = current_context()
+        trace_id = cur[0] if cur else _new_id(16)
+        parent_id = cur[1] if cur else None
+        sampled = getattr(_ctx, "sampled", None)
+    s = Span(
+        trace_id=trace_id, span_id=_new_id(), parent_id=parent_id, name=name,
+        kind=kind, start_ts=time.time(),
+        attributes=attributes if attributes is not None else {},
+    )
+    return _SpanCM(s, sampled)
+
+
+def record_span(name: str, start_ts: float, end_ts: float,
+                kind: str = "internal",
+                attributes: dict | None = None,
+                ctx: dict | None = None) -> Span | None:
+    """Append an already-finished span (the goodput ledger lane: phase
+    intervals are classified after the fact, so there is no ``with``
+    block to wrap). ``ctx`` parents it under a propagated context — the
+    engine's scheduler thread and the batcher's loop use this to stamp
+    per-request phases onto the request's own trace from a thread that
+    never entered it. No-op when tracing is off and no context rode in.
+    Returns the recorded span (callers that chain — the DAG hop read —
+    parent follow-up work under it)."""
+    if not _enabled and ctx is None:
+        return None
+    if ctx is not None:
+        trace_id = ctx.get("trace_id") or _new_id(16)
+        parent_id = ctx.get("parent_span_id")
+        sampled = _coerce_sampled(ctx.get("sampled")) \
+            if "sampled" in ctx else None
+    else:
+        trace_id, parent_id, sampled = _new_id(16), None, None
+    s = Span(
+        trace_id=trace_id, span_id=_new_id(), parent_id=parent_id, name=name,
+        kind=kind, start_ts=float(start_ts), end_ts=float(end_ts),
+        attributes=attributes if attributes is not None else {},
+    )
+    _finish(s, sampled)
+    return s
+
+
+def task_span(name: str, trace_ctx: dict | None, kind: str = "worker",
+              attributes: dict | None = None):
+    """Worker-side span around task execution; no-op unless the submitter
+    propagated a context or this process has tracing on."""
+    if trace_ctx is None and not _enabled:
+        return _NULL_SPAN
+    return span(name, kind=kind, attributes=attributes, ctx=trace_ctx)
+
+
+def spans() -> list[Span]:
+    with _lock:
+        return list(_spans)
+
+
+def export() -> list[dict]:
+    return [asdict(s) for s in spans()]
+
+
+def _wire_events(events: list) -> list[dict]:
+    return [{k: (v if isinstance(v, (int, float)) else str(v))
+             for k, v in ev.items()} for ev in events]
+
+
+def flush_new(cursor: int, limit: int = 2000) -> tuple[list[dict], int]:
+    """Finished spans recorded since ``cursor`` as wire dicts, plus the new
+    cursor. The telemetry flusher ships these to the head WITHOUT removing
+    them locally (the in-process buffer stays useful for the flight recorder
+    and local /api/traces); attribute values are stringified so the batch
+    always survives msgpack. Bounded per call like the event flush
+    (reference: task_event_buffer.h kMaxNumTaskEventsToFlush)."""
+    import itertools
+
+    global _dropped_metered
+    with _lock:
+        # _spans_total is monotone across clear() (cleared spans count as
+        # dropped), so a caller's cursor can never exceed it and there is
+        # no window where post-clear spans get skipped.
+        dropped = _spans_total - len(_spans)
+        start = max(0, min(cursor, _spans_total) - dropped)
+        batch = list(itertools.islice(_spans, start, start + limit))
+        new_cursor = dropped + start + len(batch)
+        new_drops, _dropped_metered = \
+            dropped - _dropped_metered, max(dropped, _dropped_metered)
+    if new_drops > 0:
+        # Surfaced on the flush path (every process with a telemetry
+        # flusher calls it) so /metrics shows span loss without adding a
+        # counter inc to the hot span-record path.
+        try:
+            _get_drop_metrics()["dropped"].inc(new_drops)
+        except Exception:  # noqa: BLE001 - visibility must not break flush
+            pass
+    out = [{
+        "trace_id": s.trace_id, "span_id": s.span_id,
+        "parent_id": s.parent_id, "name": s.name, "kind": s.kind,
+        "start_ts": s.start_ts, "end_ts": s.end_ts, "status": s.status,
+        "attributes": {k: str(v) for k, v in s.attributes.items()},
+        "events": _wire_events(s.events),
+    } for s in batch]
+    return out, new_cursor
+
+
+def clear() -> None:
+    # _spans_total deliberately NOT reset: it is the monotone cursor base
+    # for flush_new(), and cleared spans simply count as dropped.
+    global _tail_dropped
+    with _lock:
+        _spans.clear()
+        _tail.clear()
+        _kept_ids.clear()
+        _kept_order.clear()
+        _keep_queue.clear()
+        _tail_dropped = 0
+
+
+# -- exporters --------------------------------------------------------------
+
+
+def export_otlp() -> dict:
+    """Spans in OTLP/JSON shape (resourceSpans → scopeSpans → spans) — the
+    wire format OTel collectors ingest (reference: tracing_helper.py exports
+    through opentelemetry SDK; here the structure is emitted directly so no
+    SDK dependency is needed)."""
+    def ns(ts: float) -> str:
+        return str(int(ts * 1e9))
+
+    otel_spans = []
+    for s in spans():
+        otel_spans.append({
+            "traceId": s.trace_id,
+            "spanId": s.span_id,
+            "parentSpanId": s.parent_id or "",
+            "name": s.name,
+            "kind": {"client": 3, "worker": 2,
+                     "internal": 1}.get(s.kind, 1),
+            "startTimeUnixNano": ns(s.start_ts),
+            "endTimeUnixNano": ns(s.end_ts),
+            "status": {"code": 1 if s.status == "OK" else 2,
+                       "message": s.status},
+            "attributes": [
+                {"key": k, "value": {"stringValue": str(v)}}
+                for k, v in s.attributes.items()
+            ],
+            "events": [
+                {"name": str(ev.get("name", "")),
+                 "timeUnixNano": ns(float(ev.get("ts", 0.0))),
+                 "attributes": [
+                     {"key": k, "value": {"stringValue": str(v)}}
+                     for k, v in ev.items() if k not in ("name", "ts")
+                 ]}
+                for ev in s.events
+            ],
+        })
+    return {
+        "resourceSpans": [{
+            "resource": {"attributes": [
+                {"key": "service.name",
+                 "value": {"stringValue": "ray_tpu_torch"}}]},
+            "scopeSpans": [{
+                "scope": {"name": "ray_tpu_torch.tracing"},
+                "spans": otel_spans,
+            }],
+        }]
+    }
+
+
+def save_otlp(path: str) -> str:
+    import json
+
+    with open(path, "w") as f:
+        json.dump(export_otlp(), f)
+    return path
+
+
+@contextlib.contextmanager
+def profile(logdir: str):
+    """torch.profiler capture around a block: writes a chrome trace
+    (``<logdir>/trace.json``, with the card's kernels where CUDA is
+    initialized in this process) beside a framework span."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with span("torch.profile", attributes={"logdir": logdir}):
+        prof = torch.profiler.profile(activities=activities)
+        prof.__enter__()
+        try:
+            yield
+        finally:
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

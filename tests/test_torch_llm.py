@@ -12,6 +12,7 @@ version; greedy token streams must be identical.
 import subprocess
 import sys
 import threading
+import time
 from dataclasses import replace
 
 import jax
@@ -331,6 +332,39 @@ def test_engine_continuous_batching_concurrent():
         assert solo.token_ids == results[3].token_ids
     finally:
         eng.shutdown()
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_shutdown_ends_the_requests_it_holds(monkeypatch, blocked):
+    """A request still decoding, and one still waiting for a slot, end
+    with an error when the engine shuts down: their waiters (a replica's
+    handler threads) wake at once instead of at their timeout. Each
+    decode burst is slowed to 20 ms so the first is still running."""
+    burst = LLMEngine._decode_burst
+
+    def slow_burst(self, *args, **kw):
+        time.sleep(0.02)
+        return burst(self, *args, **kw)
+
+    monkeypatch.setattr(LLMEngine, "_decode_burst", slow_burst)
+    kw = dict(max_num_seqs=1, max_seq_len=256, decode_burst=1)
+    if blocked:
+        kw.update(kv_block_size=16, kv_num_blocks=32)
+    eng = LLMEngine(_cfg(**kw), device="cpu")
+    long = SamplingParams(max_tokens=240, temperature=0.0)
+    running = eng.submit([1, 2, 3], long)
+    waiting = eng.submit([4, 5, 6], long)
+    deadline = time.monotonic() + 30
+    while not running.out_tokens and time.monotonic() < deadline:
+        time.sleep(0.005)
+    assert running.out_tokens and not running.done.is_set()
+    t0 = time.monotonic()
+    eng.shutdown()
+    for req in (running, waiting):
+        assert req.done.wait(5), req.request_id
+        assert req.error == "the engine was shut down"
+        assert req.finish_reason == "error"
+    assert time.monotonic() - t0 < 10
 
 
 def test_engine_streaming():

@@ -671,7 +671,8 @@ def test_route_hint_affinity(rt):
 
 
 def test_refusals_raise_at_once(rt):
-    """Each refusal raises before anything is deployed."""
+    """Each refusal raises before anything is deployed; the tracing rate,
+    once refused, is now accepted and rides the resilience settings."""
     class X:
         def __call__(self):
             return 1
@@ -681,8 +682,9 @@ def test_refusals_raise_at_once(rt):
         serve.deployment(placement_group_bundles=[{"GPU": 1}])(X)
     with pytest.raises(NotImplementedError, match="7\\(b\\)"):
         serve.deployment(X).options(placement_group_bundles=[{"CPU": 1}])
-    with pytest.raises(NotImplementedError, match="tracing"):
-        serve.deployment(trace_sample_rate=1.0)(X)
+    traced = serve.deployment(trace_sample_rate=1.0)(X)
+    assert traced.config.resilience_settings().to_dict()[
+        "trace_sample_rate"] == 1.0
     for call in (lambda: serve.start(grpc_options={"port": 0}),
                  lambda: serve.run(serve.deployment(X).bind(), grpc=True),
                  serve.grpc_port):
