@@ -415,7 +415,34 @@ failure raises and the script exits non-zero without a result line:
    gzipped chrome trace per mode under chiprun_out/p25c: per rank the
    GEMM, attention (K2/K3), elementwise and NCCL ms, the idle share and
    the top host frames;
+26. process workers (core/cluster/): (a) on init(address="local-cluster",
+   resources={"GPU": 1}) a task and an actor each in a worker process
+   (pids), worker start (lease to first result), a no-op task's round
+   trip p50 over P26_NOOP_TASKS; a num_gpus=1 task runs K1 at 8192x2048
+   bf16 in its process against the plain version there (phase 3's
+   tolerance, one launch); a 256 MiB tensor put/get through the node's
+   shared-memory arena, bit for bit (GB/s each way); a task holding
+   P26_HOLD_BYTES of the card cancelled with force=True: TaskCancelledError,
+   its process gone and the card's free memory back within P19_MEM_SLACK
+   inside P26_MEM_BACK_S; (b) phase 19 (a)'s fit under
+   TorchBackendConfig(distributed=True) over one process worker, the
+   failure at step 4 a SIGKILL of that process: restart (checkpoint,
+   worker_dead), losses bit for bit against phase 19's, K1-K3's launches
+   counted in the workers (7 steps of attn+), step ms against phase 19's,
+   the restart's seconds; (c) after shutdown() no process of the cluster
+   alive (by pid) and no worker below this process;
+26b. with four cards, phase 13b's flat mode (8 layers of Llama-3-8B,
+   b4 s2048) under TorchTrainer(distributed=True, num_workers=4,
+   use_gpu=True), one process worker a card, each rank's losses bit for
+   bit against 13b's run_ranks run; then rank P26B_KILL_RANK SIGKILLed at
+   step P26B_KILL_AT: the other ranks gone within P26B_TEARDOWN_S, the fit
+   resumed from the checkpoint of step P26B_SAVE_AFTER on four new
+   workers with the unbroken run's losses;
 12. a JSON line of the kernels, then the JSON result line.
+
+The whole one-card run is held under 1000 s by cutting depth: WAVES,
+P20_WAVES and phase 17 (a)'s timed waves (2 each, were 3) and
+P24_PROMPTS (128, was 256).
 
 Exits non-zero when no CUDA device is visible or when run outside a
 checkout. Imports nothing of JAX or of the JAX package.
@@ -710,7 +737,9 @@ def _spread(vals):
             f"[min {min(vals):.1f}, max {max(vals):.1f}]")
 
 
-WAVES = 3  # timed waves after the warm-up wave
+# Timed waves after the warm-up wave. Cut from 3 to 2 for time (the
+# whole one-card run must stay under 1000 s with phase 26 in it).
+WAVES = 2
 
 
 def phase_engine(rms_host_us: float):
@@ -5468,7 +5497,8 @@ def rest_blocked_timed(mc, params, prompts, greedy64, rng) -> dict:
             run_wave(eng, prompts, greedy64, concurrency=conc)
         rates = {k: [] for k in runs}
         p50s = {k: [] for k in runs}
-        order = ["dense", "blocked", "blocked", "dense", "dense", "blocked"]
+        # Two timed waves each (cut from three for time, as WAVES).
+        order = ["dense", "blocked", "blocked", "dense"]
         for name in order:
             eng, conc = runs[name]
             fresh = [[int(t) for t in rng.integers(0, 256, len(p))]
@@ -6358,7 +6388,9 @@ def phase_trainer() -> dict:
 
 # Phase 20: Serve on the card. Phase 7's configuration behind a serve
 # replica, driven over HTTP.
-P20_WAVES = 3  # timed HTTP waves, each in turn with a direct one
+# Timed HTTP waves, each in turn with a direct one; cut from 3 to 2 for
+# time, as WAVES.
+P20_WAVES = 2
 P20_STREAM_WAVES = 1  # more streaming waves, each in turn with a direct one
 # Greedy outputs are kept in ASCII: the seeded embedding's rows from this
 # id up are zeroed (tied head, so those logits are 0 and never the
@@ -8830,7 +8862,7 @@ def phase_tp_serving_ranks(world: int, one: dict) -> dict:
 # Phase 24: Ray Data on the port's runtime. (a) batch inference through
 # build_llm_processor at phase 7's engine, (b) TorchTrainer(datasets=) at
 # phase 8's 1.1B geometry, (c) ingest over two workers.
-P24_PROMPTS = 256
+P24_PROMPTS = 128  # cut from 256 for time, as WAVES (two blocks of 64)
 P24_PROMPT_BYTES = (128, 512)   # seeded printable ASCII, the byte tokenizer
 P24_BATCH = 64                  # ProcessorConfig(batch_size=64)
 # The pool's engine runs a block's 64 prompts in 64 slots (phase 7's
@@ -9956,6 +9988,671 @@ def phase_tracing() -> dict:
     return out
 
 
+# Phase 26: process workers. (a) Tasks and actors on
+# init(address="local-cluster", resources={"GPU": 1}): each runs in a
+# worker process; a num_gpus=1 task runs K1 at its main-path shape on the
+# card in its own process, held against the plain version there; a 256 MiB
+# tensor round-trips put/get through the node's shared-memory arena; a
+# task holding P26_HOLD_BYTES on the card is cancelled with force=True,
+# its process dies and the card's memory comes back. (b) Phase 19 (a)'s
+# fit under TorchBackendConfig(distributed=True) over one process worker,
+# the failure at step P19_FAIL_AT a SIGKILL of that process; losses bit
+# for bit against phase 19's. (c) No process of the cluster outlives
+# shutdown(). (26b, four cards) phase 13b's flat mode on four process
+# workers, one card each, against 13b's run_ranks run bit for bit; then a
+# rank SIGKILLed mid-fit, the others gone within P26B_TEARDOWN_S, the fit
+# resumed from its checkpoint on four new workers.
+P26_NOOP_TASKS = 200
+P26_ARENA_BYTES = 256 * 2 ** 20
+P26_K1_SHAPE = (8192, 2048)   # K1's training shape (the kernel table's)
+P26_K1_TOL = (8e-3, 1e-2)     # phase 3's bf16 rtol, atol
+P26_HOLD_BYTES = 8 * 2 ** 30
+P26_MEM_BACK_S = 10.0         # the card's memory must be back within this
+P26B_SAVE_AFTER = 1           # 26b's kill run: rank 0 saves after step 1
+P26B_KILL_AT = 3              # and rank P26B_KILL_RANK dies at step 3
+P26B_KILL_RANK = 1
+P26B_TEARDOWN_S = 30.0        # the other ranks gone within this
+P26B_FIT_DEADLINE_S = 900
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _p26_resumed_ok(got: list, losses: list, saved: int, failed: int,
+                    steps: int) -> bool:
+    """A fit killed at step ``failed`` of attempt 0 and resumed after the
+    checkpoint of step ``saved``: ``got`` is (attempt, step, loss) in
+    report order. Attempt 0 reported steps 0..k, k from ``saved`` to
+    ``failed`` - 1 (a SIGKILL loses the reports the controller had not
+    polled yet: they die with the process), attempt 1 steps ``saved`` + 1
+    .. ``steps`` - 1; every loss equal to ``losses`` at its step, bit for
+    bit."""
+    first = [g for g in got if g[0] == 0]
+    second = [g for g in got if g[0] == 1]
+    k = len(first) - 1
+    return (saved <= k < failed and got == first + second
+            and first == [(0, i, losses[i]) for i in range(k + 1)]
+            and second == [(1, i, losses[i])
+                           for i in range(saved + 1, steps)])
+
+
+def p26_k1(rows: int, d: int, seed: int) -> dict:
+    """A num_gpus=1 task: K1 against its plain version in this worker."""
+    import torch
+    from ray_tpu_torch.ops import norms
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3 + 0.5
+         ).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+         ).to(torch.bfloat16)
+    norms.rms_norm.launches = 0
+    y = norms.rms_norm(x, w, 1e-5)
+    ref = norms.rms_norm_reference(x, w, 1e-5)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs()
+    rtol, atol = P26_K1_TOL
+    return {"pid": os.getpid(), "launches": norms.rms_norm.launches,
+            "max_abs_err": err.max().item(),
+            "bad": int((err > atol + rtol * ref.float().abs()).sum()),
+            "card": torch.cuda.get_device_name(0),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def p26_hold(nbytes: int) -> str:
+    """A num_gpus=1 task that holds ``nbytes`` on the card until killed."""
+    import torch
+    import ray_tpu_torch
+    from ray_tpu_torch.core.worker import global_worker
+
+    x = torch.ones(nbytes, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    global_worker.runtime.kv_put("p26_hold", str(os.getpid()).encode())
+    while True:
+        time.sleep(0.05)
+        if x is None:
+            return ray_tpu_torch.__name__
+
+
+def p26_train_fn(cfg, batch: int, seq: int, storage: str):
+    """Phase 19 (a)'s train function in a process worker: the failure at
+    step P19_FAIL_AT of the first attempt is a SIGKILL of the process (its
+    pid and clock written to ``storage``/p26_kill first); every report
+    carries the step's time, the process, and its launch counts so far."""
+
+    def train_fn(config):
+        import signal
+
+        import torch
+        from ray_tpu_torch.train import (get_context, report, restore_pytree,
+                                         save_pytree)
+
+        ctx = get_context()
+        dev = ctx.get_device()
+        counters = _counters()
+        for c in counters.values():
+            c.launches = 0
+        step, init, shard = _p19_step(cfg, dev)
+        state, start, restore = init(), 0, None
+        if ctx.get_checkpoint():
+            t0 = time.time()
+            restore_pytree(ctx.get_checkpoint(), state.checkpoint_tree())
+            torch.cuda.synchronize()
+            restore = (t0, time.time())
+            start = P19_SAVE_AFTER + 1
+        for i in range(start, P19_STEPS):
+            if i == P19_FAIL_AT and ctx.restart_count == 0:
+                with open(os.path.join(storage, "p26_kill"), "w") as f:
+                    f.write(f"{os.getpid()} {time.time()}")
+                os.kill(os.getpid(), signal.SIGKILL)
+            tok, tgt = _p19_batch(i, cfg.vocab_size, batch, seq)
+            t0 = time.perf_counter()
+            state, m = step(state, shard(tok), shard(tgt))
+            loss = float(m["loss"])
+            step_s = time.perf_counter() - t0
+            ck = None
+            if i == P19_SAVE_AFTER and ctx.get_world_rank() == 0:
+                ck = save_pytree(state.checkpoint_tree(), os.path.join(
+                    ctx.storage_path, f"checkpoint_{i:08d}"), step=i)
+            report({"step": i, "loss": loss, "attempt": ctx.restart_count,
+                    "pid": os.getpid(), "step_s": step_s, "t": time.time(),
+                    "restore": restore, "device": str(dev),
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "launches": {k: c.launches for k, c in counters.items()}},
+                   checkpoint=ck)
+
+    return train_fn
+
+
+def p26_tasks(rt_mod, cluster_pids: list) -> dict:
+    """26 (a) on a connected cluster: pids, K1 in a worker, the arena, the
+    no-op round trip, force-cancel and the card's memory."""
+    import statistics
+
+    import torch
+
+    out: dict = {}
+    noop = rt_mod.remote(lambda: os.getpid())
+    t0 = time.perf_counter()
+    task_pid = rt_mod.get(noop.remote(), timeout=120)
+    out["worker_start_s"] = time.perf_counter() - t0
+    rtt = []
+    for _ in range(P26_NOOP_TASKS):
+        t0 = time.perf_counter()
+        rt_mod.get(noop.remote(), timeout=60)
+        rtt.append(time.perf_counter() - t0)
+    out["noop_p50_ms"] = 1e3 * statistics.median(rtt)
+    out["noop_p99_ms"] = 1e3 * sorted(rtt)[int(0.99 * len(rtt))]
+
+    @rt_mod.remote
+    class Pid:
+        def pid(self):
+            return os.getpid()
+
+    actor = Pid.remote()
+    t0 = time.perf_counter()
+    actor_pid = rt_mod.get(actor.pid.remote(), timeout=120)
+    out["actor_start_s"] = time.perf_counter() - t0
+    rt_mod.kill(actor)
+    me = os.getpid()
+    if task_pid == me or actor_pid == me or task_pid == actor_pid:
+        raise AssertionError(f"task pid {task_pid}, actor pid {actor_pid}, "
+                             f"driver {me}: not three processes")
+    cluster_pids += [task_pid, actor_pid]
+    print(f"task in pid {task_pid}, actor in pid {actor_pid}, driver "
+          f"{me}; worker start (lease to first result) "
+          f"{out['worker_start_s']:.3f} s, actor {out['actor_start_s']:.3f}"
+          f" s; no-op round trip p50 {out['noop_p50_ms']:.3f} ms, p99 "
+          f"{out['noop_p99_ms']:.3f} ms ({P26_NOOP_TASKS} in turn)")
+
+    k1 = rt_mod.remote(num_gpus=1)(p26_k1)
+    t0 = time.perf_counter()
+    got = rt_mod.get(k1.remote(*P26_K1_SHAPE, SEED), timeout=300)
+    out["k1_task_s"] = time.perf_counter() - t0
+    cluster_pids.append(got["pid"])
+    if got["pid"] == me or got["launches"] != 1 or got["bad"]:
+        raise AssertionError(f"K1 in a worker: {got}")
+    out["k1"] = got
+    print(f"K1 in worker pid {got['pid']} (CUDA_VISIBLE_DEVICES="
+          f"{got['visible']}, {got['card']}): {P26_K1_SHAPE[0]}x"
+          f"{P26_K1_SHAPE[1]} bf16 max abs err {got['max_abs_err']:.3e} "
+          f"against the plain version (rtol {P26_K1_TOL[0]}, atol "
+          f"{P26_K1_TOL[1]}), 1 launch; task {out['k1_task_s']:.3f} s with "
+          f"the worker's start and torch import")
+
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    big = torch.randint(0, 256, (P26_ARENA_BYTES,), dtype=torch.uint8,
+                        generator=gen)
+    st = os.statvfs("/dev/shm")
+    shm_free = st.f_bavail * st.f_frsize
+    rounds = []
+    for _ in range(2):  # the first put touches fresh arena pages
+        t0 = time.perf_counter()
+        ref = rt_mod.put(big)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = rt_mod.get(ref, timeout=120)
+        get_s = time.perf_counter() - t0
+        if not torch.equal(back, big):
+            raise AssertionError("the 256 MiB tensor came back changed")
+        rounds.append({"put_gb_s": P26_ARENA_BYTES / put_s / 1e9,
+                       "get_gb_s": P26_ARENA_BYTES / get_s / 1e9})
+        del ref, back
+        time.sleep(0.2)  # the release reaches the arena
+    out["arena"] = {"bytes": P26_ARENA_BYTES, "cold": rounds[0],
+                    "warm": rounds[1], "dev_shm_free": shm_free}
+    del big
+    print(f"arena: 256 MiB tensor, bit for bit; put "
+          f"{rounds[0]['put_gb_s']:.2f} GB/s on fresh pages, "
+          f"{rounds[1]['put_gb_s']:.2f} GB/s again; get "
+          f"{rounds[0]['get_gb_s']:.2f} and {rounds[1]['get_gb_s']:.2f} "
+          f"GB/s (/dev/shm free {shm_free / 2 ** 30:.1f} GiB)")
+
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    from ray_tpu_torch.core.worker import global_worker
+
+    runtime = global_worker.runtime
+    runtime.kv_del("p26_hold")
+    free0 = torch.cuda.mem_get_info()[0]
+    hold = rt_mod.remote(num_gpus=1)(p26_hold)
+    ref = hold.remote(P26_HOLD_BYTES)
+    deadline = time.monotonic() + 120
+    while runtime.kv_get("p26_hold") is None:
+        if time.monotonic() > deadline:
+            raise AssertionError("the holding task never signalled")
+        time.sleep(0.05)
+    hold_pid = int(runtime.kv_get("p26_hold"))
+    cluster_pids.append(hold_pid)
+    free_held = torch.cuda.mem_get_info()[0]
+    t0 = time.monotonic()
+    rt_mod.cancel(ref, force=True)
+    try:
+        rt_mod.get(ref, timeout=60)
+        raise AssertionError("the force-cancelled task returned")
+    except rt_mod.TaskCancelledError:
+        pass
+    while _pid_alive(hold_pid) and time.monotonic() - t0 < P26_MEM_BACK_S:
+        time.sleep(0.01)
+    dead_s = time.monotonic() - t0
+    while torch.cuda.mem_get_info()[0] < free0 - P19_MEM_SLACK and \
+            time.monotonic() - t0 < P26_MEM_BACK_S:
+        time.sleep(0.01)
+    back_s = time.monotonic() - t0
+    free1 = torch.cuda.mem_get_info()[0]
+    if _pid_alive(hold_pid) or free1 < free0 - P19_MEM_SLACK:
+        raise AssertionError(
+            f"force-cancel: pid {hold_pid} alive {_pid_alive(hold_pid)}, "
+            f"free {free1 / 2 ** 30:.3f} GiB against {free0 / 2 ** 30:.3f}"
+            f" before the task")
+    out["cancel"] = {"held_gib": (free0 - free_held) / 2 ** 30,
+                     "dead_s": dead_s, "memory_back_s": back_s,
+                     "free_delta_mib": (free1 - free0) / 2 ** 20}
+    print(f"cancel(force=True): the task held "
+          f"{out['cancel']['held_gib']:.3f} GiB of the card; its process "
+          f"{hold_pid} gone {dead_s:.3f} s after the cancel, the card's "
+          f"free memory back {back_s:.3f} s after it "
+          f"({out['cancel']['free_delta_mib']:+.1f} MiB against before; "
+          f"slack {P19_MEM_SLACK / 2 ** 20:.0f} MiB)")
+    return out
+
+
+def p26_trainer(rt_mod, trainer: dict, cluster_pids: list) -> dict:
+    """26 (b): phase 19 (a) over one process worker."""
+    import shutil
+    import statistics
+
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig,
+                                     TorchBackendConfig, TorchTrainer)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    storage = os.path.join(root, "ray_tpu_torch", "_native", "_build",
+                           "phase26")
+    shutil.rmtree(storage, ignore_errors=True)
+    os.makedirs(storage)
+    cfg = LlamaConfig(**BENCH_GEOMETRY, max_seq_len=2048)
+    t0 = time.perf_counter()
+    try:
+        res = _fit_in_time(TorchTrainer(
+            p26_train_fn(cfg, 4, 2048, storage),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            backend_config=TorchBackendConfig(distributed=True),
+            run_config=RunConfig(
+                name="llama-1b", storage_path=storage,
+                failure_config=FailureConfig(max_failures=1))))
+        fit_s = time.perf_counter() - t0
+        if not res.ok:
+            raise AssertionError(f"fit failed: {res.error}")
+        with open(os.path.join(storage, "p26_kill")) as f:
+            kill_pid, kill_t = f.read().split()
+        kill_pid, kill_t = int(kill_pid), float(kill_t)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    hist = res.metrics_history
+    cluster_pids += sorted({m["pid"] for m in hist})
+    restarts = [(r["tier"], r["trigger"]) for r in res.restarts]
+    if restarts != [("checkpoint", "worker_dead")]:
+        raise AssertionError(f"restarts {res.restarts}")
+    direct = trainer["restart"]["losses"]
+    got = [(m["attempt"], m["step"], m["loss"]) for m in hist]
+    if not _p26_resumed_ok(got, direct, P19_SAVE_AFTER, P19_FAIL_AT,
+                           P19_STEPS):
+        raise AssertionError(f"losses {got} != phase 19's {direct} (bit "
+                             "for bit)")
+    a0 = [m for m in hist if m["attempt"] == 0]
+    a1 = [m for m in hist if m["attempt"] == 1]
+    pids = ({m["pid"] for m in a0}, {m["pid"] for m in a1})
+    if pids[0] != {kill_pid} or kill_pid in pids[1] or \
+            _pid_alive(kill_pid) or os.getpid() in pids[0] | pids[1]:
+        raise AssertionError(f"attempt pids {pids}, killed {kill_pid} "
+                             f"(alive {_pid_alive(kill_pid)})")
+    launches = {k: a0[-1]["launches"][k] + a1[-1]["launches"][k]
+                for k in a0[-1]["launches"]}
+    steps_run = len(got)
+    want_launch = {k: v * steps_run for k, v in
+                   predicted_launches("attn+", cfg.num_layers).items()}
+    for k in ("rms_norm", "flash_fwd", "flash_bwd"):
+        if launches[k] != want_launch[k]:
+            raise AssertionError(f"{k} launched {launches[k]} times in the "
+                                 f"workers, not {want_launch[k]}")
+    step_ms = 1e3 * statistics.median([m["step_s"] for m in a0[1:]] +
+                                      [m["step_s"] for m in a1[1:]])
+    restart_s = a1[0]["t"] - kill_t
+    restore_s = a1[0]["restore"][1] - a1[0]["restore"][0]
+    out = {"losses": direct, "launches": launches, "step_ms": step_ms,
+           "step_ms_phase19": trainer["restart"]["step_ms_trainer"],
+           "step_ms_direct": trainer["restart"]["step_ms_direct"],
+           "restart_s": restart_s, "restore_s": restore_s, "fit_s": fit_s,
+           "detection_s": res.restarts[0]["detection_latency_s"],
+           "pids": [sorted(p) for p in pids], "device": a0[0]["device"],
+           "visible": a0[0]["visible"]}
+    print(f"losses bit-equal to phase 19's across a SIGKILL of pid "
+          f"{kill_pid} at step {P19_FAIL_AT} (attempt 1 in pid "
+          f"{sorted(pids[1])}); restarts {restarts}; rank on "
+          f"{out['device']} (CUDA_VISIBLE_DEVICES={out['visible']})")
+    print(f"step ms, median after each attempt's first: process worker "
+          f"{step_ms:.2f} vs phase 19's trainer "
+          f"{out['step_ms_phase19']:.2f} and direct loop "
+          f"{out['step_ms_direct']:.2f} (x{step_ms / out['step_ms_phase19']:.4f})"
+          f"; restart {restart_s:.3f} s from the SIGKILL to the first "
+          f"resumed report (detection {out['detection_s']:.3f} s after the "
+          f"last good poll, restore {restore_s:.3f} s); fit() {fit_s:.2f} s")
+    print("launches in the workers: " + ", ".join(
+        f"{k} {launches[k]}" for k in ("rms_norm", "flash_fwd", "flash_bwd"))
+          + f" (= {steps_run} steps of the attn+ policy)")
+    return out
+
+
+def phase_process_workers(trainer: dict) -> dict:
+    """Phase 26: tasks, actors, the arena and the trainer in worker
+    processes of init(address="local-cluster"), then a clean exit."""
+    import gc
+
+    import torch
+    import ray_tpu_torch
+    from ray_tpu_torch.core.worker import global_worker
+
+    _phase("process workers (26a): tasks, actors, K1 in a worker, the "
+           "arena, cancel(force=True) on init(address=\"local-cluster\", "
+           "resources={\"GPU\": 1})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ray_tpu_torch.shutdown()
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(address="local-cluster", num_cpus=8,
+                       resources={"GPU": 1})
+    init_s = time.perf_counter() - t0
+    cluster_pids: list = []
+    _, daemons = global_worker.runtime.local_cluster
+    try:
+        out = p26_tasks(ray_tpu_torch, cluster_pids)
+        out["init_s"] = init_s
+        _phase("process workers (26b): phase 19 (a)'s fit, one process "
+               "worker, distributed=True, a SIGKILL at step 4")
+        out["trainer"] = p26_trainer(ray_tpu_torch, trainer, cluster_pids)
+        cluster_pids += [p for d in daemons for p in d.all_pids()]
+    finally:
+        ray_tpu_torch.shutdown()
+    _phase("process workers (26c): no process of the cluster after "
+           "shutdown()")
+    left = [p for p in set(cluster_pids) if _pid_alive(p)]
+    workers = [(p, a) for p, a in _descendants() if "worker_main" in a]
+    if left or workers:
+        raise AssertionError(f"alive after shutdown(): {left} {workers}")
+    out["pids_checked"] = len(set(cluster_pids))
+    print(f"after shutdown(): none of the cluster's {out['pids_checked']} "
+          f"worker processes alive, no worker below this process; init "
+          f"{init_s:.3f} s")
+    return out
+
+
+def p26b_train_fn(world: int, storage: str, kill: bool):
+    """26b's train function: phase 13b's flat mode (P13 geometry, 8
+    layers, global b4 s2048) on every rank, P13_WARMUP + P13_STEPS steps.
+    With ``kill``, rank 0 saves after step P26B_SAVE_AFTER and rank
+    P26B_KILL_RANK SIGKILLs itself at the start of step P26B_KILL_AT of
+    the first attempt (its pid and clock in ``storage``/p26b_kill)."""
+
+    def train_fn(config):
+        import signal
+
+        import numpy as np
+        import torch
+        from ray_tpu_torch.models.llama import init_params
+        from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+        from ray_tpu_torch.parallel.sharding import ShardingRules
+        from ray_tpu_torch.train import (adamw_lowmem, get_context,
+                                         make_llama_train_step, report,
+                                         restore_pytree, save_pytree)
+
+        ctx = get_context()
+        rank = ctx.get_world_rank()
+        if kill:
+            with open(os.path.join(
+                    storage, f"p26b_pid_{rank}_{ctx.restart_count}"),
+                    "w") as f:
+                f.write(str(os.getpid()))
+        counters = _counters()
+        for c in counters.values():
+            c.launches = 0
+        cfg = cfg_8b(P13_LAYERS)
+        tokens = np.random.default_rng(SEED + 5).integers(
+            0, cfg.vocab_size, (P13_BATCH, P13_SEQ), dtype=np.int32)
+        params = init_params(cfg, generator=SEED, device="cuda")
+        step, init, shard = make_llama_train_step(
+            cfg, build_mesh(MeshSpec(dp=world)),
+            rules=ShardingRules().override(**DDP_RULES),
+            optimizer=adamw_lowmem(3e-4, weight_decay=0.1),
+            attn_impl="flash", remat="attn+", seed=SEED,
+            device=torch.device("cuda", torch.cuda.current_device()))
+        state = init(params)
+        del params
+        start = 0
+        if ctx.get_checkpoint():
+            restore_pytree(ctx.get_checkpoint(), state.checkpoint_tree())
+            start = P26B_SAVE_AFTER + 1
+        tok, tgt = shard(tokens), shard(np.roll(tokens, -1, axis=1))
+        for i in range(start, P13_WARMUP + P13_STEPS):
+            if kill and i == P26B_KILL_AT and ctx.restart_count == 0 and \
+                    rank == P26B_KILL_RANK:
+                with open(os.path.join(storage, "p26b_kill"), "w") as f:
+                    f.write(f"{os.getpid()} {time.time()}")
+                os.kill(os.getpid(), signal.SIGKILL)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, tok, tgt)
+            loss = float(m["loss"])
+            step_s = time.perf_counter() - t0
+            ck = None
+            if kill and i == P26B_SAVE_AFTER:
+                ck = save_pytree(state.checkpoint_tree(), os.path.join(
+                    ctx.storage_path, f"checkpoint_{i:08d}"), step=i)
+                if rank != 0:
+                    ck = None
+            report({"step": i, "loss": loss, "rank": rank,
+                    "attempt": ctx.restart_count, "pid": os.getpid(),
+                    "step_s": step_s, "t": time.time(),
+                    "device": str(torch.device("cuda",
+                                               torch.cuda.current_device())),
+                    "launches": {k: c.launches for k, c in counters.items()}},
+                   checkpoint=ck)
+
+    return train_fn
+
+
+def _rank_p26b_flat(rank: int, world: int, store: str, out_path: str,
+                    port: int) -> None:
+    """13b's flat mode alone through run_ranks (26b run by itself)."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.train.backend import init_distributed
+
+    init_distributed(f"127.0.0.1:{port}", world, rank, device="cuda")
+    cfg = cfg_8b(P13_LAYERS)
+    tokens = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (P13_BATCH, P13_SEQ), dtype=np.int32)
+    params = init_params(cfg, generator=SEED, device="cuda")
+    r = train_run(cfg, build_mesh(MeshSpec(dp=world)), params, tokens, {},
+                  P13_WARMUP, P13_STEPS, _counters())
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump({"flat": r}, f)
+    torch.distributed.destroy_process_group()
+
+
+def p26b_fit(rt_mod, world: int, storage: str, kill: bool, watch=None):
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig,
+                                     TorchBackendConfig, TorchTrainer)
+
+    return _fit_in_time(TorchTrainer(
+        p26b_train_fn(world, storage, kill),
+        scaling_config=ScalingConfig(num_workers=world, use_gpu=True),
+        backend_config=TorchBackendConfig(distributed=True),
+        run_config=RunConfig(
+            name="p26b-kill" if kill else "p26b", storage_path=storage,
+            failure_config=FailureConfig(max_failures=1 if kill else 0))),
+        P26B_FIT_DEADLINE_S)
+
+
+def phase_process_workers_ranks(world: int, train_ranks: dict | None
+                                ) -> dict:
+    """Phase 26b: phase 13b's flat mode under TorchTrainer(distributed=
+    True) over ``world`` process workers, one card each, bit for bit
+    against 13b's run_ranks run (``train_ranks``; run here when None);
+    then one rank SIGKILLed mid-fit, the others torn down within
+    P26B_TEARDOWN_S and the fit resumed from its checkpoint."""
+    import shutil
+    import statistics
+    import tempfile
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch.core.worker import global_worker
+
+    _phase(f"process workers over {world} ranks (26b): 13b's flat mode, "
+           f"TorchTrainer(distributed=True), one process worker a card")
+    if train_ranks is None:
+        from ray_tpu_torch._spawn import run_ranks
+        from ray_tpu_torch.train.backend import free_port
+
+        with tempfile.TemporaryDirectory() as tmp:
+            out_path = os.path.join(tmp, "rank0.json")
+            run_ranks(_rank_p26b_flat, world, tmp,
+                      (out_path, free_port()), TRAIN_RANKS_TIMEOUT_S)
+            with open(out_path) as f:
+                train_ranks = json.load(f)
+    flat = train_ranks["flat"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    storage = os.path.join(root, "ray_tpu_torch", "_native", "_build",
+                           "phase26b")
+    shutil.rmtree(storage, ignore_errors=True)
+    os.makedirs(storage)
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(address="local-cluster", num_cpus=16,
+                       resources={"GPU": world})
+    _, daemons = global_worker.runtime.local_cluster
+    pids: list = []
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        res = p26b_fit(ray_tpu_torch, world, storage, kill=False)
+        out["fit_s"] = time.perf_counter() - t0
+        if not res.ok:
+            raise AssertionError(f"26b fit failed: {res.error}")
+        hist = res.metrics_history
+        pids += [m["pid"] for m in hist]
+        for r in range(world):
+            got = [m["loss"] for m in hist if m["rank"] == r]
+            if got != flat["losses"]:
+                raise AssertionError(f"rank {r}'s losses {got} != 13b's "
+                                     f"flat run {flat['losses']} (bit for "
+                                     "bit)")
+        devices = sorted({(m["rank"], m["pid"], m["device"]) for m in hist})
+        step_ms = 1e3 * statistics.median(
+            m["step_s"] for m in hist
+            if m["rank"] == 0 and m["step"] >= P13_WARMUP)
+        launches = {k: sum(max((m["launches"][k] for m in hist
+                                if m["rank"] == r), default=0)
+                           for r in range(world))
+                    for k in hist[0]["launches"]}
+        out.update({"losses": flat["losses"], "step_ms": step_ms,
+                    "step_ms_13b": flat["step_ms"], "launches": launches,
+                    "ranks": devices})
+        print(f"losses bit-equal to 13b's flat run on every rank: "
+              + " ".join(f"{x:.6f}" for x in flat["losses"])
+              + f"; ranks (rank, pid, device) {devices}")
+        print(f"step ms (rank 0's host clock, timed steps): "
+              f"{step_ms:.2f} against 13b's {flat['step_ms']:.2f} "
+              f"(x{step_ms / flat['step_ms']:.4f}); fit() "
+              f"{out['fit_s']:.2f} s")
+        _phase(f"process workers over {world} ranks (26b): rank "
+               f"{P26B_KILL_RANK} SIGKILLed at step {P26B_KILL_AT}, the "
+               "group torn down, the fit resumed from its checkpoint")
+        gone: dict = {}
+        others: dict = {}
+
+        def watch():
+            # The kill, then when each other rank's first-attempt process
+            # (its pid file) is gone.
+            path = os.path.join(storage, "p26b_kill")
+            deadline = time.monotonic() + P26B_FIT_DEADLINE_S
+            while not os.path.exists(path) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            time.sleep(0.05)
+            with open(path) as f:
+                pid, t_kill = f.read().split()
+            gone["killed"], gone["t_kill"] = int(pid), float(t_kill)
+            pids = []
+            for r in range(world):
+                if r != P26B_KILL_RANK:
+                    with open(os.path.join(storage, f"p26b_pid_{r}_0")) as f:
+                        pids.append(int(f.read()))
+            while len(others) < len(pids) and \
+                    time.time() - gone["t_kill"] < 3 * P26B_TEARDOWN_S:
+                for pid in pids:
+                    if pid not in others and not _pid_alive(pid):
+                        others[pid] = time.time() - gone["t_kill"]
+                time.sleep(0.01)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t0 = time.perf_counter()
+        res = p26b_fit(ray_tpu_torch, world, storage, kill=True)
+        out["kill_fit_s"] = time.perf_counter() - t0
+        watcher.join(5)
+        if not res.ok:
+            raise AssertionError(f"26b kill fit failed: {res.error}")
+        hist = res.metrics_history
+        pids += [m["pid"] for m in hist]
+        restarts = [(r["tier"], r["trigger"]) for r in res.restarts]
+        for r in range(world):
+            got = [(m["attempt"], m["step"], m["loss"]) for m in hist
+                   if m["rank"] == r]
+            if not _p26_resumed_ok(got, flat["losses"], P26B_SAVE_AFTER,
+                                   P26B_KILL_AT, P13_WARMUP + P13_STEPS):
+                raise AssertionError(f"kill run, rank {r}: {got} against "
+                                     f"{flat['losses']} (bit for bit)")
+        teardown = max(others.values()) if len(others) == world - 1 \
+            else None
+        if restarts != [("checkpoint", "worker_dead")] or teardown is None \
+                or teardown > P26B_TEARDOWN_S:
+            raise AssertionError(
+                f"kill run: restarts {restarts}; the other ranks gone after "
+                f"{others} s (bound {P26B_TEARDOWN_S} s)")
+        first1 = min(m["t"] for m in hist if m["attempt"] == 1)
+        out["kill"] = {"killed_pid": gone["killed"], "others_gone_s": others,
+                       "teardown_s": teardown,
+                       "restart_s": first1 - gone["t_kill"],
+                       "restarts": restarts}
+        print(f"kill run: pid {gone['killed']} (rank {P26B_KILL_RANK}) "
+              f"SIGKILLed; the other {world - 1} ranks gone after "
+              + ", ".join(f"{s:.2f}" for s in sorted(others.values()))
+              + f" s (bound {P26B_TEARDOWN_S} s); first resumed report "
+              f"{out['kill']['restart_s']:.2f} s after the kill; losses "
+              f"bit-equal to the unbroken run's; fit() "
+              f"{out['kill_fit_s']:.2f} s")
+        pids += [p for d in daemons for p in d.all_pids()]
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    left = [p for p in set(pids) if _pid_alive(p)]
+    if left:
+        raise AssertionError(f"26b: processes alive after shutdown(): {left}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9994,6 +10691,7 @@ def main() -> int:
     tp_one = phase_tp_serving()
     data = phase_data(eng)
     tracing = phase_tracing()
+    process = phase_process_workers(trainer)
     # The ring over ranks needs a card a rank: all the cards visible, in a
     # power of two (the sequence splits evenly).
     world = 1 << (torch.cuda.device_count().bit_length() - 1)
@@ -10017,10 +10715,13 @@ def main() -> int:
         tp_ranks = None
     if world >= 4:
         layouts_ranks = phase_layouts_ranks(4)
+        process_ranks = phase_process_workers_ranks(4, train_ranks)
     else:
         _phase("mesh layouts over four ranks: skipped (fewer than four "
                "cards visible)")
-        layouts_ranks = None
+        _phase("process workers over four ranks (26b): skipped (fewer "
+               "than four cards visible)")
+        layouts_ranks = process_ranks = None
     # Launches of the layouts' paths, phase 22 and (four cards) 22b.
     layout_launches = {k: layouts["launches"].get(k, 0) + (
         layouts_ranks["launches"].get(k, 0) if layouts_ranks else 0)
@@ -10070,7 +10771,14 @@ def main() -> int:
                              "tracing_trainer": tracing["trainer"]["one"][
                                  "launches"]["rms_norm"],
                              "tracing_serve":
-                                 tracing["serve"]["rate1"]["launches"]},
+                                 tracing["serve"]["rate1"]["launches"],
+                             "process_workers": {
+                                 "k1_task": process["k1"]["launches"],
+                                 "trainer": process["trainer"]["launches"][
+                                     "rms_norm"]},
+                             "process_workers_ranks":
+                                 process_ranks["launches"]["rms_norm"]
+                                 if process_ranks else None},
         "max_abs_err": max_err,
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -10107,7 +10815,10 @@ def main() -> int:
                 "layouts": layout_launches[name],
                 "data_trainer": data["trainer"]["launches"][name],
                 "tracing_trainer": tracing["trainer"]["one"]["launches"][
-                    name]},
+                    name],
+                "process_workers": process["trainer"]["launches"][name],
+                "process_workers_ranks": process_ranks["launches"][name]
+                if process_ranks else None},
             "max_abs_err": max(row["max_abs_err"],
                                vit["attention"][name]["max_abs_err"]),
             "ms": row["ms"],
@@ -10222,13 +10933,45 @@ def main() -> int:
                                      if k not in ("wave", "short", "streams",
                                                   "logits0")},
                       "tp_serving_ranks": tp_ranks, "data": data,
-                      "tracing": tracing},
+                      "tracing": tracing,
+                      "process_workers": process,
+                      "process_workers_ranks": process_ranks},
                      default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _descendants() -> list:
+    """Every live process below this one, as (pid, command line), read
+    from /proc: what a phase started and did not reap, whether through
+    multiprocessing, subprocess.Popen or a worker pool."""
+    parents, cmd = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                args = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        fields = stat.rsplit(")", 1)[1].split()
+        if fields[0] == "Z":
+            continue
+        parents[int(entry)] = int(fields[1])
+        cmd[int(entry)] = args.strip()
+    me, out = os.getpid(), []
+    for pid in parents:
+        p = parents.get(pid)
+        while p and p != me:
+            p = parents.get(p)
+        if p == me:
+            out.append((pid, cmd[pid][:300]))
+    return sorted(out)
 
 
 def _end(rc: int) -> None:
@@ -10252,6 +10995,9 @@ def _end(rc: int) -> None:
     for child in multiprocessing.active_children():
         child.terminate()
         child.join(10)
+    for pid, args in _descendants():
+        print(f"chip_smoke: process {pid} still alive at the end: {args}",
+              file=sys.stderr)
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(rc)

@@ -20,12 +20,16 @@ shuffles, datasources, ``streaming_split`` and batch LLM inference;
 ``TorchTrainer(datasets=)`` reads through it); peak rates for MFU
 (``accelerators``); the head-packing profiler and paired timings
 (``devbench``); the in-process runtime (``init``, ``remote``, ``get``,
-``put``, ``wait``, actors: ``core``), the host collective (``collective``),
+``put``, ``wait``, actors: ``core``) and the cluster runtime
+(``init(address=...)``: a head, node daemons and worker processes with a
+shared-memory arena a node, ``core/cluster``; ``cluster_utils``;
+``python -m ray_tpu_torch start``), the host collective (``collective``),
 the trainer on it (``train.TorchTrainer``) and the metrics API
 (``util.metrics``).
 Importing the package is cheap: it starts no thread (``init`` starts the
-runtime's), and CUDA kernels are built from ``csrc/`` at their first
-launch.
+runtime's), CUDA kernels are built from ``csrc/`` at their first
+launch, and the arena's host library from ``src/objstore`` when a node
+first starts.
 """
 
 from ray_tpu_torch.api import (

@@ -9,6 +9,12 @@ rebuilt then, so a fresh checkout needs no separate build step.
 them (the build counts against a caller's time limit); the seconds a
 build took land in the calling train rank's goodput ledger as its
 ``compile`` phase. A failed build raises with the compiler's output.
+
+``load_host_library`` builds the host-side C++ the cluster needs (the
+shared-memory object store, ``src/objstore/objstore.cc`` at the root of
+the checkout) with ``g++`` into the same ``_build/`` directory, keyed by
+a hash of its sources, through a temporary file and ``os.replace`` so
+processes building at once never load a half-written library.
 """
 
 from __future__ import annotations
@@ -123,4 +129,37 @@ def load_library(name: str) -> ctypes.CDLL:
     with _LOCK:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(path)
+        return _LIBS[name]
+
+
+HOST_SRC_DIR = os.path.join(os.path.dirname(_PKG_DIR), "src")
+
+
+def load_host_library(name: str, sources: list[str]) -> ctypes.CDLL:
+    """dlopen lib<name> built by g++ from ``sources`` (paths under the
+    checkout's ``src/``), building it first where it is missing. Raises
+    with the compiler's output when the build fails."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name in _LIBS:
+            return _LIBS[name]
+        srcs = [os.path.join(HOST_SRC_DIR, s) for s in sources]
+        h = hashlib.sha1()
+        for src in srcs:
+            with open(src, "rb") as f:
+                h.update(f.read())
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        so_path = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+        if not os.path.exists(so_path):
+            tmp = f"{so_path}.tmp{os.getpid()}"
+            cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17", "-o", tmp,
+                   *srcs, "-lpthread", "-lrt"]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ build of {name} failed "
+                                   f"(exit {proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, so_path)
+        _LIBS[name] = ctypes.CDLL(so_path)
         return _LIBS[name]

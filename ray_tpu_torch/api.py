@@ -1,10 +1,13 @@
 """Top-level public API: init/shutdown, get/put/wait, remote, actors.
 
-Port of ray_tpu/api.py for the in-process runtime: ``init()`` with no
-address starts it (threads as workers, full task/actor/object semantics).
-An ``address`` (a cluster head, ``"local-cluster"``, ``"auto"``, a client
-URL) raises ``NotImplementedError``: connecting to a cluster needs process
-workers (ROADMAP Queue A item 7(b)).
+Port of ray_tpu/api.py. ``init()`` with no address starts the in-process
+runtime (threads as workers, full task/actor/object semantics);
+``init(address=...)`` connects to a cluster whose tasks and actors run in
+worker processes (``core/cluster/``): ``"local-cluster"`` starts a head
+and one node in this process, ``"host:port"`` attaches to a head that
+``python -m ray_tpu_torch start --head`` runs, and ``"auto"`` reads that
+address from the file ``start`` wrote. ``"client://"`` (``util/client``)
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,24 +30,34 @@ def init(
 ) -> None:
     """Start the in-process runtime with ``num_cpus`` CPUs (default 8) and
     the given custom ``resources`` (``{"GPU": n}`` for tasks and actors
-    that ask for ``num_gpus``)."""
-    if address is not None:
+    that ask for ``num_gpus``), or connect to a cluster at ``address``
+    (``"local-cluster"`` takes the same ``num_cpus`` and ``resources`` for
+    its one node)."""
+    if address is not None and address.startswith("client://"):
         raise NotImplementedError(
-            f"init(address={address!r}): cluster mode needs process workers "
-            "(ROADMAP Queue A item 7(b)); init() with no address starts the "
-            "in-process runtime")
+            f"init(address={address!r}): the remote-driver client "
+            "(util/client) is not ported (ROADMAP Queue A item 7(b))")
     if global_worker.connected:
         if ignore_reinit_error:
             return
         raise RayTpuError("already initialized; call shutdown() first")
-    from ray_tpu_torch.core.local_runtime import LocalRuntime
-
     global_worker.job_id = JobID.from_random()
-    cpus = num_cpus if num_cpus is not None else 8
-    global_worker.runtime = LocalRuntime(num_cpus=cpus, resources=resources)
+    if address is None:
+        from ray_tpu_torch.core.local_runtime import LocalRuntime
+
+        cpus = num_cpus if num_cpus is not None else 8
+        global_worker.runtime = LocalRuntime(num_cpus=cpus,
+                                             resources=resources)
+        global_worker.node_id = NodeID.from_random()
+        global_worker.mode = "local"
+    else:
+        from ray_tpu_torch.core.cluster.client import connect_cluster
+
+        global_worker.runtime = connect_cluster(address, num_cpus=num_cpus,
+                                                resources=resources)
+        global_worker.node_id = NodeID.from_random()
+        global_worker.mode = "cluster"
     global_worker.worker_id = global_worker.runtime.worker_id
-    global_worker.node_id = NodeID.from_random()
-    global_worker.mode = "local"
 
 
 def is_initialized() -> bool:
@@ -96,11 +109,17 @@ def wait(
 
 
 def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
-    if not no_restart:
-        raise NotImplementedError(
-            "kill(no_restart=False): the in-process runtime restarts an "
-            "actor only when its __init__ fails (max_restarts)")
+    """Kill an actor. ``no_restart=False`` (a cluster) kills its worker
+    process and lets the actor restart within its ``max_restarts``."""
     global_worker.check_connected()
+    if not no_restart:
+        if global_worker.mode != "cluster":
+            raise NotImplementedError(
+                "kill(no_restart=False): the in-process runtime restarts "
+                "an actor only when its __init__ fails (max_restarts); a "
+                "cluster (init(address=...)) restarts a killed one")
+        global_worker.runtime.kill_actor(actor.actor_id, no_restart=False)
+        return
     global_worker.runtime.kill_actor(actor.actor_id)
 
 
@@ -113,14 +132,19 @@ def wait_released(actor: ActorHandle, timeout: float | None = 30.0) -> bool:
 
 
 def cancel(ref: ObjectRef, *, force: bool = False) -> None:
-    """Cancel a task no thread has picked up yet (it then raises
-    TaskCancelledError at get); a started task runs on."""
+    """Cancel a task: it then raises TaskCancelledError at get. A queued
+    task never runs. On a cluster a running task is interrupted in its
+    worker, and ``force=True`` kills the worker process; the in-process
+    runtime's started tasks run on, and it refuses ``force``."""
+    global_worker.check_connected()
+    if global_worker.mode == "cluster":
+        global_worker.runtime.cancel(ref, force=force)
+        return
     if force:
         raise NotImplementedError(
             "cancel(force=True) kills the worker running the task; the "
             "in-process runtime's workers are threads, which cannot be "
-            "killed (process workers: ROADMAP Queue A item 7(b))")
-    global_worker.check_connected()
+            "killed (init(address=...) runs tasks in worker processes)")
     global_worker.runtime.cancel(ref)
 
 

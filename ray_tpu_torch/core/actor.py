@@ -1,9 +1,11 @@
 """Actor classes and handles.
 
-Port of ray_tpu/core/actor.py for the in-process runtime: ``@remote`` on a
-class yields an ActorClass; ``.remote(...)`` creates the actor and returns
-an ActorHandle whose method accessors submit ordered actor tasks. Named
-actors, max_restarts (of ``__init__``), max_concurrency, async actors and
+Port of ray_tpu/core/actor.py: ``@remote`` on a class yields an
+ActorClass; ``.remote(...)`` creates the actor and returns an ActorHandle
+whose method accessors submit ordered actor tasks. Named actors,
+max_restarts (of ``__init__``; on a cluster also of a worker process
+that died or was killed with ``no_restart=False``), max_concurrency,
+async actors and
 options() per-instantiation overrides; ``num_gpus`` demands the ``"GPU"``
 resource; ``method.options(num_returns="streaming")`` streams a generator
 method's yields. Out: DAG ``.bind`` and the internal ``__rtpu_call_fn__`` hook
@@ -20,7 +22,8 @@ import os
 from typing import Any
 
 from ray_tpu_torch.core.object_ref import ObjectRefGenerator
-from ray_tpu_torch.core.remote_function import _build_resources, check_options
+from ray_tpu_torch.core.remote_function import (_build_resources,
+                                                check_options, dep_ids)
 from ray_tpu_torch.core.task_spec import ActorCreationSpec, TaskSpec
 from ray_tpu_torch.core.worker import global_worker
 from ray_tpu_torch.util import tracing
@@ -97,6 +100,7 @@ class ActorHandle:
             fn_blob=b"",
             args_blob=args_blob,
             arg_ref_ids=[r.id for r in arg_refs],
+            dep_ids=dep_ids(args, kwargs),
             num_returns=num_returns,
             actor_id=self._actor_id,
             method_name=method_name,
@@ -148,6 +152,7 @@ class ActorClass:
             cls_blob=self._cls_blob,
             args_blob=args_blob,
             arg_ref_ids=[r.id for r in arg_refs],
+            dep_ids=dep_ids(args, kwargs),
             resources=_build_resources(opts),
             max_restarts=opts["max_restarts"],
             max_concurrency=opts["max_concurrency"],

@@ -7,7 +7,7 @@ num_returns and retries per call site. ``num_gpus`` is the counterpart of
 ``num_tpus``: it demands the ``"GPU"`` resource.
 
 Out (each raises ``NotImplementedError``): ``runtime_env`` and
-placement-group strategies (process workers, ROADMAP Queue A item 7(b)).
+placement-group strategies (ROADMAP Queue A item 7(b)).
 ``num_returns="streaming"`` returns an ObjectRefGenerator over the task's
 yields. Each task carries the submitter's tracing context
 (``util.tracing.inject()``), which the worker span parents under.
@@ -46,18 +46,25 @@ def check_options(opts: dict[str, Any], known: dict[str, Any]) -> None:
         raise ValueError(f"unknown option(s) {unknown}; known: {sorted(known)}")
     if opts.get("runtime_env"):
         raise NotImplementedError(
-            "runtime_env needs process workers (ROADMAP Queue A item 7(b)); "
-            "the in-process runtime runs every task in this interpreter")
+            "runtime_env is not ported (ROADMAP Queue A item 7(b)): every "
+            "worker runs in the driver's environment")
     strategy = opts.get("scheduling_strategy")
     if strategy is not None and strategy not in ("DEFAULT", "SPREAD"):
         raise NotImplementedError(
             f"scheduling strategy {strategy!r}: placement groups and node "
-            "affinity need the cluster runtime (ROADMAP Queue A item 7(b)); "
-            "the in-process runtime has one node")
+            "affinity are not ported (ROADMAP Queue A item 7(b))")
     n = opts.get("num_returns", 1)
     if n != "streaming" and not (isinstance(n, int) and n >= 1):
         raise ValueError(
             f"num_returns must be a positive int or 'streaming', got {n!r}")
+
+
+def dep_ids(args: tuple, kwargs: dict) -> list[tuple]:
+    """(object id, owner id) of each ref passed as an argument itself."""
+    from ray_tpu_torch.core.object_ref import ObjectRef
+
+    return [(a.id, a.owner_id) for a in (*args, *kwargs.values())
+            if isinstance(a, ObjectRef)]
 
 
 def _build_resources(opts: dict[str, Any]) -> dict[str, float]:
@@ -105,6 +112,7 @@ class RemoteFunction:
             fn_blob=self._fn_blob,
             args_blob=args_blob,
             arg_ref_ids=[r.id for r in arg_refs],
+            dep_ids=dep_ids(args, kwargs),
             num_returns=opts["num_returns"],
             resources=_build_resources(opts),
             max_retries=opts["max_retries"],

@@ -179,6 +179,11 @@ class ReferenceCounter:
             rec = self._records.setdefault(object_id, _RefRecord())
             rec.local_refs += local_refs
 
+    def has(self, object_id: ObjectID) -> bool:
+        """Whether anything still counts ``object_id``."""
+        with self._lock:
+            return object_id in self._records
+
     def add_local_ref(self, object_id: ObjectID):
         with self._lock:
             self._records.setdefault(object_id, _RefRecord()).local_refs += 1

@@ -23,6 +23,10 @@ class TaskSpec:
     fn_blob: bytes  # the pickled callable (empty for actor tasks)
     args_blob: bytes  # serialized (args, kwargs)
     arg_ref_ids: list[ObjectID] = field(default_factory=list)
+    # The refs passed as arguments themselves (not nested in a value), as
+    # (object id, owner id): resolved to their values before the task runs.
+    dep_ids: list[tuple] = field(default_factory=list)
+    fn_id: str = ""  # the cluster runtime's content id of fn_blob
     num_returns: int | str = 1  # int, or "streaming" (generator task)
     resources: dict[str, float] = field(default_factory=dict)
     max_retries: int = 3
@@ -51,8 +55,10 @@ class ActorCreationSpec:
     cls_blob: bytes  # the pickled class
     args_blob: bytes
     arg_ref_ids: list[ObjectID] = field(default_factory=list)
+    dep_ids: list[tuple] = field(default_factory=list)
     resources: dict[str, float] = field(default_factory=dict)
-    max_restarts: int = 0  # restarts of a failed __init__
+    max_restarts: int = 0  # restarts of the actor (a failed __init__, a
+    # dead worker process, kill(no_restart=False)); -1: without end
     max_concurrency: int = 1
     name: str | None = None  # named-actor registration
     namespace: str = "default"

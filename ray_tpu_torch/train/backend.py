@@ -77,8 +77,13 @@ def init_distributed(coordinator_addr: str, num_processes: int,
         if not dist.is_nccl_available():
             raise RuntimeError("init_distributed(device='cuda'): this "
                                "torch build has no NCCL")
+        # A cluster worker takes its local rank's share of the cards its
+        # lease holds (the first it sees).
+        from ray_tpu_torch.accelerators.gpu import leased_cards
+
         local = int(os.environ.get("LOCAL_RANK", process_id))
-        dev = torch.device("cuda", local)
+        dev = torch.device("cuda", local % (leased_cards()
+                                            or torch.cuda.device_count()))
         torch.cuda.set_device(dev)
     elif kind == "cpu":
         dev = torch.device("cpu")
@@ -96,6 +101,20 @@ def init_distributed(coordinator_addr: str, num_processes: int,
         rank=process_id, world_size=num_processes,
         timeout=TIMEOUT,
         **({"device_id": dev} if kind == "cuda" else {}))
+    return dev
+
+
+def rank_device(device: str, rank: int) -> torch.device:
+    """Rank ``rank``'s device for ``"cuda"``: card ``rank % n`` of the
+    ``n`` cards a cluster worker's lease holds (the first it sees), or of
+    every card this process sees elsewhere; raises where there is none."""
+    from ray_tpu_torch._device import resolve_device
+    from ray_tpu_torch.accelerators.gpu import leased_cards
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % (leased_cards()
+                                           or torch.cuda.device_count()))
     return dev
 
 
@@ -121,15 +140,16 @@ class TorchBackendConfig(BackendConfig):
 
     ``device="cuda"`` (the default) runs rank r's train function on card
     ``r % device_count`` (one card a rank where there are enough; every
-    rank on card 0 where there is one) and raises where there is no card;
-    ``device="cpu"`` runs on the CPU. ``distributed=True`` has every
-    worker join the default process group through ``init_distributed``
-    (NCCL on the card, gloo on the CPU) at the controller's coordinator
-    address. The in-process runtime's workers are threads of one process,
-    which holds one rank of one default group, so ``distributed=True``
-    takes one worker: more raise ``NotImplementedError`` (process workers,
-    ROADMAP Queue A item 7(b)). Without it, ranks sync gradients through
-    ``ray_tpu_torch.collective``'s host backend.
+    rank on card 0 where there is one; on a cluster, the card its
+    process's lease holds) and raises where there is no card; ``device="cpu"`` runs on the CPU.
+    ``distributed=True`` has every worker join the default process group
+    through ``init_distributed`` (NCCL on the card, gloo on the CPU) at
+    the controller's coordinator address. On a cluster
+    (``init(address=...)``) each worker is a process, one rank each. The
+    in-process runtime's workers are threads of one process, which holds
+    one rank of one default group, so there ``distributed=True`` takes
+    one worker: more raise ``NotImplementedError``. Without it, ranks
+    sync gradients through ``ray_tpu_torch.collective``'s host backend.
     """
 
     device: str = "cuda"
@@ -137,16 +157,20 @@ class TorchBackendConfig(BackendConfig):
     def validate(self, scaling) -> None:
         from ray_tpu_torch._device import resolve_device
 
+        from ray_tpu_torch.core.worker import global_worker
+
         most = max(scaling.num_workers, scaling.max_workers or 0)
-        if self.distributed and most > 1:
+        if self.distributed and most > 1 and global_worker.mode != "cluster":
             raise NotImplementedError(
                 f"TorchBackendConfig(distributed=True) with {most} workers: "
                 "the in-process runtime's workers are threads of one "
                 "process, which holds one rank of one process group; more "
-                "ranks need process workers (ROADMAP Queue A item 7(b)). "
-                "Use distributed=False and ray_tpu_torch.collective's host "
-                "backend, or one worker")
-        resolve_device(self.device)
+                "ranks need process workers (connect to a cluster with "
+                "init(address=...)). Or use distributed=False and "
+                "ray_tpu_torch.collective's host backend, or one worker")
+        if global_worker.mode != "cluster":
+            # A cluster's driver may see no card; its ranks' processes do.
+            resolve_device(self.device)
 
     def make_backend(self) -> "TorchBackend":
         return TorchBackend(self)
@@ -156,19 +180,13 @@ class TorchBackend(Backend):
     def __init__(self, cfg: TorchBackendConfig):
         self.cfg = cfg
 
-    def rank_device(self, rank: int) -> torch.device:
-        from ray_tpu_torch._device import resolve_device
-
-        dev = resolve_device(self.cfg.device)
-        if dev.type == "cuda":
-            dev = torch.device("cuda", rank % torch.cuda.device_count())
-        return dev
-
     def on_start(self, worker_group, coordinator_addr: str | None) -> None:
         import ray_tpu_torch
 
         workers = worker_group.workers
-        ray_tpu_torch.get([w.set_device.remote(self.rank_device(rank))
+        # Each worker picks its card in its own process: on a cluster, the
+        # card its lease holds (the first that process sees).
+        ray_tpu_torch.get([w.set_device.remote(self.cfg.device, rank)
                            for rank, w in enumerate(workers)], timeout=120)
         if not self.cfg.distributed:
             return

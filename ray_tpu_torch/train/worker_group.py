@@ -79,8 +79,14 @@ class TrainWorker:
         self.ctx.dataset_shards = dict(shards)
         return True
 
-    def set_device(self, device) -> bool:
-        """The device the train function runs on (the backend's choice)."""
+    def set_device(self, device, rank: int | None = None) -> bool:
+        """The device the train function runs on: ``device`` itself, or,
+        with ``rank``, that rank's card of those this process sees
+        (``backend.rank_device``)."""
+        if rank is not None:
+            from ray_tpu_torch.train.backend import rank_device
+
+            device = rank_device(device, rank)
         self.ctx.device = device
         return True
 

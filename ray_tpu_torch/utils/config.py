@@ -1,20 +1,27 @@
-"""The runtime flags the in-process runtime reads.
+"""The runtime flags the port reads.
 
 Port of the part of ray_tpu/utils/config.py that the port reads:
-``object_store_memory_bytes``, ``object_spilling_threshold`` and
-``temp_dir`` (``core/store.py``), ``data_split_prefetch_blocks`` (the
-streaming split's queue bound), ``metrics_exemplar_count``
-(``util/metrics.py``), and the ``trace_*`` (``util/tracing.py``, Serve's
-handle), ``goodput_*`` (``observability/goodput.py``) and ``profiler_*``
-(``profiling/``) fields. The ``watchdog_*`` fields wait for the head
-(ROADMAP Queue A item (iv)). Each is overridden from the same environment variable as
-there (``RTPU_<NAME>``; ``temp_dir`` also from ``RTPU_TEMP_DIR``), so one
-setting drives both packages.
+``object_store_memory_bytes`` (also a node's shared-memory arena),
+``object_spilling_threshold`` and ``temp_dir`` (``core/store.py``),
+``data_split_prefetch_blocks`` (the streaming split's queue bound),
+``metrics_exemplar_count`` (``util/metrics.py``), the ``trace_*``
+(``util/tracing.py``, Serve's handle), ``goodput_*``
+(``observability/goodput.py``) and ``profiler_*`` (``profiling/``)
+fields, and the cluster's: leases and the worker pool (``worker_*``,
+``lease_keepalive_s``), objects inline in replies
+(``inline_object_max_bytes``), liveness (``health_check_*``) and the
+function cache (``fn_cache_max_bytes``). The ``watchdog_*`` fields wait
+for the head's telemetry (ROADMAP Queue A item (iv)). Each is overridden
+from the same environment variable as there (``RTPU_<NAME>``;
+``temp_dir`` also from ``RTPU_TEMP_DIR``, and defaults to ``ray_tpu``
+under the system's temporary directory), so one setting drives both
+packages.
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
 from dataclasses import dataclass, field, fields
 from typing import Any
 
@@ -36,6 +43,7 @@ class Config:
     """Runtime flags; env var = RTPU_<UPPER_NAME>."""
 
     # --- object store (reference: plasma + spilling thresholds, ray_config_def.h:680-697) ---
+    # Also the capacity of a node's shared-memory arena (core/shm_store.py).
     object_store_memory_bytes: int = 2 * 1024**3
     object_spilling_threshold: float = 0.8
 
@@ -80,8 +88,18 @@ class Config:
     # one RTPU_PROFILER_XLA_TRACE setting drives both packages.
     profiler_xla_trace: bool = True
 
+    # --- cluster (core/cluster/): leases, the worker pool, liveness ---
+    worker_start_timeout_s: float = 120.0
+    worker_idle_ttl_s: float = 60.0  # idle pooled workers are reaped after this
+    lease_keepalive_s: float = 2.0  # idle driver-cached leases returned after this
+    inline_object_max_bytes: int = 100 * 1024  # small results ride in RPC replies
+    health_check_period_s: float = 1.0
+    health_check_failure_threshold: int = 5
+    fn_cache_max_bytes: int = 64 * 1024**2
+
     # --- misc ---
-    temp_dir: str = field(default_factory=lambda: os.environ.get("RTPU_TEMP_DIR", "/tmp/ray_tpu"))
+    temp_dir: str = field(default_factory=lambda: os.environ.get(
+        "RTPU_TEMP_DIR", os.path.join(tempfile.gettempdir(), "ray_tpu")))
 
     @classmethod
     def load(cls) -> "Config":
@@ -102,3 +120,10 @@ def get_config() -> Config:
     if _global_config is None:
         _global_config = Config.load()
     return _global_config
+
+
+def set_config(cfg: Config) -> None:
+    """Replace the process's settings (tests reload them from the
+    environment with ``set_config(Config.load())``)."""
+    global _global_config
+    _global_config = cfg

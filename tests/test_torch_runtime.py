@@ -312,8 +312,11 @@ def test_port_serialization_paths_and_nested_ref_scan():
 
 
 def test_port_init_refuses_an_address():
+    # "local-cluster", "host:port" and "auto" connect to a cluster
+    # (tests/test_torch_cluster.py, tests/test_torch_start_cli.py); the
+    # remote-driver client's address stays refused.
     ray_tpu_torch.shutdown()
-    for address in ("local-cluster", "auto", "127.0.0.1:6379"):
+    for address in ("client://127.0.0.1:10001", "client://localhost:1"):
         with pytest.raises(NotImplementedError, match="7\\(b\\)"):
             ray_tpu_torch.init(address=address)
     assert not ray_tpu_torch.is_initialized()
